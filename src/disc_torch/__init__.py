@@ -1,0 +1,40 @@
+"""``disc_torch`` — the public name of the DISC compiler for PyTorch.
+
+A thin alias for :mod:`repro_torch.api`; see that module for the full
+surface.
+
+    import disc_torch
+    fast = disc_torch.compile(fn, [(disc_torch.Dim("S", max=2048), 64),
+                                   (64, 32)], backend="hopper")
+"""
+import repro_torch.api as _api
+from repro_torch.api import (  # noqa: F401
+    ArgSpec,
+    Backend,
+    BucketPolicy,
+    CacheStats,
+    Compiled,
+    CompiledFunction,
+    CompileCache,
+    CompileError,
+    CompileOptions,
+    Dim,
+    DiscError,
+    EXACT,
+    LaunchError,
+    Lowered,
+    NoDeviceError,
+    POW2,
+    RetryPolicy,
+    UnknownBackendError,
+    bridge,
+    compile,
+    dot_general,
+    get_backend,
+    infer_specs,
+    list_backends,
+    pow2_bucket,
+    register_backend,
+)
+
+__all__ = list(_api.__all__)

@@ -1,0 +1,55 @@
+"""``repro_torch.api`` — the single public entry point to the DISC compiler
+for PyTorch (aliased as the top-level ``disc_torch`` module)::
+
+    import disc_torch
+
+    f2 = disc_torch.compile(f, [(disc_torch.Dim("S", max=2048), 64),
+                                (64, 32)], backend="hopper")
+    lowered  = f2.lower()        # DHLO graph + fusion/placement/buffer plans
+    compiled = lowered.compile() # generated dispatcher
+    compiled.dispatch_source     # the generated host flow, as text
+    compiled.cache_stats()       # O(#buckets) compile contract, observable
+
+Artifacts run on the card (``device="cuda"``, the default) unless the
+caller asks for ``device="cpu"``.  Backends (``eager``, ``hopper``, or
+your own via :func:`register_backend`) are selected by name through
+``CompileOptions.backend``.
+"""
+from ..core.bucketing import BucketPolicy, EXACT, POW2, pow2_bucket  # noqa: F401
+from ..core.cache import CompileCache, CacheStats  # noqa: F401
+from ..core.primitives import dot_general  # noqa: F401
+from ..errors import (  # noqa: F401
+    CompileError,
+    DiscError,
+    LaunchError,
+    NoDeviceError,
+    RetryPolicy,
+)
+from ..frontends.fx_frontend import ArgSpec, bridge  # noqa: F401
+from .backends import (  # noqa: F401
+    Backend,
+    UnknownBackendError,
+    get_backend,
+    list_backends,
+    register_backend,
+)
+from .options import CompileOptions, Dim  # noqa: F401
+from .staged import Compiled, CompiledFunction, Lowered, compile, infer_specs  # noqa: F401
+
+__all__ = [
+    # staged pipeline
+    "compile", "CompiledFunction", "Lowered", "Compiled", "infer_specs",
+    # options
+    "CompileOptions", "Dim", "ArgSpec",
+    # backends
+    "Backend", "register_backend", "get_backend", "list_backends",
+    "UnknownBackendError",
+    # bucketing / caching
+    "BucketPolicy", "POW2", "EXACT", "pow2_bucket", "CompileCache",
+    "CacheStats",
+    # error taxonomy
+    "DiscError", "CompileError", "LaunchError", "NoDeviceError",
+    "RetryPolicy",
+    # frontend + lax-level primitives
+    "bridge", "dot_general",
+]

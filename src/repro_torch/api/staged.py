@@ -1,0 +1,471 @@
+"""The staged public pipeline: ``disc_torch.compile(fn) → lower() → compile()``.
+
+Mirrors the JAX package's AOT staging for the whole DISC compiler:
+
+* :func:`compile` returns a :class:`CompiledFunction` — callable
+  immediately (lowering happens on demand, with spec inference from the
+  first call when no specs were given), and stageable explicitly;
+* :class:`Lowered` holds the inspectable compile-time artifacts (DHLO
+  graph, fusion / placement / buffer plans, dynamic symbols) before any
+  device code exists;
+* :class:`Compiled` owns the generated host dispatcher plus the
+  per-bucket compile cache, and exposes ``dispatch_source`` /
+  ``cache_stats()`` / ``compile_counts()`` for introspection.
+
+The pipeline is the paper's: ATen FX graph → DHLO bridge, shape
+constraints, fusion, placement, buffers, bucketed per-backend executors,
+generated host dispatch with output recovery.
+"""
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..core.bucketing import BucketPolicy
+from ..core.cache import CompileCache
+from ..core.codegen import dyn_symbols
+from ..core.dispatcher import dhlo_lens, generate_dispatch
+from ..core.dtypes import dtype_key
+from ..core.symshape import SymDim
+from ..errors import CONTROL_EXCEPTIONS, CompileError, classify_transient
+from ..frontends.fx_frontend import ArgSpec, bridge
+from .backends import get_backend
+from .options import CompileOptions, Dim, normalize_specs, resolve_device
+
+__all__ = ["compile", "CompiledFunction", "Lowered", "Compiled",
+           "infer_specs"]
+
+
+# ------------------------------------------------------------- inference --
+
+def infer_specs(arrays: Sequence[Any]) -> List[ArgSpec]:
+    """Infer ``ArgSpec``s from one call's concrete arguments.
+
+    Every axis of size > 1 becomes a symbolic dim; axes sharing a size in
+    this call share a symbol (so contractions stay well-typed when traced
+    at representative sizes).  Size-1 axes stay static (broadcasting).
+    The inferred profile is exact for any later call with the same
+    equality structure; distinct dims that *happened* to coincide on the
+    first call are tied — declare specs explicitly to untie them.
+    """
+    by_size: Dict[int, str] = {}
+    specs: List[ArgSpec] = []
+    for a in arrays:
+        shape = []
+        for size in a.shape:
+            if size <= 1:
+                shape.append(int(size))
+            else:
+                shape.append(by_size.setdefault(int(size), f"d{size}"))
+        specs.append(ArgSpec(tuple(shape), a.dtype))
+    return specs
+
+
+#: literals up to this many bytes are fingerprinted by content; larger
+#: ones (model weights) by identity — storage, view and version counter —
+#: like the process-local function tokens of the JAX package's jit path:
+#: hashing gigabytes of card memory on every lower() would dwarf it
+_CONTENT_HASH_BYTES = 1 << 16
+
+
+def _graph_const_token(graph) -> str:
+    """Hash of a DHLO graph's literal payloads, in deterministic order."""
+    h = hashlib.sha1()
+    seen = set()
+    for op in graph.ops:
+        for v in list(op.inputs) + list(op.shape_operands):
+            if v.literal is None or v.vid in seen:
+                continue
+            seen.add(v.vid)
+            t = v.literal
+            h.update(dtype_key(t.dtype).encode())
+            h.update(repr(tuple(t.shape)).encode())
+            if t.numel() * t.element_size() <= _CONTENT_HASH_BYTES:
+                h.update(t.detach().cpu().contiguous().view(-1)
+                         .view(torch.uint8).numpy().tobytes())
+            else:
+                h.update(repr((t.untyped_storage().data_ptr(),
+                               t.storage_offset(), tuple(t.stride()),
+                               t._version, str(t.device))).encode())
+    return h.hexdigest()[:16]
+
+
+# --------------------------------------------------------------- lowered --
+
+@dataclass
+class Lowered:
+    """Compile-time artifacts of one function at one spec signature."""
+
+    fn: Callable
+    specs: Tuple[ArgSpec, ...]
+    options: CompileOptions
+    policy: BucketPolicy
+    graph: Any = None
+    plan: Any = None              # FusionPlan
+    placement: Any = None
+    buffer_plan: Any = None
+    syms: Tuple[SymDim, ...] = ()
+    sym_names: Tuple[str, ...] = ()
+
+    def fingerprint(self) -> str:
+        # DGraph.fingerprint() is deliberately shape-free AND constant-free
+        # (the per-engine cache-key property).  As a *shared*-cache key
+        # that is too weak: two graphs with the same wiring but different
+        # literal payloads must not collide, so the artifact fingerprint
+        # folds the constants in.
+        return self.graph.fingerprint() + "+" + _graph_const_token(self.graph)
+
+    def compile(self, options: Optional[CompileOptions] = None, *,
+                on_tie_break: Optional[Callable] = None) -> "Compiled":
+        """Build the dispatcher (bucket executors are built lazily, per
+        bucket, through the backend registry).
+
+        ``options`` may override backend / cache / escalation at this
+        stage; the bucketing policy is part of the lowering contract
+        (``Dim`` markers were folded into it) and stays fixed.
+        ``on_tie_break`` handles a call that breaks a multi-site symbol
+        tie (:class:`CompiledFunction` wires promote-on-change through
+        it); without a handler such a call raises a contract error.
+        """
+        return Compiled(self, options or self.options,
+                        on_tie_break=on_tie_break)
+
+    def as_text(self) -> str:
+        """Human-readable summary of the lowering (inspectable stage)."""
+        lines = [f"Lowered({self.options.name!r}, pipeline='dhlo')"]
+        lines.append(f"  fingerprint: {self.fingerprint()}")
+        lines.append(f"  dynamic symbols: {list(self.sym_names)}")
+        lines.append(f"  params: {len(self.graph.params)}  "
+                     f"ops: {len(self.graph.ops)}  "
+                     f"outputs: {len(self.graph.outputs)}")
+        lines.append(f"  fusion: {self.plan.stats()}")
+        lines.append(f"  placement: {self.placement.report()}")
+        lines.append(f"  constraints: {self.graph.store.stats()}")
+        return "\n".join(lines)
+
+
+def _lower(fn: Callable, specs: Sequence[ArgSpec], dims: Sequence[Dim],
+           options: CompileOptions) -> Lowered:
+    from ..core.buffers import plan_buffers
+    from ..core.fusion import plan_fusion
+    from ..core.placer import place
+
+    policy = options.policy_with_dims(dims)
+    device = resolve_device(options.device)
+    graph, _ = bridge(fn, list(specs), name=options.name,
+                      bounds={d.name: d.max for d in dims
+                              if d.max is not None},
+                      device=device)
+    plan = plan_fusion(graph)
+    placement = place(graph)
+    # bucket-generic symbolic memory plan, decided ONCE here — every
+    # bucket entry realizes the same plan
+    buffer_plan = plan_buffers(graph, policy,
+                               symbolic=options.memory_planning,
+                               donation=options.plan_donation)
+    buffer_plan.lines_text = buffer_plan.render_lines(graph)
+    graph.memory_plan = buffer_plan
+    syms = tuple(dyn_symbols(graph))
+    return Lowered(fn=fn, specs=tuple(specs), options=options,
+                   policy=policy, graph=graph, plan=plan,
+                   placement=placement, buffer_plan=buffer_plan, syms=syms,
+                   sym_names=tuple(s.name for s in syms))
+
+
+# -------------------------------------------------------------- compiled --
+
+class Compiled:
+    """The executable artifact: generated host dispatch + compile cache."""
+
+    def __init__(self, lowered: Lowered, options: CompileOptions,
+                 on_tie_break: Optional[Callable] = None) -> None:
+        self.lowered = lowered
+        self.options = options
+        self.device = resolve_device(options.device)
+        self.backend = get_backend(options.backend)
+        self._fingerprint = lowered.fingerprint()
+        self.cache = options.cache if options.cache is not None else \
+            CompileCache(self._fingerprint,
+                         max_entries=options.max_cache_entries,
+                         escalation_threshold=options.escalation_threshold)
+        self._bucket_compiles = 0
+        self._exact_compiles = 0
+        lens = dhlo_lens(lowered.graph, lowered.syms)
+        self._dispatch, self.dispatch_source = generate_dispatch(
+            lens, lowered.policy, self.cache, self._compile_bucket,
+            self._compile_exact, fingerprint=self._fingerprint,
+            escalation_threshold=options.escalation_threshold,
+            on_tie_break=on_tie_break, memory_plan=lowered.buffer_plan)
+        self._mstats = self._dispatch._mstats
+
+    # ------------------------------------------------------------ public --
+    def __call__(self, *arrays):
+        outs = self._dispatch(arrays)
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+    @property
+    def graph(self):
+        return self.lowered.graph
+
+    @property
+    def plan(self):
+        return self.lowered.plan
+
+    @property
+    def placement(self):
+        return self.lowered.placement
+
+    @property
+    def buffer_plan(self):
+        return self.lowered.buffer_plan
+
+    @property
+    def syms(self):
+        return list(self.lowered.syms)
+
+    @property
+    def policy(self) -> BucketPolicy:
+        return self.lowered.policy
+
+    @property
+    def n_compiles(self) -> int:
+        return self._bucket_compiles + self._exact_compiles
+
+    def cache_stats(self) -> Dict[str, float]:
+        return self.cache.stats.as_dict()
+
+    def cost_report(self) -> Dict[str, Any]:
+        """Dynamic-shape cost accounting for this artifact: per-bucket
+        hit histogram, padding-waste ratio (padded vs true bytes per
+        launch), and the host-dispatch vs entry-call wall split."""
+        return self._mstats.cost_dict()
+
+    def compile_counts(self) -> Dict[str, int]:
+        """Per-artifact compile counts (meaningful under shared caches)."""
+        return {"bucket": self._bucket_compiles,
+                "exact": self._exact_compiles,
+                "total": self._bucket_compiles + self._exact_compiles}
+
+    def report(self) -> Dict[str, Any]:
+        low = self.lowered
+        templates = low.plan.template_counts()
+        covered = sum(n for t, n in templates.items()
+                      if t in self.backend.cluster_kernels)
+        return {
+            "fingerprint": self._fingerprint,
+            "backend": self.backend.name,
+            "device": str(self.device),
+            "cache": self.cache_stats(),
+            "compiles": self.compile_counts(),
+            "dynamic_symbols": list(low.sym_names),
+            "fusion": low.plan.stats(),
+            "placement": low.placement.report(),
+            "constraints": low.graph.store.stats(),
+            # clusters eligible for a fused-kernel template (plan
+            # property) vs covered by THIS backend's registrations
+            "kernel_eligible_clusters": sum(templates.values()),
+            "cluster_templates": templates,
+            "backend_covered_clusters": covered,
+            "dispatch_cost": self.cost_report(),
+        }
+
+    # ------------------------------------------------- device compilation --
+    def _compile_bucket(self, key: Tuple[int, ...]):
+        low = self.lowered
+        padded = {s.uid: int(k) for s, k in zip(low.syms, key)}
+        self._bucket_compiles += 1
+        return self.backend.build_bucket(low.graph, low.plan, low.syms,
+                                         padded, self.device)
+
+    def _compile_exact(self):
+        # a fresh executor per escalated signature (each cache entry is
+        # hit by exactly one exact shape)
+        self._exact_compiles += 1
+        return self.backend.build_exact(self.lowered.graph,
+                                        self.lowered.plan, self.device)
+
+
+# ------------------------------------------------------ public entrypoint --
+
+def _split_tied_specs(specs: Sequence[ArgSpec],
+                      arrays: Sequence[Any]) -> Tuple[ArgSpec, ...]:
+    """Refine an inferred spec profile against one call's observed sizes.
+
+    Symbols whose sites no longer agree are split: each subgroup of sites
+    that share a size in *this* call gets its own symbol (the subgroup
+    containing the extraction site keeps the original name).  Sites that
+    still coincide stay tied — the profile refines monotonically, one
+    broken coincidence at a time, instead of over-constraining forever.
+    """
+    sizes: Dict[Tuple[int, int], int] = {}
+    groups: Dict[str, List[Tuple[int, int]]] = {}
+    for ai, spec in enumerate(specs):
+        shape = tuple(arrays[ai].shape)
+        for ax, d in enumerate(spec.shape):
+            if isinstance(d, str):
+                sizes[(ai, ax)] = int(shape[ax])
+                groups.setdefault(d, []).append((ai, ax))
+
+    used = set(groups)
+    renames: Dict[Tuple[int, int], str] = {}
+    for name, sites in groups.items():
+        by_size: Dict[int, List[Tuple[int, int]]] = {}
+        for site in sites:
+            by_size.setdefault(sizes[site], []).append(site)
+        if len(by_size) == 1:
+            continue  # this tie survived the call
+        keep = sizes[sites[0]]  # extraction-site subgroup keeps the name
+        for size, subsites in by_size.items():
+            if size == keep:
+                continue
+            new = f"{name}_{size}"
+            while new in used:
+                new += "_"
+            used.add(new)
+            for site in subsites:
+                renames[site] = new
+
+    return tuple(ArgSpec(tuple(renames.get((ai, ax), d)
+                               for ax, d in enumerate(spec.shape)),
+                         spec.dtype, spec.name)
+                 for ai, spec in enumerate(specs))
+
+
+class CompiledFunction:
+    """What ``disc_torch.compile`` returns: callable now, stageable.
+
+    * with specs: lowering + dispatcher generation happen eagerly (bucket
+      executors still build per bucket on demand);
+    * without specs: the first call infers them (:func:`infer_specs`), and
+      the inferred profile *refines itself*: dims that merely coincided on
+      the first call are re-lowered as independent dims the moment a later
+      call breaks the coincidence (promote-on-change — disable with
+      ``CompileOptions(promote_on_change=False)``).
+
+    Attribute access falls through to the underlying :class:`Compiled`
+    artifact (``plan``, ``report()``, ``n_compiles``, ...).
+    """
+
+    def __init__(self, fn: Callable,
+                 specs: Optional[Sequence[Any]] = None,
+                 options: Optional[CompileOptions] = None, **kw) -> None:
+        if options is None:
+            options = CompileOptions(**kw)
+        elif kw:
+            options = options.replace(**kw)
+        resolve_device(options.device)  # no card: fail now, not mid-call
+        self.fn = fn
+        self.options = options
+        self._specs, self._dims = normalize_specs(specs)
+        self._inferred = False
+        self._lowered: Optional[Lowered] = None
+        self._compiled: Optional[Compiled] = None
+        if self._specs is not None:
+            self._ensure()
+
+    # ------------------------------------------------------------ staging --
+    def lower(self, specs: Optional[Sequence[Any]] = None) -> Lowered:
+        """Stage 1: produce the inspectable compile-time artifacts."""
+        if specs is not None:
+            norm, dims = normalize_specs(specs)
+            return _lower(self.fn, norm, dims, self.options)
+        if self._specs is None:
+            raise ValueError(
+                "no specs declared and none inferred yet — pass specs to "
+                "lower(), declare them in disc_torch.compile(fn, specs), or "
+                "call the function once to infer them")
+        if self._lowered is None:
+            self._lowered = _lower(self.fn, self._specs, self._dims,
+                                   self.options)
+        return self._lowered
+
+    def _ensure(self) -> Compiled:
+        if self._compiled is None:
+            handler = self._promote if (
+                self._inferred and self.options.promote_on_change) else None
+            self._compiled = self.lower().compile(on_tie_break=handler)
+        return self._compiled
+
+    def _promote(self, arrays):
+        """Promote-on-change: a call broke a dim tie the first-call
+        inference assumed, so split the tied symbols by the observed sizes
+        and re-lower.  The compile cache carries over and the superseded
+        entries are purged."""
+        split = _split_tied_specs(self._specs, arrays)
+        if split == self._specs:
+            # a stale handle to a superseded artifact fired its guard, but
+            # the live profile already accommodates this call
+            return self._ensure()._dispatch(arrays)
+        snapshot = (self._specs, self.options, self._lowered, self._compiled)
+        prev = self._compiled
+        self._specs = split
+        self.options = self.options.replace(cache=prev.cache)
+        self._lowered = None
+        self._compiled = None
+        try:
+            compiled = self._ensure()
+        except CONTROL_EXCEPTIONS:
+            self._specs, self.options, self._lowered, self._compiled = \
+                snapshot
+            raise
+        except Exception as e:
+            self._specs, self.options, self._lowered, self._compiled = \
+                snapshot
+            raise CompileError(
+                f"promote-on-change failed for {self.options.name!r}: a "
+                f"call broke a dim tie inferred from the first call, but "
+                f"re-lowering with independent dims "
+                f"{[s.shape for s in split]} did not succeed — the "
+                f"function itself may require the equality "
+                f"({type(e).__name__}: {e})",
+                transient=classify_transient(e)) from e
+        prev.cache.stats.promotions += 1
+        # the superseded artifact's entries are unreachable — free the
+        # executors they pin
+        prev.cache.drop_fingerprint(prev._fingerprint)
+        return compiled._dispatch(arrays)
+
+    # ------------------------------------------------------------ calling --
+    def __call__(self, *arrays):
+        if self._compiled is None:
+            if self._specs is None:
+                self._specs = tuple(infer_specs(arrays))
+                self._inferred = True
+            self._ensure()
+        return self._compiled(*arrays)
+
+    def __getattr__(self, item):
+        compiled = object.__getattribute__(self, "_compiled")
+        if compiled is None:
+            raise AttributeError(
+                f"{item!r} is unavailable before compilation — call the "
+                f"function once (or pass specs) first")
+        return getattr(compiled, item)
+
+
+def compile(fn: Optional[Callable] = None,
+            specs: Optional[Sequence[Any]] = None,
+            options: Optional[CompileOptions] = None,
+            **kw) -> CompiledFunction:
+    """Compile ``fn`` for dynamic shapes through the DISC pipeline.
+
+    ``specs`` declares per-argument shapes with symbolic dims (strings or
+    :class:`Dim` objects); omit it to infer from the first call.  All
+    remaining keywords are :class:`CompileOptions` fields::
+
+        f2 = disc_torch.compile(f, [(Dim("S", max=2048), 64), (64, 32)],
+                                backend="hopper")          # on the card
+        lowered = f2.lower()      # inspect DHLO graph + plans
+        art = lowered.compile()   # generated dispatcher
+
+    Usable as a decorator (``@disc_torch.compile`` or
+    ``@disc_torch.compile(specs=..., backend=...)``).
+    """
+    if fn is None:  # decorator-with-arguments form
+        return lambda f: CompiledFunction(f, specs, options, **kw)
+    if not callable(fn):
+        raise TypeError("disc_torch.compile: first argument must be callable")
+    return CompiledFunction(fn, specs, options, **kw)
