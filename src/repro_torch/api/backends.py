@@ -18,9 +18,10 @@ Built-ins:
 
 * ``"eager"``  — every op emitted per op in torch (no cluster kernels);
   the counterpart of the JAX package's ``"xla"``
-* ``"hopper"`` — kLoop and kInput clusters through the hand-written
-  kernels (``kernels/fused_elementwise``, ``kernels/fused_reduce``), the
-  rest per op; the counterpart of ``"pallas"``
+* ``"hopper"`` — kLoop, kInput and kDot clusters through the
+  hand-written kernels (Triton: ``kernels/fused_elementwise``,
+  ``kernels/fused_reduce``; CUDA C++: ``kernels/matmul``), the rest per
+  op; the counterpart of ``"pallas"``
 
 Each bucket's entry is the padded executor, run eagerly on the
 artifact's device.  Third parties register their own with
@@ -116,5 +117,6 @@ register_backend("eager", _make_executor_backend(
     "eager", "DHLO emitted per op in torch"))
 register_backend("hopper", _make_executor_backend(
     "hopper",
-    "kLoop/kInput clusters through hand-written Triton kernels, rest per op",
+    "kLoop/kInput clusters through hand-written Triton kernels, kDot "
+    "through a CUDA C++ GEMM with a generated epilogue, rest per op",
     cluster_kernels=hopper_cluster_kernels()))

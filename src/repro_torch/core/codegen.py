@@ -38,9 +38,11 @@ it implements.  The Hopper set (:func:`hopper_cluster_kernels`) covers:
   writing every live-out of the cluster (multi-output clusters do not
   split);
 * **kInput** — elementwise producers recomputed inside a masked
-  single-axis reduce, any axis, f32 accumulation.
+  single-axis reduce, any axis, f32 accumulation;
+* **kDot**   — one CUDA C++ GEMM launch per plain 2-D dot, with the
+  cluster's elementwise epilogue generated into it, M/N/K tails masked
+  from the runtime lengths (``kernels/matmul``).
 
-kDot (a GEMM with its epilogue fused) arrives with the next slice.
 Clusters whose template a backend does not register run per op.  A
 registered kernel that fails to build or launch raises; the cluster never
 moves to the per-op path in its place.
@@ -70,6 +72,7 @@ __all__ = [
     "dyn_symbols",
     "ClusterKernel",
     "hopper_cluster_kernels",
+    "kdot_jobs",
     "REGION_OPS",
 ]
 
@@ -176,6 +179,16 @@ class _ShapeEnv:
         if expr is None:
             raise KeyError(f"unbound dim {d!r}")
         return self._eval(expr, env)
+
+    def prefix_length(self, d) -> Optional[int]:
+        """The actual length of dynamic dim ``d`` when its valid entries
+        are a prefix (the canonical mask of :meth:`mask_for_dim`), or None
+        for a reshape-merged dim, whose mask is a Kronecker product."""
+        c = self._canon(d)
+        expr = self.exprs.get(c.uid)
+        if expr is not None and expr[0] == "mul":
+            return None
+        return self.actual_dim(c)
 
     def is_dynamic(self, d) -> bool:
         if isinstance(d, int):
@@ -499,11 +512,125 @@ class HopperInputKernel(ClusterKernel):
         return {out_v.vid: out.reshape(env.padded_shape(out_v.shape))}
 
 
+class _DotParts:
+    """A kDot cluster split for its kernel (call-independent, built once
+    per executor): the dot; the *prologue* (ops not depending on the dot,
+    e.g. a bias ``broadcast_in_dim``, emitted outside the kernel); the
+    epilogue as a kernel :class:`Program` whose input 0 is the
+    accumulator in the dot's dtype and whose other inputs are
+    ``extras``; and the live-outs the kernel stores."""
+
+    def __init__(self, graph: DGraph, cluster: Cluster) -> None:
+        self.dot = next(op for op in cluster.ops
+                        if op.opcode == "dot_general")
+        acc_v = self.dot.outputs[0]
+        self.dep = {acc_v.vid}
+        self.prologue: List[DOp] = []
+        epilogue: List[DOp] = []
+        for op in cluster.ops:  # topological
+            if op is self.dot:
+                continue
+            if any(v.vid in self.dep for v in op.inputs):
+                epilogue.append(op)
+                self.dep.update(o.vid for o in op.outputs)
+            else:
+                self.prologue.append(op)
+        produced = {o.vid for op in epilogue for o in op.outputs}
+        self.extras: List[DValue] = []
+        scalars: Dict[int, Any] = {}
+        for op in epilogue:
+            for v in op.inputs:
+                if v.vid in produced or v.vid == acc_v.vid or \
+                        v.vid in scalars or \
+                        any(v.vid == x.vid for x in self.extras):
+                    continue
+                if v.rank == 0 and v.literal is not None:
+                    scalars[v.vid] = v.literal.item()
+                else:
+                    self.extras.append(v)
+        self.live = cluster_live_outs(graph, cluster)
+        self.kernel_outs = [v for v in self.live if v.vid in self.dep]
+        self.program = _cluster_program(
+            epilogue, [acc_v.vid] + [v.vid for v in self.extras],
+            [acc_v.dtype] + [v.dtype for v in self.extras], scalars,
+            [v.vid for v in self.kernel_outs])
+
+
+def kdot_jobs(graph: DGraph, plan) -> List[Tuple[Program, torch.dtype]]:
+    """``(epilogue program, operand dtype)`` of every kDot cluster in
+    ``plan``: what the kDot kernel will build, known before the first
+    call (``kernels.matmul.matmul.prebuild`` builds them at once)."""
+    jobs = {}
+    for cl in plan.clusters:
+        if cl.template == "kDot":
+            parts = _DotParts(graph, cl)
+            dt = as_torch(parts.dot.inputs[0].dtype)
+            jobs[(parts.program.key, dt)] = (parts.program, dt)
+    return list(jobs.values())
+
+
+class HopperDotKernel(ClusterKernel):
+    """kDot: one GEMM launch with the elementwise epilogue fused into its
+    store, M/N/K tails masked from the runtime lengths
+    (``kernels/matmul``).  Prologue ops are emitted outside the kernel;
+    epilogue operands are passed as (M, N) views, never copies."""
+
+    template = "kDot"
+
+    def run(self, graph, cluster, read, env, masked):
+        from ..kernels.matmul.ops import matmul_fused
+
+        parts = env.memo(("kdot", cluster.cid),
+                         lambda: _DotParts(graph, cluster))
+        vals: Dict[int, Any] = {}
+
+        def rd(v):
+            return vals[v.vid] if v.vid in vals else read(v)
+
+        for op in parts.prologue:
+            outs = emit_op(op, [rd(v) for v in op.inputs],
+                           [env.padded_shape(o.shape) for o in op.outputs],
+                           env.device)
+            for o, val in zip(op.outputs, outs):
+                vals[o.vid] = val
+
+        lhs_v, rhs_v = parts.dot.inputs
+        lhs, rhs = rd(lhs_v), rd(rhs_v)
+        m_d, k_d = lhs_v.shape
+        n_d = rhs_v.shape[1]
+
+        def valid(d):
+            if masked and env.is_dynamic(d):
+                return env.prefix_length(d)
+            return env.padded_dim(d)
+
+        vm, vn, vk = valid(m_d), valid(n_d), valid(k_d)
+        if vk is None:
+            # a reshape-merged K: its valid entries are no prefix, so the
+            # operands are masked here and the kernel contracts all of K
+            lhs = env.mask_axes(lhs, lhs_v.shape, [1], 0.0)
+            rhs = env.mask_axes(rhs, rhs_v.shape, [0], 0.0)
+            vk = env.padded_dim(k_d)
+        # a merged M or N keeps its padded garbage, as the per-op dot
+        # does: consumers mask it with the dim's own canonical mask
+        vm = env.padded_dim(m_d) if vm is None else vm
+        vn = env.padded_dim(n_d) if vn is None else vn
+        extras = _to_blocks([rd(v) for v in parts.extras],
+                            env.padded_shape(parts.dot.outputs[0].shape))
+        outs = matmul_fused(lhs, rhs, extras, parts.program,
+                            valid_mnk=(vm, vn, vk),
+                            out_dtypes=parts.program.out_dtypes)
+        result = {v.vid: vals[v.vid] for v in parts.live
+                  if v.vid not in parts.dep}
+        result.update({v.vid: o for v, o in zip(parts.kernel_outs, outs)})
+        return result
+
+
 def hopper_cluster_kernels() -> Dict[str, ClusterKernel]:
     """Fresh instances of the Hopper cluster kernels, keyed by the
     fusion-plan template they execute (what ``backend="hopper"``
     registers)."""
-    kernels = (HopperLoopKernel(), HopperInputKernel())
+    kernels = (HopperLoopKernel(), HopperInputKernel(), HopperDotKernel())
     return {k.template: k for k in kernels}
 
 

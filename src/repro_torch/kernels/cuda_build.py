@@ -1,0 +1,131 @@
+"""Building the port's CUDA C++ kernels: ``nvcc`` into a shared library
+with a plain C interface, loaded with :mod:`ctypes`.
+
+The CUDA counterpart of ``triton_build.py``.  A kernel module generates
+the text of one ``.cu`` file per kernel instance (the GEMM template of
+``matmul/csrc/gemm.cuh`` with a generated epilogue, say); this module
+
+* writes it under ``build/torch_kernels/`` at the repository root (a
+  directory git ignores) and compiles it there with ::
+
+      nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+           --fmad=false -shared -Xcompiler -fPIC -I<csrc dirs>
+
+  (``--fmad=false``: the generated epilogues compute each op as its own
+  rounded IEEE op, as eager PyTorch does; a GEMM loop that wants fused
+  multiply-adds writes ``fmaf`` itself);
+* names the library by the fingerprint of its source, the headers of the
+  include directories and the flags, so a library built earlier in the
+  same checkout is loaded as it is, and a changed header rebuilds;
+* builds several sources at once, one ``nvcc`` process each
+  (:func:`build`), so a caller that knows its kernels ahead of the first
+  call pays for the slowest build only.
+
+A failing ``nvcc`` raises :class:`KernelBuildError` with its output.
+Nothing here falls back to another implementation.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Dict, List, Sequence, Tuple
+
+from .triton_build import BUILD_DIR
+
+__all__ = ["NVCC_FLAGS", "KernelBuildError", "nvcc", "build", "load"]
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` was not found or refused a generated source."""
+
+
+def nvcc() -> str:
+    """The ``nvcc`` on ``PATH``, else the one of the toolkit PyTorch
+    finds (``CUDA_HOME``)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = pathlib.Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    raise KernelBuildError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+
+
+def _fingerprint(source: str, include_dirs: Sequence[pathlib.Path]) -> str:
+    h = hashlib.sha1(source.encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for d in include_dirs:
+        for p in sorted(pathlib.Path(d).glob("*.cuh")):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _paths(name: str, source: str, include_dirs) -> Tuple[str, pathlib.Path]:
+    key = f"{name}_{_fingerprint(source, include_dirs)}"
+    return key, BUILD_DIR / f"{key}.so"
+
+
+def build(jobs: Sequence[Tuple[str, str, Sequence[pathlib.Path]]]
+          ) -> List[pathlib.Path]:
+    """Compile every ``(name, source, include_dirs)`` not built yet, one
+    ``nvcc`` process each, all started together; returns the libraries'
+    paths in the order of ``jobs``.  Raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: List[pathlib.Path] = []
+    running = []
+    for name, source, include_dirs in jobs:
+        key, lib = _paths(name, source, include_dirs)
+        out.append(lib)
+        if lib.exists() or any(r[1] == lib for r in running):
+            continue
+        src = BUILD_DIR / f"{key}.cu"
+        src.write_text(source)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [nvcc(), *NVCC_FLAGS,
+               *[f"-I{pathlib.Path(d)}" for d in include_dirs],
+               "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((proc, lib, tmp, src))
+    failures = []
+    for proc, lib, tmp, src in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {src} (exit {proc.returncode})"
+                            f":\n{log}")
+            continue
+        tmp.replace(lib)
+    if failures:
+        raise KernelBuildError("\n".join(failures))
+    return out
+
+
+def load(name: str, source: str,
+         include_dirs: Sequence[pathlib.Path]) -> ctypes.CDLL:
+    """The loaded library built from ``source`` (built first if needed)."""
+    key, lib = _paths(name, source, include_dirs)
+    hit = _LIBS.get(key)
+    if hit is not None:
+        return hit
+    with _LOCK:
+        hit = _LIBS.get(key)
+        if hit is None:
+            (path,) = build([(name, source, include_dirs)])
+            hit = _LIBS[key] = ctypes.CDLL(str(path))
+        return hit

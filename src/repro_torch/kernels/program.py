@@ -6,13 +6,17 @@ closure, so the port hands its kernels a :class:`Program` instead — the
 cluster's body ops as data — from which
 
 * :func:`eval_program` computes the plain PyTorch version, op by op with
-  the eager emission rules (the kernels' ``ref.py`` and the CPU path), and
-* :func:`triton_lines` generates the kernel body as Triton source.
+  the eager emission rules (the kernels' ``ref.py`` and the CPU path),
+* :func:`triton_lines` generates the kernel body as Triton source (kLoop,
+  kInput), and
+* :func:`cuda_lines` generates it as CUDA C++ (the kDot epilogue).
 
-Both follow the eager numerics of each op: every value is computed in its
+All follow the eager numerics of each op: every value is computed in its
 math type (f32 for f16/bf16/f32 values) and rounded to its own dtype
 before its consumers read it, so a fused kernel and the per-op path
 differ only by the order of nothing — each op is the same rounded op.
+Division is IEEE (``div_rn``), and nothing is contracted into a fused
+multiply-add.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import torch
 from ..core.dtypes import as_torch
 
 __all__ = ["Arg", "Step", "Program", "eval_program", "triton_lines",
-           "triton_dtype"]
+           "triton_dtype", "cuda_lines", "cuda_type", "cuda_load",
+           "cuda_store"]
 
 #: an operand of a step: ("in", i) kernel input i, ("t", j) the result of
 #: step j, ("c", value) a literal Python number
@@ -254,6 +259,188 @@ def triton_lines(program: Program, loaded: Sequence[str],
                 # round to the value's own dtype, as the eager op does
                 lines.append(f"{indent}{name} = {name}.to("
                              f"{triton_dtype(st.dtype)}).to(tl.float32)")
+        names[("t", j)] = name
+
+    outs = []
+    for a in program.outs:
+        kind, x = a
+        outs.append(loaded[x] if kind == "in" else names[a])
+    return lines, outs
+
+
+# ---------------------------------------------------------- CUDA source --
+
+_C_STORAGE = {
+    torch.float32: "float", torch.bfloat16: "__nv_bfloat16",
+    torch.float16: "__half", torch.float64: "double", torch.int32: "int",
+    torch.int64: "long long", torch.int16: "short", torch.int8: "signed char",
+    torch.uint8: "unsigned char", torch.bool: "bool",
+}
+
+_C_ROUND = {torch.bfloat16: "disc::round_bf16",
+            torch.float16: "disc::round_f16"}
+_C_TO_LOW = {torch.bfloat16: "__float2bfloat16_rn",
+             torch.float16: "__float2half_rn"}
+
+# "{f}" is the single-precision suffix of the math function ("" in double)
+_UNARY_C = {
+    "neg": "(-({0}))", "exp": "exp{f}({0})", "exp2": "exp2{f}({0})",
+    "expm1": "expm1{f}({0})", "log": "log{f}({0})",
+    "log1p": "log1p{f}({0})", "tanh": "tanh{f}({0})",
+    "sqrt": "sqrt{f}({0})", "rsqrt": "rsqrt{f}({0})",
+    "floor": "floor{f}({0})", "ceil": "ceil{f}({0})",
+    "round": "rint{f}({0})", "erf": "erf{f}({0})", "sin": "sin{f}({0})",
+    "cos": "cos{f}({0})", "square": "(({0}) * ({0}))",
+    "sign": "((({0}) > 0) - (({0}) < 0))",
+    "stop_gradient": "({0})", "copy": "({0})",
+}
+
+_BINARY_C = {
+    "add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
+    "max": "disc::disc_max({0}, {1})", "min": "disc::disc_min({0}, {1})",
+    "pow": "pow{f}({0}, {1})",
+    "eq": "({0} == {1})", "ne": "({0} != {1})", "lt": "({0} < {1})",
+    "gt": "({0} > {1})", "le": "({0} <= {1})", "ge": "({0} >= {1})",
+    "and": "({0} & {1})", "or": "({0} | {1})",
+}
+
+
+def cuda_type(dt) -> str:
+    """The C++ storage type of ``dt`` (``cuda_bf16.h`` / ``cuda_fp16.h``
+    types for the low floats)."""
+    return _C_STORAGE[as_torch(dt)]
+
+
+def cuda_load(dt, expr: str) -> str:
+    """``expr`` (a value stored as ``dt``) in its math type."""
+    return f"disc::to_f32({expr})" if as_torch(dt) in _LOW_FLOATS else expr
+
+
+def cuda_store(dt, expr: str) -> str:
+    """A math-type ``expr`` converted to ``dt``'s storage type."""
+    dt = as_torch(dt)
+    if dt in _C_TO_LOW:
+        return f"{_C_TO_LOW[dt]}({expr})"
+    if dt is torch.bool:
+        return f"(({expr}) != 0)"
+    return f"static_cast<{cuda_type(dt)}>({expr})"
+
+
+def _c_literal(x: Any, dt: torch.dtype) -> str:
+    """A Python number as a C++ constant of math type ``dt`` (a float
+    literal is rounded to ``dt`` once, as eager rounds a scalar operand)."""
+    if dt is torch.bool:
+        return "true" if x else "false"
+    ctype = cuda_type(_math_dtype(dt))
+    if isinstance(x, float):
+        if x != x:
+            v = "NAN"
+        elif x in (float("inf"), float("-inf")):
+            v = "INFINITY" if x > 0 else "(-INFINITY)"
+        else:
+            v = repr(x)
+    else:
+        v = repr(int(x))
+    return f"(({ctype})({v}))"
+
+
+def cuda_lines(program: Program, loaded: Sequence[str],
+               indent: str = "    ") -> Tuple[List[str], List[str]]:
+    """C++ statements computing ``program`` from inputs already in their
+    math types (``loaded[i]`` names input ``i``; low floats as ``float``).
+    Returns ``(lines, outs)``: ``outs[k]`` names output ``k`` in its math
+    type.  The statements use ``gemm.cuh``'s ``disc::`` helpers."""
+    lines: List[str] = []
+    names: Dict[Arg, str] = {}
+
+    def ref(a: Arg, want) -> str:
+        kind, x = a
+        if kind == "c":
+            return _c_literal(x, want if want is not None else
+                              (torch.float32 if isinstance(x, float)
+                               else torch.int64))
+        if kind == "in":
+            dt, name = program.in_dtypes[x], loaded[x]
+        else:
+            dt, name = program.steps[x].dtype, names[a]
+        if want is not None and _math_dtype(dt) != _math_dtype(want):
+            if want is torch.bool:
+                return f"(({name}) != 0)"
+            return f"static_cast<{cuda_type(_math_dtype(want))}>({name})"
+        return name
+
+    for j, st in enumerate(program.steps):
+        code = st.opcode
+        math = _math_dtype(st.dtype)
+        f = "" if math is torch.float64 else "f"
+        if code in _UNARY_C:
+            expr = _UNARY_C[code].format(ref(st.args[0], st.dtype), f=f)
+        elif code == "abs":
+            x = ref(st.args[0], st.dtype)
+            expr = f"fabs{f}({x})" if math.is_floating_point else \
+                f"(({x}) < 0 ? -({x}) : ({x}))"
+        elif code == "logistic":
+            x = ref(st.args[0], st.dtype)
+            div = "__fdiv_rn" if f else "__ddiv_rn"
+            one = _c_literal(1.0, math)
+            expr = f"{div}({one}, {one} + exp{f}(-({x})))"
+        elif code == "not":
+            a = ref(st.args[0], None)
+            expr = f"(!({a}))" if st.dtype is torch.bool else f"(~({a}))"
+        elif code in _BINARY_C or code == "div":
+            if code in ("eq", "ne", "lt", "gt", "le", "ge", "and", "or"):
+                # predicates compute in their operands' type
+                operand = next((program.dtype_of(a) for a in st.args
+                                if a[0] != "c"), st.dtype)
+            else:
+                operand = st.dtype
+            a, b = (ref(x, operand) for x in st.args)
+            if code == "div":
+                if operand.is_floating_point:
+                    div = "__ddiv_rn" if operand is torch.float64 \
+                        else "__fdiv_rn"
+                    expr = f"{div}({a}, {b})"  # IEEE, as eager divides
+                else:
+                    expr = f"({a} / {b})"  # truncating, as lax.div
+            else:
+                expr = _BINARY_C[code].format(
+                    a, b, f="" if _math_dtype(operand) is torch.float64
+                    else "f")
+        elif code == "select":
+            pred = ref(st.args[0], None)
+            expr = (f"(({pred}) ? {ref(st.args[2], st.dtype)} : "
+                    f"{ref(st.args[1], st.dtype)})")
+        elif code == "convert":
+            src = st.args[0]
+            expr = ref(src, None) if src[0] != "c" else \
+                _c_literal(src[1], st.dtype)
+            if st.dtype is torch.bool:
+                expr = f"(({expr}) != 0)"
+        elif code == "integer_pow":
+            x = ref(st.args[0], st.dtype)
+            y = int(st.param)
+            if y == 0:
+                expr = _c_literal(1, math)
+            else:
+                prod = " * ".join([f"({x})"] * abs(y))
+                if y > 0:
+                    expr = f"({prod})"
+                else:
+                    div = "__ddiv_rn" if math is torch.float64 \
+                        else "__fdiv_rn"
+                    expr = f"{div}({_c_literal(1.0, math)}, ({prod}))"
+        else:
+            raise NotImplementedError(f"no CUDA rule for {code}")
+        name = f"t{j}"
+        if st.dtype is torch.bool:
+            lines.append(f"{indent}const bool {name} = {expr};")
+        else:
+            ctype = cuda_type(math)
+            value = f"static_cast<{ctype}>({expr})"
+            if st.dtype in _C_ROUND:
+                # round to the value's own dtype, as the eager op does
+                value = f"{_C_ROUND[st.dtype]}({value})"
+            lines.append(f"{indent}const {ctype} {name} = {value};")
         names[("t", j)] = name
 
     outs = []

@@ -6,6 +6,11 @@ The JAX package initialises a transformer as a nested dict of arrays whose
 takes the JAX tree *as numpy arrays* (``jax.tree.map(np.asarray, params)``
 on the JAX side — the port never imports JAX) and returns the port's tree
 on ``device``, leaf for leaf, so both packages compute the same function.
+
+Like ``disc_torch.compile``, both functions put their tensors on the card
+unless the caller passes ``device="cpu"``, and raise
+:class:`~repro_torch.errors.NoDeviceError` when asked for a card that is
+not there.
 """
 from __future__ import annotations
 
@@ -14,15 +19,17 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..api.options import resolve_device
 from .common import ArchConfig
 
 __all__ = ["params_from_numpy", "tensor_from_numpy"]
 
 
-def tensor_from_numpy(a: Any, device="cpu") -> torch.Tensor:
-    """A tensor with ``a``'s values and dtype; bfloat16 arrays (numpy has
-    no such dtype of its own; JAX hands them out as a 2-byte extension
-    type) are reinterpreted bit for bit."""
+def tensor_from_numpy(a: Any, device="cuda") -> torch.Tensor:
+    """A tensor on ``device`` with ``a``'s values and dtype; bfloat16
+    arrays (numpy has no such dtype of its own; JAX hands them out as a
+    2-byte extension type) are reinterpreted bit for bit."""
+    device = resolve_device(device)
     a = np.array(a)  # an owned, writable, contiguous copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(
@@ -38,8 +45,10 @@ def _tree(x: Any, device, index=None):
 
 
 def params_from_numpy(np_tree: Dict[str, Any], cfg: ArchConfig,
-                      device="cpu") -> Dict[str, Any]:
-    """The JAX package's transformer parameter tree → the port's tree."""
+                      device="cuda") -> Dict[str, Any]:
+    """The JAX package's transformer parameter tree → the port's tree, on
+    ``device``."""
+    device = resolve_device(device)
     out: Dict[str, Any] = {}
     for k, v in np_tree.items():
         if k == "blocks":

@@ -44,7 +44,8 @@ def test_dim_contract_layers_onto_policy():
 
 def test_registry_lists_and_rejects():
     assert list_backends() == ["eager", "hopper"]
-    assert set(get_backend("hopper").cluster_kernels) == {"kLoop", "kInput"}
+    assert set(get_backend("hopper").cluster_kernels) == {"kLoop", "kInput",
+                                                          "kDot"}
     assert get_backend("eager").cluster_kernels == {}
     with pytest.raises(disc_torch.UnknownBackendError, match="registered"):
         get_backend("pallas")
@@ -69,6 +70,27 @@ def test_default_device_needs_a_card():
         disc_torch.compile(lambda x: x * 2.0)  # before any call
     f = disc_torch.compile(lambda x: x * 2.0, [("S",)], device="cpu")
     assert torch.equal(f(torch.ones(5)), torch.full((5,), 2.0))
+
+
+def test_params_from_numpy_defaults_to_the_card():
+    """The weight-carrying entry points put tensors on the card unless
+    asked for the CPU, through the same check as ``compile``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import (params_from_numpy,
+                                            tensor_from_numpy)
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    cfg = get_config("tinyllama_11b")
+    tree = {"ln_f": {"scale": np.ones((4,), np.float32)}}
+    with pytest.raises(disc_torch.NoDeviceError, match="device='cpu'"):
+        params_from_numpy(tree, cfg)
+    with pytest.raises(disc_torch.NoDeviceError):
+        tensor_from_numpy(np.ones((2,), np.float32))
+    got = params_from_numpy(tree, cfg, device="cpu")
+    assert got["ln_f"]["scale"].device.type == "cpu"
 
 
 def test_failing_cluster_kernel_raises_instead_of_running_per_op(

@@ -1,0 +1,317 @@
+"""The port's GEMM kernels (kDot and the §4.5 library) against the JAX
+package's.
+
+On the CPU the wrappers run the kernels' plain versions; they are held
+against the JAX package's ``kernels/matmul/ops.py`` (Pallas in interpret
+mode) on the same numpy inputs, with the same epilogue written both ways:
+a closure for the reference, a :class:`Program` for the port.  f32 is held
+to ``rtol=atol=1e-5`` (both contract in f32, in another order).  bf16 is
+compared in f32 against max|ref|: the accumulator and every epilogue op
+round to bf16 (2^-8 relative) in both, so a last-bit difference in the f32
+sum can move a result by about two bf16 roundings, 8e-3 of max|ref|.
+
+The CUDA kernels themselves need the card: those cases skip here and run
+there, where JAX is not installed (``python -m pytest -q
+tests/test_torch_matmul.py -k on_card``); the JAX package is imported by
+the CPU cases only.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.library import pick
+from repro_torch.kernels.matmul import ops
+from repro_torch.kernels.matmul.matmul import (LIBRARY_TILES,
+                                               identity_program,
+                                               kernel_source)
+from repro_torch.kernels.matmul.ref import matmul_fused_ref, matmul_ref
+from repro_torch.kernels.program import Program, Step
+
+F32, BF16 = torch.float32, torch.bfloat16
+TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_REL = 8e-3
+SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def _jax():
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.matmul import ops as ref_ops
+
+    return jax, jnp, ref_ops
+
+
+def _programs(dt):
+    """name -> (program over (acc, *extras), the same epilogue as a JAX
+    closure, the extras' shapes as functions of (M, N))."""
+    def p(n_extra, steps, outs):
+        return Program((dt,) * (1 + n_extra),
+                       tuple(Step(*s) for s in steps), tuple(outs))
+
+    def gelu(acc, b):
+        jax = _jax()[0]
+        return jax.nn.gelu(acc + b, approximate=True)
+
+    def residual(acc, r):
+        jnp = _jax()[1]
+        a = jnp.tanh(acc + r)
+        return a, a * acc
+
+    def silu_h(acc, h):
+        jax = _jax()[0]
+        return jax.nn.silu(acc) * h
+
+    return {
+        # jax.nn.gelu(approximate=True): x * 0.5 * (1 + tanh(c (x + a x^3)))
+        "bias_gelu": (p(1, [("add", (("in", 0), ("in", 1)), dt),
+                            ("integer_pow", (("t", 0),), dt, 3),
+                            ("mul", (("c", 0.044715), ("t", 1)), dt),
+                            ("add", (("t", 0), ("t", 2)), dt),
+                            ("mul", (("c", SQRT_2_OVER_PI), ("t", 3)), dt),
+                            ("tanh", (("t", 4),), dt),
+                            ("add", (("c", 1.0), ("t", 5)), dt),
+                            ("mul", (("c", 0.5), ("t", 6)), dt),
+                            ("mul", (("t", 0), ("t", 7)), dt)],
+                      [("t", 8)]),
+                      gelu, [lambda m, n: (1, n)]),
+        "residual_two_outputs": (p(1, [("add", (("in", 0), ("in", 1)), dt),
+                                       ("tanh", (("t", 0),), dt),
+                                       ("mul", (("t", 1), ("in", 0)), dt)],
+                                   [("t", 1), ("t", 2)]),
+                                 residual, [lambda m, n: (m, n)]),
+        "silu_h": (p(1, [("logistic", (("in", 0),), dt),
+                         ("mul", (("in", 0), ("t", 0)), dt),
+                         ("mul", (("t", 1), ("in", 1)), dt)],
+                     [("t", 2)]),
+                   silu_h, [lambda m, n: (m, n)]),
+    }
+
+
+def _operands(m, k, n, extra_shapes, seed, scale=1.0):
+    rs = np.random.RandomState(seed)
+    a = rs.standard_normal((m, k)).astype(np.float32)
+    b = (rs.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32) * scale
+    extras = [rs.standard_normal(f(m, n)).astype(np.float32)
+              for f in extra_shapes]
+    return a, b, extras
+
+
+# (M, K, N) padded sizes with the valid (M, N, K) below them: ragged tails
+# on every axis, and a case whose sizes are block multiples
+SHAPES = [((40, 70, 24), (33, 19, 61)),
+          ((16, 128, 136), (16, 130, 101)),
+          ((128, 256, 128), (100, 128, 256))]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape,valid", SHAPES)
+@pytest.mark.parametrize("name", ["bias_gelu", "residual_two_outputs",
+                                  "silu_h"])
+def test_fused_plain_matches_reference(name, shape, valid, dtype):
+    jax, jnp, ref_ops = _jax()
+    dt = F32 if dtype == "f32" else BF16
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    program, closure, extra_shapes = _programs(dt)[name]
+    m, k, n = shape
+    a, b, extras = _operands(m, k, n, extra_shapes, seed=m * n + k)
+    want = ref_ops.matmul_fused(
+        jnp.asarray(a, jdt), jnp.asarray(b, jdt),
+        [jnp.broadcast_to(jnp.asarray(x, jdt), (m, n)) for x in extras],
+        closure, valid_mnk=valid, out_dtypes=[jdt] * len(program.outs),
+        acc_dtype=jdt)
+    got = ops.matmul_fused(
+        torch.from_numpy(a).to(dt), torch.from_numpy(b).to(dt),
+        [torch.from_numpy(x).to(dt) for x in extras], program,
+        valid_mnk=valid, out_dtypes=program.out_dtypes)
+    assert len(got) == len(want) == len(program.outs)
+    vm, vn, _ = valid
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == (m, n) and g.dtype == dt
+        g32 = g.float().numpy()
+        w32 = np.asarray(w, np.float32)
+        if dtype == "f32":
+            np.testing.assert_allclose(g32, w32, **TOL)
+        else:
+            assert np.abs(g32 - w32).max() <= BF16_REL * np.abs(w32).max()
+        assert not g32[vm:].any() and not g32[:, vn:].any()  # zero tails
+    assert ops.EPILOGUE_LAUNCHES.launches == 0  # the CPU runs no kernel
+
+
+def test_k_tail_masks_both_operands():
+    """Garbage (even inf) past valid K in either operand never reaches the
+    contraction: the reference masks only ``a`` and relies on host
+    padding of ``b``; the port masks both."""
+    program = identity_program(F32)
+    rs = np.random.RandomState(3)
+    a = torch.from_numpy(rs.standard_normal((9, 12)).astype(np.float32))
+    b = torch.from_numpy(rs.standard_normal((12, 5)).astype(np.float32))
+    a[:, 10:] = float("inf")
+    b[10:, :] = float("nan")
+    (got,) = ops.matmul_fused(a, b, [], program, valid_mnk=(9, 5, 10),
+                              out_dtypes=[F32])
+    want = a[:, :10] @ b[:10, :]
+    torch.testing.assert_close(got, want, **TOL)
+
+
+VERSION_SHAPES = {"square_big": (256, 128, 256), "balanced": (128, 128, 128),
+                  "skinny_m": (8, 128, 128), "skinny_n": (128, 128, 8),
+                  "deep_k": (128, 512, 128)}
+
+
+@pytest.mark.parametrize("version", sorted(VERSION_SHAPES))
+def test_library_plain_matches_reference(version):
+    _, jnp, ref_ops = _jax()
+    m, k, n = VERSION_SHAPES[version]
+    a, b, _ = _operands(m, k, n, [], seed=k)
+    want = ref_ops.matmul(jnp.asarray(a), jnp.asarray(b), version=version)
+    got = ops.matmul(torch.from_numpy(a), torch.from_numpy(b),
+                     version=version)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert ops.LAUNCHES.launches == 0
+
+
+def test_selection_and_pick_names_equal_reference():
+    _, _, ref_ops = _jax()
+    from repro.core.library import pick as ref_pick
+
+    assert ops.GEMM_LIBRARY == ref_ops.GEMM_LIBRARY
+    sizes = (8, 24, 32, 64, 128, 256, 512, 1000, 1024, 2048, 5632)
+    for m in sizes:
+        for k in sizes:
+            for n in sizes:
+                want = ref_ops.select_gemm_version(m, k, n)
+                assert ops.select_gemm_version(m, k, n) == want
+                name = ref_pick(m, k, n).name
+                assert pick(m, k, n).name == (
+                    "vendor:torch_matmul" if name == "vendor:xla_dot"
+                    else name)
+
+
+def test_pick_runs_the_chosen_entry_on_cpu():
+    rs = np.random.RandomState(0)
+    for m, k, n in ((8, 128, 128), (37, 64, 48)):
+        a = torch.from_numpy(rs.standard_normal((m, k)).astype(np.float32))
+        b = torch.from_numpy(rs.standard_normal((k, n)).astype(np.float32))
+        torch.testing.assert_close(pick(m, k, n)(a, b), a @ b, **TOL)
+
+
+def test_generated_source_covers_every_epilogue_rule():
+    """Every op the CUDA epilogue generator knows, in f32 and bf16,
+    generates (the CUDA compiler runs on the card only)."""
+    from repro_torch.kernels.program import _BINARY_C, _UNARY_C
+
+    for dt in (F32, BF16):
+        steps = [Step(op, (("in", 0),), dt) for op in sorted(_UNARY_C)]
+        steps += [Step(op, (("in", 0), ("in", 1)), dt)
+                  for op in sorted(_BINARY_C)
+                  if op not in ("and", "or", "eq", "ne", "lt", "gt", "le",
+                                "ge")]
+        steps += [Step("abs", (("in", 0),), dt),
+                  Step("logistic", (("in", 0),), dt),
+                  Step("div", (("in", 0), ("c", 3.0)), dt),
+                  Step("gt", (("in", 0), ("c", 0.0)), torch.bool),
+                  Step("not", (("t", len(steps) + 3),), torch.bool),
+                  Step("select", (("t", len(steps) + 4), ("in", 0),
+                                  ("in", 1)), dt),
+                  Step("convert", (("in", 0),), F32, F32),
+                  Step("integer_pow", (("in", 1),), dt, -2)]
+        program = Program((dt, dt), tuple(steps),
+                          tuple(("t", j) for j in range(len(steps))))
+        name, src = kernel_source(program, dt, LIBRARY_TILES)
+        assert src.count("disc::launch_gemm") == len(LIBRARY_TILES)
+        assert "__fdiv_rn" in src and "fmaf" not in src
+        assert name.startswith(f"gemm_{program.key}_")
+
+
+# ------------------------------------------------------------ on card --
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run on the card "
+                    "only")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("name", ["bias_gelu", "residual_two_outputs",
+                                  "silu_h"])
+def test_kdot_kernel_matches_plain_on_card(cuda, name, dtype):
+    from repro_torch.kernels.matmul.matmul import matmul_epilogue_kernel
+
+    program, _, extra_shapes = _programs(dtype)[name]
+    m, k, n = 300, 1000, 520
+    valid = (291, 517, 999)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    b = (torch.randn((k, n), generator=gen, device=cuda) / 32).to(dtype)
+    extras = [torch.randn(f(m, n), generator=gen, device=cuda).to(dtype)
+              for f in extra_shapes]
+    got = matmul_epilogue_kernel(a, b, extras, program, valid,
+                                 program.out_dtypes)
+    want = matmul_fused_ref(a, b, extras, program, valid,
+                            program.out_dtypes)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= (1e-5 if dtype == F32 else BF16_REL)
+        assert not g[valid[0]:].any() and not g[:, valid[1]:].any()
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("version", sorted(VERSION_SHAPES))
+def test_library_kernel_matches_plain_on_card(cuda, version, dtype):
+    m, k, n = VERSION_SHAPES[version]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
+    before = ops.LAUNCHES.launches
+    got = ops.matmul(a, b, version=version)
+    want = matmul_ref(a, b)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES.launches == before + 1
+    assert got.dtype == dtype
+    assert _rel(got, want) <= (1e-5 if dtype == F32 else BF16_REL)
+
+
+def test_every_tile_masks_a_ragged_edge_on_card(cuda):
+    from repro_torch.kernels.matmul.matmul import matmul_kernel
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randn((77, 45), generator=gen, device=cuda)
+    b = torch.randn((45, 131), generator=gen, device=cuda)
+    for tile in LIBRARY_TILES:
+        torch.testing.assert_close(matmul_kernel(a, b, tile), a @ b,
+                                   **TOL)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, torch.float16])
+def test_strided_operands_and_empty_k_on_card(cuda, dtype):
+    """Transposed views (no unit stride on the K axis of A or the N axis
+    of B) take the element loads; a valid K of 0 leaves the epilogue
+    over a zero accumulator."""
+    from repro_torch.kernels.matmul.matmul import matmul_epilogue_kernel
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    m, k, n = 150, 200, 90
+    a = torch.randn((k, m), generator=gen, device=cuda).to(dtype).T
+    b = torch.randn((n, k), generator=gen, device=cuda).to(dtype).T
+    program = identity_program(dtype)
+    for valid in ((147, 85, 193), (150, 90, 0)):
+        (got,) = matmul_epilogue_kernel(a, b, [], program, valid, [dtype])
+        (want,) = matmul_fused_ref(a, b, [], program, valid, [dtype])
+        torch.cuda.synchronize()
+        if valid[2]:
+            assert _rel(got, want) <= (1e-5 if dtype == F32 else BF16_REL)
+        else:
+            assert not got.any()
+        assert not got[valid[0]:].any() and not got[:, valid[1]:].any()
