@@ -16,7 +16,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``torch.Generator``) with ``disc_torch.compile(..., backend="hopper")``,
    once in f32 and once in bf16, and serves requests of S = 37, 200, 731,
    1500, 1999 and then 45 (the bucket of 37: a cache hit).  Each output is
-   held against the same model function run eagerly on the card:
+   held against the same model function run eagerly on the card, op by
+   op, inside ``plain_versions()`` (no attention or RMSNorm kernel):
    max|Δ|/max|ref| ≤ 1e-3 in f32 and ≤ 2e-2 in bf16; a bf16 output is
    also held against the function evaluated in f32 over the same weights,
    and may lie at most 1.25 times as far from it as eager's bf16
@@ -52,11 +53,36 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    that select each of the five §4.5 versions and the vendor entry,
    once through ``pick`` (the counted run), then each version against
    ``matmul_ref`` under the same limits, timed like the kDot kernel.
-7. Prints the kernels line, the card line, and the result line last.
+7. **Path 3 ("serve").**  TinyLlama-1.1B at full width and all 22
+   layers (random weights from a seeded ``torch.Generator``), bf16 then
+   f32, served by ``disc_torch.ServeEngine(max_batch=4, max_seq=2048)``
+   (FIFO) on the jit pipeline: six requests of 37, 200, 731, 1500, 1999
+   and 45 prompt tokens (ids from seeded numpy), 16 new tokens each —
+   S buckets 64 to 2048, four slots for six requests.  Every attention
+   runs the CUDA C++ flash-attention kernel and every RMSNorm the Triton
+   one.  The same requests run again with ``prefill_chunk=512`` (offsets
+   > 0: the kernel's ``q_offset``), and once more through the same engine
+   code inside ``plain_versions()``.  Checks: prefill compiles == the
+   distinct (B, S) buckets used, decode compiles == 1; flash-attention
+   launches == 22 and RMSNorm launches == 45 per prefill launch and
+   decode step; f32 token streams identical to the plain versions' (and
+   chunked to unchunked) with every token's logits within 1e-3
+   max|d|/max|ref|; bf16 logits within 2e-2 while the streams agree, a
+   stream parting only where the plain run's top-2 margin is below 2e-2.
+   Prints time to first token and decode ms per step.
+8. **Serve kernels.**  Flash attention at the path's shapes (prefill
+   B=1, S=2048; a 512-row chunk at q_offset 1024; decode B=4 at the
+   requests' fills) and RMSNorm on 2048 x 2048, each against its plain
+   version on the same card inputs, with padded and fully masked rows
+   checked to be exactly 0; timed against the plain version and a
+   PyTorch library call (``F.scaled_dot_product_attention``,
+   ``F.rms_norm``), a yardstick the port never calls.
+9. Prints the kernels line, the card line, and the result line last.
 
 Run it from a checkout: it builds the kernels from ``src/`` into
 ``build/torch_kernels/`` and refuses to run without the repository or
-without a CUDA device.  ``--layers`` cuts the depth of both paths.
+without a CUDA device.  ``--layers`` cuts the depth of paths 1 and 2;
+path 3 always runs all 22 layers.
 """
 from __future__ import annotations
 
@@ -114,7 +140,32 @@ KERNELS = {
         "source": "src/repro_torch/kernels/matmul/csrc/gemm.cuh",
         "replaces": "src/repro/kernels/matmul/matmul.py:54",
     },
+    "flash_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:94",
+    },
+    "rmsnorm": {
+        "route": "triton",
+        "source": "src/repro_torch/kernels/rmsnorm/rmsnorm.py",
+        "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:26",
+    },
 }
+
+# path 3 (serve): prompt lengths, new tokens per request, engine shape
+SERVE_PROMPTS = (37, 200, 731, 1500, 1999, 45)
+SERVE_NEW_TOKENS = 16
+SERVE_BATCH, SERVE_SEQ, SERVE_CHUNK = 4, 2048, 512
+# per-token logits, max|d|/max|ref|: kernels vs plain versions (and
+# chunked vs unchunked).  f32 differs by summation order only; in bf16
+# two equally exact evaluations round differently and 22 layers amplify
+# it (PERF.md: up to 1.9e-2 between compiled and eager on paths 1-2)
+TOL_SERVE = {"f32": 1e-3, "bf16": 2e-2}
+# flash attention / RMSNorm kernel vs plain version at the path's shapes:
+# f32 by summation order; bf16 by one output rounding (2^-8) where the
+# f32 sums differ
+TOL_SERVE_KERNEL = {"f32": 1e-5, "bf16": 8e-3}
 
 # §4.5 library phase: a shape from TinyLlama's widths per entry, and the
 # entry the reference's selection rules give it
@@ -271,9 +322,12 @@ def start_cuda_builds(arts: list):
     import torch
 
     from repro_torch.core.codegen import kdot_jobs
-    from repro_torch.kernels.matmul.matmul import (LIBRARY_TILES,
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        source_job
+    from repro_torch.kernels.matmul.matmul import (CSRC, LIBRARY_TILES,
                                                    identity_program,
-                                                   prebuild)
+                                                   kernel_source)
 
     jobs = []
     for art in arts:
@@ -281,12 +335,14 @@ def start_cuda_builds(arts: list):
                  for p, dt in kdot_jobs(art["low"].graph, art["low"].plan)]
     jobs += [(identity_program(dt), dt, LIBRARY_TILES)
              for dt in (torch.float32, torch.bfloat16)]
-    result: dict = {"sources": len(jobs)}
+    sources = [(*kernel_source(p, dt, tuple(t)), [CSRC]) for p, dt, t in jobs]
+    sources.append(source_job())   # the flash-attention library (path 3)
+    result: dict = {"sources": len(sources)}
 
     def run():
         t0 = time.perf_counter()
         try:
-            prebuild(jobs)
+            cuda_build.build(sources)
         except Exception as e:  # reported when the thread is joined
             result["error"] = e
         result["seconds"] = time.perf_counter() - t0
@@ -369,6 +425,7 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
     from repro_torch.kernels.fused_elementwise import ops as fe
     from repro_torch.kernels.fused_reduce import ops as fr
     from repro_torch.kernels.matmul import ops as mm
+    from repro_torch.kernels.select import plain_versions
 
     fn, f, low, dt = art["fn"], art["f"], art["low"], art["dt"]
     tag = f"[{path} {dtype_name}]"
@@ -407,7 +464,9 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
         # inputs, evaluated in f32: how far each bf16 run is from it
         fn32 = art["make_fn"](to_f32(art["params"]))
     for s, key, dt_s, compiled, y in rows:
-        with torch.no_grad():
+        # eager is the plain function, op by op: the serve path's
+        # attention and RMSNorm kernels stay out of this comparison
+        with torch.no_grad(), plain_versions():
             ref = fn(inputs[s])
             ref32 = None if fn32 is None else fn32(inputs[s].float())
         torch.cuda.synchronize()
@@ -826,6 +885,392 @@ def library_phase(rows: list, report: dict):
             rows.append((row, detail))
 
 
+# ------------------------------------------------------------- path 3 --
+
+def serve_engine_class():
+    """``ServeEngine`` recording, per request and token, the logits row
+    the token was taken from (on the host) and the wall time it arrived,
+    plus the seconds of every prefill launch and decode step."""
+    from repro_torch.serve.engine import ServeEngine
+
+    class Recording(ServeEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.logits = {}     # (rid, token index) -> (V,) f32 on host
+            self.arrived = {}    # rid -> host seconds of its first token
+            self.step_s = {"prefill": [], "decode": []}
+            self.t0 = time.perf_counter()
+
+        def _next_tokens(self, slots, logits):
+            ids = super()._next_tokens(slots, logits)  # synchronises
+            now = time.perf_counter() - self.t0
+            rows = logits.float().cpu()
+            for r, i in enumerate(slots):
+                s = self.slots[i]
+                self.logits[(s.rid, len(s.generated))] = rows[r]
+                self.arrived.setdefault(s.rid, now)
+            return ids
+
+        def _timed(self, kind, fn):
+            t = time.perf_counter()
+            fn()
+            self.step_s[kind].append(time.perf_counter() - t)
+
+        def _prefill_group(self):
+            self._timed("prefill", super()._prefill_group)
+
+        def _decode(self):
+            self._timed("decode", super()._decode)
+
+    return Recording
+
+
+def serve_run(model, params, cfg_kw: dict, requests: list, plain: bool):
+    """One engine over ``requests`` until done; returns the engine and the
+    kernel launches its run made (counts set to 0 just before)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.kernels.select import plain_versions
+    from repro_torch.serve.engine import ServeConfig
+
+    eng = serve_engine_class()(model, params, ServeConfig(
+        max_batch=SERVE_BATCH, max_seq=SERVE_SEQ, **cfg_kw))
+    fa.LAUNCHES.reset()
+    rms.LAUNCHES.reset()
+    eng.t0 = time.perf_counter()
+    eng.submit(requests)
+    if plain:
+        with plain_versions():
+            eng.run_until_done()
+    else:
+        eng.run_until_done()
+    import torch
+    torch.cuda.synchronize()
+    return eng, {"flash_attention": fa.LAUNCHES.launches,
+                 "rmsnorm": rms.LAUNCHES.launches}
+
+
+def rel_err(got, ref) -> float:
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def compare_streams(tag: str, got, ref, tol: float, exact: bool) -> dict:
+    """Per request: the token streams and the logits each token came
+    from.  ``exact``: streams identical and every logits row within
+    ``tol``.  Otherwise rows within ``tol`` while the streams agree, and a
+    stream may part only where the reference's top-2 margin (relative to
+    its max|logit|) is below ``tol``.  Returns agreement lengths."""
+    agree = {}
+    worst = 0.0
+    for rid, want in ref.done.items():
+        have = got.done.get(rid)
+        check(have is not None, f"{tag} request {rid} did not complete")
+        n = 0
+        while n < min(len(have), len(want)) and have[n] == want[n]:
+            n += 1
+        agree[rid] = n
+        if exact:
+            check(have == want, f"{tag} request {rid}: streams part at "
+                                f"token {n}: {have[n:n + 3]} vs "
+                                f"{want[n:n + 3]}")
+        for t in range(min(n + 1, len(have), len(want))):
+            a, b = got.logits[(rid, t)], ref.logits[(rid, t)]
+            e = rel_err(a, b)
+            worst = max(worst, e)
+            check(e <= tol, f"{tag} request {rid} token {t}: logits "
+                            f"max|d|/max|ref| {e:.3e} > {tol}")
+        if n < min(len(have), len(want)):
+            b = ref.logits[(rid, n)]
+            top = b.topk(2).values
+            margin = ((top[0] - top[1]) / b.abs().max()).item()
+            check(margin < tol, f"{tag} request {rid} parts at token {n} "
+                                f"where the reference's top-2 margin is "
+                                f"{margin:.3e} >= {tol}")
+    print(f"{tag} agreement lengths {agree} of "
+          f"{ {r: len(v) for r, v in ref.done.items()} }; worst logits "
+          f"rel {worst:.3e}", flush=True)
+    return agree
+
+
+def serve_phase(dname: str, seed: int, report: dict):
+    """Path 3 in one dtype: kernels, plain versions, chunked."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Request
+    from repro_torch.models.registry import get_model
+
+    tag = f"[path3 {dname}]"
+    cfg = dataclasses.replace(get_config("tinyllama_11b"), dtype=dname)
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(gen, "cuda")
+    rs = np.random.RandomState(seed)
+    prompts = [rs.randint(0, cfg.vocab, size=n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+
+    def requests():
+        return [Request(rid=i, tokens=p, max_new_tokens=SERVE_NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+
+    launches = {"flash_attention": 0, "rmsnorm": 0}
+    runs = {}
+    for label, kw, plain in (("kernels", {}, False),
+                             ("plain", {}, True),
+                             ("chunked", {"prefill_chunk": SERVE_CHUNK},
+                              False)):
+        eng, counted = serve_run(model, params, kw, requests(), plain)
+        runs[label] = eng
+        st = eng.stats
+        steps = st["prefill_calls"] + st["decode_steps"]
+        cc = eng.compile_counts()
+        print(f"{tag} {label}: prefill_calls={st['prefill_calls']} "
+              f"decode_steps={st['decode_steps']} "
+              f"tokens={st['tokens_generated']} "
+              f"bucket_pairs={sorted(eng._bucket_pairs)} compiles={cc} "
+              f"launches={counted}", flush=True)
+        check(len(eng.done) == len(SERVE_PROMPTS) and not eng.failed,
+              f"{tag} {label}: {len(eng.done)} done, failed {eng.failed}")
+        check(cc["prefill"]["total"] == len(eng._bucket_pairs)
+              == st["prefill_bucket_pairs"],
+              f"{tag} {label}: {cc['prefill']} prefill compiles for "
+              f"{len(eng._bucket_pairs)} (B, S) buckets")
+        check(cc["decode"]["total"] == 1,
+              f"{tag} {label}: {cc['decode']} decode compiles")
+        if plain:
+            check(counted == {"flash_attention": 0, "rmsnorm": 0},
+                  f"{tag} plain run launched kernels: {counted}")
+            continue
+        want = {"flash_attention": cfg.n_layers * steps,
+                "rmsnorm": (2 * cfg.n_layers + 1) * steps}
+        check(counted == want, f"{tag} {label}: launches {counted}, the "
+                               f"path predicts {want}")
+        for k in launches:
+            launches[k] += counted[k]
+        ttft = [round(eng.arrived[r], 4) for r in range(len(SERVE_PROMPTS))]
+        dec = eng.step_s["decode"]
+        print(f"{tag} {label}: time to first token s {ttft}; decode "
+              f"ms/step mean {1e3 * sum(dec) / len(dec):.2f} "
+              f"min {1e3 * min(dec):.2f} max {1e3 * max(dec):.2f} over "
+              f"{len(dec)} steps; prefill s "
+              f"{[round(x, 4) for x in eng.step_s['prefill']]}",
+              flush=True)
+        for rid, toks in eng.done.items():
+            # 16 new tokens after the prompt's first, or fewer up to EOS
+            check(all(0 <= t < cfg.vocab for t in toks)
+                  and (len(toks) == SERVE_NEW_TOKENS + 1
+                       or toks[-1] == eng.scfg.eos_id),
+                  f"{tag} {label} request {rid}: tokens {toks}")
+        check(all(bool(torch.isfinite(x).all())
+                  for x in eng.logits.values()),
+              f"{tag} {label}: non-finite logits")
+    tol = TOL_SERVE[dname]
+    exact = dname == "f32"
+    compare_streams(f"{tag} kernels vs plain", runs["kernels"],
+                    runs["plain"], tol, exact)
+    compare_streams(f"{tag} chunked vs unchunked", runs["chunked"],
+                    runs["kernels"], tol, exact)
+    report[("path3", dname)] = dict(launches=launches)
+    fills = [n + SERVE_NEW_TOKENS // 2 for n in SERVE_PROMPTS[:SERVE_BATCH]]
+    del runs, params
+    torch.cuda.empty_cache()
+    return cfg, fills
+
+
+def attention_bound(q_shape, kv_rows: int, hkv: int, pairs: int, elt: int,
+                    dname: str):
+    """(bound_ms, bound_by, bytes, flops) of one attention call: q and o
+    once, the K and V rows the call needs once; 4 * hd flops per visible
+    (query, key) pair and head (q.k and p.v)."""
+    b, h, sq, hd = q_shape
+    nbytes = (2 * b * h * sq * hd + 2 * kv_rows * hkv * hd) * elt
+    flops = 4 * hd * h * pairs
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / (F32_FLOPS if dname == "f32" else BF16_FLOPS) * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
+
+
+def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list):
+    """Flash attention and RMSNorm at the serve path's shapes, each
+    against its plain version on the same card inputs, timed against the
+    plain version and a PyTorch library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.kernels.select import plain_versions
+
+    dt = torch.float32 if dname == "f32" else torch.bfloat16
+    elt = torch.empty((), dtype=dt).element_size()
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    tol = TOL_SERVE_KERNEL[dname]
+    launches = report[("path3", dname)]["launches"]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    def token_major_q(b, s):  # the path's q: a (B, H, S, hd) view
+        return rnd(b, s, h, hd).transpose(1, 2)
+
+    s_max = SERVE_SEQ
+    cases = []
+    # prefill B=1, S=2048 at q_offset 0 (bucket 2048, causal over the
+    # cache); a second, padded batch row (zero q and cache, as the
+    # dispatch pads a bucket) must give 0
+    q = token_major_q(2, s_max)
+    k, v = rnd(2, hkv, s_max, hd), rnd(2, hkv, s_max, hd)
+    q[1].zero_()
+    k[1].zero_()
+    v[1].zero_()
+    causal_mask = torch.ones(s_max, s_max, dtype=torch.bool,
+                             device="cuda").tril()
+    cases.append(dict(
+        label=f"prefill S={s_max} q_offset=0", q=q[:1], k=k[:1], v=v[:1],
+        args=dict(lens=None, causal=True, q_offset=0), kv_rows=s_max,
+        pairs=s_max * (s_max + 1) // 2,
+        lib=lambda q=q[:1], k=k[:1], v=v[:1]: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+        zero_check=(q, k, v, dict(lens=None, causal=True, q_offset=0), 1)))
+    # a 512-row chunk at q_offset 1024 against the 2048-row cache; a
+    # second row with lens 0 is fully masked and must give 0
+    off = s_max // 2
+    q = token_major_q(2, SERVE_CHUNK)
+    k, v = rnd(2, hkv, s_max, hd), rnd(2, hkv, s_max, hd)
+    qo = torch.tensor([off, off], dtype=torch.int32, device="cuda")
+    keys = torch.arange(s_max, device="cuda")[None, :]
+    chunk_mask = keys <= (off + torch.arange(SERVE_CHUNK, device="cuda"))[
+        :, None]
+    cases.append(dict(
+        label=f"prefill chunk S={SERVE_CHUNK} q_offset={off}", q=q[:1],
+        k=k[:1], v=v[:1], args=dict(lens=None, causal=True, q_offset=qo[:1]),
+        kv_rows=off + SERVE_CHUNK,
+        pairs=sum(off + i + 1 for i in range(SERVE_CHUNK)),
+        lib=lambda q=q[:1], k=k[:1], v=v[:1]: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=chunk_mask, enable_gqa=True),
+        zero_check=(q, k, v, dict(lens=torch.tensor(
+            [s_max, 0], dtype=torch.int32, device="cuda"), causal=True,
+            q_offset=qo), 1)))
+    # decode B=4 at the requests' fills (+1: the token being written)
+    lens = torch.tensor([f + 1 for f in fills], dtype=torch.int32,
+                        device="cuda")
+    q = rnd(SERVE_BATCH, 1, h, hd).transpose(1, 2)
+    k, v = (rnd(SERVE_BATCH, hkv, s_max, hd) for _ in range(2))
+    dec_mask = (keys < lens[:, None])[:, None, None, :]
+    cases.append(dict(
+        label=f"decode B={SERVE_BATCH} lens={lens.tolist()}", q=q, k=k, v=v,
+        args=dict(lens=lens), decode=True, kv_rows=int(lens.sum()),
+        pairs=int(lens.sum()),
+        lib=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=dec_mask, enable_gqa=True),
+        zero_check=(q, k, v, dict(lens=torch.tensor(
+            [5, 0, 9, 0], dtype=torch.int32, device="cuda")), None)))
+
+    for c in cases:
+        if c.get("decode"):
+            def run(c=c):
+                return fa.flash_decode(c["q"], c["k"], c["v"],
+                                       c["args"]["lens"])
+        else:
+            def run(c=c):
+                return fa.flash_attention(c["q"], c["k"], c["v"],
+                                          **c["args"])
+
+        def plain(run=run):
+            with plain_versions():
+                return run()
+
+        before = fa.LAUNCHES.launches
+        got = run()
+        check(fa.LAUNCHES.launches == before + 1,
+              "flash attention wrapper launched no kernel")
+        want = plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              f"flash_attention {dname} {c['label']}: non-finite output")
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        rel = err / scale
+        zq, zk, zv, zargs, zrow = c["zero_check"]
+        if c.get("decode"):
+            zo = fa.flash_decode(zq, zk, zv, zargs["lens"])
+            zeros = [i for i, n in enumerate(zargs["lens"].tolist())
+                     if n == 0]
+            zero_ok = all(not zo[i].any() for i in zeros)
+        else:
+            zo = fa.flash_attention(zq, zk, zv, **zargs)
+            zero_ok = not zo[zrow].any()
+        zero_ok = zero_ok and bool(torch.isfinite(zo).all())
+        ms = cuda_ms(run)
+        plain_ms = cuda_ms(plain)
+        lib_ms = cuda_ms(c["lib"])
+        lib_err = rel_err(c["lib"]().float(), want.float())
+        bound_ms, bound_by, nbytes, flops = attention_bound(
+            tuple(c["q"].shape), c["kv_rows"], hkv, c["pairs"], elt, dname)
+        row = dict(name="flash_attention", **KERNELS["flash_attention"],
+                   launches=launches["flash_attention"], max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=lib_ms)
+        detail = dict(dtype=dname, case=c["label"], max_ref=scale,
+                      max_rel=rel, bytes=nbytes, flops=flops,
+                      tflops=flops / ms / 1e9,
+                      path_launches_of_program=launches["flash_attention"],
+                      library_call="F.scaled_dot_product_attention",
+                      library_max_rel=lib_err, zero_rows_ok=zero_ok)
+        print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
+        check(rel <= tol, f"flash_attention {dname} {c['label']}: "
+                          f"max|d|/max|ref| {rel:.3e} > {tol}")
+        check(zero_ok, f"flash_attention {dname} {c['label']}: padded or "
+                       f"fully masked rows not 0")
+        rows.append((row, detail))
+
+    # RMSNorm on 2048 x 2048 (the norm of a 2048-token prefill)
+    x = rnd(SERVE_SEQ, cfg.d_model)
+    w = 1.0 + 0.1 * torch.randn(cfg.d_model, generator=gen, device="cuda")
+    w_lib = w.to(dt)
+
+    def run_rms():
+        return rms.rmsnorm(x, w, eps=1e-6)
+
+    def plain_rms():
+        with plain_versions():
+            return run_rms()
+
+    before = rms.LAUNCHES.launches
+    got = run_rms()
+    check(rms.LAUNCHES.launches == before + 1,
+          "rmsnorm wrapper launched no kernel")
+    want = plain_rms()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    nbytes = 2 * x.numel() * elt + w.numel() * w.element_size()
+    flops = 4 * x.numel()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS * 1e3
+    lib = lambda: F.rms_norm(x, (cfg.d_model,), weight=w_lib, eps=1e-6)
+    row = dict(name="rmsnorm", **KERNELS["rmsnorm"],
+               launches=launches["rmsnorm"], max_abs_err=err,
+               ms=cuda_ms(run_rms), plain_ms=cuda_ms(plain_rms),
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               library_ms=cuda_ms(lib))
+    detail = dict(dtype=dname, case=f"{SERVE_SEQ}x{cfg.d_model}",
+                  max_ref=scale, max_rel=err / scale, bytes=nbytes,
+                  path_launches_of_program=launches["rmsnorm"],
+                  library_call="F.rms_norm (weight in the input's dtype)",
+                  library_max_rel=rel_err(lib().float(), want.float()))
+    print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
+    check(err / scale <= tol, f"rmsnorm {dname}: max|d|/max|ref| "
+                              f"{err / scale:.3e} > {tol}")
+    rows.append((row, detail))
+
+
 def summary(rows: list, report: dict) -> list:
     """One entry per kernel: its most-launched f32 program at the path's
     shapes stands for it; ``launches`` sums every path's counted runs."""
@@ -917,6 +1362,13 @@ def main(argv=None) -> int:
         library_phase(rows, report)
         print(f"[phase library] {time.perf_counter() - t0:.1f} s",
               flush=True)
+        for dname in ("bf16", "f32"):
+            t0 = time.perf_counter()
+            cfg, fills = serve_phase(dname, args.seed, report)
+            serve_kernel_phase(cfg, dname, fills, report, rows)
+            print(f"[phase path3 {dname}] {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            torch.cuda.empty_cache()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

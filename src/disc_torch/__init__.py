@@ -26,6 +26,9 @@ from repro_torch.api import (  # noqa: F401
     NoDeviceError,
     POW2,
     RetryPolicy,
+    ServeConfig,
+    ServeEngine,
+    TreeSpec,
     UnknownBackendError,
     bridge,
     compile,

@@ -11,7 +11,10 @@ for PyTorch (aliased as the top-level ``disc_torch`` module)::
     compiled.cache_stats()       # O(#buckets) compile contract, observable
 
 Artifacts run on the card (``device="cuda"``, the default) unless the
-caller asks for ``device="cpu"``.  Backends (``eager``, ``hopper``, or
+caller asks for ``device="cpu"``.  ``CompileOptions(pipeline="jit")``
+buckets a plain PyTorch function without the DHLO bridge (``None`` specs
+pass pytrees through, :class:`TreeSpec` pads their leaves);
+:class:`ServeEngine` serves a model on it with continuous batching.  Backends (``eager``, ``hopper``, or
 your own via :func:`register_backend`) are selected by name through
 ``CompileOptions.backend``.
 """
@@ -33,14 +36,16 @@ from .backends import (  # noqa: F401
     list_backends,
     register_backend,
 )
-from .options import CompileOptions, Dim  # noqa: F401
+from .options import CompileOptions, Dim, TreeSpec  # noqa: F401
 from .staged import Compiled, CompiledFunction, Lowered, compile, infer_specs  # noqa: F401
 
 __all__ = [
     # staged pipeline
     "compile", "CompiledFunction", "Lowered", "Compiled", "infer_specs",
     # options
-    "CompileOptions", "Dim", "ArgSpec",
+    "CompileOptions", "Dim", "TreeSpec", "ArgSpec",
+    # serving
+    "ServeEngine", "ServeConfig",
     # backends
     "Backend", "register_backend", "get_backend", "list_backends",
     "UnknownBackendError",
@@ -53,3 +58,13 @@ __all__ = [
     # frontend + lax-level primitives
     "bridge", "dot_general",
 ]
+
+
+def __getattr__(name):
+    # the serving engine is built on this package: importing it lazily
+    # keeps ``import repro_torch.serve.engine`` free of an import cycle
+    if name in ("ServeEngine", "ServeConfig"):
+        from ..serve import engine
+
+        return getattr(engine, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -16,9 +16,10 @@ import torch
 from ..core.bucketing import BucketPolicy, POW2
 from ..core.cache import CompileCache
 from ..errors import NoDeviceError
-from ..frontends.fx_frontend import ArgSpec
+from ..frontends.fx_frontend import ArgSpec, TreeSpec
 
-__all__ = ["Dim", "CompileOptions", "normalize_specs", "resolve_device"]
+__all__ = ["Dim", "CompileOptions", "TreeSpec", "normalize_specs",
+           "resolve_device"]
 
 
 @dataclass(frozen=True)
@@ -67,7 +68,7 @@ class Dim:
 
 
 DimLike = Union[int, str, Dim]
-SpecLike = Union[ArgSpec, Tuple[DimLike, ...]]
+SpecLike = Union[ArgSpec, TreeSpec, Tuple[DimLike, ...], None]
 
 
 @dataclass(frozen=True)
@@ -99,6 +100,15 @@ class CompileOptions:
     * ``plan_donation``        — let the plan mark dead-after-last-use
       parameters as donatable and realize in-place update ops as buffer
       donations
+    * ``pipeline``             — ``"dhlo"`` runs the full DISC pipeline
+      (bridge → constraints → fusion → bucketed codegen → generated
+      dispatch); ``"jit"`` skips the DHLO bridge and buckets a plain
+      PyTorch function directly: declared dynamic args are bucket-padded,
+      ``None`` args (parameter / KV-cache trees) pass through, and each
+      bucket entry runs the function eagerly (the serving engine's
+      prefill and decode)
+    * ``mesh`` / ``sharding_profile`` — SPMD placement; both arrive with
+      the multi-GPU slice and raise ``NotImplementedError`` until then
     * ``cache``                — share a :class:`CompileCache` between
       several compiled artifacts (entries are keyed by per-artifact
       fingerprint and never collide)
@@ -113,8 +123,21 @@ class CompileOptions:
     max_cache_entries: int = 256
     memory_planning: bool = True
     plan_donation: bool = True
+    pipeline: str = "dhlo"
+    mesh: Optional[Any] = None
+    sharding_profile: Optional[Any] = None
     cache: Optional[CompileCache] = None
     name: str = "disc"
+
+    def __post_init__(self):
+        if self.pipeline not in ("dhlo", "jit"):
+            raise ValueError(f"unknown pipeline {self.pipeline!r} "
+                             f"(expected 'dhlo' or 'jit')")
+        if self.mesh is not None or self.sharding_profile is not None:
+            raise NotImplementedError(
+                "CompileOptions(mesh=..., sharding_profile=...): SPMD "
+                "placement arrives with the port's multi-GPU slice; the "
+                "port runs on one card until then")
 
     def replace(self, **kw) -> "CompileOptions":
         return dataclasses.replace(self, **kw)
@@ -149,12 +172,15 @@ def resolve_device(device: Any) -> torch.device:
 
 def normalize_specs(specs: Optional[Sequence[SpecLike]],
                     default_dtype=torch.float32,
-                    ) -> Tuple[Optional[Tuple[ArgSpec, ...]], Tuple[Dim, ...]]:
+                    ) -> Tuple[Optional[Tuple[Any, ...]], Tuple[Dim, ...]]:
     """Normalize user-facing specs into ``ArgSpec``s + the ``Dim``s found.
 
     Accepts per argument: an :class:`ArgSpec`, a bare shape tuple whose
-    entries are ints / symbol-name strings / :class:`Dim` objects, or a
-    ``(shape, dtype[, name])`` tuple.  Returns ``(normalized, dims)``;
+    entries are ints / symbol-name strings / :class:`Dim` objects, a
+    ``(shape, dtype[, name])`` tuple, a :class:`TreeSpec` (pytree whose
+    leaves share bucketed axes — jit pipeline only), or ``None``
+    (pass-through argument — jit pipeline only).  Returns
+    ``(normalized, dims)``;
     ``normalized`` is ``None`` when ``specs`` is ``None`` (defer to
     first-call inference).
     """
@@ -180,6 +206,13 @@ def normalize_specs(specs: Optional[Sequence[SpecLike]],
 
     out = []
     for spec in specs:
+        if spec is None:
+            out.append(None)
+            continue
+        if isinstance(spec, TreeSpec):
+            out.append(TreeSpec(tuple(
+                (axis, register(d)) for axis, d in spec.axes)))
+            continue
         if isinstance(spec, ArgSpec):
             shape, dtype, name = spec.shape, spec.dtype, spec.name
         elif isinstance(spec, tuple) and all(
@@ -192,7 +225,7 @@ def normalize_specs(specs: Optional[Sequence[SpecLike]],
         else:
             raise TypeError(
                 f"cannot interpret spec {spec!r}: expected ArgSpec, shape "
-                f"tuple or (shape, dtype[, name])")
+                f"tuple, (shape, dtype[, name]), TreeSpec or None")
         norm_shape = []
         for d in shape:
             if isinstance(d, (Dim, str)):

@@ -12,9 +12,26 @@ Mirrors the JAX package's AOT staging for the whole DISC compiler:
   per-bucket compile cache, and exposes ``dispatch_source`` /
   ``cache_stats()`` / ``compile_counts()`` for introspection.
 
-The pipeline is the paper's: ATen FX graph → DHLO bridge, shape
-constraints, fusion, placement, buffers, bucketed per-backend executors,
-generated host dispatch with output recovery.
+Two pipelines share this surface (selected by
+``CompileOptions.pipeline``):
+
+* ``"dhlo"`` — the paper's: ATen FX graph → DHLO bridge, shape
+  constraints, fusion, placement, buffers, bucketed per-backend
+  executors, generated host dispatch with output recovery.
+* ``"jit"``  — bucketed dispatch over a plain PyTorch function *without*
+  bridging it through DHLO: declared dynamic args are bucket-padded,
+  ``None`` args (parameter and KV-cache trees) pass through, ``TreeSpec``
+  pytrees are leaf-padded, and one entry is cached per bucket signature.
+  An entry runs the function eagerly (PyTorch has no trace to compile);
+  a "compile" is the creation of an entry, so ``compile_counts()`` keeps
+  the O(#buckets) contract observable.  This is what the serving engine
+  builds prefill and decode on.
+
+Both pipelines share one host-dispatch emitter
+(:func:`repro_torch.core.dispatcher.generate_dispatch`), parameterized by
+a ``DispatchLens`` — so §4.4 static escalation (hot exact signatures get
+an unpadded entry) and the tie guards behind promote-on-change work
+identically under either.
 """
 from __future__ import annotations
 
@@ -27,11 +44,11 @@ import torch
 from ..core.bucketing import BucketPolicy
 from ..core.cache import CompileCache
 from ..core.codegen import dyn_symbols
-from ..core.dispatcher import dhlo_lens, generate_dispatch
+from ..core.dispatcher import dhlo_lens, generate_dispatch, jit_lens
 from ..core.dtypes import dtype_key
 from ..core.symshape import SymDim
 from ..errors import CONTROL_EXCEPTIONS, CompileError, classify_transient
-from ..frontends.fx_frontend import ArgSpec, bridge
+from ..frontends.fx_frontend import ArgSpec, TreeSpec, bridge
 from .backends import get_backend
 from .options import CompileOptions, Dim, normalize_specs, resolve_device
 
@@ -93,16 +110,51 @@ def _graph_const_token(graph) -> str:
     return h.hexdigest()[:16]
 
 
+def _fn_token(fn: Callable) -> str:
+    """An identity token for ``fn`` (code, closure, bound instance).
+
+    Process-local: bound methods are distinguished by instance identity
+    (two engines sharing one cache must never serve each other's
+    closures), so tokens are not stable across processes — fine for an
+    in-memory compile cache.
+    """
+    parts: List[str] = []
+    base = getattr(fn, "__func__", fn)
+    self_obj = getattr(fn, "__self__", None)
+    if self_obj is not None:
+        parts.append(type(self_obj).__qualname__)
+        parts.append(str(id(self_obj)))
+    code = getattr(base, "__code__", None)
+    if code is None:
+        parts.append(repr(base))
+    else:
+        parts.append(getattr(base, "__qualname__", ""))
+        parts.append(hashlib.sha1(code.co_code).hexdigest())
+        parts.append(repr(code.co_consts)[:2000])
+        for cell in base.__closure__ or ():
+            try:
+                parts.append(repr(cell.cell_contents)[:200])
+            except ValueError:  # empty cell
+                parts.append("<empty>")
+    return "\x00".join(parts)
+
+
 # --------------------------------------------------------------- lowered --
 
 @dataclass
 class Lowered:
-    """Compile-time artifacts of one function at one spec signature."""
+    """Compile-time artifacts of one function at one spec signature.
+
+    For the ``"dhlo"`` pipeline all plan fields are populated; for the
+    ``"jit"`` pipeline only ``specs`` / ``sym_names`` are (there is no
+    DHLO graph: the function runs eagerly per bucket).
+    """
 
     fn: Callable
-    specs: Tuple[ArgSpec, ...]
+    specs: Tuple[Any, ...]
     options: CompileOptions
     policy: BucketPolicy
+    pipeline: str = "dhlo"
     graph: Any = None
     plan: Any = None              # FusionPlan
     placement: Any = None
@@ -111,12 +163,29 @@ class Lowered:
     sym_names: Tuple[str, ...] = ()
 
     def fingerprint(self) -> str:
-        # DGraph.fingerprint() is deliberately shape-free AND constant-free
-        # (the per-engine cache-key property).  As a *shared*-cache key
-        # that is too weak: two graphs with the same wiring but different
-        # literal payloads must not collide, so the artifact fingerprint
-        # folds the constants in.
-        return self.graph.fingerprint() + "+" + _graph_const_token(self.graph)
+        if self.graph is not None:
+            # DGraph.fingerprint() is deliberately shape-free AND
+            # constant-free (the per-engine cache-key property).  As a
+            # *shared*-cache key that is too weak: two graphs with the
+            # same wiring but different literal payloads must not
+            # collide, so the artifact fingerprint folds the constants in.
+            return (self.graph.fingerprint() + "+"
+                    + _graph_const_token(self.graph))
+
+        # the jit pipeline has no graph fingerprint; identify the artifact
+        # by the *function* (code + closure + bound self) plus the spec
+        # signature, so distinct functions sharing one CompileCache can
+        # never hit each other's entries
+        def _sig(s):
+            if s is None:
+                return None
+            if isinstance(s, TreeSpec):
+                return ("tree", s.axes)
+            return (s.shape, dtype_key(s.dtype))
+
+        sig = repr([_sig(s) for s in self.specs])
+        h = hashlib.sha1((sig + "\x00" + _fn_token(self.fn)).encode())
+        return f"jit:{self.options.name}:{h.hexdigest()[:16]}"
 
     def compile(self, options: Optional[CompileOptions] = None, *,
                 on_tie_break: Optional[Callable] = None) -> "Compiled":
@@ -135,9 +204,14 @@ class Lowered:
 
     def as_text(self) -> str:
         """Human-readable summary of the lowering (inspectable stage)."""
-        lines = [f"Lowered({self.options.name!r}, pipeline='dhlo')"]
+        lines = [f"Lowered({self.options.name!r}, "
+                 f"pipeline={self.pipeline!r})"]
         lines.append(f"  fingerprint: {self.fingerprint()}")
         lines.append(f"  dynamic symbols: {list(self.sym_names)}")
+        if self.graph is None:
+            lines.append("  (no DHLO graph: the jit pipeline runs the "
+                         "function eagerly per bucket)")
+            return "\n".join(lines)
         lines.append(f"  params: {len(self.graph.params)}  "
                      f"ops: {len(self.graph.ops)}  "
                      f"outputs: {len(self.graph.outputs)}")
@@ -155,6 +229,24 @@ def _lower(fn: Callable, specs: Sequence[ArgSpec], dims: Sequence[Dim],
 
     policy = options.policy_with_dims(dims)
     device = resolve_device(options.device)
+    if options.pipeline == "jit":
+        sym_names: List[str] = []
+        for s in specs:
+            if s is None:
+                continue
+            names = ([d for _, d in s.axes] if isinstance(s, TreeSpec)
+                     else [d for d in s.shape if isinstance(d, str)])
+            for d in names:
+                if d not in sym_names:
+                    sym_names.append(d)
+        return Lowered(fn=fn, specs=tuple(specs), options=options,
+                       policy=policy, pipeline="jit",
+                       sym_names=tuple(sym_names))
+    if any(not isinstance(s, ArgSpec) for s in specs):
+        raise ValueError(
+            "the 'dhlo' pipeline needs an ArgSpec for every argument "
+            "(None pass-through and TreeSpec pytree specs are only "
+            "supported by CompileOptions(pipeline='jit'))")
     graph, _ = bridge(fn, list(specs), name=options.name,
                       bounds={d.name: d.max for d in dims
                               if d.max is not None},
@@ -178,7 +270,14 @@ def _lower(fn: Callable, specs: Sequence[ArgSpec], dims: Sequence[Dim],
 # -------------------------------------------------------------- compiled --
 
 class Compiled:
-    """The executable artifact: generated host dispatch + compile cache."""
+    """The executable artifact: generated host dispatch + compile cache.
+
+    Both pipelines flow through the one emitter in
+    :mod:`repro_torch.core.dispatcher`; all that differs is the
+    ``DispatchLens`` (how sizes are observed, what gets padded, whether
+    outputs are recovered) and the per-bucket / exact entry callbacks
+    (backend registry vs the function itself).
+    """
 
     def __init__(self, lowered: Lowered, options: CompileOptions,
                  on_tie_break: Optional[Callable] = None) -> None:
@@ -193,10 +292,18 @@ class Compiled:
                          escalation_threshold=options.escalation_threshold)
         self._bucket_compiles = 0
         self._exact_compiles = 0
-        lens = dhlo_lens(lowered.graph, lowered.syms)
+        if lowered.pipeline == "dhlo":
+            lens = dhlo_lens(lowered.graph, lowered.syms)
+            compile_bucket = self._compile_bucket
+            compile_exact = self._compile_exact
+        else:
+            lens = jit_lens(lowered.specs, lowered.sym_names,
+                            name=options.name)
+            compile_bucket = self._compile_jit_bucket
+            compile_exact = self._compile_jit_exact
         self._dispatch, self.dispatch_source = generate_dispatch(
-            lens, lowered.policy, self.cache, self._compile_bucket,
-            self._compile_exact, fingerprint=self._fingerprint,
+            lens, lowered.policy, self.cache, compile_bucket,
+            compile_exact, fingerprint=self._fingerprint,
             escalation_threshold=options.escalation_threshold,
             on_tie_break=on_tie_break, memory_plan=lowered.buffer_plan)
         self._mstats = self._dispatch._mstats
@@ -204,6 +311,8 @@ class Compiled:
     # ------------------------------------------------------------ public --
     def __call__(self, *arrays):
         outs = self._dispatch(arrays)
+        if self.lowered.pipeline == "jit":
+            return outs
         return outs[0] if len(outs) == 1 else tuple(outs)
 
     @property
@@ -251,6 +360,12 @@ class Compiled:
 
     def report(self) -> Dict[str, Any]:
         low = self.lowered
+        if low.graph is None:
+            return {"fingerprint": self._fingerprint, "pipeline": "jit",
+                    "device": str(self.device), "cache": self.cache_stats(),
+                    "compiles": self.compile_counts(),
+                    "dynamic_symbols": list(low.sym_names),
+                    "dispatch_cost": self.cost_report()}
         templates = low.plan.template_counts()
         covered = sum(n for t, n in templates.items()
                       if t in self.backend.cluster_kernels)
@@ -286,6 +401,24 @@ class Compiled:
         self._exact_compiles += 1
         return self.backend.build_exact(self.lowered.graph,
                                         self.lowered.plan, self.device)
+
+    # ----------------------------------------------------- jit pipeline --
+    def _jit_entry(self) -> Callable:
+        fn = self.lowered.fn
+        return lambda *args: fn(*args)
+
+    def _compile_jit_bucket(self, key: Tuple[int, ...]):
+        """One entry per bucket signature: the dispatch pads dynamic args
+        to the bucket, and the entry runs the function eagerly on them."""
+        self._bucket_compiles += 1
+        return self._jit_entry()
+
+    def _compile_jit_exact(self):
+        """§4.4 for the jit pipeline: the escalated path calls the
+        function at *unpadded* shapes.  One fresh entry per escalated
+        signature, so the cache's LRU budget bounds them one by one."""
+        self._exact_compiles += 1
+        return self._jit_entry()
 
 
 # ------------------------------------------------------ public entrypoint --
@@ -432,8 +565,12 @@ class CompiledFunction:
     def __call__(self, *arrays):
         if self._compiled is None:
             if self._specs is None:
-                self._specs = tuple(infer_specs(arrays))
-                self._inferred = True
+                if self.options.pipeline == "jit":
+                    # no declared dynamic dims: every arg passes through
+                    self._specs = (None,) * len(arrays)
+                else:
+                    self._specs = tuple(infer_specs(arrays))
+                    self._inferred = True
             self._ensure()
         return self._compiled(*arrays)
 

@@ -735,8 +735,10 @@ def _run_graph(graph: DGraph, arrays, env: _ShapeEnv, masked: bool,
 
 def build_exact_executor(graph: DGraph, plan=None,
                          kernels: Optional[Mapping[str, ClusterKernel]] = None,
-                         device="cpu") -> Callable:
-    """Executor running at exact concrete shapes (static-fallback path)."""
+                         *, device) -> Callable:
+    """Executor running at exact concrete shapes (static-fallback path) on
+    ``device`` (required: the caller resolved it, and there is no silent
+    default)."""
     schedule = _Schedule(graph, plan, kernels)
     literals = _Literals(torch.device(device))
 
@@ -759,7 +761,7 @@ def build_exact_executor(graph: DGraph, plan=None,
 def build_padded_executor(graph: DGraph, padded_bindings: Dict[int, int],
                           sym_order: Sequence[SymDim], plan=None,
                           kernels: Optional[Mapping[str, ClusterKernel]] = None,
-                          device="cpu") -> Callable:
+                          *, device) -> Callable:
     """Executor for one bucket signature: ``run(lens, *padded_arrays)``.
 
     ``padded_bindings`` maps canonical symbol uid -> padded size (static for

@@ -10,12 +10,21 @@ cache lookup, padding plan, device invocation, output recovery — and
 ``exec``s it once.  The per-call path is straight-line host code
 specialized to the artifact: no graph walking, no per-op interpretation.
 
-Everything graph-specific is factored into a :class:`DispatchLens` —
-*how* dynamic sizes are observed, *which* arguments get bucket-padded, and
-how outputs are recovered.  :func:`dhlo_lens` views a DHLO graph: symbols
-are canonicalized through the constraint store, the true lengths are
-threaded to the masked executor as host ints (no device round-trip), and
-outputs are sliced back to their true (possibly derived, §4.2.1) shapes.
+One emitter serves both public pipelines.  Everything pipeline-specific
+is factored into a :class:`DispatchLens` — *how* dynamic sizes are
+observed, *which* arguments get bucket-padded, and *whether* outputs need
+recovery:
+
+* :func:`dhlo_lens` views a DHLO graph (``pipeline="dhlo"``): symbols are
+  canonicalized through the constraint store, the true lengths are
+  threaded to the masked executor as host ints (no device round-trip),
+  and outputs are sliced back to their true (possibly derived, §4.2.1)
+  shapes.
+* :func:`jit_lens` views a spec signature over a plain PyTorch function
+  (``pipeline="jit"``): declared dynamic args are bucket-padded, ``None``
+  args pass through untouched, ``TreeSpec`` pytrees are leaf-padded, and
+  the function's own outputs are returned as-is (jit-pipeline functions
+  are lens-aware).
 
 The generated skeleton includes the §4.4 static-escalation branch (hot
 exact signatures route to an unpadded specialization) and the tie guards
@@ -43,7 +52,7 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 import torch
 
 from ..errors import CompileError
-from ..frontends.fx_frontend import eval_dim
+from ..frontends.fx_frontend import TreeSpec, eval_dim
 from .bucketing import BucketPolicy
 from .cache import CompileCache
 from .dhlo import DGraph
@@ -51,7 +60,7 @@ from .dtypes import as_torch, itemsize
 from .symshape import SymDim
 
 __all__ = ["DynAxis", "ArgPlan", "DispatchLens", "DispatchMemStats",
-           "dhlo_lens", "generate_dispatch"]
+           "dhlo_lens", "jit_lens", "generate_dispatch"]
 
 
 class DispatchMemStats:
@@ -172,16 +181,26 @@ class ArgPlan:
     """Pad plan for one positional argument.
 
     ``shape`` entries are ints (static) or :class:`DynAxis` (zero-pad to
-    the symbol's bucket).  A shape with no dynamic axis marks a
-    pass-through argument: it reaches the entry untouched, with no copy.
+    the symbol's bucket).  ``shape=None`` — or a shape with no dynamic
+    axis — marks a pass-through argument (e.g. pytrees in the jit
+    pipeline): it reaches the entry untouched, with no copy.
+
+    ``tree_axes`` marks a *pytree* argument instead (jit-pipeline
+    :class:`~repro_torch.frontends.fx_frontend.TreeSpec`): every tensor
+    leaf is zero-padded along each ``(axis, sym)`` pair to the symbol's
+    bucket, on the leaf's device.  Such an argument contributes no
+    extraction sites or tie guards — a pytree has no single shape to
+    observe.
     """
 
-    shape: Tuple[Union[int, DynAxis], ...]
+    shape: Optional[Tuple[Union[int, DynAxis], ...]] = None
     dtype: Any = None
+    tree_axes: Optional[Tuple[Tuple[int, int], ...]] = None
 
     @property
     def dynamic(self) -> bool:
-        return any(isinstance(d, DynAxis) for d in self.shape)
+        return self.shape is not None and any(
+            isinstance(d, DynAxis) for d in self.shape)
 
 
 @dataclass(frozen=True)
@@ -196,14 +215,19 @@ class DispatchLens:
     * ``outputs``   — per output, per-axis recovery: ``None`` (keep the
       axis), an int symbol index (slice back to the true length), or a
       callable ``exact -> int`` evaluating a derived dim (§4.2.1 host
-      shape calculation).
+      shape calculation).  ``outputs=None`` disables recovery entirely:
+      the entry's result is returned as-is.
+    * ``pass_lens`` — prepend the tuple of true lengths to the entry call
+      (DHLO masked executors take it; jit-pipeline functions carry
+      lengths as ordinary arguments).
     """
 
     name: str
     sym_names: Tuple[str, ...]
     sym_sites: Tuple[Tuple[Tuple[int, int], ...], ...]
     args: Tuple[ArgPlan, ...]
-    outputs: Tuple[Tuple[Any, ...], ...] = ()
+    outputs: Optional[Tuple[Tuple[Any, ...], ...]] = ()
+    pass_lens: bool = True
 
 
 def dhlo_lens(graph: DGraph, syms: Sequence[SymDim]) -> DispatchLens:
@@ -262,6 +286,46 @@ def dhlo_lens(graph: DGraph, syms: Sequence[SymDim]) -> DispatchLens:
         outputs=tuple(outputs))
 
 
+def jit_lens(specs: Sequence[Any], sym_names: Sequence[str],
+             name: str = "disc") -> DispatchLens:
+    """View a spec signature (``pipeline="jit"``) through the emitter's
+    lens: string dims are the symbols, ``None`` specs pass through,
+    ``TreeSpec`` pytrees are leaf-padded, and outputs need no recovery
+    (the function is lens-aware)."""
+    sym_names = list(sym_names)
+    sym_index = {n: i for i, n in enumerate(sym_names)}
+    sites: List[List[Tuple[int, int]]] = [[] for _ in sym_names]
+    args: List[ArgPlan] = []
+    for ai, spec in enumerate(specs):
+        if spec is None:
+            args.append(ArgPlan())
+            continue
+        if isinstance(spec, TreeSpec):
+            args.append(ArgPlan(tree_axes=tuple(
+                (axis, sym_index[d]) for axis, d in spec.axes)))
+            continue
+        shape: List[Union[int, DynAxis]] = []
+        for ax, d in enumerate(spec.shape):
+            if isinstance(d, str):
+                sites[sym_index[d]].append((ai, ax))
+                shape.append(DynAxis(sym_index[d]))
+            else:
+                shape.append(int(d))
+        if any(isinstance(d, DynAxis) for d in shape):
+            args.append(ArgPlan(tuple(shape), as_torch(spec.dtype)))
+        else:
+            args.append(ArgPlan())  # fully static: no copy needed
+    for i, n in enumerate(sym_names):
+        if not sites[i]:
+            raise ValueError(
+                f"dynamic symbol {n!r} is not observable from any "
+                f"argument spec; cannot generate dispatch for {name!r}")
+    return DispatchLens(
+        name=name, sym_names=tuple(sym_names),
+        sym_sites=tuple(tuple(s) for s in sites), args=tuple(args),
+        outputs=None, pass_lens=False)
+
+
 def _derived_dim_evaluator(graph: DGraph, syms: Sequence[SymDim], dim):
     """Host-side shape calculation for a derived output dim (§4.2.1)."""
     syms = list(syms)
@@ -284,6 +348,32 @@ def _tie_error(name: str, site_a: Tuple[int, int], va: int,
 
 def _cap_error(name: str, value: int, cap: int):
     raise ValueError(f"dim {name}={value} exceeds its declared max={cap}")
+
+
+def _tree_padder(tree_axes: Tuple[Tuple[int, int], ...]) -> Callable:
+    """Bucket-pad every tensor leaf of a pytree argument (``TreeSpec``):
+    a zero tensor of the bucket shape on the leaf's own device, with the
+    leaf copied into its leading corner (the leaves are typically
+    resident card tensors, e.g. gathered KV-cache rows)."""
+    def pad_leaf(x, key):
+        shape = getattr(x, "shape", None)
+        if shape is None:
+            return x
+        want = list(shape)
+        for axis, sym in tree_axes:
+            if axis < len(want) and want[axis] < key[sym]:
+                want[axis] = key[sym]
+        if want == list(shape):
+            return x
+        buf = x.new_zeros(want)
+        buf[tuple(slice(0, n) for n in shape)] = x
+        return buf
+
+    def pad(tree, key):
+        return torch.utils._pytree.tree_map(lambda x: pad_leaf(x, key),
+                                            tree)
+
+    return pad
 
 
 
@@ -446,7 +536,10 @@ def generate_dispatch(
         w("            if not _ce.transient:")
         w("                _cache.note_escalation_failure(exact, _fp)")
         w("        if fn is not None:")
-        w("            return list(fn(*arrays))")
+        if lens.outputs is None:
+            w("            return fn(*arrays)")
+        else:
+            w("            return list(fn(*arrays))")
         ns["_compile_exact"] = compile_exact
         ns["_CompileError"] = CompileError
 
@@ -457,11 +550,18 @@ def generate_dispatch(
     w("    entry = _get(('bucket', _fp, key))")
     w("    if entry is None:")
     w("        entry = _compile(key)")
-    w("    lens = (" + "".join(f"s_{i}, " for i in range(n_syms)) + ")")
+    if lens.pass_lens:
+        w("    lens = (" + "".join(f"s_{i}, " for i in range(n_syms)) + ")")
 
     # --- padding plan: unrolled per argument (device-side zero-fill) ---
     call_args: List[str] = []
     for ai, ap in enumerate(lens.args):
+        if ap.tree_axes:
+            # pytree argument (TreeSpec): leaf-pad to the bucket key
+            w(f"    x{ai} = _padtree{ai}(arrays[{ai}], key)")
+            ns[f"_padtree{ai}"] = _tree_padder(ap.tree_axes)
+            call_args.append(f"x{ai}")
+            continue
         if not ap.dynamic:
             call_args.append(f"arrays[{ai}]")
             continue
@@ -482,7 +582,8 @@ def generate_dispatch(
         ns[f"_dt{ai}"] = as_torch(ap.dtype)
         call_args.append(var)
 
-    call = f"entry({', '.join(['lens'] + call_args)})"
+    entry_args = (["lens"] if lens.pass_lens else []) + call_args
+    call = f"entry({', '.join(entry_args)})"
     w("    _t1 = _clk()")
     w(f"    outs = {call}")
     w("    _t2 = _clk()")
@@ -493,9 +594,11 @@ def generate_dispatch(
         if not var.startswith("arrays["):
             w(f"    {var} = None  # plan: free staging")
 
-    # --- output recovery: slice back to true shapes ---------------------
+    # --- output recovery: slice back to true shapes (dhlo only) --------
+    if lens.outputs is None:
+        w("    return outs")
     out_exprs = []
-    for oi, axes in enumerate(lens.outputs):
+    for oi, axes in enumerate(lens.outputs or ()):
         idx_parts = []
         needs_slice = False
         for ax, a in enumerate(axes):
@@ -512,7 +615,8 @@ def generate_dispatch(
             out_exprs.append(f"outs[{oi}][{', '.join(idx_parts)}]")
         else:
             out_exprs.append(f"outs[{oi}]")
-    w("    return [" + ", ".join(out_exprs) + "]")
+    if lens.outputs is not None:
+        w("    return [" + ", ".join(out_exprs) + "]")
 
     src = "\n".join(header + lines)
 

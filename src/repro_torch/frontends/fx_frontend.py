@@ -50,7 +50,8 @@ from ..core.primitives import DOT_GENERAL_OP
 from ..core.propagation import collect_semantic_constraints
 from ..core.symshape import Dim, SymDim, SymShape, dim_value, fresh_symdim
 
-__all__ = ["ArgSpec", "UnsupportedPrimitiveError", "bridge", "eval_dim"]
+__all__ = ["ArgSpec", "TreeSpec", "UnsupportedPrimitiveError", "bridge",
+           "eval_dim"]
 
 aten = torch.ops.aten
 
@@ -71,6 +72,35 @@ class ArgSpec:
     shape: Tuple[Union[int, str], ...]
     dtype: Any = torch.float32
     name: str = ""
+
+
+class TreeSpec:
+    """Spec for a pytree argument whose tensor leaves share bucketed axes
+    (``pipeline="jit"`` only).
+
+    ``axes`` maps a leaf axis index to a symbolic dim (a name string, or a
+    ``Dim`` at the public-API layer): the generated dispatch zero-pads
+    every tensor leaf of the argument along those axes to the dim's
+    current bucket, on the leaf's own device.  The dim itself must also be
+    declared on some :class:`ArgSpec` argument — a pytree has no single
+    ``.shape`` to extract the symbol from.  The serving engine uses this
+    to thread a gathered batch of KV-cache rows through a
+    ``Dim("B")``-bucketed prefill artifact.
+    """
+
+    def __init__(self, axes):
+        items = sorted(axes.items()) if isinstance(axes, dict) else list(axes)
+        self.axes: Tuple[Tuple[int, Any], ...] = tuple(
+            (int(a), d) for a, d in items)
+
+    def __repr__(self) -> str:
+        return f"TreeSpec({dict(self.axes)!r})"
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, TreeSpec) and self.axes == other.axes
+
+    def __hash__(self) -> int:
+        return hash(self.axes)
 
 
 # representative primes for symbols — the JAX bridge's table, so a symbol
@@ -767,12 +797,17 @@ def _bridge_node(b: _Bridge, node, folds, skip, fold_out) -> None:
 
 
 def _trace(fn: Callable, arg_specs, sym_shapes, device) -> torch.fx.GraphModule:
+    """``make_fx`` of ``fn`` over fake examples on ``device``, with every
+    kernel wrapper in its plain version: a fake CUDA tensor must never
+    reach a kernel launch, and the traced plan is the plain one."""
     from torch._decomp import core_aten_decompositions
+
+    from ..kernels.select import plain_versions
 
     examples = [torch.empty(tuple(dim_value(d) for d in sh),
                             dtype=as_torch(spec.dtype), device=device)
                 for sh, spec in zip(sym_shapes, arg_specs)]
-    with torch.no_grad():
+    with torch.no_grad(), plain_versions():
         return make_fx(fn, tracing_mode="fake",
                        decomposition_table=core_aten_decompositions(),
                        _allow_non_fake_inputs=True)(*examples)
@@ -781,15 +816,21 @@ def _trace(fn: Callable, arg_specs, sym_shapes, device) -> torch.fx.GraphModule:
 def bridge(fn: Callable, arg_specs: Sequence[ArgSpec], *, name: str = "graph",
            collect_hints: bool = True,
            bounds: Optional[Dict[str, int]] = None,
-           device: Union[str, torch.device] = "cpu",
+           device: Union[str, torch.device] = "cuda",
            ) -> Tuple[DGraph, List[ArgSpec]]:
     """Lower ``fn`` to a DHLO graph, collecting shape constraints (§4.2.1).
 
     ``bounds`` maps symbol names to their declared ``Dim(max=...)`` caps,
     recorded in the constraint store up front (the memory planner reads
     them).  ``device`` is where the example inputs of the trace live: the
-    device of any tensors ``fn`` closes over.
+    device of any tensors ``fn`` closes over.  Like ``disc_torch.compile``
+    it defaults to the card and raises
+    :class:`~repro_torch.errors.NoDeviceError` when there is none; pass
+    ``device="cpu"`` to trace against CPU tensors on purpose.
     """
+    from ..api.options import resolve_device
+
+    device = resolve_device(device)
     b = _Bridge(name)
     sym_shapes: List[SymShape] = [
         tuple(b.symbol(s) if isinstance(s, str) else int(s)

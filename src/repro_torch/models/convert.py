@@ -6,6 +6,8 @@ The JAX package initialises a transformer as a nested dict of arrays whose
 takes the JAX tree *as numpy arrays* (``jax.tree.map(np.asarray, params)``
 on the JAX side — the port never imports JAX) and returns the port's tree
 on ``device``, leaf for leaf, so both packages compute the same function.
+:func:`cache_from_numpy` does the same for a KV cache, whose leaves both
+packages keep layer-stacked, (L, B, Hkv, S, hd).
 
 Like ``disc_torch.compile``, both functions put their tensors on the card
 unless the caller passes ``device="cpu"``, and raise
@@ -22,7 +24,7 @@ import torch
 from ..api.options import resolve_device
 from .common import ArchConfig
 
-__all__ = ["params_from_numpy", "tensor_from_numpy"]
+__all__ = ["params_from_numpy", "cache_from_numpy", "tensor_from_numpy"]
 
 
 def tensor_from_numpy(a: Any, device="cuda") -> torch.Tensor:
@@ -56,3 +58,11 @@ def params_from_numpy(np_tree: Dict[str, Any], cfg: ArchConfig,
         else:
             out[k] = _tree(v, device)
     return out
+
+
+def cache_from_numpy(np_tree: Dict[str, Any], device="cuda"
+                     ) -> Dict[str, torch.Tensor]:
+    """The JAX package's KV cache (``{"k", "v"}`` of layer-stacked
+    (L, B, Hkv, S, hd) leaves, as numpy) → the port's, on ``device``."""
+    device = resolve_device(device)
+    return {k: tensor_from_numpy(v, device) for k, v in np_tree.items()}

@@ -1,29 +1,39 @@
 """Model-zoo layers on the compiled path (PyTorch, single device).
 
 The counterparts of the JAX package's ``models/layers.py`` functions that
-the decoder stack of a dense transformer runs: RMS/LayerNorm, RoPE,
-full (no-cache) grouped-query attention and the (Swi)GLU MLP.  Each is a
-plain function of tensors with the reference's name and argument order,
-written so that it traces through the DHLO bridge into the same op
-structure the reference traces into (``dot_general`` for the grouped
-attention contractions, ``mean`` + ``rsqrt`` norms, explicit softmax).
+a dense transformer runs: RMS/LayerNorm, RoPE, grouped-query attention
+(full, batched prefill against a KV cache, and decode) and the (Swi)GLU
+MLP.  Each is a plain function of tensors with the reference's name and
+argument order.
+
+Attention and RMSNorm go through their kernels' wrappers
+(``kernels/flash_attention/ops.py``, ``kernels/rmsnorm/ops.py``): the
+CUDA C++ flash-attention and Triton RMSNorm kernels on the card, their
+plain versions on the CPU.  The DHLO bridge traces these functions inside
+``plain_versions()``, so they trace into the same op structure the
+reference traces into (``dot_general`` for the grouped attention
+contractions, ``mean`` + ``rsqrt`` norms, explicit softmax).
 
 ``maybe_shard`` is the identity: sharding arrives with the multi-GPU slice.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..core.primitives import dot_general
+from ..kernels.flash_attention import ops as fa_ops
+from ..kernels.flash_attention.ref import (  # noqa: F401 (reference names)
+    CHUNK_THRESHOLD as _CHUNK_THRESHOLD, pick_chunk as _pick_chunk,
+    q_positions as _q_positions, sdpa_chunked_ref as _sdpa_chunked)
+from ..kernels.rmsnorm import ops as rms_ops
 from .common import ArchConfig, dtype_of, param_init
 
 Params = Dict[str, Any]
 
 __all__ = ["norm_init", "norm_apply", "rope_tables", "apply_rope",
-           "attn_init", "attn_apply", "mlp_init", "mlp_apply", "maybe_shard"]
+           "attn_init", "attn_apply", "attn_cache_init", "mlp_init",
+           "mlp_apply", "maybe_shard"]
 
 
 def maybe_shard(x: torch.Tensor, spec: Any = None) -> torch.Tensor:
@@ -41,16 +51,17 @@ def norm_init(cfg: ArchConfig, device, d: Optional[int] = None) -> Params:
 
 
 def norm_apply(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    xf = x.float()
+    """LayerNorm (eps 1e-5) or RMSNorm (eps 1e-6), f32 accumulation, cast
+    back to x's dtype.  RMSNorm is the Triton kernel on the card and its
+    plain version (the reference's ops) on the CPU."""
     if cfg.norm == "layernorm":
+        xf = x.float()
         mu = xf.mean(-1, keepdim=True)
         xc = xf - mu
         var = (xc * xc).mean(-1, keepdim=True)
         y = xc * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
-    else:
-        ms = (xf * xf).mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + 1e-6) * p["scale"]
-    return y.to(x.dtype)
+        return y.to(x.dtype)
+    return rms_ops.rmsnorm(x, p["scale"], eps=1e-6)
 
 
 # ----------------------------------------------------------------- rope --
@@ -85,56 +96,30 @@ def attn_init(generator: torch.Generator, cfg: ArchConfig, device) -> Params:
     }
 
 
-_CHUNK_THRESHOLD = 2048  # beyond this, scores are never materialized
-
-
-def _q_positions(sq: int, q_offset: int, device) -> torch.Tensor:
-    """Absolute query positions (1, Sq) for a scalar cache offset."""
-    return (torch.arange(sq, device=device) + q_offset)[None, :]
-
-
-def _sdpa_chunked(q, k, v, *, causal: bool, lens, q_offset,
-                  scale: Optional[float] = None) -> torch.Tensor:
-    """Online-softmax attention for sequences whose (Sq, Sk) score matrix
-    must never exist.  It arrives with the serving slice."""
-    raise NotImplementedError(
-        f"attention over {q.shape[2]} query positions needs the chunked "
-        f"online-softmax path, which the port does not have yet; keep "
-        f"requests below {_CHUNK_THRESHOLD} tokens")
-
-
 def _sdpa(q, k, v, *, causal: bool, lens: Optional[torch.Tensor],
-          q_offset: int = 0) -> torch.Tensor:
-    """q (B,H,Sq,hd) x k,v (B,Hkv,Sk,hd) -> (B,H,Sq,hd); f32 softmax."""
-    b, h, sq, hd = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    if sq >= _CHUNK_THRESHOLD or sk > 4 * _CHUNK_THRESHOLD:
-        return _sdpa_chunked(q, k, v, causal=causal, lens=lens,
-                             q_offset=q_offset)
-    group = h // hkv
-    qf = q.float() / math.sqrt(hd)
-    # grouped contraction without materializing repeated K/V
-    qg = qf.reshape(b, hkv, group, sq, hd)
-    s = dot_general(qg, k.float(), (((4,), (3,)), ((0, 1), (0, 1))))
-    k_idx = torch.arange(sk, device=q.device)[None, None, None, None, :]
-    neg = -1e30
-    if lens is not None:
-        s = torch.where(k_idx < lens[:, None, None, None, None], s, neg)
-    if causal:
-        q_idx = _q_positions(sq, q_offset, q.device)[:, None, None, :, None]
-        s = torch.where(k_idx <= q_idx, s, neg)
-    m = s.amax(-1, keepdim=True)
-    e = torch.exp(s - m.detach())
-    p = e / e.sum(-1, keepdim=True)
-    o = dot_general(p, v.float(), (((4,), (2,)), ((0, 1), (0, 1))))
-    return o.reshape(b, h, sq, hd).to(q.dtype)
+          q_offset=0) -> torch.Tensor:
+    """q (B,H,Sq,hd) x k,v (B,Hkv,Sk,hd) -> (B,H,Sq,hd); f32 softmax.
+
+    ``q_offset`` is a scalar or a per-row (B,) vector (batched prefill).
+    On the card this is the flash-attention kernel (its decode form for
+    one query row); on the CPU, and inside ``plain_versions()``, the
+    reference's dense form, or ``_sdpa_chunked`` for long queries."""
+    return fa_ops.flash_attention(q, k, v, lens, causal=causal,
+                                  q_offset=q_offset)
 
 
 def attn_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                positions: torch.Tensor, lens: Optional[torch.Tensor] = None,
-               causal: bool = True):
-    """Full self-attention over x (B, S, D) (no KV cache: the decode and
-    batched-prefill branches arrive with the serving slice)."""
+               cache: Optional[Params] = None, causal: bool = True,
+               offsets: Optional[torch.Tensor] = None):
+    """Full attention; ``cache`` switches to decode mode (x is (B,1,D)).
+
+    ``cache`` + ``offsets`` switches to *batched prefill* mode instead
+    (serve path): x is a (B, S, D) chunk whose row r holds ``lens[r]``
+    true tokens destined for absolute cache positions
+    ``[offsets[r], offsets[r] + lens[r])``; the chunk's K/V are scattered
+    into the cache in one pass and queries attend causally against the
+    whole cache at absolute positions."""
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p["wq"]).reshape(b, s, h, hd)
@@ -146,9 +131,46 @@ def attn_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     q = q.transpose(1, 2)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
-    o = _sdpa(q, k, v, causal=causal, lens=lens, q_offset=0)
+    new_cache = None
+    if cache is not None and offsets is not None:
+        # batched prefill: scatter the chunk's K/V to absolute positions
+        # [offset, offset+len) per row — padded chunk positions are never
+        # written — then attend causally against the whole cache
+        kc, vc = cache["k"], cache["v"]
+        lc = kc.shape[2]
+        j = torch.arange(lc, device=x.device)[None, :] - offsets[:, None]
+        written = (j >= 0) & (j < lens[:, None])
+        idx = j.clamp(0, s - 1)[:, None, :, None].expand(b, hkv, lc, hd)
+        wmask = written[:, None, :, None]
+        kc = torch.where(wmask, torch.gather(k, 2, idx).to(kc.dtype), kc)
+        vc = torch.where(wmask, torch.gather(v, 2, idx).to(vc.dtype), vc)
+        new_cache = {"k": kc, "v": vc}
+        o = _sdpa(q, kc.to(q.dtype), vc.to(q.dtype), causal=True,
+                  lens=None, q_offset=offsets)
+    elif cache is not None:
+        # decode: append to the cache at position lens (per batch row)
+        kc, vc = cache["k"], cache["v"]
+        pos = torch.arange(kc.shape[2], device=x.device)[None, None, :, None]
+        write = pos == lens[:, None, None, None]
+        kc = torch.where(write, k.to(kc.dtype), kc)
+        vc = torch.where(write, v.to(vc.dtype), vc)
+        new_cache = {"k": kc, "v": vc}
+        o = _sdpa(q, kc.to(q.dtype), vc.to(q.dtype), causal=False,
+                  lens=lens + 1)
+    else:
+        o = _sdpa(q, k, v, causal=causal, lens=lens, q_offset=0)
     o = o.transpose(1, 2).reshape(b, s, h * hd)
-    return o @ p["wo"], None
+    return o @ p["wo"], new_cache
+
+
+def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int,
+                    device) -> Params:
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    dt = dtype_of(cfg)
+    return {"k": torch.zeros((batch, hkv, max_len, hd), dtype=dt,
+                             device=device),
+            "v": torch.zeros((batch, hkv, max_len, hd), dtype=dt,
+                             device=device)}
 
 
 # ------------------------------------------------------------------ mlp --

@@ -7,8 +7,13 @@ and unrolls the layers, which is what the DHLO bridge traces (the port's
 frontend lowers no control flow yet).
 
 The token embedding is a gather, which the DHLO pipeline does not lower:
-:func:`embed_tokens` runs outside ``disc_torch.compile``, and the
-compiled function starts from hidden states (:func:`decoder_logits`).
+on that pipeline :func:`embed_tokens` runs outside ``disc_torch.compile``,
+and the compiled function starts from hidden states
+(:func:`decoder_logits`).  The serve path (:func:`prefill`,
+:func:`decode_step`) runs whole, on the jit pipeline.
+
+The KV cache keeps the reference's layout: a dict of layer-stacked leaves
+``{"k", "v"}`` of shape (L, B, Hkv, S, hd) (:func:`init_cache`).
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ from .common import ArchConfig, dtype_of, param_init
 Params = Dict[str, Any]
 
 __all__ = ["block_init", "block_apply", "init", "embed_tokens",
-           "logits_from_hidden", "decoder_logits"]
+           "logits_from_hidden", "decoder_logits", "forward", "prefill",
+           "init_cache", "decode_step"]
 
 
 # ----------------------------------------------------------------- block --
@@ -34,10 +40,11 @@ def block_init(generator: torch.Generator, cfg: ArchConfig,
 
 
 def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *, positions,
-                lens: Optional[torch.Tensor] = None):
+                lens: Optional[torch.Tensor] = None,
+                cache: Optional[Params] = None, offsets=None):
     h = L.norm_apply(cfg, p["ln1"], x)
     a, new_cache = L.attn_apply(cfg, p["attn"], h, positions=positions,
-                                lens=lens)
+                                lens=lens, cache=cache, offsets=offsets)
     x = x + a
     h = L.norm_apply(cfg, p["ln2"], x)
     f = L.mlp_apply(cfg, p["ffn"], h)
@@ -84,3 +91,87 @@ def decoder_logits(cfg: ArchConfig, params: Params,
         x, _ = block_apply(cfg, bp, x, positions=positions)
     x = L.norm_apply(cfg, params["ln_f"], x)
     return logits_from_hidden(cfg, params, x)
+
+
+def _run_blocks(cfg: ArchConfig, blocks, x: torch.Tensor, *, positions,
+                lens, caches: Optional[Params] = None, offsets=None):
+    """Every layer in order; with ``caches`` (layer-stacked leaves), each
+    layer reads and writes its slice, and the new caches come back
+    stacked."""
+    if caches is None:
+        for bp in blocks:
+            x, _ = block_apply(cfg, bp, x, positions=positions, lens=lens)
+        return x, None
+    new = []
+    for i, bp in enumerate(blocks):
+        x, c = block_apply(cfg, bp, x, positions=positions, lens=lens,
+                           cache={k: v[i] for k, v in caches.items()},
+                           offsets=offsets)
+        new.append(c)
+    return x, {k: torch.stack([c[k] for c in new]) for k in caches}
+
+
+def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
+            lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward: tokens (B, S) -> logits (B, S, V)."""
+    x = embed_tokens(cfg, params, tokens)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    x, _ = _run_blocks(cfg, params["blocks"], x, positions=positions,
+                       lens=lens)
+    x = L.norm_apply(cfg, params["ln_f"], x)
+    return logits_from_hidden(cfg, params, x)
+
+
+# -------------------------------------------------------------- prefill --
+def _prefill_hidden(cfg: ArchConfig, params: Params, cache: Params,
+                    tokens: torch.Tensor, lens: torch.Tensor,
+                    offsets: torch.Tensor):
+    """The chunk pass of :func:`prefill`: embed, run the blocks at
+    absolute positions ``offset + arange(S)``, norm — returns the
+    (B, S, D) hidden states plus the updated cache."""
+    x = embed_tokens(cfg, params, tokens)
+    s = x.shape[1]
+    positions = offsets[:, None] + torch.arange(s, device=x.device)[None, :]
+    x, new_cache = _run_blocks(cfg, params["blocks"], x, positions=positions,
+                               lens=lens, caches=cache, offsets=offsets)
+    return L.norm_apply(cfg, params["ln_f"], x), new_cache
+
+
+def prefill(cfg: ArchConfig, params: Params, cache: Params,
+            tokens: torch.Tensor, lens: torch.Tensor, offsets: torch.Tensor):
+    """Single-pass batched prefill with cache offset (the serve path).
+
+    ``tokens`` (B, S) right-padded prompt chunks; ``lens`` (B,) true chunk
+    lengths; ``offsets`` (B,) current per-row cache fill (0 = fresh).  One
+    launch computes every chunk position's K/V, writes them at absolute
+    cache positions ``[offset, offset+len)``, and returns
+    ``(last_logits, new_cache)`` where ``last_logits[r]`` (V,) is the
+    logits at row r's final valid position — the head runs on that single
+    hidden state per row, never on the full (B, S, vocab) tensor.
+    """
+    x, new_cache = _prefill_hidden(cfg, params, cache, tokens, lens, offsets)
+    b = x.shape[0]
+    last = x[torch.arange(b, device=x.device), (lens - 1).clamp(min=0)]
+    return logits_from_hidden(cfg, params, last), new_cache
+
+
+# --------------------------------------------------------------- decode --
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device) -> Params:
+    """Zeroed KV cache: layer-stacked leaves (L, B, Hkv, max_len, hd)."""
+    one = L.attn_cache_init(cfg, batch, max_len, device)
+    return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
+            for k, v in one.items()}
+
+
+def decode_step(cfg: ArchConfig, params: Params, cache: Params,
+                tokens: torch.Tensor, lens: torch.Tensor):
+    """One decode step: tokens (B, 1), lens (B,) current cache fill ->
+    (logits (B, 1, V), new cache)."""
+    x = embed_tokens(cfg, params, tokens)
+    x, new_cache = _run_blocks(cfg, params["blocks"], x,
+                               positions=lens[:, None], lens=lens,
+                               caches=cache)
+    x = L.norm_apply(cfg, params["ln_f"], x)
+    return logits_from_hidden(cfg, params, x), new_cache

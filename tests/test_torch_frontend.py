@@ -52,7 +52,7 @@ def _ops(graph):
 
 def test_rank3_matmul_is_one_dot_general():
     w = torch.randn(64, 32)
-    g, _ = bridge(lambda x: x @ w, [ArgSpec((1, "S", 64))])
+    g, _ = bridge(lambda x: x @ w, [ArgSpec((1, "S", 64))], device="cpu")
     assert _ops(g) == ["dot_general"]
     (op,) = g.ops
     assert op.attrs["dimension_numbers"] == (((2,), (0,)), ((), ()))
@@ -63,7 +63,7 @@ def test_unsqueeze_chain_is_one_broadcast():
     def f(x):
         return x[:, None, None, :] * 2.0
 
-    g, _ = bridge(f, [ArgSpec(("B", "S"))])
+    g, _ = bridge(f, [ArgSpec(("B", "S"))], device="cpu")
     assert _ops(g) == ["broadcast_in_dim", "mul"]
     assert g.ops[0].attrs["broadcast_dimensions"] == (0, 3)
 
@@ -74,7 +74,7 @@ def test_lower_rank_operand_lifts_like_jnp():
     def f(x):
         return x * scale + 1.0
 
-    g, _ = bridge(f, [ArgSpec(("S", 64))])
+    g, _ = bridge(f, [ArgSpec(("S", 64))], device="cpu")
     assert _ops(g) == ["broadcast_in_dim", "mul", "add"]
     lit = g.ops[2].inputs[1]
     assert lit.rank == 0 and lit.dtype == torch.float32  # weakly typed
@@ -82,20 +82,22 @@ def test_lower_rank_operand_lifts_like_jnp():
 
 
 def test_mean_is_sum_then_div_and_keepdim_broadcasts():
-    g, _ = bridge(lambda x: x.mean(-1, keepdim=True), [ArgSpec(("S", 64))])
+    g, _ = bridge(lambda x: x.mean(-1, keepdim=True), [ArgSpec(("S", 64))],
+                  device="cpu")
     assert _ops(g) == ["reduce_sum", "broadcast_in_dim", "div"]
     assert g.ops[2].inputs[1].literal.item() == 64
 
 
 def test_reshape_merge_records_derived_dim():
-    g, _ = bridge(lambda x: (x * 2.0).reshape(-1, 8), [ArgSpec(("B", "S", 8))])
+    g, _ = bridge(lambda x: (x * 2.0).reshape(-1, 8), [ArgSpec(("B", "S", 8))],
+                  device="cpu")
     out = g.outputs[0].shape[0]
     assert g.dim_exprs[out.uid][0] == "mul"
 
 
 def test_dynamic_concat_records_sum_dim():
     g, _ = bridge(lambda x, y: torch.cat([x, y], dim=0),
-                  [ArgSpec(("S", 4)), ArgSpec(("T", 4))])
+                  [ArgSpec(("S", 4)), ArgSpec(("T", 4))], device="cpu")
     out = g.outputs[0].shape[0]
     assert g.dim_exprs[out.uid][0] == "sum"
 
@@ -105,7 +107,7 @@ def test_chunk_becomes_slices_with_equal_shape_hint():
         a, b = torch.chunk(x, 2, dim=-1)
         return a * b
 
-    g, _ = bridge(f, [ArgSpec(("S", 32))])
+    g, _ = bridge(f, [ArgSpec(("S", 32))], device="cpu")
     assert _ops(g) == ["slice", "slice", "mul"]
     s1, s2 = g.ops[0].outputs[0], g.ops[1].outputs[0]
     assert g.store.sizes_equal(s1.vid, s2.vid)
@@ -113,7 +115,8 @@ def test_chunk_becomes_slices_with_equal_shape_hint():
 
 def test_mixed_dtypes_get_explicit_converts():
     g, _ = bridge(lambda x, y: x + y, [ArgSpec(("S",), torch.bfloat16),
-                                       ArgSpec(("S",), torch.float32)])
+                                       ArgSpec(("S",), torch.float32)],
+                  device="cpu")
     assert _ops(g) == ["convert", "add"]
     assert g.ops[1].outputs[0].dtype == torch.float32
 
@@ -121,14 +124,16 @@ def test_mixed_dtypes_get_explicit_converts():
 def test_gather_is_unsupported_and_named():
     table = torch.randn(100, 8)
     with pytest.raises(UnsupportedPrimitiveError, match="embedding|index"):
-        bridge(lambda ids: table[ids], [ArgSpec(("S",), torch.int64)])
+        bridge(lambda ids: table[ids], [ArgSpec(("S",), torch.int64)],
+               device="cpu")
 
 
 def test_dot_general_primitive_keeps_batch_dims():
     def f(q, k):
         return disc_torch.dot_general(q, k, (((3,), (3,)), ((0, 1), (0, 1))))
 
-    g, _ = bridge(f, [ArgSpec((1, 2, "S", 16)), ArgSpec((1, 2, "T", 16))])
+    g, _ = bridge(f, [ArgSpec((1, 2, "S", 16)), ArgSpec((1, 2, "T", 16))],
+                  device="cpu")
     assert _ops(g) == ["dot_general"]
     shape = g.outputs[0].shape
     assert shape[:2] == (1, 2)
