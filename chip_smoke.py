@@ -77,12 +77,37 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    checked to be exactly 0; timed against the plain version and a
    PyTorch library call (``F.scaled_dot_product_attention``,
    ``F.rms_norm``), a yardstick the port never calls.
-9. Prints the kernels line, the card line, and the result line last.
+9. **Path 4 ("serve", recurrent).**  RWKV-6 3B at full width and all
+   32 layers (d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536,
+   LayerNorm; random bf16 weights from a seeded ``torch.Generator``,
+   upcast for the f32 run), f32 then bf16, served by the same engine
+   with the same six requests, unchunked, inside ``plain_versions()``
+   and chunked at 512 (the chunked run continues each prompt from the
+   cache's state: the WKV kernel's ``s0``).  Every time mix runs the
+   CUDA C++ WKV kernel and every LayerNorm the Triton one.  Checks:
+   prefill compiles == distinct (B, S) buckets, decode compiles == 1;
+   WKV launches == 32 and LayerNorm launches == 65 per prefill launch
+   and decode step, the plain run none; chunked vs unchunked under path
+   3's rules in both dtypes, kernels vs plain under them in f32.  In
+   bf16 two equally exact evaluations of this random 32-layer model
+   part by far more than 2e-2 (PERF.md, PR 14), so kernels vs plain
+   there is an accuracy check: each request's first-token logits, from
+   both runs, against the f32 run over the same weights; the kernels'
+   may lie at most 1.25 times as far.  Prints time to first token and
+   decode ms per step.
+10. **Recurrent kernels.**  WKV at B = 1, T = 2048 from a zero state; on
+    a 512-step chunk from a non-zero state beside a row of ``lens = 0``
+    (whose state must come back bit for bit and whose y must be 0); and
+    the decode step at B = 4, T = 1.  LayerNorm on 2048 x 2560.  Each
+    against its plain version on the same card inputs, timed against
+    the plain version and, for LayerNorm, ``F.layer_norm`` (WKV has no
+    PyTorch call).
+11. Prints the kernels line, the card line, and the result line last.
 
 Run it from a checkout: it builds the kernels from ``src/`` into
 ``build/torch_kernels/`` and refuses to run without the repository or
 without a CUDA device.  ``--layers`` cuts the depth of paths 1 and 2;
-path 3 always runs all 22 layers.
+paths 3 and 4 always run all their layers (22 and 32).
 """
 from __future__ import annotations
 
@@ -151,6 +176,29 @@ KERNELS = {
         "source": "src/repro_torch/kernels/rmsnorm/rmsnorm.py",
         "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:26",
     },
+    "layernorm": {
+        "route": "triton",
+        "source": "src/repro_torch/kernels/layernorm/layernorm.py",
+        "replaces": "src/repro/kernels/layernorm/layernorm.py:24",
+    },
+    "rwkv6": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6/rwkv6.py:60",
+    },
+}
+
+# per serve path: the config; the wrappers it launches and how many
+# launches each makes per prefill launch and decode step (L layers); and
+# whether its weights are bf16-valued in both dtypes (then the f32 run
+# evaluates the bf16 run's function in f32: its accuracy reference)
+SERVE_PATHS = {
+    "path3": ("tinyllama_11b",
+              lambda n: {"flash_attention": n, "rmsnorm": 2 * n + 1},
+              False),
+    "path4": ("rwkv6_3b",
+              lambda n: {"rwkv6": n, "layernorm": 2 * n + 1},
+              True),
 }
 
 # path 3 (serve): prompt lengths, new tokens per request, engine shape
@@ -162,10 +210,18 @@ SERVE_BATCH, SERVE_SEQ, SERVE_CHUNK = 4, 2048, 512
 # two equally exact evaluations round differently and 22 layers amplify
 # it (PERF.md: up to 1.9e-2 between compiled and eager on paths 1-2)
 TOL_SERVE = {"f32": 1e-3, "bf16": 2e-2}
-# flash attention / RMSNorm kernel vs plain version at the path's shapes:
-# f32 by summation order; bf16 by one output rounding (2^-8) where the
-# f32 sums differ
+# flash attention / RMSNorm / LayerNorm / WKV output vs plain version at
+# the path's shapes: f32 by summation order; bf16 by one output rounding
+# (2^-8) where the f32 sums differ
 TOL_SERVE_KERNEL = {"f32": 1e-5, "bf16": 8e-3}
+# the cache after a serve run's first prefill launch and first decode
+# step vs the same launch replayed with the plain versions: the first
+# layers' leaves are held to TOL_SERVE_KERNEL, before depth amplifies the
+# difference (the deeper layers' are printed)
+CACHE_CHECK_LAYERS = 2
+# the WKV kernel's final state (f32 in both dtypes) vs its plain version:
+# fused multiply-adds and the order of the dot over K
+TOL_WKV_STATE = 1e-5
 
 # §4.5 library phase: a shape from TinyLlama's widths per entry, and the
 # entry the reference's selection rules give it
@@ -325,6 +381,7 @@ def start_cuda_builds(arts: list):
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention.flash_attention import \
         source_job
+    from repro_torch.kernels.rwkv6.rwkv6 import source_job as wkv_job
     from repro_torch.kernels.matmul.matmul import (CSRC, LIBRARY_TILES,
                                                    identity_program,
                                                    kernel_source)
@@ -337,6 +394,7 @@ def start_cuda_builds(arts: list):
              for dt in (torch.float32, torch.bfloat16)]
     sources = [(*kernel_source(p, dt, tuple(t)), [CSRC]) for p, dt, t in jobs]
     sources.append(source_job())   # the flash-attention library (path 3)
+    sources.append(wkv_job())      # the WKV library (path 4)
     result: dict = {"sources": len(sources)}
 
     def run():
@@ -899,7 +957,18 @@ def serve_engine_class():
             self.logits = {}     # (rid, token index) -> (V,) f32 on host
             self.arrived = {}    # rid -> host seconds of its first token
             self.step_s = {"prefill": [], "decode": []}
+            self.first = {}      # kind -> (fn, params, args, new cache)
             self.t0 = time.perf_counter()
+
+        def _launch(self, kind, fn, *args):
+            # the inputs and the new cache of the first launch of a kind
+            first = kind not in self.first
+            if first:
+                inputs = clone_tree(args[1:])
+            out = super()._launch(kind, fn, *args)
+            if first:
+                self.first[kind] = (fn, args[0], inputs, clone_tree(out[1]))
+            return out
 
         def _next_tokens(self, slots, logits):
             ids = super()._next_tokens(slots, logits)  # synchronises
@@ -925,18 +994,46 @@ def serve_engine_class():
     return Recording
 
 
+def clone_tree(tree):
+    """A copy of every tensor in nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def tree_leaves(tree, prefix: str = ""):
+    """(dotted name, tensor) of every leaf of nested dicts."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in tree_leaves(tree[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def serve_counters() -> dict:
+    """The launch counters of every serve-path kernel, by name."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.layernorm import ops as ln
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.kernels.rwkv6 import ops as wkv
+
+    return {"flash_attention": fa.LAUNCHES, "rmsnorm": rms.LAUNCHES,
+            "layernorm": ln.LAUNCHES, "rwkv6": wkv.LAUNCHES}
+
+
 def serve_run(model, params, cfg_kw: dict, requests: list, plain: bool):
     """One engine over ``requests`` until done; returns the engine and the
-    kernel launches its run made (counts set to 0 just before)."""
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.rmsnorm import ops as rms
+    launches of every serve kernel in its run (counts set to 0 just
+    before)."""
     from repro_torch.kernels.select import plain_versions
     from repro_torch.serve.engine import ServeConfig
 
     eng = serve_engine_class()(model, params, ServeConfig(
         max_batch=SERVE_BATCH, max_seq=SERVE_SEQ, **cfg_kw))
-    fa.LAUNCHES.reset()
-    rms.LAUNCHES.reset()
+    counters = serve_counters()
+    for c in counters.values():
+        c.reset()
     eng.t0 = time.perf_counter()
     eng.submit(requests)
     if plain:
@@ -946,8 +1043,7 @@ def serve_run(model, params, cfg_kw: dict, requests: list, plain: bool):
         eng.run_until_done()
     import torch
     torch.cuda.synchronize()
-    return eng, {"flash_attention": fa.LAUNCHES.launches,
-                 "rmsnorm": rms.LAUNCHES.launches}
+    return eng, {k: c.launches for k, c in counters.items()}
 
 
 def rel_err(got, ref) -> float:
@@ -992,8 +1088,41 @@ def compare_streams(tag: str, got, ref, tol: float, exact: bool) -> dict:
     return agree
 
 
-def serve_phase(dname: str, seed: int, report: dict):
-    """Path 3 in one dtype: kernels, plain versions, chunked."""
+def cache_check(tag: str, eng, dname: str) -> None:
+    """The first prefill launch and the first decode step of a kernels
+    run, replayed on the same inputs with the plain versions: per cache
+    leaf and layer, max|d|/max|ref| (0 where both are 0).  The first
+    ``CACHE_CHECK_LAYERS`` layers are held to ``TOL_SERVE_KERNEL``; every
+    layer's is printed, to show how depth amplifies the difference."""
+    from repro_torch.kernels.select import plain_versions
+
+    tol = TOL_SERVE_KERNEL[dname]
+    for kind in ("prefill", "decode"):
+        fn, params, args, got = eng.first[kind]
+        with plain_versions():
+            _, want = fn(params, *clone_tree(args))
+        for (name, g), (_, w) in zip(tree_leaves(got), tree_leaves(want)):
+            errs = []
+            for gl, wl in zip(g.float(), w.float()):
+                d, m = (gl - wl).abs().max().item(), wl.abs().max().item()
+                errs.append(d / m if m else d)
+            print(f"{tag} first {kind} launch, kernels vs plain on its "
+                  f"inputs: {name} max|d|/max|ref| by layer "
+                  f"{[float(f'{e:.2e}') for e in errs]}", flush=True)
+            check(all(e <= tol for e in errs[:CACHE_CHECK_LAYERS]),
+                  f"{tag} first {kind} launch: {name} of layers "
+                  f"0-{CACHE_CHECK_LAYERS - 1} max|d|/max|ref| "
+                  f"{errs[:CACHE_CHECK_LAYERS]} > {tol}")
+
+
+def serve_phase(path: str, dname: str, seed: int, report: dict,
+                accuracy_ref=None):
+    """A serve path (3: TinyLlama, 4: RWKV-6 3B) in one dtype: kernels,
+    plain versions, chunked.  With ``accuracy_ref`` (each request's
+    first-token logits from an f32 run over the same weights), kernels vs
+    plain is the accuracy check of :func:`accuracy_check` instead of the
+    stream rules.  Returns the config, the decode fills of the first
+    four requests, and the kernels run's first-token logits."""
     import dataclasses
 
     import numpy as np
@@ -1003,11 +1132,15 @@ def serve_phase(dname: str, seed: int, report: dict):
     from repro_torch.data.pipeline import Request
     from repro_torch.models.registry import get_model
 
-    tag = f"[path3 {dname}]"
-    cfg = dataclasses.replace(get_config("tinyllama_11b"), dtype=dname)
+    tag = f"[{path} {dname}]"
+    arch, per_step, bf16_weights = SERVE_PATHS[path]
+    cfg = dataclasses.replace(get_config(arch), dtype=dname)
     model = get_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = model.init(gen, "cuda")
+    wcfg = dataclasses.replace(cfg, dtype="bf16") if bf16_weights else cfg
+    params = get_model(wcfg).init(gen, "cuda")
+    if wcfg.dtype != dname:
+        params = to_f32(params)
     rs = np.random.RandomState(seed)
     prompts = [rs.randint(0, cfg.vocab, size=n).astype(np.int32)
                for n in SERVE_PROMPTS]
@@ -1016,7 +1149,7 @@ def serve_phase(dname: str, seed: int, report: dict):
         return [Request(rid=i, tokens=p, max_new_tokens=SERVE_NEW_TOKENS)
                 for i, p in enumerate(prompts)]
 
-    launches = {"flash_attention": 0, "rmsnorm": 0}
+    launches = dict.fromkeys(serve_counters(), 0)
     runs = {}
     for label, kw, plain in (("kernels", {}, False),
                              ("plain", {}, True),
@@ -1041,11 +1174,12 @@ def serve_phase(dname: str, seed: int, report: dict):
         check(cc["decode"]["total"] == 1,
               f"{tag} {label}: {cc['decode']} decode compiles")
         if plain:
-            check(counted == {"flash_attention": 0, "rmsnorm": 0},
+            check(not any(counted.values()),
                   f"{tag} plain run launched kernels: {counted}")
             continue
-        want = {"flash_attention": cfg.n_layers * steps,
-                "rmsnorm": (2 * cfg.n_layers + 1) * steps}
+        want = dict.fromkeys(counted, 0)
+        want.update({k: n * steps
+                     for k, n in per_step(cfg.n_layers).items()})
         check(counted == want, f"{tag} {label}: launches {counted}, the "
                                f"path predicts {want}")
         for k in launches:
@@ -1067,17 +1201,42 @@ def serve_phase(dname: str, seed: int, report: dict):
         check(all(bool(torch.isfinite(x).all())
                   for x in eng.logits.values()),
               f"{tag} {label}: non-finite logits")
+    cache_check(f"{tag} kernels", runs["kernels"], dname)
     tol = TOL_SERVE[dname]
     exact = dname == "f32"
-    compare_streams(f"{tag} kernels vs plain", runs["kernels"],
-                    runs["plain"], tol, exact)
+    if accuracy_ref is None:
+        compare_streams(f"{tag} kernels vs plain", runs["kernels"],
+                        runs["plain"], tol, exact)
+    else:
+        accuracy_check(f"{tag} kernels vs plain", runs, accuracy_ref)
     compare_streams(f"{tag} chunked vs unchunked", runs["chunked"],
                     runs["kernels"], tol, exact)
-    report[("path3", dname)] = dict(launches=launches)
+    report[(path, dname)] = dict(launches=launches)
     fills = [n + SERVE_NEW_TOKENS // 2 for n in SERVE_PROMPTS[:SERVE_BATCH]]
+    first = {rid: runs["kernels"].logits[(rid, 0)]
+             for rid in runs["kernels"].done}
     del runs, params
     torch.cuda.empty_cache()
-    return cfg, fills
+    return cfg, fills, first
+
+
+def accuracy_check(tag: str, runs: dict, ref: dict) -> None:
+    """bf16 kernels vs plain versions where two bf16 evaluations of the
+    model part too far for the stream rules (RWKV-6 3B with random
+    weights: PERF.md, PR 14): each request's first-token logits, from
+    the kernels run and from the plain run, against ``ref``, the f32 run
+    over the same weights.  The kernels' may lie at most
+    ``ACCURACY_RATIO`` times as far from it as the plain versions' do,
+    the rule paths 1-2 hold their bf16 outputs to."""
+    for rid, want in sorted(ref.items()):
+        got, plain = (runs[k].logits[(rid, 0)] for k in ("kernels", "plain"))
+        e_k, e_p = rel_err(got, want), rel_err(plain, want)
+        print(f"{tag} request {rid}: first-token logits vs f32 "
+              f"max|d|/max|ref| kernels {e_k:.3e} plain {e_p:.3e} "
+              f"(kernels vs plain {rel_err(got, plain):.3e})", flush=True)
+        check(e_k <= ACCURACY_RATIO * e_p,
+              f"{tag} request {rid}: kernels {e_k:.3e} from f32, more than "
+              f"{ACCURACY_RATIO} x the plain versions' {e_p:.3e}")
 
 
 def attention_bound(q_shape, kv_rows: int, hkv: int, pairs: int, elt: int,
@@ -1271,6 +1430,168 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list):
     rows.append((row, detail))
 
 
+def wkv_cost(b: int, h: int, n: int, steps: list, t: int, elt: int,
+             with_s0: bool):
+    """(bound_ms, bound_by, bytes, flops) of one WKV call: r, k, v (elt
+    bytes) and w (f32) of the valid steps read once, y (all T steps,
+    zero past a row's length) and the final state written once, s0 read
+    once where given.  Per state element and valid step, on f32 FFMA in
+    both dtypes: in f32 5 flops (r*s + y, k*v, w*s + kv), since the bonus
+    factors out of the dot, y = r.s + (sum_k r_k u_k k_k) v; in bf16 7
+    (k*v, u*kv + s, r*tmp + y, w*s + kv), since k*v is rounded per
+    element, as the model's decode step rounds it."""
+    valid = sum(steps)
+    nbytes = (valid * h * n * (3 * elt + 4) + b * t * h * n * elt
+              + b * h * n * n * 4 * (2 if with_s0 else 1) + h * n * 4)
+    flops = (5 if elt == 4 else 7) * h * n * n * valid
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
+
+
+def rwkv_kernel_phase(cfg, dname: str, report: dict, rows: list):
+    """The WKV and LayerNorm kernels at path 4's shapes, each against its
+    plain version on the same card inputs, timed against the plain
+    version (and ``F.layer_norm`` for LayerNorm)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.layernorm import ops as ln
+    from repro_torch.kernels.rwkv6 import ops as wkv
+    from repro_torch.kernels.select import plain_versions
+
+    dt = torch.float32 if dname == "f32" else torch.bfloat16
+    elt = torch.empty((), dtype=dt).element_size()
+    h, n, d = cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    tol = TOL_SERVE_KERNEL[dname]
+    launches = report[("path4", dname)]["launches"]
+
+    def inputs(b, t):
+        """r, k, v as the path's (B, H, T, N) views of token-major
+        projections; w the f32 decay exp(-exp(clip(x, -8, 4)))."""
+        def proj():
+            return torch.randn((b, t, h, n), generator=gen, device="cuda") \
+                .to(dt).transpose(1, 2)
+
+        w = torch.exp(-torch.exp(torch.randn(
+            (b, t, h, n), generator=gen, device="cuda").clamp(-8, 4)))
+        return (proj(), proj(), proj(), w.transpose(1, 2),
+                0.1 * torch.randn((h, n), generator=gen, device="cuda"))
+
+    def state(b):
+        return torch.randn((b, h, n, n), generator=gen, device="cuda")
+
+    cases = []
+    r, k, v, w, u = inputs(1, SERVE_SEQ)
+    cases.append(dict(label=f"prefill B=1 T={SERVE_SEQ} s0=0",
+                      args=(r, k, v, w, u, None, None), steps=[SERVE_SEQ]))
+    r, k, v, w, u = inputs(2, SERVE_CHUNK)
+    s0 = state(2)
+    lens = torch.tensor([SERVE_CHUNK, 0], dtype=torch.int32, device="cuda")
+    cases.append(dict(label=f"chunk B=2 T={SERVE_CHUNK} from s0, lens "
+                            f"{lens.tolist()}",
+                      args=(r, k, v, w, u, s0, lens), steps=[SERVE_CHUNK, 0],
+                      zero_row=1))
+    r, k, v, w, u = inputs(SERVE_BATCH, 1)
+    cases.append(dict(label=f"decode B={SERVE_BATCH} T=1 from s0",
+                      args=(r, k, v, w, u, state(SERVE_BATCH), None),
+                      steps=[1] * SERVE_BATCH))
+
+    for c in cases:
+        def run(c=c):
+            return wkv.rwkv6(*c["args"])
+
+        def plain(run=run):
+            with plain_versions():
+                return run()
+
+        before = wkv.LAUNCHES.launches
+        y, s1 = run()
+        check(wkv.LAUNCHES.launches == before + 1,
+              "rwkv6 wrapper launched no kernel")
+        y_p, s1_p = plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all() and torch.isfinite(s1).all()),
+              f"rwkv6 {dname} {c['label']}: non-finite output")
+        err = (y.float() - y_p.float()).abs().max().item()
+        scale = y_p.float().abs().max().item()
+        s_rel = rel_err(s1, s1_p)
+        zero_ok = True
+        if "zero_row" in c:
+            z, s0 = c["zero_row"], c["args"][5]
+            zero_ok = (not y[z].any()) and torch.equal(s1[z], s0[z])
+        b, _, t, _ = c["args"][0].shape
+        bound_ms, bound_by, nbytes, flops = wkv_cost(
+            b, h, n, c["steps"], t, elt, c["args"][5] is not None)
+        ms = cuda_ms(run)
+        row = dict(name="rwkv6", **KERNELS["rwkv6"],
+                   launches=launches["rwkv6"], max_abs_err=err, ms=ms,
+                   plain_ms=cuda_ms(plain, reps=3), bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None)
+        detail = dict(dtype=dname, case=c["label"], max_ref=scale,
+                      max_rel=err / scale, state_max_rel=s_rel,
+                      bytes=nbytes, flops=flops, tflops=flops / ms / 1e9,
+                      path_launches_of_program=launches["rwkv6"],
+                      library_call="none", zero_row_ok=zero_ok)
+        print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
+        check(err / scale <= tol, f"rwkv6 {dname} {c['label']}: "
+                                  f"max|d|/max|ref| {err / scale:.3e} > "
+                                  f"{tol}")
+        check(s_rel <= TOL_WKV_STATE, f"rwkv6 {dname} {c['label']}: state "
+                                      f"max|d|/max|ref| {s_rel:.3e}")
+        check(zero_ok, f"rwkv6 {dname} {c['label']}: the lens = 0 row's y "
+                       f"is not 0 or its state moved")
+        rows.append((row, detail))
+
+    # LayerNorm on 2048 x 2560 (the norm of a 2048-token prefill); rows
+    # off zero mean, as a residual stream is
+    x = (torch.randn((SERVE_SEQ, d), generator=gen, device="cuda")
+         + 3.0).to(dt)
+    g = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    g_lib, bias_lib = g.to(dt), bias.to(dt)
+
+    def run_ln():
+        return ln.layernorm(x, g, bias, eps=1e-5)
+
+    def plain_ln():
+        with plain_versions():
+            return run_ln()
+
+    before = ln.LAUNCHES.launches
+    got = run_ln()
+    check(ln.LAUNCHES.launches == before + 1,
+          "layernorm wrapper launched no kernel")
+    want = plain_ln()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    nbytes = 2 * x.numel() * elt + 2 * d * 4
+    flops = 7 * x.numel()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS * 1e3
+    lib = lambda: F.layer_norm(x, (d,), weight=g_lib, bias=bias_lib,
+                               eps=1e-5)
+    row = dict(name="layernorm", **KERNELS["layernorm"],
+               launches=launches["layernorm"], max_abs_err=err,
+               ms=cuda_ms(run_ln), plain_ms=cuda_ms(plain_ln),
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               library_ms=cuda_ms(lib))
+    detail = dict(dtype=dname, case=f"{SERVE_SEQ}x{d}", max_ref=scale,
+                  max_rel=err / scale, bytes=nbytes,
+                  path_launches_of_program=launches["layernorm"],
+                  library_call="F.layer_norm (weight and bias in the "
+                               "input's dtype)",
+                  library_max_rel=rel_err(lib().float(), want.float()))
+    print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
+    check(err / scale <= tol, f"layernorm {dname}: max|d|/max|ref| "
+                              f"{err / scale:.3e} > {tol}")
+    rows.append((row, detail))
+
+
 def summary(rows: list, report: dict) -> list:
     """One entry per kernel: its most-launched f32 program at the path's
     shapes stands for it; ``launches`` sums every path's counted runs."""
@@ -1364,9 +1685,19 @@ def main(argv=None) -> int:
               flush=True)
         for dname in ("bf16", "f32"):
             t0 = time.perf_counter()
-            cfg, fills = serve_phase(dname, args.seed, report)
+            cfg, fills, _ = serve_phase("path3", dname, args.seed, report)
             serve_kernel_phase(cfg, dname, fills, report, rows)
             print(f"[phase path3 {dname}] {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            torch.cuda.empty_cache()
+        first_f32 = None  # path 4's bf16 accuracy reference
+        for dname in ("f32", "bf16"):
+            t0 = time.perf_counter()
+            cfg, _, first = serve_phase("path4", dname, args.seed, report,
+                                        accuracy_ref=first_f32)
+            first_f32 = first
+            rwkv_kernel_phase(cfg, dname, report, rows)
+            print(f"[phase path4 {dname}] {time.perf_counter() - t0:.1f} s",
                   flush=True)
             torch.cuda.empty_cache()
     except PhaseError as e:

@@ -1,11 +1,12 @@
 """Architecture configs ported so far (exact public-literature dimensions).
 
-``get_config("tinyllama_11b")`` returns the config; the other architectures
+``get_config("tinyllama_11b")`` (dense) and ``get_config("rwkv6_3b")``
+(recurrent) return the configs; the other architectures
 of the JAX package's ``repro.configs`` arrive with their model families.
 """
 from importlib import import_module
 
-ARCH_IDS = ["tinyllama_11b"]
+ARCH_IDS = ["tinyllama_11b", "rwkv6_3b"]
 
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 

@@ -1,0 +1,42 @@
+"""Wrapper of the RWKV-6 WKV kernel: picks kernel or plain version by
+device.
+
+A CUDA tensor launches the CUDA C++ kernel (and counts the launch); a
+CPU tensor, or any tensor inside
+:func:`~repro_torch.kernels.select.plain_versions`, runs the plain
+version in ``ref.py``.  There is no fallback: a kernel that fails to
+build or launch raises.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..select import use_kernel
+from ..triton_build import LaunchCounter
+from .ref import rwkv6_ref
+
+__all__ = ["rwkv6", "LAUNCHES"]
+
+#: launches of the WKV kernel on the card
+LAUNCHES = LaunchCounter()
+
+
+def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          w: torch.Tensor, u: torch.Tensor,
+          s0: Optional[torch.Tensor] = None,
+          lens: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The WKV recurrence over r, k, v, w (B, H, T, N) with bonus u
+    (H, N), from state ``s0`` (B, H, N, N) f32 (None: zeros), for the
+    first ``lens[b]`` steps of each row (None: all T).  Returns ``(y,
+    s_final)``: y (B, H, T, N) in r's dtype, exactly 0 at steps past a
+    row's length; s_final f32, ``s0`` itself for a row of length 0."""
+    if not use_kernel(r, "rwkv6"):
+        return rwkv6_ref(r, k, v, w, u, s0, lens)
+    from .rwkv6 import rwkv6_kernel
+
+    out = rwkv6_kernel(r, k, v, w, u, s0, lens)
+    LAUNCHES.launches += 1
+    return out

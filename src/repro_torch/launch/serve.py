@@ -3,11 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_11b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_11b \\
         --reduced --device cpu --max-seq 128 --max-batch 2   # plain versions
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \\
+        --reduced --device cpu
 
 Weights are random, drawn from a seeded ``torch.Generator``; requests
 come from :class:`~repro_torch.data.pipeline.VarLenRequestStream`.  The
-model, its KV cache and every kernel run on the card unless ``--device
-cpu`` is given.
+model, its cache (KV rows or recurrent state) and every kernel run on
+the card unless ``--device cpu`` is given.
 """
 import argparse
 import dataclasses

@@ -11,11 +11,12 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
-__all__ = ["ArchConfig", "param_init", "DTYPES", "dtype_of"]
+__all__ = ["ArchConfig", "param_init", "DTYPES", "dtype_of",
+           "greedy_decode"]
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -169,3 +170,35 @@ def param_init(generator: torch.Generator, shape: Tuple[int, ...], dtype,
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
     return (w * scale).to(dtype)
+
+
+def greedy_decode(step_fn: Callable, cache, first_tokens: torch.Tensor,
+                  lens: torch.Tensor, *, max_new: int, eos_id: int):
+    """Greedy autoregressive decode: the reference's ``lax.while_loop``
+    (``models/common.py`` ``greedy_decode``) as a Python loop.
+
+    ``step_fn(cache, tokens, lens) -> (logits, cache)`` is a decode step
+    already closed over params.  The loop exits early once every row has
+    emitted ``eos_id`` (one host read of the done mask per step).  Rows
+    that finish keep emitting ``eos_id`` (their buffer stays frozen); the
+    cache still advances for every row, as in the reference.
+
+    Returns ``(tokens (B, max_new) int32, n_steps, cache)``.
+    """
+    b = first_tokens.shape[0]
+    dev = first_tokens.device
+    buf = torch.full((b, max_new), eos_id, dtype=torch.int32, device=dev)
+    cur = first_tokens.to(torch.int32).reshape(b, 1)
+    lens = lens.to(torch.int32)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    n = 0
+    while n < max_new and not bool(done.all()):
+        logits, cache = step_fn(cache, cur, lens)
+        nxt = logits[:, -1, :].argmax(-1).to(torch.int32)
+        nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+        buf[:, n] = nxt
+        done = done | (nxt == eos_id)
+        cur = nxt[:, None]
+        lens = lens + 1
+        n += 1
+    return buf, n, cache

@@ -6,8 +6,10 @@ The JAX package initialises a transformer as a nested dict of arrays whose
 takes the JAX tree *as numpy arrays* (``jax.tree.map(np.asarray, params)``
 on the JAX side — the port never imports JAX) and returns the port's tree
 on ``device``, leaf for leaf, so both packages compute the same function.
-:func:`cache_from_numpy` does the same for a KV cache, whose leaves both
-packages keep layer-stacked, (L, B, Hkv, S, hd).
+:func:`cache_from_numpy` does the same for a cache, whose leaves both
+packages keep layer-stacked: the dense KV cache ``{"k", "v"}`` of
+(L, B, Hkv, S, hd) leaves, or RWKV's nested state ``{"tmix": {"s",
+"x_prev"}, "cmix_x"}``.
 
 Like ``disc_torch.compile``, both functions put their tensors on the card
 unless the caller passes ``device="cpu"``, and raise
@@ -61,8 +63,8 @@ def params_from_numpy(np_tree: Dict[str, Any], cfg: ArchConfig,
 
 
 def cache_from_numpy(np_tree: Dict[str, Any], device="cuda"
-                     ) -> Dict[str, torch.Tensor]:
-    """The JAX package's KV cache (``{"k", "v"}`` of layer-stacked
-    (L, B, Hkv, S, hd) leaves, as numpy) → the port's, on ``device``."""
+                     ) -> Dict[str, Any]:
+    """The JAX package's cache (a tree of layer-stacked leaves, as numpy)
+    → the port's, on ``device``, leaf for leaf and nesting kept."""
     device = resolve_device(device)
-    return {k: tensor_from_numpy(v, device) for k, v in np_tree.items()}
+    return _tree(np_tree, device)

@@ -1,15 +1,16 @@
 """Model-zoo layers on the compiled path (PyTorch, single device).
 
 The counterparts of the JAX package's ``models/layers.py`` functions that
-a dense transformer runs: RMS/LayerNorm, RoPE, grouped-query attention
-(full, batched prefill against a KV cache, and decode) and the (Swi)GLU
-MLP.  Each is a plain function of tensors with the reference's name and
-argument order.
+a dense transformer and RWKV-6 run: RMS/LayerNorm, RoPE, grouped-query
+attention (full, batched prefill against a KV cache, and decode), the
+(Swi)GLU MLP and the RWKV-6 time mix.  Each is a plain function of
+tensors with the reference's name and argument order.
 
-Attention and RMSNorm go through their kernels' wrappers
-(``kernels/flash_attention/ops.py``, ``kernels/rmsnorm/ops.py``): the
-CUDA C++ flash-attention and Triton RMSNorm kernels on the card, their
-plain versions on the CPU.  The DHLO bridge traces these functions inside
+Attention, both norms and the WKV recurrence go through their kernels'
+wrappers (``kernels/flash_attention/ops.py``, ``kernels/rmsnorm/ops.py``,
+``kernels/layernorm/ops.py``, ``kernels/rwkv6/ops.py``): the CUDA C++
+flash-attention and WKV kernels and the Triton RMSNorm and LayerNorm
+kernels on the card, their plain versions on the CPU.  The DHLO bridge traces these functions inside
 ``plain_versions()``, so they trace into the same op structure the
 reference traces into (``dot_general`` for the grouped attention
 contractions, ``mean`` + ``rsqrt`` norms, explicit softmax).
@@ -26,14 +27,17 @@ from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.flash_attention.ref import (  # noqa: F401 (reference names)
     CHUNK_THRESHOLD as _CHUNK_THRESHOLD, pick_chunk as _pick_chunk,
     q_positions as _q_positions, sdpa_chunked_ref as _sdpa_chunked)
+from ..kernels.layernorm import ops as ln_ops
 from ..kernels.rmsnorm import ops as rms_ops
+from ..kernels.rwkv6 import ops as wkv_ops
 from .common import ArchConfig, dtype_of, param_init
 
 Params = Dict[str, Any]
 
 __all__ = ["norm_init", "norm_apply", "rope_tables", "apply_rope",
            "attn_init", "attn_apply", "attn_cache_init", "mlp_init",
-           "mlp_apply", "maybe_shard"]
+           "mlp_apply", "rwkv6_init", "rwkv6_apply", "rwkv6_cache_init",
+           "maybe_shard"]
 
 
 def maybe_shard(x: torch.Tensor, spec: Any = None) -> torch.Tensor:
@@ -52,15 +56,10 @@ def norm_init(cfg: ArchConfig, device, d: Optional[int] = None) -> Params:
 
 def norm_apply(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm (eps 1e-5) or RMSNorm (eps 1e-6), f32 accumulation, cast
-    back to x's dtype.  RMSNorm is the Triton kernel on the card and its
+    back to x's dtype.  Each is its Triton kernel on the card and its
     plain version (the reference's ops) on the CPU."""
     if cfg.norm == "layernorm":
-        xf = x.float()
-        mu = xf.mean(-1, keepdim=True)
-        xc = xf - mu
-        var = (xc * xc).mean(-1, keepdim=True)
-        y = xc * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
-        return y.to(x.dtype)
+        return ln_ops.layernorm(x, p["scale"], p["bias"], eps=1e-5)
     return rms_ops.rmsnorm(x, p["scale"], eps=1e-6)
 
 
@@ -193,3 +192,99 @@ def mlp_apply(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         h = torch.nn.functional.gelu(h, approximate="tanh")
     return h @ p["w_out"]
+
+
+# ---------------------------------------------------------------- rwkv6 --
+def rwkv6_init(generator: torch.Generator, cfg: ArchConfig,
+               device) -> Params:
+    d = cfg.d_model
+    hp = cfg.ssm_head_dim
+    n_heads = d // hp
+    dt = dtype_of(cfg)
+    p = {name: param_init(generator, (d, d), dt, device)
+         for name in ("w_r", "w_k", "w_v", "w_g", "w_w")}  # w_w: decay
+    p["u"] = param_init(generator, (n_heads, hp), torch.float32, device,
+                        scale=0.1)
+    p["w_out"] = param_init(generator, (d, d), dt, device)
+    p["mix"] = param_init(generator, (5, d), torch.float32, device,
+                          scale=0.1)
+    return p
+
+
+def _shifted(x: torch.Tensor, x_prev: Optional[torch.Tensor]):
+    """The token-shift sequence of x (B, S, D): position t sees x[t-1],
+    position 0 sees ``x_prev`` (B, D) (None: zeros)."""
+    first = (torch.zeros_like(x[:, :1]) if x_prev is None
+             else x_prev[:, None].to(x.dtype))
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _last_rows(x: torch.Tensor, lens: Optional[torch.Tensor],
+               old: torch.Tensor) -> torch.Tensor:
+    """Each row's last valid position of x (B, S, D): ``x[b, lens[b]-1]``
+    (None: the last position); a row with ``lens = 0`` keeps ``old``."""
+    if lens is None:
+        return x[:, -1]
+    b = x.shape[0]
+    last = x[torch.arange(b, device=x.device), (lens - 1).clamp(min=0)]
+    return torch.where((lens > 0)[:, None], last, old.to(x.dtype))
+
+
+def _wkv_scan(r, k, v, w, u):
+    """The reference's sequential form: r, k, w (B, H, T, K); v (B, H,
+    T, V); u (H, K) -> (y, s_final), from a zero state.  The WKV kernel
+    on the card, its plain version on the CPU."""
+    return wkv_ops.rwkv6(r, k, v, w, u)
+
+
+def rwkv6_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
+                cache: Optional[Params] = None,
+                lens: Optional[torch.Tensor] = None):
+    """RWKV-6 time-mix block (token-shift simplified to previous-x mix).
+
+    Without ``cache``: the whole sequence from a zero state, as the
+    reference's ``_wkv_scan`` (r, k, v widened to f32).  With ``cache``
+    (``{"s", "x_prev"}``): x (B, S, D) continues each row from the
+    cache's state and previous token, for the first ``lens[b]``
+    positions (None: all S).  S = 1 is the reference's decode step;
+    longer chunks are the serve path's prefill, the same recurrence in
+    one kernel launch.  The new cache holds the final state and x at
+    each row's last valid position; a row with ``lens = 0`` keeps its
+    cache."""
+    b, s, d = x.shape
+    hp = cfg.ssm_head_dim
+    n_heads = d // hp
+    xp = _shifted(x, None if cache is None else cache["x_prev"])
+    # token-shift mix in the activation dtype, as the reference mixes
+    mix = torch.sigmoid(p["mix"]).to(x.dtype)   # (5, D)
+
+    def mixed(i):
+        return x * mix[i] + xp * (1 - mix[i])
+
+    def heads(t):   # (B, S, D) -> a (B, H, S, hp) view
+        return t.reshape(b, s, n_heads, hp).transpose(1, 2)
+
+    r = heads(mixed(0) @ p["w_r"])
+    k = heads(mixed(1) @ p["w_k"])
+    v = heads(mixed(2) @ p["w_v"])
+    g = torch.nn.functional.silu(mixed(3) @ p["w_g"])
+    log_dec = -torch.exp((mixed(4) @ p["w_w"]).float().clamp(-8, 4))
+    w = heads(torch.exp(log_dec))
+    new_cache = None
+    if cache is None:
+        y, _ = _wkv_scan(r.float(), k.float(), v.float(), w, p["u"])
+    else:
+        y, s_new = wkv_ops.rwkv6(r, k, v, w, p["u"], cache["s"], lens)
+        new_cache = {"s": s_new,
+                     "x_prev": _last_rows(x, lens, cache["x_prev"])}
+    y = y.transpose(1, 2).reshape(b, s, d).to(x.dtype)
+    return (y * g) @ p["w_out"], new_cache
+
+
+def rwkv6_cache_init(cfg: ArchConfig, batch: int, device) -> Params:
+    hp = cfg.ssm_head_dim
+    n_heads = cfg.d_model // hp
+    return {"s": torch.zeros((batch, n_heads, hp, hp), dtype=torch.float32,
+                             device=device),
+            "x_prev": torch.zeros((batch, cfg.d_model), dtype=dtype_of(cfg),
+                                  device=device)}

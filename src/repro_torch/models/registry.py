@@ -1,9 +1,13 @@
 """Model registry: family -> (init / forward / cache / prefill / decode)
 bundle, the counterpart of the JAX package's ``models/registry.py`` for
-the dense family.
+the dense and recurrent (``"ssm"``, RWKV-6) families.
 
-The MoE, recurrent, hybrid and encoder-decoder families arrive with their
-slices of the port; ``verify``, the paged-KV entry points and the
+Cache trees may nest (RWKV's ``{"tmix": {"s", "x_prev"}, "cmix_x"}``):
+every per-row operation on a cache maps over its tensor leaves
+(:func:`tree_map`).
+
+The MoE, hybrid and encoder-decoder families arrive with their slices
+of the port; ``verify``, the paged-KV entry points and the
 training loss wait for the paged/speculative and training slices.
 """
 from __future__ import annotations
@@ -12,14 +16,20 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils import _pytree
 
-from . import transformer
+from . import rwkv, transformer
 from .common import ArchConfig
 
 Params = Dict[str, Any]
 
-__all__ = ["Model", "cache_batch_axis", "row_keep_mask", "replay_verify",
-           "replay_prefill", "get_model", "MODEL_FAMILIES"]
+__all__ = ["Model", "cache_batch_axis", "row_keep_mask", "tree_map",
+           "gate_rows", "replay_verify", "replay_prefill", "get_model",
+           "MODEL_FAMILIES"]
+
+#: ``tree_map(fn, tree, *rests)``: ``fn`` over the tensor leaves of one or
+#: more cache trees of the same structure (nested dicts)
+tree_map = _pytree.tree_map
 
 
 @dataclass(frozen=True)
@@ -30,6 +40,8 @@ class Model:
     init_cache: Callable    # (batch, max_len, device) -> cache
     decode_step: Callable   # (params, cache, tokens, lens) -> (logits, cache)
     prefill: Callable       # (params, cache, tokens, lens, offsets) -> (last_logits, cache)
+    # (params, cache, tokens, lens, *, max_new, eos_id) -> (tokens, n, cache)
+    greedy_decode: Optional[Callable] = None
 
 
 def cache_batch_axis(shape, batch: int) -> Optional[int]:
@@ -66,6 +78,13 @@ def row_keep_mask(keep: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
         f"batch={b}; cannot gate per-row updates")
 
 
+def gate_rows(keep: torch.Tensor, new, old):
+    """The cache tree whose rows are ``new``'s where ``keep`` (B,) and
+    ``old``'s elsewhere, leaf for leaf, in ``old``'s dtypes."""
+    return tree_map(lambda n, o: torch.where(row_keep_mask(keep, o),
+                                             n.to(o.dtype), o), new, old)
+
+
 def replay_verify(decode_step: Callable) -> Callable:
     """All-position logits by replaying a chunk through decode steps:
     ``logits[r, j]`` is the model's next-token distribution after
@@ -76,10 +95,7 @@ def replay_verify(decode_step: Callable) -> Callable:
         for j in range(tokens.shape[1]):
             logits, new_cache = decode_step(params, cache, tokens[:, j:j + 1],
                                             offsets + j)
-            keep = j < lens
-            cache = {k: torch.where(row_keep_mask(keep, o),
-                                    new_cache[k].to(o.dtype), o)
-                     for k, o in cache.items()}
+            cache = gate_rows(j < lens, new_cache, cache)
             rows.append(logits[:, 0])
         return torch.stack(rows, dim=1), cache
 
@@ -124,11 +140,16 @@ def _lm_bundle(mod, cfg: ArchConfig) -> Model:
         init_cache=lambda b, s, device: mod.init_cache(cfg, b, s, device),
         decode_step=decode,
         prefill=pf,
+        greedy_decode=(lambda params, cache, tokens, lens, **kw:
+                       mod.greedy_decode(cfg, params, cache, tokens, lens,
+                                         **kw))
+        if hasattr(mod, "greedy_decode") else None,
     )
 
 
 MODEL_FAMILIES = {
     "dense": lambda cfg: _lm_bundle(transformer, cfg),
+    "ssm": lambda cfg: _lm_bundle(rwkv, cfg),
 }
 
 

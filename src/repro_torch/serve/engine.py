@@ -34,10 +34,14 @@ on the public ``disc_torch.compile`` API (``pipeline="jit"``):
   each request to the least-loaded replica with a free slot, and decode
   is one launch over all rows.
 
-On the card every attention runs the flash-attention kernel and every
-RMSNorm the RMSNorm kernel (the model's layers call their wrappers).
-The KV cache lives on the card; the engine updates its rows in place
-(``index_copy_``) where the JAX package rebuilds the array.
+On the card every attention runs the flash-attention kernel, every
+norm its RMSNorm or LayerNorm kernel and every RWKV time mix the WKV
+kernel (the model's layers call their wrappers).  The cache lives on the
+card; the engine updates its rows in place (``index_copy_``) where the
+JAX package rebuilds the array.  A cache is any tree of layer-stacked
+leaves with the batch on axis 1 (the dense KV cache, RWKV's nested
+recurrent state): row gathers, scatters, zeroing and gating map over its
+leaves.
 
 Not ported yet, each raising ``NotImplementedError`` naming its slice:
 paged KV (``kv_block_size``), speculative decoding (``speculative``),
@@ -63,7 +67,8 @@ from ..data.pipeline import Request
 from ..errors import (CONTROL_EXCEPTIONS, DEFAULT_RETRY, DiscError,
                       wrap_launch_error)
 from ..frontends.fx_frontend import ArgSpec
-from ..models.registry import Model, replay_prefill, row_keep_mask
+from ..models.registry import (Model, gate_rows, replay_prefill,
+                               row_keep_mask, tree_map)
 from .policies import get_admission_policy
 
 __all__ = ["ServeConfig", "ServeEngine", "STATS_KEYS", "BATCH_POW2"]
@@ -264,8 +269,8 @@ class ServeEngine:
         rows (offset 0) are zeroed first so a previous occupant's state
         can never leak into a new request."""
         fresh = offsets == 0
-        rows = {k: torch.where(row_keep_mask(fresh, c), 0, c)
-                for k, c in rows.items()}
+        rows = tree_map(lambda c: torch.where(row_keep_mask(fresh, c), 0, c),
+                        rows)
         return self._prefill_impl(params, rows, tokens, lens, offsets)
 
     def _decode_step(self, params, cache, tokens, lens, active):
@@ -273,10 +278,7 @@ class ServeEngine:
         mid-prefill and empty slots keep their state untouched."""
         logits, new_cache = self.model.decode_step(params, cache, tokens,
                                                    lens)
-        new_cache = {k: torch.where(row_keep_mask(active, o),
-                                    new_cache[k].to(o.dtype), o)
-                     for k, o in cache.items()}
-        return logits, new_cache
+        return logits, gate_rows(active, new_cache, cache)
 
     def _next_tokens(self, slots: List[int],
                      logits: torch.Tensor) -> List[int]:
@@ -435,7 +437,7 @@ class ServeEngine:
             lens[r] = cl
             offsets[r] = s.pos
         idx = self._tensor(np.asarray([i for i, _ in members]))
-        rows = {k: c.index_select(1, idx) for k, c in self.cache.items()}
+        rows = tree_map(lambda c: c.index_select(1, idx), self.cache)
         try:
             logits, new_rows = self._launch(
                 "prefill", self._prefill_fn, self.params, rows,
@@ -447,8 +449,8 @@ class ServeEngine:
             for i, _ in members:
                 self._fail_slot(i, f"LaunchError(prefill): {e}")
             return
-        for k, c in self.cache.items():
-            c.index_copy_(1, idx, new_rows[k][:, :nb].to(c.dtype))
+        tree_map(lambda c, n: c.index_copy_(1, idx, n[:, :nb].to(c.dtype)),
+                 self.cache, new_rows)
         # the rows whose prompt this launch completes emit their first
         # token
         ending = [r for r, (i, cl) in enumerate(members)

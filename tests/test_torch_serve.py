@@ -449,3 +449,47 @@ def test_prefill_and_decode_match_jax_model(tiny, tiny_gqa, which):
             np.testing.assert_allclose(
                 pc[k][:, r, :, :fill[r] + 1].numpy(),
                 np.asarray(jc[k])[:, r, :, :fill[r] + 1], **TOL)
+
+
+# ------------------------------------------- nested (tree) caches --
+
+@pytest.mark.parametrize("mode", ["batched", "replay"])
+def test_tree_mapped_engine_matches_jax_engine(tiny, mode):
+    """The engine's row gathers, scatters, zeroing and gating map over
+    cache leaves (for nested recurrent caches); on the dense KV cache,
+    in both prefill modes, the streams stay the JAX engine's."""
+    lens = [5, 9, 14, 40, 33, 12]
+    want, jeng = _jax_engine(tiny, lens, prefill_mode=mode)
+    eng = _engine(tiny, prefill_mode=mode)
+    eng.submit(_requests(tiny["cfg"].vocab, lens))
+    assert eng.run_until_done(max_steps=500) == want
+    assert eng.stats["prefill_calls"] == jeng.stats["prefill_calls"]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cache_from_numpy_round_trips_nested_cache(dtype):
+    """RWKV's nested cache ``{"tmix": {"s", "x_prev"}, "cmix_x"}`` comes
+    across leaf for leaf: the same nesting, shapes, dtypes and values
+    (bf16 bit for bit)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as jax_config
+    from repro.models.registry import get_model as jax_model
+
+    cfg = dataclasses.replace(jax_config("rwkv6_3b").reduced(), dtype=dtype)
+    rng = np.random.RandomState(4)
+    jcache = jax.tree.map(
+        lambda x: jnp.asarray(rng.randn(*x.shape), x.dtype),
+        jax_model(cfg).init_cache(3, 16))
+    got = cache_from_numpy(jax.tree.map(np.asarray, jcache), "cpu")
+    assert set(got) == {"tmix", "cmix_x"} and set(got["tmix"]) == {"s",
+                                                                 "x_prev"}
+    flat = jax.tree_util.tree_flatten_with_path(jcache)[0]
+    assert len(flat) == 3
+    for path, leaf in flat:
+        node = got
+        for key in path:
+            node = node[key.key]
+        assert str(node.dtype) == f"torch.{leaf.dtype}"
+        np.testing.assert_array_equal(node.float().numpy(),
+                                      np.asarray(leaf, np.float32))
