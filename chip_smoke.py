@@ -72,7 +72,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    Prints time to first token and decode ms per step.
 8. **Serve kernels.**  Flash attention at the path's shapes (prefill
    B=1, S=2048; a 512-row chunk at q_offset 1024; decode B=4 at the
-   requests' fills) and RMSNorm on 2048 x 2048, each against its plain
+   requests' fills) and RMSNorm on 2048 x 2048 and on a decode step's
+   4 x 2048, each against its plain
    version on the same card inputs, with padded and fully masked rows
    checked to be exactly 0; timed against the plain version and a
    PyTorch library call (``F.scaled_dot_product_attention``,
@@ -102,22 +103,60 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     against its plain version on the same card inputs, timed against
     the plain version and, for LayerNorm, ``F.layer_norm`` (WKV has no
     PyTorch call).
-11. Prints the kernels line, the card line, and the result line last.
+11. **Path 5 ("serve", hybrid).**  Zamba2-7B at full width (d_model
+    3584, 112 Mamba-2 heads of N = P = 64, one shared attention block of
+    32 heads of hd 112 every 6 layers, d_ff 14336, vocab 32000, RMSNorm;
+    random bf16 weights from a seeded ``torch.Generator``, the LoRA
+    ``b_q`` drawn too) served by the same engine with the same six
+    requests.  Every Mamba-2 block runs the CUDA C++ SSD kernel, every
+    shared block the flash-attention kernel and every norm the RMSNorm
+    kernel.  First bf16 at all 81 layers (the config's dtype and depth;
+    13 shared-block invocations), unchunked and chunked at 512: SSD,
+    flash-attention and RMSNorm launches == 81 / 13 / 176 per prefill
+    launch and decode step, compiles == bucket pairs, every request
+    finite, and the served-path cache check (``mamba.h`` of layers 0-1,
+    on the first prefill launch, the first decode step and the chunked
+    run's first launch continuing a prompt; in f32 ``attn.k/v`` of
+    invocation 0 too).  The shared block's invocation 0 is replayed
+    alone on the residual stream and cache rows those launches gave it,
+    kernels vs plain versions: its residual delta and the K/V it writes
+    within the kernel tolerance.  Then 15 layers (groups [6, 9]: the
+    remainder rule) in f32 and bf16 (bf16 weights upcast for f32), as
+    path 4: kernels, plain versions and chunked; f32 streams identical
+    to the plain versions' and chunked to unchunked; the bf16 accuracy
+    rule against the f32 run.  In bf16 the chunked and unchunked runs
+    part like two evaluations of the random model do
+    (``ServePath.bf16_chunked_parts``): their agreement is printed.  At
+    81 layers the f32 weights alone would be 51 GB beside the bf16 set.
+12. **Hybrid kernels.**  The SSD scan at H = 112, N = P = 64, f32 and
+    bf16 inputs: prefill B = 1, T = 2048 from a zero state; a 512-step
+    chunk from a state at B = 2 beside a row of ``lens = 0`` (its state
+    back bit for bit, its y 0); a ragged T = 1999; decode B = 4, T = 1.
+    y and the final state (f32 in both dtypes) within 1e-5 of the plain
+    chunked version.  Flash attention at hd 112 as phase 8 (prefill
+    S = 2048; a 512-row chunk at q_offset 1024; decode B = 4 at group
+    1), timed against ``F.scaled_dot_product_attention``, and RMSNorm
+    at width 3584 as phase 8.
+13. Prints the kernels line, the card line, and the result line last.
 
 Run it from a checkout: it builds the kernels from ``src/`` into
 ``build/torch_kernels/`` and refuses to run without the repository or
 without a CUDA device.  ``--layers`` cuts the depth of paths 1 and 2;
-paths 3 and 4 always run all their layers (22 and 32).
+paths 3 and 4 always run all their layers (22 and 32), path 5 all 81 in
+bf16 and 15 in both dtypes.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import math
 import pathlib
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -186,20 +225,69 @@ KERNELS = {
         "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
         "replaces": "src/repro/kernels/rwkv6/rwkv6.py:60",
     },
+    "mamba2": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba2/csrc/mamba2.cu",
+        "replaces": "src/repro/kernels/mamba2/mamba2.py:68",
+    },
 }
 
-# per serve path: the config; the wrappers it launches and how many
-# launches each makes per prefill launch and decode step (L layers); and
-# whether its weights are bf16-valued in both dtypes (then the f32 run
-# evaluates the bf16 run's function in f32: its accuracy reference)
+class ServePath(NamedTuple):
+    """A serve path's config and its per-path rules."""
+    arch: str
+    # the wrappers it launches and how many launches each makes per
+    # prefill launch and decode step (L layers)
+    per_step: Callable[[int], dict]
+    # weights bf16-valued in both dtypes (then the f32 run evaluates the
+    # bf16 run's function in f32: its accuracy reference)
+    bf16_weights: bool
+    # per dtype, cache leaves the served-path cache check holds other
+    # than CACHE_CHECK_LAYERS layers at TOL_SERVE_KERNEL: leaf ->
+    # (layers held, limit)
+    held: dict = {}
+    # the bf16 chunked and unchunked runs part beyond the stream rules:
+    # their agreement and the chunked run's first-token accuracy are
+    # printed, not held
+    bf16_chunked_parts: bool = False
+    # replay the shared attention block's invocation 0 (zamba) on its
+    # recorded inputs, kernels vs plain versions
+    shared_block: bool = False
+
+
 SERVE_PATHS = {
-    "path3": ("tinyllama_11b",
-              lambda n: {"flash_attention": n, "rmsnorm": 2 * n + 1},
-              False),
-    "path4": ("rwkv6_3b",
-              lambda n: {"rwkv6": n, "layernorm": 2 * n + 1},
-              True),
+    "path3": ServePath("tinyllama_11b",
+                       lambda n: {"flash_attention": n, "rmsnorm": 2 * n + 1},
+                       False),
+    "path4": ServePath("rwkv6_3b",
+                       lambda n: {"rwkv6": n, "layernorm": 2 * n + 1},
+                       True),
+    # Zamba2: an SSD launch per Mamba layer; one shared-block invocation
+    # (attention, its norm) per group of 6, n_inv = max(L // 6, 1); two
+    # norms per layer and ln_f.
+    # Its shared-block K/V are projections of the residual stream after 6
+    # Mamba layers and their MLPs (no attention kernel computes them), so
+    # invocation 0 reads depth as the 6th Mamba state does (PERF.md, PR
+    # 15): in f32 it is held at the summation-order gap of those layers
+    # (read up to 3.0e-5), in bf16 printed; the block itself is held by
+    # the shared-block replay.  Its bf16 chunked and unchunked runs are
+    # two equally exact evaluations (other GEMM shapes, so other
+    # roundings) amplified by depth: 5.8e-2 of max|logit| at the first
+    # token at 15 layers, their distances from the f32 run differing by
+    # up to 28 % either way (PERF.md, PR 15); the chunked run is held by
+    # its continuing launch's cache check in both dtypes and by the exact
+    # stream rule in f32
+    "path5": ServePath(
+        "zamba2_7b",
+        lambda n: {"mamba2": n, "flash_attention": max(n // 6, 1),
+                   "rmsnorm": 2 * n + max(n // 6, 1) + 1},
+        True,
+        held={"f32": {"attn.k": (1, 1e-4), "attn.v": (1, 1e-4)},
+              "bf16": {"attn.k": (0, None), "attn.v": (0, None)}},
+        bf16_chunked_parts=True, shared_block=True),
 }
+# path 5's depth in f32 (and its bf16 twin): at 81 layers the f32 weights
+# alone are 51 GB beside the bf16 set; 15 layers keep the remainder rule
+PATH5_CUT_LAYERS = 15
 
 # path 3 (serve): prompt lengths, new tokens per request, engine shape
 SERVE_PROMPTS = (37, 200, 731, 1500, 1999, 45)
@@ -222,6 +310,10 @@ CACHE_CHECK_LAYERS = 2
 # the WKV kernel's final state (f32 in both dtypes) vs its plain version:
 # fused multiply-adds and the order of the dot over K
 TOL_WKV_STATE = 1e-5
+# the SSD kernel's y and final state vs its plain (chunked) version, in
+# both dtypes: inputs are widened to f32 at load and every product is
+# f32, so only summation order, fmaf and the cumulative sum's order differ
+TOL_SSD = 1e-5
 
 # §4.5 library phase: a shape from TinyLlama's widths per entry, and the
 # entry the reference's selection rules give it
@@ -381,6 +473,7 @@ def start_cuda_builds(arts: list):
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention.flash_attention import \
         source_job
+    from repro_torch.kernels.mamba2.mamba2 import source_job as ssd_job
     from repro_torch.kernels.rwkv6.rwkv6 import source_job as wkv_job
     from repro_torch.kernels.matmul.matmul import (CSRC, LIBRARY_TILES,
                                                    identity_program,
@@ -395,6 +488,7 @@ def start_cuda_builds(arts: list):
     sources = [(*kernel_source(p, dt, tuple(t)), [CSRC]) for p, dt, t in jobs]
     sources.append(source_job())   # the flash-attention library (path 3)
     sources.append(wkv_job())      # the WKV library (path 4)
+    sources.append(ssd_job())      # the SSD library (path 5)
     result: dict = {"sources": len(sources)}
 
     def run():
@@ -952,22 +1046,39 @@ def serve_engine_class():
     from repro_torch.serve.engine import ServeEngine
 
     class Recording(ServeEngine):
-        def __init__(self, *a, **kw):
+        def __init__(self, *a, shared_block: bool = False, **kw):
             super().__init__(*a, **kw)
             self.logits = {}     # (rid, token index) -> (V,) f32 on host
             self.arrived = {}    # rid -> host seconds of its first token
             self.step_s = {"prefill": [], "decode": []}
             self.first = {}      # kind -> (fn, params, args, new cache)
+            # with shared_block: kind -> the inputs of the first launch's
+            # zamba shared-block invocation 0 (see record_shared_block)
+            self.block = {} if shared_block else None
+            self.host = None     # the last host array moved to the card
             self.t0 = time.perf_counter()
 
+        def _tensor(self, a):
+            self.host = a
+            return super()._tensor(a)
+
         def _launch(self, kind, fn, *args):
-            # the inputs and the new cache of the first launch of a kind
+            # the inputs and the new cache of the first launch of a kind;
+            # a prefill launch continuing a prompt is kind "prefill_cont":
+            # its offsets, the last host array moved to the card, are not
+            # all 0 (read on the host: no sync in the timed run)
+            if kind == "prefill" and self.host.any():
+                kind = "prefill_cont"
             first = kind not in self.first
-            if first:
-                inputs = clone_tree(args[1:])
-            out = super()._launch(kind, fn, *args)
-            if first:
-                self.first[kind] = (fn, args[0], inputs, clone_tree(out[1]))
+            if not first:
+                return super()._launch(kind, fn, *args)
+            inputs = clone_tree(args[1:])
+            if self.block is None:
+                out = super()._launch(kind, fn, *args)
+            else:
+                with record_shared_block(self.block, kind):
+                    out = super()._launch(kind, fn, *args)
+            self.first[kind] = (fn, args[0], inputs, clone_tree(out[1]))
             return out
 
         def _next_tokens(self, slots, logits):
@@ -994,13 +1105,36 @@ def serve_engine_class():
     return Recording
 
 
+@contextlib.contextmanager
+def record_shared_block(record: dict, kind: str):
+    """While open, the first call of zamba's shared block at invocation 0
+    is recorded in ``record[kind]``: its residual-stream input and
+    keywords, the cache rows included (cloned), and its cfg and params
+    (by reference)."""
+    from repro_torch.models import zamba
+
+    orig = zamba._shared_attn
+
+    def recording(cfg, params, inv, x, **kw):
+        if inv == 0 and kind not in record:
+            record[kind] = (cfg, params, x.clone(), clone_tree(kw))
+        return orig(cfg, params, inv, x, **kw)
+
+    zamba._shared_attn = recording
+    try:
+        yield
+    finally:
+        zamba._shared_attn = orig
+
+
 def clone_tree(tree):
-    """A copy of every tensor in nested dicts, lists and tuples."""
+    """A copy of every tensor in nested dicts, lists and tuples (None
+    stays None)."""
     if isinstance(tree, dict):
         return {k: clone_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(clone_tree(v) for v in tree)
-    return tree.clone()
+    return None if tree is None else tree.clone()
 
 
 def tree_leaves(tree, prefix: str = ""):
@@ -1015,22 +1149,38 @@ def serve_counters() -> dict:
     """The launch counters of every serve-path kernel, by name."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.layernorm import ops as ln
+    from repro_torch.kernels.mamba2 import ops as ssd
     from repro_torch.kernels.rmsnorm import ops as rms
     from repro_torch.kernels.rwkv6 import ops as wkv
 
     return {"flash_attention": fa.LAUNCHES, "rmsnorm": rms.LAUNCHES,
-            "layernorm": ln.LAUNCHES, "rwkv6": wkv.LAUNCHES}
+            "layernorm": ln.LAUNCHES, "rwkv6": wkv.LAUNCHES,
+            "mamba2": ssd.LAUNCHES}
 
 
-def serve_run(model, params, cfg_kw: dict, requests: list, plain: bool):
+def path_launches(report: dict, path: str, dname: str) -> dict:
+    """Every serve kernel's launches over the counted runs of ``path`` in
+    ``dname`` (at every depth it ran)."""
+    out = dict.fromkeys(serve_counters(), 0)
+    for key, rep in report.items():
+        if key[:2] == (path, dname):
+            for k, n in rep["launches"].items():
+                out[k] = out.get(k, 0) + n
+    return out
+
+
+def serve_run(model, params, cfg_kw: dict, requests: list, plain: bool,
+              shared_block: bool = False):
     """One engine over ``requests`` until done; returns the engine and the
     launches of every serve kernel in its run (counts set to 0 just
-    before)."""
+    before).  ``shared_block``: record the shared block's inputs in each
+    kind's first launch."""
     from repro_torch.kernels.select import plain_versions
     from repro_torch.serve.engine import ServeConfig
 
     eng = serve_engine_class()(model, params, ServeConfig(
-        max_batch=SERVE_BATCH, max_seq=SERVE_SEQ, **cfg_kw))
+        max_batch=SERVE_BATCH, max_seq=SERVE_SEQ, **cfg_kw),
+        shared_block=shared_block)
     counters = serve_counters()
     for c in counters.values():
         c.reset()
@@ -1050,12 +1200,15 @@ def rel_err(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max()).item()
 
 
-def compare_streams(tag: str, got, ref, tol: float, exact: bool) -> dict:
+def compare_streams(tag: str, got, ref, tol: float, exact: bool,
+                    held: bool = True) -> dict:
     """Per request: the token streams and the logits each token came
     from.  ``exact``: streams identical and every logits row within
     ``tol``.  Otherwise rows within ``tol`` while the streams agree, and a
     stream may part only where the reference's top-2 margin (relative to
-    its max|logit|) is below ``tol``.  Returns agreement lengths."""
+    its max|logit|) is below ``tol``.  Without ``held`` the agreement is
+    printed, not checked.  Returns agreement lengths."""
+    check_ = check if held else (lambda cond, msg: None)
     agree = {}
     worst = 0.0
     for rid, want in ref.done.items():
@@ -1066,38 +1219,44 @@ def compare_streams(tag: str, got, ref, tol: float, exact: bool) -> dict:
             n += 1
         agree[rid] = n
         if exact:
-            check(have == want, f"{tag} request {rid}: streams part at "
+            check_(have == want, f"{tag} request {rid}: streams part at "
                                 f"token {n}: {have[n:n + 3]} vs "
                                 f"{want[n:n + 3]}")
         for t in range(min(n + 1, len(have), len(want))):
             a, b = got.logits[(rid, t)], ref.logits[(rid, t)]
             e = rel_err(a, b)
             worst = max(worst, e)
-            check(e <= tol, f"{tag} request {rid} token {t}: logits "
+            check_(e <= tol, f"{tag} request {rid} token {t}: logits "
                             f"max|d|/max|ref| {e:.3e} > {tol}")
         if n < min(len(have), len(want)):
             b = ref.logits[(rid, n)]
             top = b.topk(2).values
             margin = ((top[0] - top[1]) / b.abs().max()).item()
-            check(margin < tol, f"{tag} request {rid} parts at token {n} "
+            check_(margin < tol, f"{tag} request {rid} parts at token {n} "
                                 f"where the reference's top-2 margin is "
                                 f"{margin:.3e} >= {tol}")
     print(f"{tag} agreement lengths {agree} of "
           f"{ {r: len(v) for r, v in ref.done.items()} }; worst logits "
-          f"rel {worst:.3e}", flush=True)
+          f"rel {worst:.3e}{'' if held else ' (printed, not held)'}",
+          flush=True)
     return agree
 
 
-def cache_check(tag: str, eng, dname: str) -> None:
-    """The first prefill launch and the first decode step of a kernels
-    run, replayed on the same inputs with the plain versions: per cache
-    leaf and layer, max|d|/max|ref| (0 where both are 0).  The first
-    ``CACHE_CHECK_LAYERS`` layers are held to ``TOL_SERVE_KERNEL``; every
-    layer's is printed, to show how depth amplifies the difference."""
+def cache_check(tag: str, eng, dname: str, held: dict,
+                kinds=("prefill", "decode")) -> None:
+    """The first launch of each of ``kinds`` in a run (its first prefill
+    launch and first decode step; ``"prefill_cont"``: its first prefill
+    launch continuing a prompt), replayed on the same inputs with the
+    plain versions: per cache leaf and layer, max|d|/max|ref| (0 where
+    both are 0).  The first ``CACHE_CHECK_LAYERS`` layers are held to
+    ``TOL_SERVE_KERNEL`` (``held[leaf]``, where given: (layers, limit));
+    every layer's is printed, to show how depth amplifies the
+    difference."""
     from repro_torch.kernels.select import plain_versions
 
     tol = TOL_SERVE_KERNEL[dname]
-    for kind in ("prefill", "decode"):
+    failed = []
+    for kind in kinds:
         fn, params, args, got = eng.first[kind]
         with plain_versions():
             _, want = fn(params, *clone_tree(args))
@@ -1109,20 +1268,57 @@ def cache_check(tag: str, eng, dname: str) -> None:
             print(f"{tag} first {kind} launch, kernels vs plain on its "
                   f"inputs: {name} max|d|/max|ref| by layer "
                   f"{[float(f'{e:.2e}') for e in errs]}", flush=True)
-            check(all(e <= tol for e in errs[:CACHE_CHECK_LAYERS]),
-                  f"{tag} first {kind} launch: {name} of layers "
-                  f"0-{CACHE_CHECK_LAYERS - 1} max|d|/max|ref| "
-                  f"{errs[:CACHE_CHECK_LAYERS]} > {tol}")
+            n_held, limit = held.get(name, (CACHE_CHECK_LAYERS, tol))
+            if not all(e <= limit for e in errs[:n_held]):
+                failed.append(f"{kind} {name} of its first {n_held} "
+                              f"layers {errs[:n_held]} > {limit}")
+    check(not failed, f"{tag} first launches, max|d|/max|ref|: "
+                      f"{'; '.join(failed)}")
+
+
+def shared_block_check(tag: str, eng, dname: str, kinds) -> None:
+    """Zamba's shared attention block at invocation 0, replayed alone on
+    the residual-stream input and cache rows that the first launch of
+    each of ``kinds`` gave it, with the kernels (its RMSNorm and flash
+    attention) and with the plain versions: its residual delta and the
+    K/V it writes, max|d|/max|ref| within ``TOL_SERVE_KERNEL``.  This
+    holds the attention output at the served shapes before any later
+    layer amplifies a difference."""
+    from repro_torch.kernels.select import plain_versions
+    from repro_torch.models import zamba
+
+    tol = TOL_SERVE_KERNEL[dname]
+    failed = []
+    for kind in kinds:
+        cfg, params, x, kw = eng.block[kind]
+        a, c = zamba._shared_attn(cfg, params, 0, x, **clone_tree(kw))
+        with plain_versions():
+            a_p, c_p = zamba._shared_attn(cfg, params, 0, x,
+                                          **clone_tree(kw))
+        errs = {"delta": rel_err(a.float(), a_p.float()),
+                **{k: rel_err(c[k].float(), c_p[k].float()) for k in c}}
+        print(f"{tag} shared block invocation 0 of the first {kind} "
+              f"launch (x {tuple(x.shape)}), kernels vs plain on its "
+              f"inputs: max|d|/max|ref| "
+              f"{ {k: float(f'{e:.2e}') for k, e in errs.items()} }",
+              flush=True)
+        failed += [f"{kind} {k} {e:.3e}" for k, e in errs.items()
+                   if not e <= tol]
+    check(not failed, f"{tag} shared block, max|d|/max|ref| > {tol}: "
+                      f"{'; '.join(failed)}")
 
 
 def serve_phase(path: str, dname: str, seed: int, report: dict,
-                accuracy_ref=None):
-    """A serve path (3: TinyLlama, 4: RWKV-6 3B) in one dtype: kernels,
-    plain versions, chunked.  With ``accuracy_ref`` (each request's
-    first-token logits from an f32 run over the same weights), kernels vs
-    plain is the accuracy check of :func:`accuracy_check` instead of the
-    stream rules.  Returns the config, the decode fills of the first
-    four requests, and the kernels run's first-token logits."""
+                accuracy_ref=None, layers=None,
+                labels=("kernels", "plain", "chunked")):
+    """A serve path (3: TinyLlama, 4: RWKV-6 3B, 5: Zamba2-7B) in one
+    dtype: the runs of ``labels`` (kernels, plain versions, chunked), at
+    ``layers`` (None: the config's depth).  With ``accuracy_ref`` (each
+    request's first-token logits from an f32 run over the same weights),
+    kernels vs plain is the accuracy check of :func:`accuracy_check`
+    instead of the stream rules.  Each engine's cache is freed after its
+    run.  Returns the config, the decode fills of the first four
+    requests, and the kernels run's first-token logits."""
     import dataclasses
 
     import numpy as np
@@ -1132,13 +1328,21 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
     from repro_torch.data.pipeline import Request
     from repro_torch.models.registry import get_model
 
+    sp = SERVE_PATHS[path]
+    cfg = dataclasses.replace(get_config(sp.arch), dtype=dname)
     tag = f"[{path} {dname}]"
-    arch, per_step, bf16_weights = SERVE_PATHS[path]
-    cfg = dataclasses.replace(get_config(arch), dtype=dname)
+    if layers is not None:   # the depth joins the tag
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        tag = f"[{path} {dname} {layers}L]"
     model = get_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    wcfg = dataclasses.replace(cfg, dtype="bf16") if bf16_weights else cfg
+    wcfg = dataclasses.replace(cfg, dtype="bf16") if sp.bf16_weights else cfg
     params = get_model(wcfg).init(gen, "cuda")
+    if "lora" in params:
+        # the reference's zero b_q would hide a dropped LoRA delta
+        b_q = params["lora"]["b_q"]
+        params["lora"]["b_q"] = (0.1 * torch.randn(
+            b_q.shape, generator=gen, device="cuda")).to(b_q.dtype)
     if wcfg.dtype != dname:
         params = to_f32(params)
     rs = np.random.RandomState(seed)
@@ -1151,11 +1355,14 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
 
     launches = dict.fromkeys(serve_counters(), 0)
     runs = {}
-    for label, kw, plain in (("kernels", {}, False),
-                             ("plain", {}, True),
-                             ("chunked", {"prefill_chunk": SERVE_CHUNK},
-                              False)):
-        eng, counted = serve_run(model, params, kw, requests(), plain)
+    settings = {"kernels": ({}, False), "plain": ({}, True),
+                "chunked": ({"prefill_chunk": SERVE_CHUNK}, False)}
+    for label in labels:
+        kw, plain = settings[label]
+        eng, counted = serve_run(model, params, kw, requests(), plain,
+                                 shared_block=sp.shared_block and not plain)
+        eng.cache = None   # the logits and first launches stay on record
+        torch.cuda.empty_cache()
         runs[label] = eng
         st = eng.stats
         steps = st["prefill_calls"] + st["decode_steps"]
@@ -1179,7 +1386,7 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
             continue
         want = dict.fromkeys(counted, 0)
         want.update({k: n * steps
-                     for k, n in per_step(cfg.n_layers).items()})
+                     for k, n in sp.per_step(cfg.n_layers).items()})
         check(counted == want, f"{tag} {label}: launches {counted}, the "
                                f"path predicts {want}")
         for k in launches:
@@ -1201,42 +1408,66 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
         check(all(bool(torch.isfinite(x).all())
                   for x in eng.logits.values()),
               f"{tag} {label}: non-finite logits")
-    cache_check(f"{tag} kernels", runs["kernels"], dname)
+    held = sp.held.get(dname, {})
+    cache_check(f"{tag} kernels", runs["kernels"], dname, held)
+    cache_check(f"{tag} chunked", runs["chunked"], dname, held,
+                kinds=("prefill_cont",))
+    if sp.shared_block:
+        shared_block_check(f"{tag} kernels", runs["kernels"], dname,
+                           ("prefill", "decode"))
+        shared_block_check(f"{tag} chunked", runs["chunked"], dname,
+                           ("prefill_cont",))
     tol = TOL_SERVE[dname]
     exact = dname == "f32"
-    if accuracy_ref is None:
+    parts = dname == "bf16" and sp.bf16_chunked_parts
+    if "plain" in runs and accuracy_ref is None:
         compare_streams(f"{tag} kernels vs plain", runs["kernels"],
                         runs["plain"], tol, exact)
-    else:
+    elif "plain" in runs:
         accuracy_check(f"{tag} kernels vs plain", runs, accuracy_ref)
+        if parts:
+            accuracy_check(f"{tag} chunked vs plain", runs, accuracy_ref,
+                           label="chunked", held=False)
     compare_streams(f"{tag} chunked vs unchunked", runs["chunked"],
-                    runs["kernels"], tol, exact)
-    report[(path, dname)] = dict(launches=launches)
+                    runs["kernels"], tol, exact, held=not parts)
+    report[(path, dname, cfg.n_layers)] = dict(launches=launches)
     fills = [n + SERVE_NEW_TOKENS // 2 for n in SERVE_PROMPTS[:SERVE_BATCH]]
     first = {rid: runs["kernels"].logits[(rid, 0)]
              for rid in runs["kernels"].done}
+    # an engine and its compiled entries refer to each other: collect the
+    # cycles, so that the weights and the recorded launches leave the card
     del runs, params
+    gc.collect()
     torch.cuda.empty_cache()
     return cfg, fills, first
 
 
-def accuracy_check(tag: str, runs: dict, ref: dict) -> None:
+def accuracy_check(tag: str, runs: dict, ref: dict,
+                   label: str = "kernels", held: bool = True) -> None:
     """bf16 kernels vs plain versions where two bf16 evaluations of the
-    model part too far for the stream rules (RWKV-6 3B with random
-    weights: PERF.md, PR 14): each request's first-token logits, from
-    the kernels run and from the plain run, against ``ref``, the f32 run
-    over the same weights.  The kernels' may lie at most
-    ``ACCURACY_RATIO`` times as far from it as the plain versions' do,
-    the rule paths 1-2 hold their bf16 outputs to."""
+    model part too far for the stream rules (RWKV-6 3B and Zamba2-7B
+    with random weights: PERF.md, PRs 14-15): each request's first-token
+    logits, from the ``label`` run (the kernels run, or the chunked one)
+    and from the plain run, against ``ref``, the f32 run over the same
+    weights.  The ``label`` run's may lie at most ``ACCURACY_RATIO``
+    times as far from it as the plain versions' do, the rule paths 1-2
+    hold their bf16 outputs to (printed, not checked, without
+    ``held``)."""
+    failed = []
     for rid, want in sorted(ref.items()):
-        got, plain = (runs[k].logits[(rid, 0)] for k in ("kernels", "plain"))
+        got, plain = (runs[k].logits[(rid, 0)] for k in (label, "plain"))
         e_k, e_p = rel_err(got, want), rel_err(plain, want)
         print(f"{tag} request {rid}: first-token logits vs f32 "
-              f"max|d|/max|ref| kernels {e_k:.3e} plain {e_p:.3e} "
-              f"(kernels vs plain {rel_err(got, plain):.3e})", flush=True)
-        check(e_k <= ACCURACY_RATIO * e_p,
-              f"{tag} request {rid}: kernels {e_k:.3e} from f32, more than "
-              f"{ACCURACY_RATIO} x the plain versions' {e_p:.3e}")
+              f"max|d|/max|ref| {label} {e_k:.3e} plain {e_p:.3e} "
+              f"({label} vs plain {rel_err(got, plain):.3e}; ratio "
+              f"{e_k / e_p:.3f}{'' if held else ', printed, not held'})",
+              flush=True)
+        if e_k > ACCURACY_RATIO * e_p:
+            failed.append(f"request {rid}: {label} {e_k:.3e}, plain "
+                          f"{e_p:.3e}")
+    check(not held or not failed,
+          f"{tag}: from f32, more than {ACCURACY_RATIO} x the plain "
+          f"versions': {'; '.join(failed)}")
 
 
 def attention_bound(q_shape, kv_rows: int, hkv: int, pairs: int, elt: int,
@@ -1253,10 +1484,12 @@ def attention_bound(q_shape, kv_rows: int, hkv: int, pairs: int, elt: int,
             "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
 
 
-def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list):
-    """Flash attention and RMSNorm at the serve path's shapes, each
-    against its plain version on the same card inputs, timed against the
-    plain version and a PyTorch library call."""
+def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list,
+                       path: str = "path3"):
+    """Flash attention (at ``cfg``'s heads) and RMSNorm (at its width) at
+    the serve path's shapes, each against its plain version on the same
+    card inputs, timed against the plain version and a PyTorch library
+    call."""
     import torch
     import torch.nn.functional as F
 
@@ -1269,7 +1502,7 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list):
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     gen = torch.Generator(device="cuda").manual_seed(17)
     tol = TOL_SERVE_KERNEL[dname]
-    launches = report[("path3", dname)]["launches"]
+    launches = path_launches(report, path, dname)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -1375,9 +1608,9 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list):
                    launches=launches["flash_attention"], max_abs_err=err,
                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=lib_ms)
-        detail = dict(dtype=dname, case=c["label"], max_ref=scale,
-                      max_rel=rel, bytes=nbytes, flops=flops,
-                      tflops=flops / ms / 1e9,
+        detail = dict(dtype=dname, case=f"{c['label']} hd={hd}",
+                      max_ref=scale, max_rel=rel, bytes=nbytes,
+                      flops=flops, tflops=flops / ms / 1e9,
                       path_launches_of_program=launches["flash_attention"],
                       library_call="F.scaled_dot_product_attention",
                       library_max_rel=lib_err, zero_rows_ok=zero_ok)
@@ -1388,46 +1621,54 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list):
                        f"fully masked rows not 0")
         rows.append((row, detail))
 
-    # RMSNorm on 2048 x 2048 (the norm of a 2048-token prefill)
-    x = rnd(SERVE_SEQ, cfg.d_model)
-    w = 1.0 + 0.1 * torch.randn(cfg.d_model, generator=gen, device="cuda")
+    # RMSNorm over the rows of a 2048-token prefill and of a decode step
+    # at B = 4, at the model's width
+    d = cfg.d_model
+    w = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
     w_lib = w.to(dt)
+    for n_rows, case in ((SERVE_SEQ, f"{SERVE_SEQ}x{d}"),
+                         (SERVE_BATCH, f"decode {SERVE_BATCH}x{d}")):
+        x = rnd(n_rows, d)
 
-    def run_rms():
-        return rms.rmsnorm(x, w, eps=1e-6)
+        def run_rms(x=x):
+            return rms.rmsnorm(x, w, eps=1e-6)
 
-    def plain_rms():
-        with plain_versions():
-            return run_rms()
+        def plain_rms(run_rms=run_rms):
+            with plain_versions():
+                return run_rms()
 
-    before = rms.LAUNCHES.launches
-    got = run_rms()
-    check(rms.LAUNCHES.launches == before + 1,
-          "rmsnorm wrapper launched no kernel")
-    want = plain_rms()
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
-    nbytes = 2 * x.numel() * elt + w.numel() * w.element_size()
-    flops = 4 * x.numel()
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS * 1e3
-    lib = lambda: F.rms_norm(x, (cfg.d_model,), weight=w_lib, eps=1e-6)
-    row = dict(name="rmsnorm", **KERNELS["rmsnorm"],
-               launches=launches["rmsnorm"], max_abs_err=err,
-               ms=cuda_ms(run_rms), plain_ms=cuda_ms(plain_rms),
-               bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               library_ms=cuda_ms(lib))
-    detail = dict(dtype=dname, case=f"{SERVE_SEQ}x{cfg.d_model}",
-                  max_ref=scale, max_rel=err / scale, bytes=nbytes,
-                  path_launches_of_program=launches["rmsnorm"],
-                  library_call="F.rms_norm (weight in the input's dtype)",
-                  library_max_rel=rel_err(lib().float(), want.float()))
-    print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
-    check(err / scale <= tol, f"rmsnorm {dname}: max|d|/max|ref| "
-                              f"{err / scale:.3e} > {tol}")
-    rows.append((row, detail))
+        before = rms.LAUNCHES.launches
+        got = run_rms()
+        check(rms.LAUNCHES.launches == before + 1,
+              "rmsnorm wrapper launched no kernel")
+        want = plain_rms()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        nbytes = 2 * x.numel() * elt + w.numel() * w.element_size()
+        flops = 4 * x.numel()
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS * 1e3
+
+        def lib(x=x):
+            return F.rms_norm(x, (d,), weight=w_lib, eps=1e-6)
+
+        row = dict(name="rmsnorm", **KERNELS["rmsnorm"],
+                   launches=launches["rmsnorm"], max_abs_err=err,
+                   ms=cuda_ms(run_rms), plain_ms=cuda_ms(plain_rms),
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   library_ms=cuda_ms(lib))
+        detail = dict(dtype=dname, case=case, max_ref=scale,
+                      max_rel=err / scale, bytes=nbytes,
+                      path_launches_of_program=launches["rmsnorm"],
+                      library_call="F.rms_norm (weight in the input's "
+                                   "dtype)",
+                      library_max_rel=rel_err(lib().float(), want.float()))
+        print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
+        check(err / scale <= tol, f"rmsnorm {dname} {case}: max|d|/max|ref| "
+                                  f"{err / scale:.3e} > {tol}")
+        rows.append((row, detail))
 
 
 def wkv_cost(b: int, h: int, n: int, steps: list, t: int, elt: int,
@@ -1466,7 +1707,7 @@ def rwkv_kernel_phase(cfg, dname: str, report: dict, rows: list):
     h, n, d = cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.d_model
     gen = torch.Generator(device="cuda").manual_seed(23)
     tol = TOL_SERVE_KERNEL[dname]
-    launches = report[("path4", dname)]["launches"]
+    launches = path_launches(report, "path4", dname)
 
     def inputs(b, t):
         """r, k, v as the path's (B, H, T, N) views of token-major
@@ -1592,6 +1833,116 @@ def rwkv_kernel_phase(cfg, dname: str, report: dict, rows: list):
     rows.append((row, detail))
 
 
+def ssd_cost(b: int, h: int, n: int, p: int, steps: list, t: int,
+             elt: int, with_s0: bool):
+    """(bound_ms, bound_by, bytes, flops) of one SSD call: x (elt bytes),
+    the f32 decay a and the row's b and c (elt bytes) of the valid steps
+    read once, y (f32, all T steps, zero past a row's length) and the
+    final state written once, s0 read once where given.  The recurrent
+    form needs 4 N P flops per head and valid step (b x^T, a h + ., c^T
+    h), on f32 FFMA in both dtypes."""
+    valid = sum(steps)
+    nbytes = (valid * h * (p * elt + 4) + valid * 2 * n * elt
+              + b * t * h * p * 4 + b * h * n * p * 4 * (2 if with_s0 else 1))
+    flops = 4 * n * p * h * valid
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
+
+
+def ssd_kernel_phase(cfg, dname: str, report: dict, rows: list):
+    """The SSD kernel at path 5's shapes against its plain (chunked)
+    version on the same card inputs, timed against it (no PyTorch call
+    computes the scan)."""
+    import torch
+
+    from repro_torch.kernels.mamba2 import ops as ssd
+    from repro_torch.kernels.select import plain_versions
+
+    dt = torch.float32 if dname == "f32" else torch.bfloat16
+    elt = torch.empty((), dtype=dt).element_size()
+    n, p = cfg.ssm_state, cfg.ssm_head_dim
+    h = 2 * cfg.d_model // p
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    launches = path_launches(report, "path5", dname)
+
+    def inputs(b, t):
+        """The path's views: x (B, H, T, P) of a token-major projection,
+        the decay a (B, H, T) = exp(-softplus(.)) of a (B, T, H) one, b
+        and c the halves of a (B, T, 2N) projection."""
+        x = torch.randn((b, t, h, p), generator=gen, device="cuda") \
+            .to(dt).transpose(1, 2)
+        a = torch.exp(-torch.nn.functional.softplus(torch.randn(
+            (b, t, h), generator=gen, device="cuda"))).transpose(1, 2)
+        bc = torch.randn((b, t, 2 * n), generator=gen, device="cuda").to(dt)
+        return x, a, bc[..., :n], bc[..., n:]
+
+    def state(b):
+        return torch.randn((b, h, n, p), generator=gen, device="cuda")
+
+    cases = [dict(label=f"prefill B=1 T={SERVE_SEQ} s0=0",
+                  args=(*inputs(1, SERVE_SEQ), None, None),
+                  steps=[SERVE_SEQ])]
+    lens = torch.tensor([SERVE_CHUNK, 0], dtype=torch.int32, device="cuda")
+    cases.append(dict(label=f"chunk B=2 T={SERVE_CHUNK} from s0, lens "
+                            f"{lens.tolist()}",
+                      args=(*inputs(2, SERVE_CHUNK), state(2), lens),
+                      steps=[SERVE_CHUNK, 0], zero_row=1))
+    cases.append(dict(label="ragged B=1 T=1999 s0=0",
+                      args=(*inputs(1, 1999), None, None), steps=[1999]))
+    cases.append(dict(label=f"decode B={SERVE_BATCH} T=1 from s0",
+                      args=(*inputs(SERVE_BATCH, 1), state(SERVE_BATCH),
+                            None),
+                      steps=[1] * SERVE_BATCH))
+
+    for c in cases:
+        def run(c=c):
+            return ssd.mamba2_scan(*c["args"])
+
+        def plain(run=run):
+            with plain_versions():
+                return run()
+
+        before = ssd.LAUNCHES.launches
+        y, s1 = run()
+        check(ssd.LAUNCHES.launches == before + 1,
+              "mamba2 wrapper launched no kernel")
+        y_p, s1_p = plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all() and torch.isfinite(s1).all()),
+              f"mamba2 {dname} {c['label']}: non-finite output")
+        err = (y - y_p).abs().max().item()
+        scale = y_p.abs().max().item()
+        s_rel = rel_err(s1, s1_p)
+        zero_ok = True
+        if "zero_row" in c:
+            z, s0 = c["zero_row"], c["args"][4]
+            zero_ok = (not y[z].any()) and torch.equal(s1[z], s0[z])
+        b, _, t, _ = c["args"][0].shape
+        bound_ms, bound_by, nbytes, flops = ssd_cost(
+            b, h, n, p, c["steps"], t, elt, c["args"][4] is not None)
+        ms = cuda_ms(run)
+        row = dict(name="mamba2", **KERNELS["mamba2"],
+                   launches=launches["mamba2"], max_abs_err=err, ms=ms,
+                   plain_ms=cuda_ms(plain, reps=5), bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None)
+        detail = dict(dtype=dname, case=c["label"], max_ref=scale,
+                      max_rel=err / scale, state_max_rel=s_rel,
+                      bytes=nbytes, flops=flops, tflops=flops / ms / 1e9,
+                      path_launches_of_program=launches["mamba2"],
+                      library_call="none", zero_row_ok=zero_ok)
+        print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
+        check(err / scale <= TOL_SSD, f"mamba2 {dname} {c['label']}: y "
+                                      f"max|d|/max|ref| {err / scale:.3e} "
+                                      f"> {TOL_SSD}")
+        check(s_rel <= TOL_SSD, f"mamba2 {dname} {c['label']}: state "
+                                f"max|d|/max|ref| {s_rel:.3e} > {TOL_SSD}")
+        check(zero_ok, f"mamba2 {dname} {c['label']}: the lens = 0 row's y "
+                       f"is not 0 or its state moved")
+        rows.append((row, detail))
+
+
 def summary(rows: list, report: dict) -> list:
     """One entry per kernel: its most-launched f32 program at the path's
     shapes stands for it; ``launches`` sums every path's counted runs."""
@@ -1699,6 +2050,28 @@ def main(argv=None) -> int:
             rwkv_kernel_phase(cfg, dname, report, rows)
             print(f"[phase path4 {dname}] {time.perf_counter() - t0:.1f} s",
                   flush=True)
+            torch.cuda.empty_cache()
+        # path 5: the config's dtype at its full depth, then the cut depth
+        # in both dtypes (f32 first: the bf16 run's accuracy reference)
+        t0 = time.perf_counter()
+        serve_phase("path5", "bf16", args.seed, report,
+                    layers=get_config("zamba2_7b").n_layers,
+                    labels=("kernels", "chunked"))
+        torch.cuda.empty_cache()
+        print(f"[phase path5 bf16 81L] {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        first_f32 = None
+        for dname in ("f32", "bf16"):
+            t0 = time.perf_counter()
+            cfg, fills, first = serve_phase(
+                "path5", dname, args.seed, report, accuracy_ref=first_f32,
+                layers=PATH5_CUT_LAYERS)
+            first_f32 = first
+            ssd_kernel_phase(cfg, dname, report, rows)
+            serve_kernel_phase(cfg, dname, fills, report, rows,
+                               path="path5")
+            print(f"[phase path5 {dname} {PATH5_CUT_LAYERS}L] "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
             torch.cuda.empty_cache()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

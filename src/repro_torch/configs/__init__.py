@@ -1,12 +1,13 @@
 """Architecture configs ported so far (exact public-literature dimensions).
 
-``get_config("tinyllama_11b")`` (dense) and ``get_config("rwkv6_3b")``
-(recurrent) return the configs; the other architectures
-of the JAX package's ``repro.configs`` arrive with their model families.
+``get_config("tinyllama_11b")`` (dense), ``get_config("rwkv6_3b")``
+(recurrent) and ``get_config("zamba2_7b")`` (hybrid) return the configs;
+the other architectures of the JAX package's ``repro.configs`` arrive
+with their model families.
 """
 from importlib import import_module
 
-ARCH_IDS = ["tinyllama_11b", "rwkv6_3b"]
+ARCH_IDS = ["tinyllama_11b", "rwkv6_3b", "zamba2_7b"]
 
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 

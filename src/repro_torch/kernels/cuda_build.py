@@ -35,9 +35,12 @@ import subprocess
 import threading
 from typing import Dict, List, Sequence, Tuple
 
+import torch
+
 from .triton_build import BUILD_DIR
 
-__all__ = ["NVCC_FLAGS", "KernelBuildError", "nvcc", "build", "load"]
+__all__ = ["NVCC_FLAGS", "KernelBuildError", "nvcc", "build", "load",
+           "aligned_rows"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -129,3 +132,14 @@ def load(name: str, source: str,
             (path,) = build([(name, source, include_dirs)])
             hit = _LIBS[key] = ctypes.CDLL(str(path))
         return hit
+
+
+def aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its last axis is unit-stride and every row starts
+    on 16 bytes (kernels that move 16-byte chunks read it in place), else
+    a contiguous copy."""
+    vec = 16 // t.element_size()
+    if (t.stride(-1) != 1 or t.data_ptr() % 16
+            or any(s % vec for s in t.stride()[:-1])):
+        return t.contiguous()
+    return t

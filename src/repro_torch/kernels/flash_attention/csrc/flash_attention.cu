@@ -12,7 +12,11 @@
 // (B, Hkv, Sk, hd) are read through their strides (unit stride along hd);
 // every size, stride, lens and q_offset is a runtime argument, so a new
 // length inside a bucket launches the library already built.  The head
-// dim is a template constant (64 and 128 are instantiated).
+// dim is a template constant (64, 112 and 128 are instantiated; at 112
+// a prefill thread owns 7 output columns, read as scalars, and a decode
+// lane 4 columns of which those past 112 are masked).  Each instance
+// sets its dynamic shared memory on its first launch (at 112: ~101 KB
+// prefill, ~62 KB decode, both above the 48 KB default).
 //
 // Two forms:
 //
@@ -302,14 +306,19 @@ __global__ void __launch_bounds__(NT) prefill_kernel(Args a) {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         float vv[DC];
+        if constexpr (DC % 4 == 0) {
 #pragma unroll
-        for (int c = 0; c < DC; c += 4) {
-          const float4 v4 = *reinterpret_cast<const float4*>(
-              Vs + (kk + jj) * HD + tc * DC + c);
-          vv[c] = v4.x;
-          vv[c + 1] = v4.y;
-          vv[c + 2] = v4.z;
-          vv[c + 3] = v4.w;
+          for (int c = 0; c < DC; c += 4) {
+            const float4 v4 = *reinterpret_cast<const float4*>(
+                Vs + (kk + jj) * HD + tc * DC + c);
+            vv[c] = v4.x;
+            vv[c + 1] = v4.y;
+            vv[c + 2] = v4.z;
+            vv[c + 3] = v4.w;
+          }
+        } else {  // hd 112: 7 columns, not 16-byte aligned
+#pragma unroll
+          for (int c = 0; c < DC; ++c) vv[c] = Vs[(kk + jj) * HD + tc * DC + c];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -339,7 +348,8 @@ __global__ void __launch_bounds__(NT) prefill_kernel(Args a) {
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT) decode_kernel(Args a) {
-  constexpr int DJ = HD / 32;  // output columns per lane
+  // output columns per lane: lane + 32 c for c < DJ, those below HD
+  constexpr int DJ = (HD + 31) / 32;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;            // [DROWS][HD]  q rows, scaled
   float* Kt = Qs + DROWS * HD; // [HD][BK]
@@ -408,7 +418,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args a) {
       const float p = Ps[w * BK + kk];
 #pragma unroll
       for (int c = 0; c < DJ; ++c)
-        o[c] = fmaf(p, Vs[kk * HD + lane + 32 * c], o[c]);
+        if (lane + 32 * c < HD)
+          o[c] = fmaf(p, Vs[kk * HD + lane + 32 * c], o[c]);
     }
     __syncwarp();
   }
@@ -417,7 +428,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args a) {
          (long long)(hk * group + g0 + w) * a.o_sh;
 #pragma unroll
   for (int c = 0; c < DJ; ++c)
-    O[lane + 32 * c] = Elt<T>::out(l == 0.f ? 0.f : __fdiv_rn(o[c], l));
+    if (lane + 32 * c < HD)
+      O[lane + 32 * c] = Elt<T>::out(l == 0.f ? 0.f : __fdiv_rn(o[c], l));
 }
 
 template <typename T, int HD>
@@ -456,6 +468,7 @@ template <typename T>
 cudaError_t launch_hd(const Args& a, int hd, int decode, cudaStream_t s) {
   switch (hd) {
     case 64: return launch<T, 64>(a, decode, s);
+    case 112: return launch<T, 112>(a, decode, s);
     case 128: return launch<T, 128>(a, decode, s);
   }
   return cudaErrorInvalidValue;

@@ -36,7 +36,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 
 #: head dims the library is instantiated for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 #: query rows per prefill block; keys per step of both forms
 BLOCK_Q, BLOCK_K = 64, 64
 
@@ -70,17 +70,6 @@ def _function():
                 err.restype = ctypes.c_char_p
                 _FN = (fn, err)
     return _FN
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when its head dim is unit-stride and every row starts
-    on 16 bytes (the kernel moves 16-byte chunks), else a contiguous
-    copy."""
-    vec = 16 // t.element_size()
-    if (t.stride(-1) != 1 or t.data_ptr() % 16
-            or any(s % vec for s in t.stride()[:-1])):
-        return t.contiguous()
-    return t
 
 
 def _rows(x: Optional[torch.Tensor], b: int, dev, what: str):
@@ -138,7 +127,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                               device=dev)
     else:
         q_offset = None
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = (cuda_build.aligned_rows(t) for t in (q, k, v))
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=dev) \
         .transpose(1, 2)
     fn, err = _function()

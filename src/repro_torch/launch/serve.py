@@ -6,11 +6,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \\
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \\
+        --reduced --device cpu
 
 Weights are random, drawn from a seeded ``torch.Generator``; requests
 come from :class:`~repro_torch.data.pipeline.VarLenRequestStream`.  The
-model, its cache (KV rows or recurrent state) and every kernel run on
-the card unless ``--device cpu`` is given.
+model, its cache (KV rows, recurrent state, or both for the hybrid) and
+every kernel run on the card unless ``--device cpu`` is given.
 """
 import argparse
 import dataclasses

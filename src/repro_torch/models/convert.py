@@ -1,15 +1,18 @@
 """Carry a parameter tree from the JAX package into the port.
 
-The JAX package initialises a transformer as a nested dict of arrays whose
+The JAX package initialises a model as a nested dict of arrays whose
 ``blocks`` leaves are stacked over layers (``(L, ...)``, for its
-``lax.scan``); the port keeps one dict per layer.  :func:`params_from_numpy`
-takes the JAX tree *as numpy arrays* (``jax.tree.map(np.asarray, params)``
+``lax.scan``); the port keeps one dict per layer.  Every other subtree
+(Zamba2's ``shared_attn``, ``shared_ln`` and its ``lora`` factors,
+stacked over invocations as the port keeps them too) carries over leaf
+for leaf.  :func:`params_from_numpy` takes the JAX tree *as numpy arrays* (``jax.tree.map(np.asarray, params)``
 on the JAX side — the port never imports JAX) and returns the port's tree
 on ``device``, leaf for leaf, so both packages compute the same function.
 :func:`cache_from_numpy` does the same for a cache, whose leaves both
 packages keep layer-stacked: the dense KV cache ``{"k", "v"}`` of
-(L, B, Hkv, S, hd) leaves, or RWKV's nested state ``{"tmix": {"s",
-"x_prev"}, "cmix_x"}``.
+(L, B, Hkv, S, hd) leaves, RWKV's nested state ``{"tmix": {"s",
+"x_prev"}, "cmix_x"}``, or Zamba2's ``{"mamba": {"h"}, "attn": {"k",
+"v"}}``.
 
 Like ``disc_torch.compile``, both functions put their tensors on the card
 unless the caller passes ``device="cpu"``, and raise
@@ -50,7 +53,7 @@ def _tree(x: Any, device, index=None):
 
 def params_from_numpy(np_tree: Dict[str, Any], cfg: ArchConfig,
                       device="cuda") -> Dict[str, Any]:
-    """The JAX package's transformer parameter tree → the port's tree, on
+    """The JAX package's parameter tree → the port's tree, on
     ``device``."""
     device = resolve_device(device)
     out: Dict[str, Any] = {}

@@ -1,15 +1,17 @@
 """Model-zoo layers on the compiled path (PyTorch, single device).
 
 The counterparts of the JAX package's ``models/layers.py`` functions that
-a dense transformer and RWKV-6 run: RMS/LayerNorm, RoPE, grouped-query
-attention (full, batched prefill against a KV cache, and decode), the
-(Swi)GLU MLP and the RWKV-6 time mix.  Each is a plain function of
-tensors with the reference's name and argument order.
+a dense transformer, RWKV-6 and Zamba2 run: RMS/LayerNorm, RoPE,
+grouped-query attention (full, batched prefill against a KV cache, and
+decode), the (Swi)GLU MLP, the RWKV-6 time mix and the Mamba-2 block.
+Each is a plain function of tensors with the reference's name and
+argument order.
 
-Attention, both norms and the WKV recurrence go through their kernels'
-wrappers (``kernels/flash_attention/ops.py``, ``kernels/rmsnorm/ops.py``,
-``kernels/layernorm/ops.py``, ``kernels/rwkv6/ops.py``): the CUDA C++
-flash-attention and WKV kernels and the Triton RMSNorm and LayerNorm
+Attention, both norms, the WKV recurrence and the SSD scan go through
+their kernels' wrappers (``kernels/flash_attention/ops.py``,
+``kernels/rmsnorm/ops.py``, ``kernels/layernorm/ops.py``,
+``kernels/rwkv6/ops.py``, ``kernels/mamba2/ops.py``): the CUDA C++
+flash-attention, WKV and SSD kernels and the Triton RMSNorm and LayerNorm
 kernels on the card, their plain versions on the CPU.  The DHLO bridge traces these functions inside
 ``plain_versions()``, so they trace into the same op structure the
 reference traces into (``dot_general`` for the grouped attention
@@ -28,6 +30,7 @@ from ..kernels.flash_attention.ref import (  # noqa: F401 (reference names)
     CHUNK_THRESHOLD as _CHUNK_THRESHOLD, pick_chunk as _pick_chunk,
     q_positions as _q_positions, sdpa_chunked_ref as _sdpa_chunked)
 from ..kernels.layernorm import ops as ln_ops
+from ..kernels.mamba2 import ops as ssd_ops
 from ..kernels.rmsnorm import ops as rms_ops
 from ..kernels.rwkv6 import ops as wkv_ops
 from .common import ArchConfig, dtype_of, param_init
@@ -37,6 +40,7 @@ Params = Dict[str, Any]
 __all__ = ["norm_init", "norm_apply", "rope_tables", "apply_rope",
            "attn_init", "attn_apply", "attn_cache_init", "mlp_init",
            "mlp_apply", "rwkv6_init", "rwkv6_apply", "rwkv6_cache_init",
+           "mamba2_init", "mamba2_apply", "mamba2_cache_init",
            "maybe_shard"]
 
 
@@ -288,3 +292,66 @@ def rwkv6_cache_init(cfg: ArchConfig, batch: int, device) -> Params:
                              device=device),
             "x_prev": torch.zeros((batch, cfg.d_model), dtype=dtype_of(cfg),
                                   device=device)}
+
+
+# --------------------------------------------------------------- mamba2 --
+def mamba2_init(generator: torch.Generator, cfg: ArchConfig,
+                device) -> Params:
+    d = cfg.d_model
+    d_in = 2 * d
+    n, hp = cfg.ssm_state, cfg.ssm_head_dim
+    n_heads = d_in // hp
+    dt = dtype_of(cfg)
+    return {
+        "w_x": param_init(generator, (d, d_in), dt, device),
+        "w_z": param_init(generator, (d, d_in), dt, device),
+        "w_bc": param_init(generator, (d, 2 * n), dt, device),
+        "w_dt": param_init(generator, (d, n_heads), dt, device),
+        "a_log": torch.zeros((n_heads,), dtype=torch.float32, device=device),
+        "w_out": param_init(generator, (d_in, d), dt, device),
+        "skip": param_init(generator, (n_heads,), torch.float32, device,
+                           scale=1.0),
+    }
+
+
+def mamba2_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
+                 cache: Optional[Params] = None,
+                 lens: Optional[torch.Tensor] = None):
+    """Mamba-2 block over x (B, S, D).
+
+    Without ``cache``: the whole sequence from a zero state (the
+    reference's ``_ssd_chunked``, here in exact f32).  With ``cache``
+    (``{"h": (B, H, N, P) f32}``): x continues each row from the cache's
+    state for the first ``lens[b]`` positions (None: all S).  S = 1 is
+    the reference's decode step (its one-step einsums); longer chunks are
+    the serve path's prefill, the same recurrence in one kernel launch.
+    A row with ``lens = 0`` keeps its state.  b and c stay (B, S, N),
+    shared by the heads; x and y are viewed per head, never copied."""
+    b, s, d = x.shape
+    d_in = 2 * d
+    n, hp = cfg.ssm_state, cfg.ssm_head_dim
+    n_heads = d_in // hp
+    xz = x @ p["w_x"]
+    z = torch.nn.functional.silu(x @ p["w_z"])
+    bc = x @ p["w_bc"]
+    bmat, cmat = bc[..., :n], bc[..., n:]
+    dt_ = torch.nn.functional.softplus((x @ p["w_dt"]).float())  # (B,S,H)
+    a = torch.exp(-dt_ * torch.exp(p["a_log"]))
+    xh = xz.reshape(b, s, n_heads, hp).transpose(1, 2)           # (B,H,S,P)
+    ah = a.transpose(1, 2)                                       # (B,H,S)
+    new_cache = None
+    if cache is None:
+        y, _ = ssd_ops.mamba2_scan(xh, ah, bmat, cmat)
+    else:
+        y, h_new = ssd_ops.mamba2_scan(xh, ah, bmat, cmat, cache["h"], lens)
+        new_cache = {"h": h_new}
+    y = y + p["skip"][None, :, None, None] * xh.float()
+    y = y.transpose(1, 2).reshape(b, s, d_in).to(x.dtype)
+    return (y * z) @ p["w_out"], new_cache
+
+
+def mamba2_cache_init(cfg: ArchConfig, batch: int, device) -> Params:
+    n_heads = 2 * cfg.d_model // cfg.ssm_head_dim
+    return {"h": torch.zeros((batch, n_heads, cfg.ssm_state,
+                              cfg.ssm_head_dim), dtype=torch.float32,
+                             device=device)}
