@@ -12,9 +12,10 @@
 // (B, Hkv, Sk, hd) are read through their strides (unit stride along hd);
 // every size, stride, lens and q_offset is a runtime argument, so a new
 // length inside a bucket launches the library already built.  The head
-// dim is a template constant (64, 112 and 128 are instantiated; at 112
-// a prefill thread owns 7 output columns, read as scalars, and a decode
-// lane 4 columns of which those past 112 are masked).  Each instance
+// dim is a template constant (16, 64, 112 and 128 are instantiated: 16 is
+// the reduced configs' head dim; at 16 and 112 a prefill thread owns 1
+// and 7 output columns, read as scalars, and a decode lane 1 and 4
+// columns, those past hd masked).  Each instance
 // sets its dynamic shared memory on its first launch (at 112: ~101 KB
 // prefill, ~62 KB decode, both above the 48 KB default).
 //
@@ -316,7 +317,7 @@ __global__ void __launch_bounds__(NT) prefill_kernel(Args a) {
             vv[c + 2] = v4.z;
             vv[c + 3] = v4.w;
           }
-        } else {  // hd 112: 7 columns, not 16-byte aligned
+        } else {  // hd 16 and 112: 1 and 7 columns, not 16-byte aligned
 #pragma unroll
           for (int c = 0; c < DC; ++c) vv[c] = Vs[(kk + jj) * HD + tc * DC + c];
         }
@@ -467,6 +468,7 @@ cudaError_t launch(const Args& a, int decode, cudaStream_t stream) {
 template <typename T>
 cudaError_t launch_hd(const Args& a, int hd, int decode, cudaStream_t s) {
   switch (hd) {
+    case 16: return launch<T, 16>(a, decode, s);
     case 64: return launch<T, 64>(a, decode, s);
     case 112: return launch<T, 112>(a, decode, s);
     case 128: return launch<T, 128>(a, decode, s);

@@ -35,8 +35,8 @@ __all__ = ["HEAD_DIMS", "BLOCK_Q", "BLOCK_K", "flash_attention_kernel",
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 
-#: head dims the library is instantiated for
-HEAD_DIMS = (64, 112, 128)
+#: head dims the library is instantiated for (16: the reduced configs')
+HEAD_DIMS = (16, 64, 112, 128)
 #: query rows per prefill block; keys per step of both forms
 BLOCK_Q, BLOCK_K = 64, 64
 

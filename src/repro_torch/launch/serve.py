@@ -9,11 +9,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \\
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b \\
+        --reduced
 
 Weights are random, drawn from a seeded ``torch.Generator``; requests
 come from :class:`~repro_torch.data.pipeline.VarLenRequestStream`.  The
 model, its cache (KV rows, recurrent state, or both for the hybrid) and
-every kernel run on the card unless ``--device cpu`` is given.
+every kernel run on the card unless ``--device cpu`` is given.  A model
+whose weights do not fit the card (DBRX at its 40 layers: 263 GB in bf16)
+is refused before anything is allocated; it waits for the multi-GPU
+slice.
 """
 import argparse
 import dataclasses
@@ -25,6 +30,7 @@ from ..api import ServeConfig, ServeEngine
 from ..api.options import resolve_device
 from ..configs import ARCH_IDS, get_config
 from ..data.pipeline import VarLenRequestStream
+from ..models.common import dtype_of
 from ..models.registry import get_model
 
 
@@ -53,6 +59,16 @@ def main(argv=None):
                              device=args.device)
     model = get_model(cfg)
     device = resolve_device(args.device)  # no card: NoDeviceError
+    if device.type == "cuda":
+        need = cfg.n_params() * dtype_of(cfg).itemsize
+        have = torch.cuda.get_device_properties(device).total_memory
+        if need > have:
+            raise SystemExit(
+                f"{cfg.name}: {need / 1e9:.1f} GB of weights "
+                f"({cfg.n_params() / 1e9:.2f} B parameters) against the "
+                f"card's {have / 1e9:.1f} GB; serving it at full size "
+                f"arrives with the port's multi-GPU slice (--reduced runs "
+                f"on one card)")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, device)
     engine = ServeEngine(model, params, engine_cfg)

@@ -2,7 +2,10 @@
 
 The JAX package initialises a model as a nested dict of arrays whose
 ``blocks`` leaves are stacked over layers (``(L, ...)``, for its
-``lax.scan``); the port keeps one dict per layer.  Every other subtree
+``lax.scan``); the port keeps one dict per layer, leaf for leaf and in
+the JAX dtypes (a MoE block's ``ffn`` carries its f32 ``router`` (D, E),
+the expert stacks ``w_in``/``w_gate`` (E, D, F) and ``w_out`` (E, F, D)
+and, where the config has them, the ``shared`` experts).  Every other subtree
 (Zamba2's ``shared_attn``, ``shared_ln`` and its ``lora`` factors,
 stacked over invocations as the port keeps them too) carries over leaf
 for leaf.  :func:`params_from_numpy` takes the JAX tree *as numpy arrays* (``jax.tree.map(np.asarray, params)``

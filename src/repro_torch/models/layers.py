@@ -1,18 +1,20 @@
 """Model-zoo layers on the compiled path (PyTorch, single device).
 
 The counterparts of the JAX package's ``models/layers.py`` functions that
-a dense transformer, RWKV-6 and Zamba2 run: RMS/LayerNorm, RoPE,
-grouped-query attention (full, batched prefill against a KV cache, and
-decode), the (Swi)GLU MLP, the RWKV-6 time mix and the Mamba-2 block.
-Each is a plain function of tensors with the reference's name and
-argument order.
+a dense transformer, DBRX's MoE, RWKV-6 and Zamba2 run: RMS/LayerNorm,
+RoPE, grouped-query attention (full, batched prefill against a KV cache,
+and decode), the (Swi)GLU MLP, the routed MoE, the RWKV-6 time mix and
+the Mamba-2 block.  Each is a plain function of tensors with the
+reference's name and argument order.
 
-Attention, both norms, the WKV recurrence and the SSD scan go through
-their kernels' wrappers (``kernels/flash_attention/ops.py``,
-``kernels/rmsnorm/ops.py``, ``kernels/layernorm/ops.py``,
+Attention, both norms, the MoE router's softmax, the WKV recurrence and
+the SSD scan go through their kernels' wrappers
+(``kernels/flash_attention/ops.py``, ``kernels/rmsnorm/ops.py``,
+``kernels/layernorm/ops.py``, ``kernels/softmax/ops.py``,
 ``kernels/rwkv6/ops.py``, ``kernels/mamba2/ops.py``): the CUDA C++
-flash-attention, WKV and SSD kernels and the Triton RMSNorm and LayerNorm
-kernels on the card, their plain versions on the CPU.  The DHLO bridge traces these functions inside
+flash-attention, WKV and SSD kernels and the Triton RMSNorm, LayerNorm
+and masked softmax kernels on the card, their plain versions on the
+CPU.  The DHLO bridge traces these functions inside
 ``plain_versions()``, so they trace into the same op structure the
 reference traces into (``dot_general`` for the grouped attention
 contractions, ``mean`` + ``rsqrt`` norms, explicit softmax).
@@ -33,13 +35,15 @@ from ..kernels.layernorm import ops as ln_ops
 from ..kernels.mamba2 import ops as ssd_ops
 from ..kernels.rmsnorm import ops as rms_ops
 from ..kernels.rwkv6 import ops as wkv_ops
+from ..kernels.softmax import ops as sm_ops
 from .common import ArchConfig, dtype_of, param_init
 
 Params = Dict[str, Any]
 
 __all__ = ["norm_init", "norm_apply", "rope_tables", "apply_rope",
            "attn_init", "attn_apply", "attn_cache_init", "mlp_init",
-           "mlp_apply", "rwkv6_init", "rwkv6_apply", "rwkv6_cache_init",
+           "mlp_apply", "moe_init", "moe_apply", "rwkv6_init",
+           "rwkv6_apply", "rwkv6_cache_init",
            "mamba2_init", "mamba2_apply", "mamba2_cache_init",
            "maybe_shard"]
 
@@ -196,6 +200,124 @@ def mlp_apply(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         h = torch.nn.functional.gelu(h, approximate="tanh")
     return h @ p["w_out"]
+
+
+# ------------------------------------------------------------------ moe --
+def moe_init(generator: torch.Generator, cfg: ArchConfig,
+             device) -> Params:
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.expert_width
+    dt = dtype_of(cfg)
+    p = {"router": param_init(generator, (d, e), torch.float32, device),
+         "w_in": param_init(generator, (e, d, f), dt, device),
+         "w_gate": param_init(generator, (e, d, f), dt, device),
+         "w_out": param_init(generator, (e, f, d), dt, device)}
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared"] = {"w_in": param_init(generator, (d, fs), dt, device),
+                       "w_gate": param_init(generator, (d, fs), dt, device),
+                       "w_out": param_init(generator, (fs, d), dt, device)}
+    return p
+
+
+def _moe_experts_local(cfg: ArchConfig, w_in, w_gate, w_out, x_tokens,
+                       gates, ids, capacity: int,
+                       valid: Optional[torch.Tensor] = None,
+                       limit: Optional[torch.Tensor] = None):
+    """Sort-based capacity dispatch over the experts of ``w_in``.
+
+    x_tokens (T, D); gates/ids (T, k); experts (E, D, F).  The (token,
+    choice) pairs are sorted stably by expert id, so an expert's pairs
+    keep flat token order; pair ``i`` of expert e takes slot ``i`` of its
+    ``capacity`` slots if ``i < limit`` and drops otherwise (GShard token
+    dropping).  ``valid`` (T,) bool: tokens outside it (a bucket's
+    padding) sort last and take no slot.  ``limit`` (a device scalar, at
+    most ``capacity``; None: ``capacity``) is the runtime capacity.
+
+    Since a token picks an expert at most once, the order within an
+    expert depends on token indices only, never on the order of a
+    token's k choices.  Every step is a sort, a gather or a scatter to
+    unique destinations: no host sync and no float atomics.  Each token
+    sums its k contributions in choice order, where the reference
+    scatter-adds them in expert order (``.at[st].add``)."""
+    t, dmod = x_tokens.shape
+    e_loc = w_in.shape[0]
+    k = ids.shape[1]
+    n = t * k
+    dev = x_tokens.device
+    flat_tok = torch.arange(t, device=dev)[:, None].expand(t, k).reshape(-1)
+    key = ids if valid is None else torch.where(valid[:, None], ids, e_loc)
+    se, order = torch.sort(key.reshape(-1), stable=True)   # padding last
+    st = flat_tok[order]
+    counts = torch.zeros(e_loc + 1, dtype=se.dtype, device=dev)
+    counts.scatter_add_(0, se, torch.ones_like(se))
+    starts = counts.cumsum(0) - counts
+    pos_in_e = torch.arange(n, device=dev) - starts[se]
+    cap = capacity if limit is None else limit
+    keep = (se < e_loc) & (pos_in_e < cap)
+    slot = torch.where(keep, se * capacity + pos_in_e, 0)
+    # slot c of expert e holds sorted pair starts[e] + c, if that pair
+    # is kept: a gather into the (E, C, D) buffers
+    col = torch.arange(capacity, device=dev)
+    filled = col[None, :] < counts[:e_loc].clamp(max=cap)[:, None]
+    src = (starts[:e_loc, None] + col[None, :]).clamp(max=n - 1)
+    buf = torch.where(filled[..., None], x_tokens[st[src]], 0)
+    h = torch.bmm(buf, w_in)
+    g = torch.bmm(buf, w_gate)
+    h = g * torch.sigmoid(g) * h
+    out = torch.bmm(h, w_out).reshape(e_loc * capacity, dmod)
+    # combine: each pair's output back in flat (token, choice) order
+    # through the inverse permutation, weighted, summed per token
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(n, device=dev))
+    kept = keep[inv][:, None]
+    contrib = out[slot[inv]] * gates.reshape(-1, 1).to(out.dtype)
+    contrib = torch.where(kept, contrib, 0)
+    return contrib.reshape(t, k, dmod).sum(1)
+
+
+def moe_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
+              lens: Optional[torch.Tensor] = None,
+              mesh: Any = None) -> torch.Tensor:
+    """Top-k routed MoE with optional shared experts (dbrx / deepseek-v2),
+    the reference's branch without a mesh.
+
+    The router's f32 logits go through the masked softmax kernel
+    (``n_valid = E``), then ``topk``; gates are renormalised.  The
+    expert buffers are sized from the call's T = B * S tokens as the
+    reference sizes them, ``max(4, int(cf * T * k / E))``.  With ``lens``
+    (B,), token (b, s) is valid iff ``s < lens[b]``: padded tokens take
+    no slot, and the capacity applied is ``max(4, floor(cf * n * k /
+    E))`` over the ``n = lens.sum()`` valid tokens, a device scalar, so
+    the output does not depend on the bucket.  Without ``lens`` every
+    token counts, as in the reference."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "moe_apply under a mesh (the reference's expert-parallel "
+            "shard_map branch) arrives with the port's multi-GPU slice")
+    b, s, d = x.shape
+    tokens = x.reshape(-1, d)
+    t = tokens.shape[0]
+    e = cfg.n_experts
+    logits = tokens.float() @ p["router"]                   # (T, E)
+    gates, ids = torch.topk(sm_ops.masked_softmax(logits, e), cfg.top_k,
+                            dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    gates = gates.to(x.dtype)
+    cap = max(4, int(cfg.capacity_factor * t * cfg.top_k / e))
+    valid = limit = None
+    if lens is not None:
+        valid = (torch.arange(s, device=x.device)[None, :]
+                 < lens[:, None]).reshape(-1)
+        n_valid = lens.sum(dtype=torch.float64)
+        limit = (cfg.capacity_factor * n_valid * cfg.top_k / e).floor() \
+            .clamp(min=4).long()
+    y = _moe_experts_local(cfg, p["w_in"], p["w_gate"], p["w_out"], tokens,
+                           gates, ids, cap, valid, limit)
+    if cfg.n_shared_experts:
+        sh = p["shared"]
+        g = tokens @ sh["w_gate"]
+        y = y + (g * torch.sigmoid(g) * (tokens @ sh["w_in"])) @ sh["w_out"]
+    return y.reshape(b, s, d)
 
 
 # ---------------------------------------------------------------- rwkv6 --

@@ -1,16 +1,17 @@
 """Model registry: family -> (init / forward / cache / prefill / decode)
 bundle, the counterpart of the JAX package's ``models/registry.py`` for
-the dense, recurrent (``"ssm"``, RWKV-6) and hybrid (``"hybrid"``,
-Zamba2) families.
+the dense, MoE (``"moe"``, DBRX: the transformer with routed experts),
+recurrent (``"ssm"``, RWKV-6) and hybrid (``"hybrid"``, Zamba2)
+families.
 
 Cache trees may nest (RWKV's ``{"tmix": {"s", "x_prev"}, "cmix_x"}``,
 Zamba2's ``{"mamba": {"h"}, "attn": {"k", "v"}}``): every per-row
 operation on a cache maps over its tensor leaves (:func:`tree_map`),
 whose batch axis is 1.
 
-The MoE and encoder-decoder families arrive with their slices of the
-port; ``verify``, the paged-KV entry points and the
-training loss wait for the paged/speculative and training slices.
+The encoder-decoder family arrives with its slice of the port;
+``verify``, the paged-KV entry points and the training loss wait for the
+paged/speculative and training slices.
 """
 from __future__ import annotations
 
@@ -151,6 +152,7 @@ def _lm_bundle(mod, cfg: ArchConfig) -> Model:
 
 MODEL_FAMILIES = {
     "dense": lambda cfg: _lm_bundle(transformer, cfg),
+    "moe": lambda cfg: _lm_bundle(transformer, cfg),
     "ssm": lambda cfg: _lm_bundle(rwkv, cfg),
     "hybrid": lambda cfg: _lm_bundle(zamba, cfg),
 }

@@ -1,7 +1,8 @@
-"""Decoder-only dense transformer LM (PyTorch).
+"""Decoder-only transformer LM (PyTorch), dense and MoE.
 
 The counterpart of the JAX package's ``models/transformer.py`` for the
-dense family.  The reference stacks its layers and runs them under
+dense and MoE families (a block's FFN is the routed MoE where
+``cfg.is_moe``).  The reference stacks its layers and runs them under
 ``lax.scan``; the port keeps a Python list of per-layer parameter dicts
 and unrolls the layers, which is what the DHLO bridge traces (the port's
 frontend lowers no control flow yet).
@@ -36,7 +37,8 @@ def block_init(generator: torch.Generator, cfg: ArchConfig,
                device) -> Params:
     return {"ln1": L.norm_init(cfg, device), "ln2": L.norm_init(cfg, device),
             "attn": L.attn_init(generator, cfg, device),
-            "ffn": L.mlp_init(generator, cfg, device)}
+            "ffn": L.moe_init(generator, cfg, device) if cfg.is_moe
+            else L.mlp_init(generator, cfg, device)}
 
 
 def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *, positions,
@@ -47,7 +49,13 @@ def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *, positions,
                                 lens=lens, cache=cache, offsets=offsets)
     x = x + a
     h = L.norm_apply(cfg, p["ln2"], x)
-    f = L.mlp_apply(cfg, p["ffn"], h)
+    if cfg.is_moe:
+        # ``lens`` marks the valid tokens except in a decode step, where
+        # it is the cache fill and every row's token counts
+        decode = cache is not None and offsets is None
+        f = L.moe_apply(cfg, p["ffn"], h, lens=None if decode else lens)
+    else:
+        f = L.mlp_apply(cfg, p["ffn"], h)
     return x + f, new_cache
 
 

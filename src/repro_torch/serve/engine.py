@@ -35,8 +35,11 @@ on the public ``disc_torch.compile`` API (``pipeline="jit"``):
   is one launch over all rows.
 
 On the card every attention runs the flash-attention kernel, every
-norm its RMSNorm or LayerNorm kernel and every RWKV time mix the WKV
-kernel (the model's layers call their wrappers).  The cache lives on the
+norm its RMSNorm or LayerNorm kernel, every RWKV time mix the WKV kernel,
+every Mamba-2 block the SSD kernel and every MoE router the masked
+softmax kernel (the model's layers call their wrappers).  The compiled
+entries hold the engine weakly, so a dropped engine frees its cache and
+parameters at once.  The cache lives on the
 card; the engine updates its rows in place (``index_copy_``) where the
 JAX package rebuilds the array.  A cache is any tree of layer-stacked
 leaves with the batch on axis 1 (the dense KV cache, RWKV's nested
@@ -53,6 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple, Union
 
@@ -242,8 +246,11 @@ class ServeEngine:
                 ("B", (scfg.batch_policy.kind, scfg.batch_policy.granule)),))
         dim_b = Dim("B", max=self.n_slots)
         i32 = torch.int32
+        # the compiled entries call back into the engine through weak
+        # references: a dropped engine frees its cache and parameters at
+        # once, without waiting for a gc pass over a cycle
         self._prefill_fn = disc_compile(
-            self._prefill_call,
+            _weak_method(self._prefill_call),
             specs=[None,                 # params tree
                    TreeSpec({1: "B"}),   # gathered cache rows (L, B, ...)
                    ArgSpec((dim_b, Dim("S", max=scfg.max_seq)), i32,
@@ -256,7 +263,7 @@ class ServeEngine:
                                    scfg.escalation_threshold,
                                    cache=self.compile_cache))
         self._decode_fn = disc_compile(
-            self._decode_step,
+            _weak_method(self._decode_step),
             options=CompileOptions(pipeline="jit", name="decode",
                                    device=scfg.device,
                                    cache=self.compile_cache))
@@ -629,6 +636,18 @@ class ServeEngine:
         if self._busy_s > 0:
             self.stats["tokens_per_sec"] = \
                 self.stats["tokens_generated"] / self._busy_s
+
+
+def _weak_method(method: Callable) -> Callable:
+    """``method`` (bound to an engine) called through a weak reference to
+    the engine."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        return ref()(*args)
+
+    call.__qualname__ = method.__qualname__
+    return call
 
 
 def _leaves(tree) -> List[torch.Tensor]:

@@ -358,6 +358,36 @@ def test_engine_refuses_the_cpu_by_default(tiny, monkeypatch):
         ServeEngine(tiny["model"], tiny["params"], ServeConfig())
 
 
+def test_dropped_engine_is_freed_without_gc(tiny):
+    """A dropped engine releases its cache and parameters at once: its
+    compiled entries call back into it through weak references, so no
+    cycle waits for a gc pass.  (A first engine runs before gc is turned
+    off: the first call of a custom op imports ``torch._dynamo``, whose
+    import leaves one frame cycle holding its caller's stack.)"""
+    import copy
+    import gc
+    import weakref
+
+    def served():
+        eng = ServeEngine(tiny["model"], copy.deepcopy(tiny["params"]),
+                          ServeConfig(max_batch=2, max_seq=64, device="cpu"))
+        eng.submit(_requests(tiny["cfg"].vocab, [5, 9, 20], max_new=3))
+        eng.run_until_done(max_steps=100)
+        return eng
+
+    served()
+    gc.collect()
+    gc.disable()
+    try:
+        eng = served()
+        refs = [weakref.ref(x) for x in (eng, eng.cache["k"],
+                                          eng.params["embed"])]
+        del eng
+        assert [r() is None for r in refs] == [True] * 3
+    finally:
+        gc.enable()
+
+
 # ------------------------------------------------ cross-package (JAX) --
 
 def _jax_engine(t, lens, **kw):
