@@ -9,7 +9,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``torch.cuda.get_device_name()``.  Then lowers path 2's functions and
    starts building every CUDA library the run needs (path 2's kDot
    epilogues and the §4.5 library, both dtypes), one ``nvcc`` each, all
-   at once, in the background while path 1 runs.
+   at once, in the background while path 1 runs.  When they are built,
+   prints each flash-attention instance's registers, stack, static
+   shared memory, local memory and tensor-core (HMMA) instructions, from
+   ``cuobjdump`` of the built library where the toolkit has it (printed,
+   not checked).
 2. **Path 1.**  Compiles TinyLlama-1.1B's decoder stack at full width
    (d_model 2048, 32/4 heads, d_ff 5632, 22 layers unrolled, ``ln_f`` and
    the 32000-wide head; random weights drawn on the card from a seeded
@@ -77,7 +81,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    version on the same card inputs, with padded and fully masked rows
    checked to be exactly 0; timed against the plain version and a
    PyTorch library call (``F.scaled_dot_product_attention``,
-   ``F.rms_norm``), a yardstick the port never calls.
+   ``F.rms_norm``), a yardstick the port never calls.  Each
+   flash-attention row also prints TFLOP/s, ``library_ratio`` (ms over
+   the library call's ms) and, for decode, ``n_split``: the key splits
+   of its grid (``ops.decode_splits``).
 9. **Path 4 ("serve", recurrent).**  RWKV-6 3B at full width and all
    32 layers (d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536,
    LayerNorm; random bf16 weights from a seeded ``torch.Generator``,
@@ -557,7 +564,8 @@ def start_cuda_builds(arts: list):
         source_job
     from repro_torch.kernels.mamba2.mamba2 import source_job as ssd_job
     from repro_torch.kernels.rwkv6.rwkv6 import source_job as wkv_job
-    from repro_torch.kernels.matmul.matmul import (CSRC, LIBRARY_TILES,
+    from repro_torch.kernels.matmul.matmul import (INCLUDE_DIRS,
+                                                   LIBRARY_TILES,
                                                    identity_program,
                                                    kernel_source)
 
@@ -567,7 +575,8 @@ def start_cuda_builds(arts: list):
                  for p, dt in kdot_jobs(art["low"].graph, art["low"].plan)]
     jobs += [(identity_program(dt), dt, LIBRARY_TILES)
              for dt in (torch.float32, torch.bfloat16)]
-    sources = [(*kernel_source(p, dt, tuple(t)), [CSRC]) for p, dt, t in jobs]
+    sources = [(*kernel_source(p, dt, tuple(t)), INCLUDE_DIRS)
+               for p, dt, t in jobs]
     sources.append(source_job())   # the flash-attention library (path 3)
     sources.append(wkv_job())      # the WKV library (path 4)
     sources.append(ssd_job())      # the SSD library (path 5)
@@ -1709,6 +1718,60 @@ def attention_bound(q_shape, kv_rows: int, hkv: int, pairs: int, elt: int,
             "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
 
 
+def flash_resources() -> str:
+    """Registers, shared memory and spills of each flash-attention kernel
+    instance in the built library (``cuobjdump -res-usage``), and its
+    count of tensor-core (HMMA) instructions (``cuobjdump -sass``), as
+    one JSON object; printed, not checked.  "not available" where the
+    toolkit has no ``cuobjdump``."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        source_job
+
+    (lib,) = cuda_build.build([source_job()])
+    tool = pathlib.Path(cuda_build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        found = shutil.which("cuobjdump")
+        if found is None:
+            return "not available (no cuobjdump)"
+        tool = pathlib.Path(found)
+
+    def dump(flag):
+        return subprocess.run([str(tool), flag, str(lib)],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+
+    usage = re.findall(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+) "
+                       r"SHARED:(\d+) LOCAL:(\d+)", dump("-res-usage"))
+    hmma: dict = {}
+    fn = None
+    for line in dump("-sass").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn is not None and "HMMA" in line:
+            hmma[fn] = hmma.get(fn, 0) + 1
+    names = [u[0] for u in usage]
+    filt = pathlib.Path(cuda_build.nvcc()).with_name("cu++filt")
+    if filt.exists() and names:
+        out = subprocess.run([str(filt)], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        shown = out.stdout.splitlines() if out.returncode == 0 else names
+    else:
+        shown = names
+    res = {}
+    for (name, reg, stack, shared, local), pretty in zip(usage, shown):
+        pretty = re.sub(r"^\(anonymous namespace\)::", "",
+                        pretty.split("(Args)")[0])
+        res[pretty] = dict(reg=int(reg), stack=int(stack),
+                           static_shared=int(shared), local=int(local),
+                           hmma=hmma.get(name, 0))
+    return json.dumps(res)
+
+
 def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list,
                        path: str = "path3"):
     """Flash attention (at ``cfg``'s heads) and RMSNorm (at its width) at
@@ -1836,9 +1899,14 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list,
         detail = dict(dtype=dname, case=f"{c['label']} hd={hd}",
                       max_ref=scale, max_rel=rel, bytes=nbytes,
                       flops=flops, tflops=flops / ms / 1e9,
+                      library_ratio=ms / lib_ms,
                       path_launches_of_program=launches["flash_attention"],
                       library_call="F.scaled_dot_product_attention",
                       library_max_rel=lib_err, zero_rows_ok=zero_ok)
+        if c.get("decode"):   # the split-key grid's plan for this cache
+            detail["n_split"] = fa.decode_splits(
+                c["k"].shape[2], c["k"].shape[0], hkv,
+                torch.cuda.get_device_properties(0).multi_processor_count)[0]
         print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
         check(rel <= tol, f"flash_attention {dname} {c['label']}: "
                           f"max|d|/max|ref| {rel:.3e} > {tol}")
@@ -2321,6 +2389,11 @@ def main(argv=None) -> int:
             raise PhaseError(f"CUDA build failed: {built['error']}")
         print(f"[build] {built['sources']} CUDA sources built in "
               f"{built['seconds']:.1f} s (nvcc, in parallel)", flush=True)
+        try:
+            res = flash_resources()
+        except (OSError, subprocess.SubprocessError) as e:
+            res = f"not available ({e})"
+        print(f"[build] flash_attention instances: {res}", flush=True)
         for dname, cfg in cfgs.items():
             t0 = time.perf_counter()
             calls = path_phase("path2", path2[dname], dname, args.seed, cfg,

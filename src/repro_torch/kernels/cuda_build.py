@@ -39,11 +39,16 @@ import torch
 
 from .triton_build import BUILD_DIR
 
-__all__ = ["NVCC_FLAGS", "KernelBuildError", "nvcc", "build", "load",
-           "aligned_rows"]
+__all__ = ["NVCC_FLAGS", "COMMON_CSRC", "KernelBuildError", "nvcc",
+           "build", "load", "aligned_rows"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+#: headers shared by the kernels' sources (``mma_sm90.cuh``: ldmatrix,
+#: mma.sync, cp.async); a source that includes them lists this directory
+#: among its include directories, so its fingerprint hashes them
+COMMON_CSRC = pathlib.Path(__file__).resolve().parent / "common" / "csrc"
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -3,10 +3,11 @@
 Replaces the JAX package's Pallas TPU kernel ``flash_attention_kernel``
 (``kernels/flash_attention/flash_attention.py:94``) and its decode use
 (``ops.py:54`` ``flash_decode``).  The kernel is ``csrc/flash_attention.cu``
-(its header comment holds the design and what bounds it); this module
-builds it once with ``nvcc`` (``kernels/cuda_build.py``) into one small
-library with a plain C entry point, and launches it through
-:mod:`ctypes` on PyTorch's current stream.
+(its header comment holds the design and what bounds it: bf16 / f16
+prefill on the tensor cores, f32 prefill on FFMA, decode split over the
+keys); this module builds it once with ``nvcc`` (``kernels/cuda_build.py``)
+into one small library with a plain C entry point, and launches it
+through :mod:`ctypes` on PyTorch's current stream.
 
 The wrapper checks devices, dtypes and shapes and raises on what the
 kernel does not take; it passes every size, stride, ``lens`` and
@@ -14,11 +15,15 @@ kernel does not take; it passes every size, stride, ``lens`` and
 aligned, or whose head dim is not unit-stride, is copied contiguous
 first.  The output is allocated token-major, (B, Sq, H, hd), and
 returned as its (B, H, Sq, hd) view, so the caller's ``transpose(1, 2)
-.reshape(B, Sq, H * hd)`` copies nothing.
+.reshape(B, Sq, H * hd)`` copies nothing.  The decode form's split plan
+comes from ``ops.decode_splits`` (the cache's extent, the batch, the kv
+heads and the card's SM count; never ``lens``), and its f32 partials
+from ``torch.empty`` here.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import pathlib
 import threading
@@ -41,7 +46,7 @@ HEAD_DIMS = (16, 64, 112, 128)
 BLOCK_Q, BLOCK_K = 64, 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_N_DIMS = 19
+_N_DIMS = 21
 
 _LOCK = threading.Lock()
 _FN = None
@@ -51,7 +56,8 @@ def source_job() -> Tuple[str, str, list]:
     """The ``(name, source, include_dirs)`` build job of the library (a
     caller that knows its kernels ahead builds several at once with
     ``cuda_build.build``)."""
-    return "flash_attention", SOURCE.read_text(), [CSRC]
+    return ("flash_attention", SOURCE.read_text(),
+            [CSRC, cuda_build.COMMON_CSRC])
 
 
 def _function():
@@ -63,13 +69,18 @@ def _function():
                 fn = lib.disc_flash_attention
                 fn.argtypes = [ctypes.c_void_p] * 7 + [
                     ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p]
+                    ctypes.c_void_p, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
                 err = lib.disc_flash_attention_error
                 err.argtypes = [ctypes.c_int]
                 err.restype = ctypes.c_char_p
                 _FN = (fn, err)
     return _FN
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _rows(x: Optional[torch.Tensor], b: int, dev, what: str):
@@ -130,17 +141,28 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     q, k, v = (cuda_build.aligned_rows(t) for t in (q, k, v))
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=dev) \
         .transpose(1, 2)
+    n_split = kps = 0
+    part = None
+    if decode:
+        from .ops import decode_splits
+
+        index = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        n_split, kps = decode_splits(sk, b, hkv, _sm_count(index))
+        part = torch.empty(b * h * n_split * (hd + 2), dtype=torch.float32,
+                           device=dev)
     fn, err = _function()
     dims = (ctypes.c_longlong * _N_DIMS)(
         b, h, hkv, sq, sk, hd, int(causal), *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+        *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], n_split, kps)
     scale = float(np.float32(1.0) / np.float32(math.sqrt(hd)))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lens is None else lens.data_ptr(),
                 None if q_offset is None else q_offset.data_ptr(),
-                dims, scale, _DTYPES[q.dtype], int(decode), stream)
+                dims, scale, _DTYPES[q.dtype], int(decode),
+                None if part is None else part.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")

@@ -55,10 +55,13 @@ from .. import cuda_build
 from ..program import (Program, cuda_lines, cuda_load, cuda_store,
                        cuda_type)
 
-__all__ = ["TILES", "matmul_epilogue_kernel", "matmul_kernel",
-           "identity_program", "kernel_source", "prebuild"]
+__all__ = ["TILES", "INCLUDE_DIRS", "matmul_epilogue_kernel",
+           "matmul_kernel", "identity_program", "kernel_source", "prebuild"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+#: the include directories of every generated source (``gemm.cuh`` and
+#: the shared ``mma_sm90.cuh``)
+INCLUDE_DIRS = [CSRC, cuda_build.COMMON_CSRC]
 
 #: tile name -> (BM, BN, BK, TM, TN): block tile, K step, outputs per
 #: thread.  Threads per block = (BM / TM) * (BN / TN).
@@ -181,7 +184,8 @@ def _function(program: Program, dtype: torch.dtype, tiles: Tuple[str, ...]):
             hit = _FNS.get(key)
             if hit is None:
                 name, src = kernel_source(program, dtype, tiles)
-                hit = _FNS[key] = _bind(cuda_build.load(name, src, [CSRC]))
+                hit = _FNS[key] = _bind(
+                    cuda_build.load(name, src, INCLUDE_DIRS))
     return hit
 
 
@@ -190,7 +194,7 @@ def prebuild(jobs: Sequence[Tuple[Program, torch.dtype, Sequence[str]]]
     """Build the libraries for ``(program, operand dtype, tiles)`` jobs at
     once, one ``nvcc`` each, before their first launch."""
     sources = [kernel_source(p, dt, tuple(t)) for p, dt, t in jobs]
-    cuda_build.build([(n, s, [CSRC]) for n, s in sources])
+    cuda_build.build([(n, s, INCLUDE_DIRS) for n, s in sources])
 
 
 def _tiles_for(tile: str) -> Tuple[Tuple[str, ...], int]:

@@ -168,6 +168,32 @@ def test_rmsnorm_plain_matches_pallas(shape, dtype):
     assert rms_ops.LAUNCHES.launches == 0
 
 
+# ---------------------------------------- decode split plan (CPU) --
+
+@pytest.mark.parametrize("sk", [1, 63, 64, 65, 2048, 4096])
+@pytest.mark.parametrize("b,hkv", [(1, 1), (4, 4), (4, 8), (4, 32),
+                                   (64, 8)])
+def test_decode_splits_cover_the_cache_once(sk, b, hkv):
+    """The split-key decode plan: splits cover [0, Sk) exactly once, each
+    holds a whole 64-key tile unless Sk < 64, the grid stays within
+    about two waves of 132 SMs, and nothing but (Sk, B, Hkv, SMs) goes
+    in (no ``lens``, so no host sync)."""
+    import inspect
+
+    n_sm = 132
+    n_split, kps = fa_ops.decode_splits(sk, b, hkv, n_sm)
+    assert list(inspect.signature(fa_ops.decode_splits).parameters) == [
+        "sk", "b", "hkv", "n_sm"]
+    assert n_split >= 1 and kps >= 64 and kps % 64 == 0
+    bounds = [(i * kps, sk if i == n_split - 1 else (i + 1) * kps)
+              for i in range(n_split)]
+    covered = [k for lo, hi in bounds for k in range(lo, hi)]
+    assert covered == list(range(sk))
+    assert all(hi - lo >= min(64, sk) for lo, hi in bounds)
+    assert n_split * b * hkv <= 2 * n_sm + b * hkv
+    assert fa_ops.decode_splits(sk, b, hkv, n_sm) == (n_split, kps)
+
+
 def test_plain_versions_context_and_devices():
     """The wrappers take the plain version on the CPU and inside the
     context; a tensor on another device raises rather than falling back."""
@@ -196,15 +222,18 @@ def _rel(a, b):
 
 
 # kernel vs plain on the card, max|d|/max|ref|: f32 differs by summation
-# order; bf16 by one rounding of the output (2^-8) where sums differ
-CARD_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+# order; bf16 by one rounding of the output (2^-8) where sums differ (and,
+# in the tensor-core prefill, one rounding of P); f16 the same roundings
+# in a type with more mantissa bits, at bf16's bound
+CARD_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3, torch.float16: 8e-3}
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [16, 64, 112, 128])
 def test_flash_prefill_kernel_matches_plain_on_card(cuda, dtype, hd):
     gen = torch.Generator(device=cuda).manual_seed(0)
-    b, h, hkv, sq, sk = 3, 8, 2, 200, 333
+    b, h, hkv, sq, sk = 3, 8, 2, 200, 333   # neither a multiple of 16
     q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype) \
         .transpose(1, 2)                    # the serve path's strided q
     k, v = (torch.randn((b, hkv, sk, hd), generator=gen,
@@ -220,27 +249,36 @@ def test_flash_prefill_kernel_matches_plain_on_card(cuda, dtype, hd):
             want = fa_ops.flash_attention(q, k, v, ln, causal=causal,
                                           q_offset=qo)
         torch.cuda.synchronize()
-        assert torch.isfinite(got).all()
+        assert got.dtype == dtype and torch.isfinite(got).all()
         assert _rel(got, want) <= CARD_TOL[dtype], (causal, ln is None)
         if ln is not None:
             assert not got[2].any()         # fully masked row: 0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("group", [8, 3, 12])
-def test_flash_decode_kernel_matches_plain_on_card(cuda, dtype, group):
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("group", [1, 3, 6, 8, 12, 20])
+def test_flash_decode_kernel_matches_plain_on_card(cuda, dtype, hd, group):
     gen = torch.Generator(device=cuda).manual_seed(1)
-    b, hkv, sk, hd = 4, 4, 2048, 64
+    # Sk is not a multiple of the split length (fa_ops.decode_splits)
+    b, hkv, sk = 8, 2, 2000
+    n_split, kps = fa_ops.decode_splits(sk, b, hkv, 132)
+    assert n_split > 1 and sk % kps
     q = torch.randn((b, 1, hkv * group, hd), generator=gen,
                     device=cuda).to(dtype).transpose(1, 2)
     k, v = (torch.randn((b, hkv, sk, hd), generator=gen,
                         device=cuda).to(dtype) for _ in range(2))
-    lens = torch.tensor([38, 2016, 1, 731], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([0, 1, 63, 64, 65, 731, 1938, sk],
+                        dtype=torch.int32, device=cuda)
+    before = fa_ops.LAUNCHES.launches
     got = fa_ops.flash_decode(q, k, v, lens)
+    assert fa_ops.LAUNCHES.launches == before + 1   # two kernels, one call
     with select.plain_versions():
         want = fa_ops.flash_decode(q, k, v, lens)
     torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
     assert _rel(got, want) <= CARD_TOL[dtype]
+    assert not got[0].any()                 # lens 0: exactly 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
