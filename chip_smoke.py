@@ -22,10 +22,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    1500, 1999 and then 45 (the bucket of 37: a cache hit).  Each output is
    held against the same model function run eagerly on the card, op by
    op, inside ``plain_versions()`` (no attention or RMSNorm kernel):
-   max|Δ|/max|ref| ≤ 1e-3 in f32 and ≤ 2e-2 in bf16; a bf16 output is
-   also held against the function evaluated in f32 over the same weights,
-   and may lie at most 1.25 times as far from it as eager's bf16
-   output does.  Checks compiles ==
+   max|Δ|/max|ref| ≤ 1e-3 in f32.  A bf16 output takes the accuracy
+   rule alone: held against the function evaluated in f32 over the same
+   weights, it may lie at most 1.25 times as far from it as eager's bf16
+   output does (its distance from eager is printed: two equally exact
+   bf16 evaluations of 22 random layers part by up to ~2e-2 by
+   summation order alone).  Checks compiles ==
    distinct buckets, the cluster kernels' runs, and the launch counts of
    the kernels in that run (a kernel that fails raises: the path has no
    per-op fallback to count).
@@ -202,8 +204,10 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
 REQUESTS = (37, 200, 731, 1500, 1999, 45)
-TOL_PATH = {"f32": 1e-3, "bf16": 2e-2}
-# bf16 runs are also held against the same function evaluated in f32 over
+# paths 1-2, f32 vs eager (summation order); bf16 takes the accuracy
+# rule alone (ACCURACY_RATIO below)
+TOL_PATH_F32 = 1e-3
+# bf16 runs are held against the same function evaluated in f32 over
 # the same bf16-valued weights: eager's bf16 output itself lies up to
 # 1.8e-2 from it on an H100 (PERF.md), and the compiled path may lie at
 # most this factor further from it than eager does
@@ -728,9 +732,10 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
         print(f"{tag} {art['dim']}={s:5d} bucket={key:5d} "
               f"compiled={compiled} latency_s={dt_s:.4f} max|d|={err:.4e} "
               f"max|ref|={scale:.4e} rel={rel:.3e}{vs32}", flush=True)
-        tol = TOL_PATH[dtype_name]
-        check(rel <= tol, f"{tag} {s}: rel {rel:.3e} > {tol}")
-        if ref32 is not None:
+        if ref32 is None:
+            check(rel <= TOL_PATH_F32,
+                  f"{tag} {s}: rel {rel:.3e} > {TOL_PATH_F32}")
+        else:
             check(c32 <= ACCURACY_RATIO * e32,
                   f"{tag} {s}: {c32:.3e} from the f32 evaluation, eager "
                   f"{e32:.3e}")
