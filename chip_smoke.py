@@ -10,10 +10,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    starts building every CUDA library the run needs (path 2's kDot
    epilogues and the §4.5 library, both dtypes), one ``nvcc`` each, all
    at once, in the background while path 1 runs.  When they are built,
-   prints each flash-attention instance's registers, stack, static
-   shared memory, local memory and tensor-core (HMMA) instructions, from
-   ``cuobjdump`` of the built library where the toolkit has it (printed,
-   not checked).
+   prints each flash-attention and GEMM instance's registers, stack,
+   static shared memory, local memory and tensor-core instructions
+   (HMMA: ``mma.sync``; HGMMA: ``wgmma``), from ``cuobjdump`` of the
+   built libraries where the toolkit has it; every 16-bit GEMM instance
+   must show HGMMA, no HMMA and no local memory.
 2. **Path 1.**  Compiles TinyLlama-1.1B's decoder stack at full width
    (d_model 2048, 32/4 heads, d_ff 5632, 22 layers unrolled, ``ln_f`` and
    the 32000-wide head; random weights drawn on the card from a seeded
@@ -46,7 +47,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    projections are plain 2-D dots, which the planner fuses with their
    epilogues into kDot clusters (``x @ w_gate`` with ``silu(g) * h``,
    ``h @ w_out`` with the residual add).  Same requests, limits and
-   checks as path 1, and kDot cluster runs == GEMM-epilogue launches > 0.
+   checks as path 1, and kDot cluster runs == GEMM-epilogue launches ==
+   the plan's kDots per request times the requests; every launch on the
+   body of its dtype (``wgmma`` for bf16, ``ffma`` for f32) and no
+   operand copied (``ops.OPERAND_COPIES``).
 5. **kDot kernel.**  Every kDot program path 2 launched (recorded at
    T = 1999) against ``matmul_fused_ref`` on the same card inputs: at the
    path's valid M, at a smaller valid M, and once with ragged N and K;
@@ -55,10 +59,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    same operands (the GEMM alone, without the epilogue); its bound is
    the larger of bytes over 3.35 TB/s and 2·M·N·K over the peak of its
    type (67 TFLOP/s f32 FFMA; 989 TFLOP/s dense bf16 tensor cores).
+   Each row prints ``library_ratio`` (ms over ``torch.matmul``'s ms),
+   the body, the tile and the K splits (``matmul.gemm_plan``).  Each
+   program also runs at path 2's smallest bucket (T = 37 of 64, where
+   split-K fills the card), checked the same way and timed beside
+   ``torch.matmul`` (printed).
 6. **Library.**  ``core.library.pick`` at shapes from TinyLlama's widths
    that select each of the five §4.5 versions and the vendor entry,
    once through ``pick`` (the counted run), then each version against
-   ``matmul_ref`` under the same limits, timed like the kDot kernel.
+   ``matmul_ref`` under the same limits, timed like the kDot kernel,
+   with the same body, tile, splits and ``library_ratio``.
 7. **Path 3 ("serve").**  TinyLlama-1.1B at full width and all 22
    layers (random weights from a seeded ``torch.Generator``), bf16 then
    f32, served by ``disc_torch.ServeEngine(max_batch=4, max_seq=2048)``
@@ -581,10 +591,11 @@ def start_cuda_builds(arts: list):
              for dt in (torch.float32, torch.bfloat16)]
     sources = [(*kernel_source(p, dt, tuple(t)), INCLUDE_DIRS)
                for p, dt, t in jobs]
+    gemm_jobs = list(sources)
     sources.append(source_job())   # the flash-attention library (path 3)
     sources.append(wkv_job())      # the WKV library (path 4)
     sources.append(ssd_job())      # the SSD library (path 5)
-    result: dict = {"sources": len(sources)}
+    result: dict = {"sources": len(sources), "gemm_jobs": gemm_jobs}
 
     def run():
         t0 = time.perf_counter()
@@ -688,7 +699,8 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
                 "fused_reduce": fr.LAUNCHES,
                 "matmul_epilogue": mm.EPILOGUE_LAUNCHES}
     runs0 = {t: k.runs for t, k in kern.items()}
-    for c in counters.values():
+    for c in (*counters.values(), mm.OPERAND_COPIES,
+              *mm.BODY_LAUNCHES.values()):
         c.reset()
     rows = []
     for s in REQUESTS:
@@ -705,6 +717,8 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
         if s == 45:
             check(after == before, f"{tag} {s} compiled anew (bucket {key})")
     launches = {name: c.launches for name, c in counters.items()}
+    copies = mm.OPERAND_COPIES.launches
+    bodies = {b: c.launches for b, c in mm.BODY_LAUNCHES.items()}
     fn32 = None
     if dt != torch.float32:
         # the same function over the same (bf16-valued) weights and
@@ -762,9 +776,17 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
             check(launches[name] == 0, f"{tag} {name} launched off-plan")
     if templates.get("kDot"):
         want = templates["kDot"] * len(REQUESTS)
+        body = "ffma" if dt == torch.float32 else "wgmma"
         print(f"{tag} kDot runs {runs['kDot']}, plan predicts "
-              f"{templates['kDot']} per request x {len(REQUESTS)} = {want}",
+              f"{templates['kDot']} per request x {len(REQUESTS)} = {want}; "
+              f"GEMM launches by body {bodies}, operand copies {copies}",
               flush=True)
+        check(runs["kDot"] == want, f"{tag} kDot runs {runs['kDot']} != "
+                                    f"the plan's {want}")
+        check(bodies[body] == launches["matmul_epilogue"],
+              f"{tag} kDot launches {launches['matmul_epilogue']}, on the "
+              f"{body} body {bodies}")
+        check(copies == 0, f"{tag} the GEMM copied {copies} operands")
     report[(path, dtype_name)] = dict(launches=launches, compiles=counts,
                                       lower_s=art["lower_s"])
 
@@ -983,6 +1005,7 @@ def gemm_phase(calls: dict, dtype_name: str, launches: dict, rows: list):
     import torch
 
     from repro_torch.kernels.matmul import ops as mm
+    from repro_torch.kernels.matmul.matmul import gemm_plan
     from repro_torch.kernels.matmul.ref import matmul_fused_ref
 
     name = "matmul_epilogue"
@@ -1051,6 +1074,7 @@ def gemm_phase(calls: dict, dtype_name: str, launches: dict, rows: list):
                    launches=launches.get(name, 0), max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=lib_ms)
+        plan = gemm_plan(a.dtype, "kdot", vm, vn, vk)
         detail = dict(dtype=dtype_name, program=prog.key,
                       shape=[m, k, n], valid=[vm, vn, vk],
                       steps=[st.opcode for st in prog.steps],
@@ -1059,11 +1083,59 @@ def gemm_phase(calls: dict, dtype_name: str, launches: dict, rows: list):
                       + out_bytes, max_ref=scale, max_rel=worst,
                       library_call="torch.matmul, GEMM only, without "
                                    "the epilogue",
+                      library_ratio=ms / lib_ms, body=plan.body,
+                      tile=list(plan.tile), splits=plan.splits,
                       tflops=2 * vm * vn * vk / ms / 1e9)
         print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
         check(worst <= tol, f"{name} {dtype_name} {prog.key}: "
                             f"max|d|/max|ref| {worst:.3e} > {tol}")
         rows.append((row, detail))
+        small_bucket(c, dtype_name)
+
+
+def small_bucket(c: dict, dtype_name: str) -> None:
+    """The recorded kDot program at path 2's smallest bucket (T = 37 of
+    64): against its plain version, tails zero, and timed beside
+    ``torch.matmul`` (printed)."""
+    import torch
+
+    from repro_torch.kernels.matmul import ops as mm
+    from repro_torch.kernels.matmul.matmul import gemm_plan
+    from repro_torch.kernels.matmul.ref import matmul_fused_ref
+
+    prog = c["program"]
+    k, n = c["a"].shape[1], c["b"].shape[1]
+    m, vm = 64, 37
+    _, vn, vk = c["valid"]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    a = torch.randn((m, k), generator=gen, device="cuda").to(c["a"].dtype)
+    b = c["b"]
+    xs = [torch.randn((m, n), generator=gen, device="cuda").to(dt)
+          for dt in prog.in_dtypes[1:]]
+
+    def run():
+        return mm.matmul_fused(a, b, xs, prog, valid_mnk=(vm, vn, vk),
+                               out_dtypes=c["out_dtypes"])
+
+    outs_k = run()
+    outs_p = matmul_fused_ref(a, b, xs, prog, (vm, vn, vk), c["out_dtypes"])
+    torch.cuda.synchronize()
+    worst = 0.0
+    for ok_, op_ in zip(outs_k, outs_p):
+        sc = op_.float().abs().max().item()
+        e = (ok_.float() - op_.float()).abs().max().item()
+        worst = max(worst, e / sc if sc else e)
+        check(not ok_[vm:].any(), f"kDot {prog.key} T={vm}: tail not zero")
+    check(worst <= TOL_GEMM[dtype_name],
+          f"kDot {dtype_name} {prog.key} T={vm}: rel {worst:.3e}")
+    ms = cuda_ms(run)
+    lib_ms = cuda_ms(lambda: torch.matmul(a[:vm, :vk], b[:vk, :vn]))
+    plan = gemm_plan(a.dtype, "kdot", vm, vn, vk)
+    print(f"[gemm] matmul_epilogue {dtype_name} {prog.key} small_bucket "
+          f"shape=({m},{k},{n}) valid={(vm, vn, vk)} rel={worst:.3e} "
+          f"ms={ms:.5f} library_ms={lib_ms:.5f} "
+          f"library_ratio={ms / lib_ms:.3f} body={plan.body} "
+          f"tile={list(plan.tile)} splits={plan.splits}", flush=True)
 
 
 def library_phase(rows: list, report: dict):
@@ -1073,6 +1145,7 @@ def library_phase(rows: list, report: dict):
 
     from repro_torch.core.library import pick
     from repro_torch.kernels.matmul import ops as mm
+    from repro_torch.kernels.matmul.matmul import gemm_plan
     from repro_torch.kernels.matmul.ref import matmul_ref
 
     name = "matmul"
@@ -1122,10 +1195,13 @@ def library_phase(rows: list, report: dict):
                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=lib_ms)
+            plan = gemm_plan(dt, version, m, n, k)
             detail = dict(dtype=dname, version=version, shape=[m, k, n],
                           max_ref=scale, max_rel=rel,
                           path_launches_of_program=1,
                           bytes=(m * k + k * n + m * n) * elt,
+                          library_ratio=ms / lib_ms, body=plan.body,
+                          tile=list(plan.tile), splits=plan.splits,
                           tflops=2 * m * n * k / ms / 1e9)
             print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
             check(rel <= TOL_GEMM[dname],
@@ -1723,25 +1799,24 @@ def attention_bound(q_shape, kv_rows: int, hkv: int, pairs: int, elt: int,
             "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
 
 
-def flash_resources() -> str:
-    """Registers, shared memory and spills of each flash-attention kernel
-    instance in the built library (``cuobjdump -res-usage``), and its
-    count of tensor-core (HMMA) instructions (``cuobjdump -sass``), as
-    one JSON object; printed, not checked.  "not available" where the
-    toolkit has no ``cuobjdump``."""
+def kernel_resources(job) -> dict:
+    """Registers, stack, static shared and local memory of each kernel
+    instance of the library built from ``job`` (``cuobjdump
+    -res-usage``), and its tensor-core instructions (``cuobjdump -sass``:
+    HMMA, ``mma.sync``; HGMMA, ``wgmma``), keyed by the demangled name
+    without its epilogue type.  Raises ``OSError`` where the toolkit has
+    no ``cuobjdump``."""
     import re
     import shutil
 
     from repro_torch.kernels import cuda_build
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        source_job
 
-    (lib,) = cuda_build.build([source_job()])
+    (lib,) = cuda_build.build([job])
     tool = pathlib.Path(cuda_build.nvcc()).with_name("cuobjdump")
     if not tool.exists():
         found = shutil.which("cuobjdump")
         if found is None:
-            return "not available (no cuobjdump)"
+            raise OSError("no cuobjdump")
         tool = pathlib.Path(found)
 
     def dump(flag):
@@ -1751,14 +1826,17 @@ def flash_resources() -> str:
 
     usage = re.findall(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+) "
                        r"SHARED:(\d+) LOCAL:(\d+)", dump("-res-usage"))
-    hmma: dict = {}
+    ops: dict = {}
     fn = None
     for line in dump("-sass").splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-        elif fn is not None and "HMMA" in line:
-            hmma[fn] = hmma.get(fn, 0) + 1
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    ops.setdefault(fn, {}).setdefault(op, 0)
+                    ops[fn][op] += 1
     names = [u[0] for u in usage]
     filt = pathlib.Path(cuda_build.nvcc()).with_name("cu++filt")
     if filt.exists() and names:
@@ -1769,11 +1847,40 @@ def flash_resources() -> str:
         shown = names
     res = {}
     for (name, reg, stack, shared, local), pretty in zip(usage, shown):
-        pretty = re.sub(r"^\(anonymous namespace\)::", "",
-                        pretty.split("(Args)")[0])
+        # the name and template arguments, without the parameter list
+        pretty = (pretty[:pretty.index(">(") + 1] if ">(" in pretty
+                  else pretty.split("(")[0])
+        pretty = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|"
+                        r"disc::", "", pretty)
+        pretty = re.sub(r", Epi>$", ">", pretty)
+        counts = ops.get(name, {})
         res[pretty] = dict(reg=int(reg), stack=int(stack),
                            static_shared=int(shared), local=int(local),
-                           hmma=hmma.get(name, 0))
+                           hgmma=counts.get("HGMMA", 0),
+                           hmma=counts.get("HMMA", 0))
+    return res
+
+
+def flash_resources() -> str:
+    """:func:`kernel_resources` of the flash-attention library, as one
+    JSON object; printed, not checked."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        source_job
+
+    return json.dumps(kernel_resources(source_job()))
+
+
+def gemm_resources(jobs: list) -> str:
+    """:func:`kernel_resources` of every GEMM library the run built, as
+    one JSON object.  Checks that every 16-bit instance (the wgmma body)
+    runs HGMMA and no HMMA and uses no local memory."""
+    res = {}
+    for job in jobs:
+        res[job[0]] = inst = kernel_resources(job)
+        for kname, r in inst.items():
+            if "gemm_wgmma_kernel" in kname:
+                check(r["hgmma"] > 0 and r["hmma"] == 0 and r["local"] == 0,
+                      f"GEMM instance {job[0]} {kname}: {r}")
     return json.dumps(res)
 
 
@@ -2399,6 +2506,11 @@ def main(argv=None) -> int:
         except (OSError, subprocess.SubprocessError) as e:
             res = f"not available ({e})"
         print(f"[build] flash_attention instances: {res}", flush=True)
+        try:
+            res = gemm_resources(built["gemm_jobs"])
+        except (OSError, subprocess.SubprocessError) as e:
+            res = f"not available ({e})"
+        print(f"[build] GEMM instances: {res}", flush=True)
         for dname, cfg in cfgs.items():
             t0 = time.perf_counter()
             calls = path_phase("path2", path2[dname], dname, args.seed, cfg,

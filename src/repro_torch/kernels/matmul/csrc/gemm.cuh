@@ -10,51 +10,74 @@
 //
 // What bounds it on an H100: operations.  At the path's shapes (T x 2048
 // x 5632 and T x 5632 x 2048) each A and B element is reused by hundreds
-// of outputs, far above the card's ~295 flop/byte balance point, so the
-// design feeds the arithmetic units from registers and moves each operand
-// byte from device memory about once per 128-wide output tile.  Two
-// bodies share the contract below: gemm_kernel, f32 FFMA for f32
-// operands, and gemm_mma_kernel (further down), tensor-core mma.sync for
-// bf16 / f16 operands.  gemm_kernel:
+// of outputs, far above the card's ~295 flop/byte balance point.  Two
+// bodies share the contract below:
 //
-// * a BM x BN output tile per block, TM x TN outputs per thread held in
-//   registers (128 x 128 and 8 x 8 for the kDot instance: 64 FMAs per
-//   four 16-byte shared-memory loads), capped at 128 registers so that
-//   two 256-thread blocks share an SM (uncapped, ptxas took 154 and one
-//   block fit; the cap cost a few bytes of spills and took the kDot GEMM
-//   at 1999 x 5632 x 2048 from 2.26 ms to 1.61 ms on an H100 80GB HBM3
-//   at 700 W, PERF.md);
-// * A and B tiles of depth BK staged through registers into two
-//   shared-memory buffers: the global loads of step k+1 are in flight
-//   while step k computes, one __syncthreads per step;
-// * A is stored transposed (k-major) with 4 floats of padding per row, so
-//   the transposing stores do not collide on banks and every thread reads
-//   its TM rows as aligned float4s; a thread's rows and columns come in
-//   groups of 4 spread 4*(BM/TM) apart, which keeps the float4 reads of a
-//   quarter-warp on distinct banks.
+// * gemm_wgmma_kernel, bf16 / f16 operands: Hopper's warpgroup MMA fed
+//   by the Tensor Memory Accelerator.  A 128 x BN output tile per block
+//   (BN = 256, 128 or 64), K steps of 64 (128 bytes of 16-bit values:
+//   the 128-byte swizzle atom), a ring of STAGES shared-memory stages.
+//   (A persistent block an SM, whose ring loads the next tile under this
+//   tile's epilogue, and a cluster of two blocks sharing each B tile by
+//   TMA multicast measured no faster on the path's shapes: PERF.md.)
+//   One producer thread issues
+//   the 2-D TMA loads of each stage (A as one 128 x 64 box, B as BN / 64
+//   boxes of 64 x 64) against a "full" mbarrier; two consumer
+//   warpgroups, each 64 rows of the tile, wait for it and issue
+//   wgmma.mma_async m64nBNk16 (A K-major, B N-major read through the
+//   transposed-B descriptor) into f32 accumulators in registers, keep
+//   one wgmma group in flight, and release a stage on its "empty"
+//   mbarrier once the group that read it has retired.  setmaxnreg moves
+//   registers from the producer warpgroup (40) to the consumers (232:
+//   BN / 2 accumulators a thread).  The loads cost the consumers no
+//   registers or instructions, and no __syncthreads runs after the
+//   set-up.  The epilogue reads the accumulators back through the ring
+//   and works in batches of 32 elements: their extras' loads first, then
+//   their arithmetic without branches, so loads and arithmetic overlap
+//   across elements.
+// * gemm_kernel, f32 operands: IEEE f32 FFMA (fmaf, never TF32, as the
+//   reference contracts f32 operands in f32) on the CUDA cores.  A
+//   BM x BN output tile per block, TM x TN outputs per thread held in
+//   registers (128 x 128 and 8 x 8 for the kDot instance), capped at 128
+//   registers so that two 256-thread blocks share an SM; A and B tiles
+//   of depth BK staged through registers into two shared-memory buffers,
+//   one __syncthreads per step; A stored k-major with 4 floats of
+//   padding per row, so the transposing stores do not collide on banks.
 //
-// Numerics.  f32: true f32 FFMA (fmaf) on f32 operands -- never TF32 --
-// as the reference contracts f32 operands in f32.  bf16 / f16: the
-// operands are read in their own type and multiplied on the tensor cores
-// (mma.sync.m16n8k16) into an f32 accumulator: the products of 16-bit
-// values are exact, so this is the reference's f32 contraction of bf16
-// operands up to the order of the f32 sums.  wgmma and TMA, the way to
-// the card's full tensor-core rate, are a later version's work.
+// Split-K.  Where the output tiles leave SMs idle (the small §4.5
+// shapes, path 2's small buckets) the wrapper cuts K into `splits`
+// ranges of `kchunk` (a multiple of BK) and launches a grid of
+// (N tiles, M tiles, splits): each block writes its f32 partial tile to a
+// workspace (splits, M, N), and gemm_finish_kernel sums the splits in a
+// fixed order and applies the same epilogue and tails.  No atomics, so
+// two launches give the same bits.
+//
+// Numerics.  bf16 / f16: the products of 16-bit values are exact and the
+// accumulator is f32, so this is the reference's f32 contraction of the
+// 16-bit operands up to the order of the f32 sums.  The epilogue functor
+// is called on every accumulator element with its (m, n).
 //
 // Lengths are runtime ints, never template constants: M, N, K, the valid
-// extents vm <= M, vn <= N, vk <= K and the strides.  Loads beyond the
-// valid extents are masked to zero on BOTH operands (so padded-bucket
-// garbage never enters the contraction, and no padded copy is needed);
-// the K loop stops at vk; blocks entirely outside (vm, vn) skip the loop.
-// Outputs at m >= vm or n >= vn are stored as exact zeros.
+// extents vm <= M, vn <= N, vk <= K, the strides and the split.  Nothing
+// beyond the valid extents enters the contraction: the wgmma body's
+// tensor maps are encoded on every call over the VALID (vk, vm) of A and
+// (vn, vk) of B, with the padded row strides, so TMA fills the K tail of
+// both operands and the M / N edge with zeros; the FFMA body masks its
+// loads.  Blocks entirely outside (vm, vn) skip the K loop.  Outputs at
+// m >= vm or n >= vn are stored as exact zeros.  vm, vn or vk = 0 (no
+// tensor map may have an extent of 0) runs the epilogue alone over a zero
+// accumulator.  The wgmma body reads A with unit stride along K and B
+// with unit stride along N, both 16-byte aligned with row strides that
+// are multiples of 16 bytes; the wrapper copies other layouts first.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_sm90.cuh"
+#include "tma_sm90.cuh"
 
 namespace disc {
 
@@ -62,6 +85,8 @@ struct GemmArgs {
   int M, N, K;      // padded sizes (array extents)
   int vm, vn, vk;   // valid sizes, runtime
   long long sam, sak, sbk, sbn;  // element strides of A (M, K), B (K, N)
+  int splits;       // K ranges (split-K); 1: the epilogue runs in the GEMM
+  int kchunk;       // K elements per range, a multiple of the body's BK
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -88,6 +113,40 @@ __device__ __forceinline__ T disc_min(T a, T b) {
   return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
 }
 
+// ------------------------------------------------------------ split-K --
+
+// Sums the splits' f32 partial tiles (workspace (splits, M, N), written
+// only where m < vm and n < vn) in split order and applies the epilogue
+// to every (m, n) of (M, N); splits = 0 runs it over a zero accumulator.
+template <typename Epi>
+__global__ void __launch_bounds__(256)
+gemm_finish_kernel(const float* __restrict__ ws, GemmArgs g, int splits,
+                   Epi epi) {
+  const long long total = static_cast<long long>(g.M) * g.N;
+  const long long plane = total;
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * 256) {
+    const int m = static_cast<int>(i / g.N), n = static_cast<int>(i % g.N);
+    const bool keep = m < g.vm && n < g.vn;
+    float acc = 0.0f;
+    if (keep)
+      for (int z = 0; z < splits; ++z) acc += ws[z * plane + i];
+    epi(m, n, acc, keep);
+  }
+}
+
+template <typename Epi>
+cudaError_t launch_finish(const float* ws, const GemmArgs& g, int splits,
+                          const Epi& epi, cudaStream_t stream) {
+  const long long total = static_cast<long long>(g.M) * g.N;
+  const long long want = (total + 255) / 256;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  gemm_finish_kernel<Epi><<<blocks, 256, 0, stream>>>(ws, g, splits, epi);
+  return cudaGetLastError();
+}
+
+// --------------------------------------------------------- f32: FFMA --
+
 template <int BM, int BN, int BK, int TM, int TN>
 struct Tile {
   static constexpr int TX = BN / TN;  // threads along N
@@ -102,12 +161,14 @@ struct Tile {
   static_assert(THREADS <= 1024, "threads per block");
 };
 
+// ws == nullptr: the epilogue runs here; else the block's f32 partial
+// over its K range goes to ws[blockIdx.z]
 template <int BM, int BN, int BK, int TM, int TN, typename T, typename Epi>
 __global__ void __launch_bounds__(Tile<BM, BN, BK, TM, TN>::THREADS, 2)
 gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, GemmArgs g,
-            Epi epi) {
+            Epi epi, float* __restrict__ ws) {
   static_assert(sizeof(T) == 4, "f32 operands; 16-bit ones take the "
-                                "tensor-core body");
+                                "wgmma body");
   using Cfg = Tile<BM, BN, BK, TM, TN>;
   constexpr int TX = Cfg::TX, TY = Cfg::TY, THREADS = Cfg::THREADS;
   constexpr int AP = BM + 4;  // padded row of the k-major A tile
@@ -117,7 +178,10 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, GemmArgs g,
   const int tid = threadIdx.x;
   const int tx = tid % TX, ty = tid / TX;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kend = (m0 < g.vm && n0 < g.vn) ? g.vk : 0;
+  const bool live = m0 < g.vm && n0 < g.vn;
+  const int kbeg = blockIdx.z * g.kchunk;
+  const int klim = kbeg + g.kchunk < g.vk ? kbeg + g.kchunk : g.vk;
+  const int kend = live ? klim : kbeg;
 
   float acc[TM][TN];
 #pragma unroll
@@ -132,7 +196,7 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, GemmArgs g,
       const int e = tid + i * THREADS;
       const int r = e / BK, c = e % BK;
       const int gm = m0 + r, gk = k0 + c;
-      ra[i] = (gm < g.vm && gk < g.vk)
+      ra[i] = (gm < g.vm && gk < kend)
                   ? to_f32(A[gm * g.sam + gk * g.sak]) : 0.0f;
     }
 #pragma unroll
@@ -140,7 +204,7 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, GemmArgs g,
       const int e = tid + i * THREADS;
       const int r = e / BN, c = e % BN;
       const int gk = k0 + r, gn = n0 + c;
-      rb[i] = (gk < g.vk && gn < g.vn)
+      rb[i] = (gk < kend && gn < g.vn)
                   ? to_f32(B[gk * g.sbk + gn * g.sbn]) : 0.0f;
     }
   };
@@ -157,13 +221,13 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, GemmArgs g,
     }
   };
 
-  if (kend > 0) {
-    load(0);
+  if (kend > kbeg) {
+    load(kbeg);
     stage(0);
   }
   __syncthreads();
   int buf = 0;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
+  for (int k0 = kbeg; k0 < kend; k0 += BK) {
     const bool more = k0 + BK < kend;
     if (more) load(k0 + BK);  // in flight while this step computes
 #pragma unroll
@@ -193,6 +257,10 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, GemmArgs g,
     buf ^= 1;
   }
 
+  if (ws != nullptr && !live) return;  // the finish kernel stores zeros
+  float* part = ws == nullptr
+                    ? nullptr
+                    : ws + static_cast<long long>(blockIdx.z) * g.M * g.N;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ((i / 4) * TY + ty) * 4 + i % 4;
@@ -200,197 +268,269 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, GemmArgs g,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + ((j / 4) * TX + tx) * 4 + j % 4;
-      if (n < g.N) epi(m, n, acc[i][j], m < g.vm && n < g.vn);
+      if (n >= g.N) continue;
+      const bool keep = m < g.vm && n < g.vn;
+      if (ws == nullptr)
+        epi(m, n, acc[i][j], keep);
+      else if (keep)
+        part[static_cast<long long>(m) * g.N + n] = acc[i][j];
     }
   }
 }
 
 template <int BM, int BN, int BK, int TM, int TN, typename T, typename Epi>
 cudaError_t launch_gemm(const T* A, const T* B, const GemmArgs& g,
-                        const Epi& epi, cudaStream_t stream) {
+                        const Epi& epi, float* ws, cudaStream_t stream) {
   using Cfg = Tile<BM, BN, BK, TM, TN>;
-  const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  gemm_kernel<BM, BN, BK, TM, TN, T, Epi>
-      <<<grid, Cfg::THREADS, 0, stream>>>(A, B, g, epi);
-  return cudaGetLastError();
+  if (g.vm == 0 || g.vn == 0 || g.vk == 0)
+    return launch_finish(nullptr, g, 0, epi, stream);
+  if (g.splits < 1 || g.kchunk % BK || (g.splits > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM, g.splits);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
+  gemm_kernel<BM, BN, BK, TM, TN, T, Epi><<<grid, Cfg::THREADS, 0, stream>>>(
+      A, B, g, epi, g.splits > 1 ? ws : nullptr);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || g.splits == 1) return err;
+  return launch_finish(ws, g, g.splits, epi, stream);
 }
 
-// ---------------------------------------------------------------------
-// Tensor-core version for bf16 / f16 operands.
-//
-// The same contract (runtime lengths, both operands' K tails masked,
-// zero M/N tails, the generated epilogue) on mma.sync.m16n8k16 with an
-// f32 accumulator: 8 warps per block as 2 (M) x 4 (N), each warp a
-// (BM/2) x (BN/4) tile of 16 x 8 MMA tiles held in registers.  The A tile
-// is kept k-contiguous and B n-contiguous in shared memory (rows padded by
-// 8 halves, so ldmatrix reads them without bank conflicts); ldmatrix
-// gathers the A fragments, ldmatrix.trans the column-major B fragments.
-// Global loads are 16-byte vectors where the contiguous stride is 1, the
-// address is aligned and all 8 elements are valid, element loads with
-// masks at the edges; they are staged through registers into two
-// shared-memory buffers, one __syncthreads per K step of 32.
+// ------------------------------------------------ bf16 / f16: wgmma --
 
-__device__ __forceinline__ uint4 pack8(const unsigned short (&h)[8]) {
-  uint4 v;
-  v.x = h[0] | (unsigned(h[1]) << 16);
-  v.y = h[2] | (unsigned(h[3]) << 16);
-  v.z = h[4] | (unsigned(h[5]) << 16);
-  v.w = h[6] | (unsigned(h[7]) << 16);
-  return v;
-}
+template <int BM, int BN, int STAGES>
+struct WgTile {
+  static constexpr int BK = 64;  // 128 bytes of 16-bit values
+  static constexpr int CONSUMERS = BM / 64;  // warpgroups of 64 rows
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = BK * BN * 2;
+  static constexpr int B_BOX_BYTES = BK * 64 * 2;  // one 64-wide N box
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + alignment
+  static_assert(BM == 128, "two consumer warpgroups of 64 rows");
+  static_assert(BN % 64 == 0 && BN >= 64 && BN <= 256,
+                "N boxes of 64 (128-byte swizzle), at most 256");
+  // the ring, its alignment slack and the two barriers of each stage
+  static_assert(STAGES >= 2 && SMEM + 16 * STAGES <= 232448,
+                "227 KB of shared memory");
+  static_assert(STAGES * STAGE_BYTES >= CONSUMERS * 128 * (BN / 2) * 4,
+                "the ring holds the accumulators for the epilogue");
+};
 
-// 8 consecutive elements along the contiguous axis of an operand, from
-// (row, col) on: the element at offset j is valid iff row_ok and
-// col + j < col_end; invalid ones read as zero
-__device__ __forceinline__ uint4 load8(const unsigned short* base,
-                                       long long srow, long long scol,
-                                       int row, int col, bool row_ok,
-                                       int col_end, bool unit) {
-  if (row_ok && unit && col + 8 <= col_end) {
-    const unsigned short* p = base + row * srow + col;
-    if ((reinterpret_cast<uintptr_t>(p) & 15) == 0)
-      return *reinterpret_cast<const uint4*>(p);
-  }
-  unsigned short h[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    h[j] = (row_ok && col + j < col_end) ? base[row * srow + (col + j) * scol]
-                                         : (unsigned short)0;
-  return pack8(h);
-}
+template <typename T> struct TmaType;
+template <> struct TmaType<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType value =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <> struct TmaType<__half> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
 
-template <int BM, int BN, typename T, typename Epi>
-__global__ void __launch_bounds__(256)
-gemm_mma_kernel(const T* __restrict__ A_, const T* __restrict__ B_,
-                GemmArgs g, Epi epi) {
-  constexpr int BK = 32, THREADS = 256;
-  constexpr int WM = BM / 2, WN = BN / 4;  // warp tile
-  constexpr int MT = WM / 16, NT = WN / 8;  // MMA tiles per warp
-  static_assert(WM % 16 == 0 && WN % 8 == 0, "warp tile of 16 x 8 tiles");
-  constexpr int AS = BK + 8, BS = BN + 8;  // padded rows, in halves
-  constexpr int A_CH = BM * BK / 8, B_CH = BK * BN / 8;  // 16-byte chunks
-  constexpr int A_PER = (A_CH + THREADS - 1) / THREADS;
-  constexpr int B_PER = (B_CH + THREADS - 1) / THREADS;
-  __shared__ __align__(16) unsigned short As[2][BM][AS];
-  __shared__ __align__(16) unsigned short Bs[2][BK][BS];
+template <int BM, int BN, int STAGES, typename T, typename Epi>
+__global__ void __launch_bounds__(WgTile<BM, BN, STAGES>::THREADS, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                  const __grid_constant__ CUtensorMap tma_b, GemmArgs g,
+                  Epi epi, float* __restrict__ ws) {
+  using Cfg = WgTile<BM, BN, STAGES>;
+  constexpr int BK = Cfg::BK;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  // TMA's 128-byte swizzle repeats every 1024 bytes: align the ring so
+  // the descriptors see the pattern TMA wrote
+  unsigned char* smem =
+      smem_raw + ((1024 - (shared_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sa = smem;                           // STAGES x A tile
+  unsigned char* sb = smem + STAGES * Cfg::A_BYTES;   // STAGES x B tile
 
-  const unsigned short* A = reinterpret_cast<const unsigned short*>(A_);
-  const unsigned short* B = reinterpret_cast<const unsigned short*>(B_);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm0 = (warp / 4) * WM, wn0 = (warp % 4) * WN;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kend = (m0 < g.vm && n0 < g.vn) ? g.vk : 0;
-  const bool a_unit = g.sak == 1, b_unit = g.sbn == 1;
+  const bool live = m0 < g.vm && n0 < g.vn;
+  const int k_tiles = (g.vk + BK - 1) / BK, k_per = g.kchunk / BK;
+  const int kt0 = blockIdx.z * k_per;
+  const int kt1 = kt0 + k_per < k_tiles ? kt0 + k_per : k_tiles;
+  const int nk = live && kt1 > kt0 ? kt1 - kt0 : 0;
+  const int wg = threadIdx.x / 128;
 
-  float acc[MT][NT][4];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
-
-  uint4 ra[A_PER], rb[B_PER];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int e = tid + i * THREADS;
-      if (A_CH % THREADS == 0 || e < A_CH) {
-        const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
-        ra[i] = load8(A, g.sam, g.sak, m0 + r, k0 + c, m0 + r < g.vm, g.vk,
-                      a_unit);
-      }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], Cfg::CONSUMERS);
     }
-#pragma unroll
-    for (int i = 0; i < B_PER; ++i) {
-      const int e = tid + i * THREADS;
-      if (B_CH % THREADS == 0 || e < B_CH) {
-        const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
-        rb[i] = load8(B, g.sbk, g.sbn, k0 + r, n0 + c, k0 + r < g.vk, g.vn,
-                      b_unit);
-      }
-    }
-  };
-  auto stage = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int e = tid + i * THREADS;
-      if (A_CH % THREADS == 0 || e < A_CH)
-        *reinterpret_cast<uint4*>(&As[buf][e / (BK / 8)][(e % (BK / 8)) * 8]) =
-            ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER; ++i) {
-      const int e = tid + i * THREADS;
-      if (B_CH % THREADS == 0 || e < B_CH)
-        *reinterpret_cast<uint4*>(&Bs[buf][e / (BN / 8)][(e % (BN / 8)) * 8]) =
-            rb[i];
-    }
-  };
-
-  if (kend > 0) {
-    load(0);
-    stage(0);
+    mbar_fence_init();
   }
   __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    const bool more = k0 + BK < kend;
-    if (more) load(k0 + BK);  // in flight while this step computes
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      unsigned af[MT][4], bf[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldsm_x4(af[i], &As[buf][wm0 + i * 16 + (lane & 15)][kk + (lane >> 4) * 8]);
-      const int brow = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int j = 0; j + 1 < NT; j += 2) {
-        unsigned r[4];
-        ldsm_x4_t(r, &Bs[buf][brow][wn0 + (j + (lane >> 4)) * 8]);
-        bf[j][0] = r[0]; bf[j][1] = r[1];
-        bf[j + 1][0] = r[2]; bf[j + 1][1] = r[3];
-      }
-      if (NT % 2) {
-        unsigned r[2];
-        ldsm_x2_t(r, &Bs[buf][brow][wn0 + (NT - 1) * 8]);
-        bf[NT - 1][0] = r[0]; bf[NT - 1][1] = r[1];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma16816<T>(acc[i][j], af[i], bf[j][0], bf[j][1]);
-    }
-    if (more) stage(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
 
+  if (wg == 0) {
+    // producer warpgroup: one thread keeps the ring's loads in flight
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], Cfg::STAGE_BYTES);
+        const int k = (kt0 + it) * BK;
+        tma_load_2d(sa + s * Cfg::A_BYTES, &tma_a, &full[s], k, m0);
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+        for (int b = 0; b < BN / 64; ++b)
+          tma_load_2d(sb + s * Cfg::B_BYTES + b * Cfg::B_BOX_BYTES, &tma_b,
+                      &full[s], n0 + b * 64, k);
+      }
+    }
+  } else {
+    // consumer warpgroup c: rows c * 64 .. c * 64 + 63 of the tile
+    setmaxnreg_inc<232>();
+    const int c = wg - 1;
+    float acc[BN / 2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm0 + i * 16 + (lane >> 2) + h * 8;
-      if (m >= g.M) continue;
+    for (int i = 0; i < BN / 2; ++i) {
+      acc[i] = 0.0f;
+      fence_operand(acc[i]);
+    }
+    for (int it = 0; it < nk; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const unsigned char* a = sa + s * Cfg::A_BYTES + c * 64 * 128;
+      const unsigned char* b = sb + s * Cfg::B_BYTES;
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A: K-major, 16 K values = 32 bytes along the swizzled row;
+        // B: N-major, 16 K rows of 128 bytes, 64-wide N boxes apart
+        const uint64_t da = wgmma_desc_sw128(a + kk * 32, 16, 1024);
+        const uint64_t db =
+            wgmma_desc_sw128(b + kk * 16 * 128, Cfg::B_BOX_BYTES, 1024);
+        wgmma_m64k16<BN, T>(acc, da, db);
+      }
+      wgmma_commit();
+      // the group of the previous stage has retired: release its buffers
+      wgmma_wait<1>();
+      if (it > 0 && threadIdx.x % 128 == 0)
+        mbar_arrive(&empty[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int n = n0 + wn0 + j * 8 + (lane & 3) * 2 + c;
-          if (n < g.N) epi(m, n, acc[i][j][h * 2 + c], m < g.vm && n < g.vn);
+    for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
+
+    if (ws != nullptr && !live) return;  // the finish kernel stores zeros
+    // The epilogue walks the accumulators in a loop that is not unrolled
+    // (unrolled over BN / 2 elements of a generated epilogue, the code
+    // outgrew the instruction cache: PERF.md), so it reads them back from
+    // the ring, free once both consumer warpgroups are past their last
+    // wgmma: thread t's element j at float j * 256 + t, no bank conflicts.
+    constexpr int CT = Cfg::CONSUMERS * 128;
+    named_barrier_sync<1, CT>();
+    float* stash = reinterpret_cast<float*>(smem) + (threadIdx.x - 128);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) stash[i * CT] = acc[i];
+    float* part = ws == nullptr
+                      ? nullptr
+                      : ws + static_cast<long long>(blockIdx.z) * g.M * g.N;
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int row = m0 + c * 64 + warp * 16 + lane / 4;
+    const int col = n0 + (lane % 4) * 2;
+    // Element q of 8-column chunk i is (row + 8 (q / 2), col + 8 i + q % 2).
+    // A batch of 32 elements loads its extras first, then computes all 32
+    // without a branch and stores each under a predicate, so the loads
+    // are in flight together and the arithmetic interleaves.
+    constexpr int G = BN / 8 < 8 ? BN / 8 : 8;
+#pragma unroll 1
+    for (int i0 = 0; i0 < BN / 8; i0 += G) {
+      typename Epi::In in[G][4];
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int m = row + (q / 2) * 8, n = col + (i0 + gi) * 8 + q % 2;
+          const bool keep = ws == nullptr && m < g.vm && n < g.vn;
+          in[gi][q] = keep ? epi.load(m, n) : typename Epi::In{};
+        }
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int m = row + (q / 2) * 8, n = col + (i0 + gi) * 8 + q % 2;
+          const bool inside = m < g.M && n < g.N;
+          const bool keep = m < g.vm && n < g.vn;
+          const float v = stash[((i0 + gi) * 4 + q) * CT];
+          if (ws == nullptr)
+            epi.apply(m, n, v, keep, inside, in[gi][q]);
+          else if (keep)
+            part[static_cast<long long>(m) * g.N + n] = v;
         }
     }
+  }
 }
 
-template <int BM, int BN, typename T, typename Epi>
-cudaError_t launch_gemm_mma(const T* A, const T* B, const GemmArgs& g,
-                            const Epi& epi, cudaStream_t stream) {
-  const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  gemm_mma_kernel<BM, BN, T, Epi><<<grid, 256, 0, stream>>>(A, B, g, epi);
-  return cudaGetLastError();
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no link against libcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D map of a row-major operand whose valid part is (rows, cols) with
+// rows row_bytes apart, read in boxes of (box_rows, 64) with the 128-byte
+// swizzle; everything outside (rows, cols) reads as zero.
+template <typename T>
+bool encode_operand(CUtensorMap* map, const T* base, int rows, int cols,
+                    long long row_bytes, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, TmaType<T>::value, 2, const_cast<T*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, int BN, int STAGES, typename T, typename Epi>
+cudaError_t launch_gemm_wgmma(const T* A, const T* B, const GemmArgs& g,
+                              const Epi& epi, float* ws,
+                              cudaStream_t stream) {
+  using Cfg = WgTile<BM, BN, STAGES>;
+  if (g.vm == 0 || g.vn == 0 || g.vk == 0)
+    return launch_finish(nullptr, g, 0, epi, stream);
+  if (g.splits < 1 || g.kchunk % Cfg::BK || (g.splits > 1 && ws == nullptr)
+      || g.sak != 1 || g.sbn != 1)
+    return cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!encode_operand(&ta, A, g.vm, g.vk, g.sam * 2, BM) ||
+      !encode_operand(&tb, B, g.vk, g.vn, g.sbk * 2, Cfg::BK))
+    return cudaErrorInvalidValue;
+  auto kernel = gemm_wgmma_kernel<BM, BN, STAGES, T, Epi>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM, g.splits);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(
+      ta, tb, g, epi, g.splits > 1 ? ws : nullptr);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || g.splits == 1) return err;
+  return launch_finish(ws, g, g.splits, epi, stream);
 }
 
 }  // namespace disc

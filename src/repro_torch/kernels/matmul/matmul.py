@@ -20,51 +20,64 @@ with ``nvcc`` (``kernels/cuda_build.py``) and launches it through
 * **Extras** are read in place through their strides: a broadcast view
   (a bias row, stride 0 along M) is never materialised.
 * **Lengths are runtime ints** (M, N, K, the valid ``valid_mnk``, every
-  stride): a new length inside a bucket, or a new bucket, launches the
-  library already built.  The kernel masks the K tail of both operands to
-  zero, stores exact zeros in the M/N tails, and reads the padded
-  operands as they are (no padded copies: the reference pads to block
-  multiples on the host).
+  stride, the split): a new length inside a bucket, or a new bucket,
+  launches the library already built.  Nothing past the valid extents
+  enters the contraction, the M/N tails are exact zeros, and the padded
+  operands are read as they are (the reference pads to block multiples
+  on the host).
 * **What bounds it on an H100: operations.**  At the path's shapes
   (T × 2048 × 5632 and T × 5632 × 2048) the GEMM does some 700 flops
-  per byte it must move, above the card's balance point.  f32 operands
-  run in IEEE f32 FFMA on the CUDA cores (as the reference contracts;
-  never TF32): 128 × 128 block tiles, 8 × 8 outputs per thread in
-  registers, register-staged double buffering; its ceiling is the
-  67 TFLOP/s FFMA rate.  bf16 / f16 operands run on the tensor cores
-  (``mma.sync.m16n8k16``, f32 accumulator, fragments through
-  ``ldmatrix``); the card's full 989 TFLOP/s needs ``wgmma`` and TMA,
-  which are a later version's work.
+  per byte it must move, above the card's balance point.  bf16 / f16
+  operands run on ``wgmma`` fed by a TMA ring (:data:`WGMMA_TILES`:
+  128 × BN tiles, K steps of 64, a producer thread and two consumer
+  warpgroups), toward the 989 TFLOP/s dense tensor-core rate.  Their
+  tensor maps are encoded on every call over the valid extents, so TMA
+  fills every tail with zeros; A must be K-contiguous and B
+  N-contiguous, 16-byte aligned with row strides of a multiple of 16
+  bytes (:func:`tma_ready`), and other layouts are copied once first
+  (counted in ``ops.OPERAND_COPIES``).  f32 operands run in IEEE f32
+  FFMA on the CUDA cores (:data:`TILES`; as the reference contracts,
+  never TF32), reading any strides; its ceiling is the 67 TFLOP/s FFMA
+  rate.
+* **Split-K** (:func:`gemm_splits`): where the valid output tiles leave
+  SMs idle (the small §4.5 shapes, path 2's small buckets) K is cut
+  into ranges of whole K steps, each block writes an f32 partial tile
+  into a workspace this module allocates, and a second kernel of the
+  same library sums the ranges in a fixed order and applies the
+  epilogue: deterministic, no atomics.
 
-:data:`TILES` holds the tile shapes: ``"kdot"`` for the fused entry and
-one per §4.5 library version (``ops.GEMM_LIBRARY`` keeps the reference's
-version names and divisibility rules; edge masking makes any tile safe on
-any shape).  The tensor-core body takes the block tile (BM, BN) of each
-and a K step of 32.
+Each tile name has one shape per body: ``"kdot"`` for the fused entry
+and one per §4.5 library version (``ops.GEMM_LIBRARY`` keeps the
+reference's version names and divisibility rules; edge handling makes
+any tile exact on any shape).  :func:`gemm_plan` says which body, tile
+and split a call takes.
 """
 from __future__ import annotations
 
 import ctypes
 import pathlib
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
 from .. import cuda_build
 from ..program import (Program, cuda_lines, cuda_load, cuda_store,
                        cuda_type)
+from .ops import BODY_LAUNCHES, OPERAND_COPIES
 
-__all__ = ["TILES", "INCLUDE_DIRS", "matmul_epilogue_kernel",
+__all__ = ["TILES", "WGMMA_TILES", "INCLUDE_DIRS", "GemmPlan", "gemm_splits",
+           "gemm_plan", "tma_ready", "matmul_epilogue_kernel",
            "matmul_kernel", "identity_program", "kernel_source", "prebuild"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 #: the include directories of every generated source (``gemm.cuh`` and
-#: the shared ``mma_sm90.cuh``)
+#: the shared ``tma_sm90.cuh``)
 INCLUDE_DIRS = [CSRC, cuda_build.COMMON_CSRC]
 
-#: tile name -> (BM, BN, BK, TM, TN): block tile, K step, outputs per
-#: thread.  Threads per block = (BM / TM) * (BN / TN).
+#: f32 (FFMA) body: tile name -> (BM, BN, BK, TM, TN): block tile, K
+#: step, outputs per thread.  Threads per block = (BM / TM) * (BN / TN);
+#: two blocks share an SM.
 TILES: Dict[str, Tuple[int, int, int, int, int]] = {
     "kdot": (128, 128, 8, 8, 8),
     "square_big": (128, 128, 8, 8, 8),
@@ -74,14 +87,129 @@ TILES: Dict[str, Tuple[int, int, int, int, int]] = {
     "deep_k": (64, 64, 32, 4, 4),
 }
 
+#: bf16 / f16 (wgmma) body: tile name -> (BM, BN, STAGES): a 128 x BN
+#: block tile (two consumer warpgroups of 64 rows), K steps of
+#: :data:`WGMMA_BK`, a ring of STAGES stages; one block an SM.  The small
+#: library shapes fill the card through split-K, not through the tile.
+WGMMA_TILES: Dict[str, Tuple[int, int, int]] = {
+    "kdot": (128, 256, 4),
+    "square_big": (128, 256, 4),
+    "balanced": (128, 128, 6),
+    "skinny_m": (128, 128, 6),
+    "skinny_n": (128, 64, 8),
+    "deep_k": (128, 128, 6),
+}
+WGMMA_BK = 64
+#: shared memory one block may use on an H100 (227 KB)
+SMEM_LIMIT = 232448
+#: SMs of an H100 SXM; the wrapper asks the device for its own count
+SMS = 132
+
+
+def wgmma_smem_bytes(bm: int, bn: int, stages: int) -> int:
+    """Shared memory of a wgmma block: the ring, 1 KB of alignment slack
+    (the 128-byte swizzle repeats every 1024 bytes) and two mbarriers a
+    stage."""
+    return stages * (bm + bn) * WGMMA_BK * 2 + 1024 + 16 * stages
+
+
 #: the tile instances each kind of library carries
 KDOT_TILES = ("kdot",)
 LIBRARY_TILES = ("square_big", "balanced", "skinny_m", "skinny_n", "deep_k")
 
 _OPERAND_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-_MMA_DTYPES = (torch.bfloat16, torch.float16)  # run on mma.sync
+_WGMMA_DTYPES = (torch.bfloat16, torch.float16)  # run on wgmma
 _ACC_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-_N_DIMS = 10  # M N K vm vn vk sam sak sbk sbn
+_N_DIMS = 12  # M N K vm vn vk sam sak sbk sbn splits kchunk
+
+
+def gemm_splits(m_tiles: int, n_tiles: int, vk: int, bk: int,
+                sms: int = SMS) -> int:
+    """How many K ranges, each a whole number of ``bk`` steps and none
+    empty, a GEMM of ``m_tiles`` x ``n_tiles`` working output tiles and
+    valid depth ``vk`` is cut into so that tiles x splits about fill
+    ``sms`` block slots; 1 where the tiles already do (or K is one
+    step)."""
+    k_steps = -(-vk // bk)
+    tiles = m_tiles * n_tiles
+    if tiles == 0 or k_steps <= 1 or 2 * tiles > sms:
+        return 1
+    per = -(-k_steps // min(sms // tiles, k_steps))
+    return -(-k_steps // per)
+
+
+def split_chunk(vk: int, bk: int, splits: int) -> int:
+    """K elements per range of a ``splits``-way split: whole ``bk`` steps,
+    the last range the shortest."""
+    k_steps = max(1, -(-vk // bk))
+    return -(-k_steps // splits) * bk
+
+
+class GemmPlan(NamedTuple):
+    """What one GEMM launch runs."""
+    body: str                # "wgmma" (bf16 / f16) or "ffma" (f32)
+    tile: Tuple[int, ...]    # WGMMA_TILES or TILES entry
+    bk: int                  # K step
+    splits: int              # K ranges (1: no split, no workspace)
+    kchunk: int              # K elements per range
+
+
+def gemm_plan(dtype: torch.dtype, tile: str, vm: int, vn: int, vk: int,
+              sms: int = SMS) -> GemmPlan:
+    """The body, tile and split of a launch at ``tile`` over valid extents
+    (vm, vn, vk): only blocks inside (vm, vn) do work, so they are the
+    tiles that must fill the SMs (one wgmma block an SM, two FFMA
+    blocks)."""
+    if dtype in _WGMMA_DTYPES:
+        body, shape, bk, slots = "wgmma", WGMMA_TILES[tile], WGMMA_BK, sms
+    else:
+        body, shape, slots = "ffma", TILES[tile], 2 * sms
+        bk = shape[2]
+    bm, bn = shape[0], shape[1]
+    splits = gemm_splits(-(-vm // bm), -(-vn // bn), vk, bk, slots)
+    return GemmPlan(body, shape, bk, splits, split_chunk(vk, bk, splits))
+
+
+def tma_ready(shape: Sequence[int], strides: Sequence[int], address: int,
+              element_size: int) -> bool:
+    """Whether a 2-D operand is read in place by the wgmma body's TMA
+    loads: unit stride along its second axis, a 16-byte-aligned start,
+    and rows a multiple of 16 bytes apart that do not overlap (one row,
+    or one column, needs no stride there)."""
+    rows, cols = shape
+    s_row, s_col = strides
+    if cols > 1 and s_col != 1:
+        return False
+    if address % 16:
+        return False
+    return rows <= 1 or (s_row * element_size % 16 == 0 and s_row >= cols)
+
+
+def _tma_operand(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """``t`` (copied once, and counted, where :func:`tma_ready` refuses
+    it) and its row stride in elements, for the wgmma body."""
+    vec = 16 // t.element_size()
+    rows, cols = t.shape
+    if not tma_ready(t.shape, t.stride(), t.data_ptr(), t.element_size()):
+        out = torch.empty((rows, -(-cols // vec) * vec), dtype=t.dtype,
+                          device=t.device)[:, :cols]
+        out.copy_(t)
+        OPERAND_COPIES.launches += 1
+        t = out
+    return t, (t.stride(0) if rows > 1 else -(-max(cols, 1) // vec) * vec)
+
+
+_SM_COUNTS: Dict[int, int] = {}
+
+
+def _sms(dev: torch.device) -> int:
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNTS[index]
+
 
 _LOCK = threading.Lock()
 _FNS: Dict[Tuple, object] = {}
@@ -112,32 +240,49 @@ def kernel_source(program: Program, dtype: torch.dtype,
         L.append(f"  long long x{i}_sm, x{i}_sn;")
     for k, dt in enumerate(program.out_dtypes):
         L.append(f"  {cuda_type(dt)}* o{k};")
-    L += ["  long long ld;",
-          "  __device__ __forceinline__ void operator()(int m, int n, "
-          "float acc, bool keep) const {",
+    # the extras' stored values at one (m, n): load() reads them, apply()
+    # computes and stores (only where ``inside``; zeros where not
+    # ``keep``) without a branch, so a caller can issue a batch of loads
+    # before the batch's stores (the outputs may alias the extras for all
+    # the compiler knows, so it keeps a load after every earlier store)
+    # and the batch's arithmetic interleaves
+    L += ["  long long ld;", "  struct In {"]
+    for i in range(1, n_in):
+        L.append(f"    {cuda_type(program.in_dtypes[i])} x{i};")
+    L += ["  };",
+          "  __device__ __forceinline__ In load(int m, int n) const {",
+          "    In r;"]
+    for i in range(1, n_in):
+        L.append(f"    r.x{i} = x{i}[(long long)m * x{i}_sm + "
+                 f"(long long)n * x{i}_sn];")
+    L += ["    return r;", "  }",
+          "  __device__ __forceinline__ void apply(int m, int n, float acc, "
+          "bool keep, bool inside, const In& in) const {",
           "    const long long o = (long long)m * ld + n;",
-          "    if (!keep) {"]
-    for k, dt in enumerate(program.out_dtypes):
-        L.append(f"      o{k}[o] = {cuda_store(dt, '0')};")
-    L += ["      return;", "    }",
           f"    const float v0 = {acc};"]
     for i in range(1, n_in):
         dt = program.in_dtypes[i]
-        x = f"x{i}[(long long)m * x{i}_sm + (long long)n * x{i}_sn]"
-        L.append(f"    const auto v{i} = {cuda_load(dt, x)};")
+        L.append(f"    const auto v{i} = {cuda_load(dt, f'in.x{i}')};")
     L += body
+    L.append("    if (inside) {")
     for k, (name, dt) in enumerate(zip(outs, program.out_dtypes)):
-        L.append(f"    o{k}[o] = {cuda_store(dt, name)};")
-    L += ["  }", "};", "",
+        L.append(f"      o{k}[o] = keep ? {cuda_store(dt, name)} : "
+                 f"{cuda_store(dt, '0')};")
+    L += ["    }", "  }",
+          "  __device__ __forceinline__ void operator()(int m, int n, "
+          "float acc, bool keep) const {",
+          "    apply(m, n, acc, keep, true, keep ? load(m, n) : In{});",
+          "  }", "};", "",
           'extern "C" int disc_gemm(const void* a, const void* b, '
           "const void* const* extras, const long long* xstrides, "
           "void* const* outs, const long long* dims, int tile, "
-          "void* stream) {",
+          "float* ws, void* stream) {",
           "  disc::GemmArgs g;",
           "  g.M = (int)dims[0]; g.N = (int)dims[1]; g.K = (int)dims[2];",
           "  g.vm = (int)dims[3]; g.vn = (int)dims[4]; g.vk = (int)dims[5];",
           "  g.sam = dims[6]; g.sak = dims[7]; g.sbk = dims[8]; "
           "g.sbn = dims[9];",
+          "  g.splits = (int)dims[10]; g.kchunk = (int)dims[11];",
           "  Epi epi;"]
     for i in range(1, n_in):
         ct = cuda_type(program.in_dtypes[i])
@@ -153,13 +298,14 @@ def kernel_source(program: Program, dtype: torch.dtype,
           "  cudaStream_t s = static_cast<cudaStream_t>(stream);",
           "  switch (tile) {"]
     for t, tname in enumerate(tiles):
-        bm, bn, bk, tm, tn = TILES[tname]
-        if dtype in _MMA_DTYPES:  # tensor cores: the block tile only
-            launch = f"launch_gemm_mma<{bm}, {bn}>"
+        if dtype in _WGMMA_DTYPES:
+            bm, bn, stages = WGMMA_TILES[tname]
+            launch = f"launch_gemm_wgmma<{bm}, {bn}, {stages}>"
         else:
+            bm, bn, bk, tm, tn = TILES[tname]
             launch = f"launch_gemm<{bm}, {bn}, {bk}, {tm}, {tn}>"
         L.append(f"    case {t}: return (int)disc::{launch}(A, B, g, epi, "
-                 f"s);  // {tname}")
+                 f"ws, s);  // {tname}")
     L += ["  }", "  return (int)cudaErrorInvalidValue;", "}", ""]
     name = f"gemm_{program.key}_{str(dtype).split('.')[-1]}_" + \
         "-".join(tiles)
@@ -168,7 +314,8 @@ def kernel_source(program: Program, dtype: torch.dtype,
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.disc_gemm
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = lib.disc_cuda_error_string
     err.argtypes = [ctypes.c_int]
@@ -248,20 +395,30 @@ def matmul_epilogue_kernel(a: torch.Tensor, b: torch.Tensor,
         return outs
     tiles, index = _tiles_for(tile)
     fn, err = _function(program, a.dtype, tiles)
+    plan = gemm_plan(a.dtype, tile, vm, vn, vk, _sms(dev))
+    a_strides, b_strides = a.stride(), b.stride()
+    if plan.body == "wgmma" and min(vm, vn, vk) > 0:
+        a, lda = _tma_operand(a)
+        b, ldb = _tma_operand(b)
+        a_strides, b_strides = (lda, 1), (ldb, 1)
+    ws = (torch.empty((plan.splits, m, n), dtype=torch.float32, device=dev)
+          if plan.splits > 1 else None)
     ptrs = (ctypes.c_void_p * max(1, len(views)))(
         *[x.data_ptr() for x in views])
     strides = (ctypes.c_longlong * max(2, 2 * len(views)))(
         *[s for x in views for s in x.stride()])
     out_ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
     dims = (ctypes.c_longlong * _N_DIMS)(
-        m, n, k, vm, vn, vk, *a.stride(), *b.stride())
+        m, n, k, vm, vn, vk, *a_strides, *b_strides, plan.splits,
+        plan.kchunk)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(a.data_ptr(), b.data_ptr(), ptrs, strides, out_ptrs, dims,
-                index, stream)
+                index, None if ws is None else ws.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"GEMM kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")
+    BODY_LAUNCHES[plan.body].launches += 1
     return outs
 
 

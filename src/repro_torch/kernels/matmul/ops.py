@@ -26,7 +26,8 @@ from ..triton_build import LaunchCounter
 from .ref import matmul_fused_ref, matmul_ref
 
 __all__ = ["GEMM_LIBRARY", "select_gemm_version", "matmul", "matmul_fused",
-           "LAUNCHES", "EPILOGUE_LAUNCHES"]
+           "LAUNCHES", "EPILOGUE_LAUNCHES", "OPERAND_COPIES",
+           "BODY_LAUNCHES"]
 
 # name -> (block_m, block_k, block_n) of the reference's library: the
 # divisibility table of the selection rules
@@ -42,6 +43,12 @@ GEMM_LIBRARY = {
 LAUNCHES = LaunchCounter()
 #: launches of the kDot GEMM (``matmul_epilogue_kernel``) on the card
 EPILOGUE_LAUNCHES = LaunchCounter()
+#: operands the 16-bit (wgmma) body copied before a launch, of either
+#: GEMM: a layout its TMA loads cannot read in place (``matmul.tma_ready``)
+OPERAND_COPIES = LaunchCounter()
+#: launches of either GEMM by the body they ran: "wgmma" (bf16 / f16
+#: operands) or "ffma" (f32)
+BODY_LAUNCHES = {"wgmma": LaunchCounter(), "ffma": LaunchCounter()}
 
 
 def select_gemm_version(m: int, k: int, n: int) -> Optional[str]:

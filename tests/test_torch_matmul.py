@@ -25,9 +25,14 @@ import torch
 
 from repro_torch.core.library import pick
 from repro_torch.kernels.matmul import ops
-from repro_torch.kernels.matmul.matmul import (LIBRARY_TILES,
+from repro_torch.kernels.matmul.matmul import (KDOT_TILES, LIBRARY_TILES,
+                                               SMEM_LIMIT, TILES,
+                                               WGMMA_BK, WGMMA_TILES,
+                                               _tma_operand, gemm_plan,
+                                               gemm_splits,
                                                identity_program,
-                                               kernel_source)
+                                               kernel_source, split_chunk,
+                                               tma_ready, wgmma_smem_bytes)
 from repro_torch.kernels.matmul.ref import matmul_fused_ref, matmul_ref
 from repro_torch.kernels.program import Program, Step
 
@@ -222,9 +227,139 @@ def test_generated_source_covers_every_epilogue_rule():
         program = Program((dt, dt), tuple(steps),
                           tuple(("t", j) for j in range(len(steps))))
         name, src = kernel_source(program, dt, LIBRARY_TILES)
-        assert src.count("disc::launch_gemm") == len(LIBRARY_TILES)
+        body = ("disc::launch_gemm<" if dt == F32
+                else "disc::launch_gemm_wgmma<")
+        assert src.count(body) == len(LIBRARY_TILES)
         assert "__fdiv_rn" in src and "fmaf" not in src
         assert name.startswith(f"gemm_{program.key}_")
+
+
+# ------------------------------------------- launch plan and layouts --
+
+@pytest.mark.parametrize("m_tiles,n_tiles,vk,bk", [
+    (16, 22, 2048, 64), (16, 8, 5632, 64), (1, 22, 2048, 64),
+    (1, 8, 5632, 64), (2, 2, 5632, 64), (4, 1, 2048, 64), (1, 16, 2048, 64),
+    (8, 2, 2048, 64), (4, 4, 5632, 32), (1, 1, 999, 8), (1, 1, 64, 64),
+    (1, 1, 1, 64), (3, 5, 0, 64), (0, 7, 2048, 64), (66, 1, 4096, 64),
+    (67, 1, 4096, 64), (1, 1, 100000, 16)])
+@pytest.mark.parametrize("sms", [132, 264])
+def test_gemm_splits_fill_the_card_and_cover_k(m_tiles, n_tiles, vk, bk,
+                                               sms):
+    """Tiles x splits never exceed the SMs' slots and about fill them; 1
+    where the tiles already fill half; every range whole K steps, none
+    empty, together exactly [0, vk)."""
+    splits = gemm_splits(m_tiles, n_tiles, vk, bk, sms)
+    tiles = m_tiles * n_tiles
+    k_steps = -(-vk // bk)
+    assert splits >= 1
+    if 2 * tiles > sms or tiles == 0 or k_steps <= 1:
+        assert splits == 1
+    else:
+        assert tiles * splits <= sms
+        # at least half the splits the card has room for (whole K steps
+        # per range cost the rest)
+        assert 2 * splits >= min(sms // tiles, k_steps)
+    chunk = split_chunk(vk, bk, splits)
+    assert chunk % bk == 0 and chunk > 0
+    ranges = [(z * chunk, min(vk, (z + 1) * chunk)) for z in range(splits)]
+    if vk:
+        assert all(lo < hi for lo, hi in ranges)
+        assert ranges[0][0] == 0 and ranges[-1][1] == vk
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert splits * chunk >= vk
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, torch.float16])
+def test_path_kdots_take_no_split(dtype):
+    """Path 2's kDots at T = 1999 fill the card with their tiles alone;
+    its smallest bucket (T = 37 of 64) splits K."""
+    for vn, vk in ((5632, 2048), (2048, 5632)):
+        plan = gemm_plan(dtype, "kdot", 1999, vn, vk)
+        assert plan.splits == 1 and plan.kchunk >= vk
+        small = gemm_plan(dtype, "kdot", 37, vn, vk)
+        assert small.splits > 1
+        assert plan.body == ("ffma" if dtype == F32 else "wgmma")
+
+
+@pytest.mark.parametrize("tile", sorted(WGMMA_TILES))
+def test_wgmma_tile_table(tile):
+    """Every 16-bit tile is one wgmma body can run: BM a whole number of
+    64-row warpgroups, BN a multiple of 8 (and of the 64-wide TMA box)
+    up to 256, the ring within the 227 KB a block may use."""
+    bm, bn, stages = WGMMA_TILES[tile]
+    assert bm % 64 == 0 and bm // 64 == 2
+    assert bn % 8 == 0 and bn % 64 == 0 and 64 <= bn <= 256
+    assert stages >= 2
+    # the ring holds the consumers' accumulators for the epilogue
+    assert stages * (bm + bn) * WGMMA_BK * 2 >= bm * bn * 4
+    assert stages * (bm + bn) * WGMMA_BK * 2 <= SMEM_LIMIT
+    assert wgmma_smem_bytes(bm, bn, stages) <= SMEM_LIMIT
+    assert set(WGMMA_TILES) == set(TILES) == set(KDOT_TILES + LIBRARY_TILES)
+
+
+def _rand(shape, dtype=BF16):
+    rs = np.random.RandomState(sum(shape))
+    return torch.from_numpy(rs.standard_normal(shape).astype(np.float32)
+                            ).to(dtype)
+
+
+def _view(kind):
+    """(tensor, whether the wgmma body reads it in place)."""
+    base = _rand((300, 208))
+    cases = {
+        "contiguous": lambda: (base, True),
+        "row_slice": lambda: (base[8:], True),                # 416-B rows
+        "col_slice_aligned": lambda: (base[:, 8:100], True),  # 16 B in
+        "col_slice_misaligned": lambda: (base[:, 3:100], False),
+        "transposed": lambda: (base.T, False),
+        "odd_rows": lambda: (_rand((150, 45)), False),        # 90-B rows
+        "stride_300_bytes": lambda: (_rand((150, 150))[:, :100], False),
+        "one_row": lambda: (_rand((1, 45)), True),
+        "one_column": lambda: (base[:, 8:9], True),
+        "broadcast_rows": lambda: (_rand((1, 64)).expand(5, 64), False),
+        "f16_contiguous": lambda: (_rand((7, 24), torch.float16), True),
+    }
+    return cases[kind]()
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "row_slice",
+                                  "col_slice_aligned",
+                                  "col_slice_misaligned", "transposed",
+                                  "odd_rows", "stride_300_bytes", "one_row",
+                                  "one_column", "broadcast_rows",
+                                  "f16_contiguous"])
+def test_layout_rule_and_operand_copy(kind):
+    """Which layouts the wgmma body's TMA reads in place, and the copy it
+    makes (and counts) of the others: same values, a layout it reads."""
+    t, ready = _view(kind)
+    assert tma_ready(t.shape, t.stride(), t.data_ptr(),
+                     t.element_size()) == ready
+    before = ops.OPERAND_COPIES.launches
+    got, ld = _tma_operand(t)
+    assert ops.OPERAND_COPIES.launches == before + (not ready)
+    assert (got is t) == ready
+    assert torch.equal(got, t)
+    assert tma_ready(got.shape, (ld, 1), got.data_ptr(), got.element_size())
+    assert ld * got.element_size() % 16 == 0 and ld >= got.shape[1]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, torch.float16])
+@pytest.mark.parametrize("group", [KDOT_TILES, LIBRARY_TILES])
+def test_kernel_source_instantiates_the_body_per_dtype(dtype, group):
+    """16-bit operands instantiate the wgmma body at every tile of the
+    library, f32 the FFMA body; the mma.sync body is gone."""
+    name, src = kernel_source(identity_program(dtype), dtype, group)
+    for t, tile in enumerate(group):
+        if dtype == F32:
+            bm, bn, bk, tm, tn = TILES[tile]
+            want = f"disc::launch_gemm<{bm}, {bn}, {bk}, {tm}, {tn}>"
+        else:
+            bm, bn, stages = WGMMA_TILES[tile]
+            want = f"disc::launch_gemm_wgmma<{bm}, {bn}, {stages}>"
+        assert f"case {t}: return (int){want}(A, B, g, epi, ws, s);" in src
+    assert "launch_gemm_mma" not in src and "fmaf" not in src
+    assert "g.splits = (int)dims[10]; g.kchunk = (int)dims[11];" in src
+    assert name.endswith("-".join(group))
 
 
 # ------------------------------------------------------------ on card --
@@ -243,10 +378,19 @@ def _rel(got, want) -> float:
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
-@pytest.mark.parametrize("dtype", [F32, BF16])
+F16 = torch.float16
+CARD_DTYPES = [F32, BF16, F16]
+
+
+def _tol(dtype) -> float:
+    return 1e-5 if dtype == F32 else BF16_REL
+
+
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
 @pytest.mark.parametrize("name", ["bias_gelu", "residual_two_outputs",
                                   "silu_h"])
 def test_kdot_kernel_matches_plain_on_card(cuda, name, dtype):
+    """M, N, K multiples of no tile, valid extents below them."""
     from repro_torch.kernels.matmul.matmul import matmul_epilogue_kernel
 
     program, _, extra_shapes = _programs(dtype)[name]
@@ -257,17 +401,43 @@ def test_kdot_kernel_matches_plain_on_card(cuda, name, dtype):
     b = (torch.randn((k, n), generator=gen, device=cuda) / 32).to(dtype)
     extras = [torch.randn(f(m, n), generator=gen, device=cuda).to(dtype)
               for f in extra_shapes]
+    before = ops.OPERAND_COPIES.launches
     got = matmul_epilogue_kernel(a, b, extras, program, valid,
                                  program.out_dtypes)
     want = matmul_fused_ref(a, b, extras, program, valid,
                             program.out_dtypes)
     torch.cuda.synchronize()
+    assert ops.OPERAND_COPIES.launches == before  # read in place
     for g, w in zip(got, want):
-        assert _rel(g, w) <= (1e-5 if dtype == F32 else BF16_REL)
+        assert _rel(g, w) <= _tol(dtype)
         assert not g[valid[0]:].any() and not g[:, valid[1]:].any()
 
 
-@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
+def test_broadcast_extras_on_card(cuda, dtype):
+    """Extras read in place through stride-0 views: a row (1, N), a
+    column (M, 1) and a scalar (1, 1)."""
+    from repro_torch.kernels.matmul.matmul import matmul_epilogue_kernel
+
+    program = Program((dtype,) * 4, (
+        Step("add", (("in", 0), ("in", 1)), dtype),
+        Step("mul", (("t", 0), ("in", 2)), dtype),
+        Step("sub", (("t", 1), ("in", 3)), dtype)), (("t", 2),))
+    m, k, n = 200, 384, 264
+    valid = (190, 260, 384)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    b = (torch.randn((k, n), generator=gen, device=cuda) / 16).to(dtype)
+    extras = [torch.randn(shape, generator=gen, device=cuda).to(dtype)
+              for shape in ((1, n), (m, 1), (1, 1))]
+    (got,) = matmul_epilogue_kernel(a, b, extras, program, valid, [dtype])
+    (want,) = matmul_fused_ref(a, b, extras, program, valid, [dtype])
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= _tol(dtype)
+    assert not got[valid[0]:].any() and not got[:, valid[1]:].any()
+
+
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
 @pytest.mark.parametrize("version", sorted(VERSION_SHAPES))
 def test_library_kernel_matches_plain_on_card(cuda, version, dtype):
     m, k, n = VERSION_SHAPES[version]
@@ -280,38 +450,80 @@ def test_library_kernel_matches_plain_on_card(cuda, version, dtype):
     torch.cuda.synchronize()
     assert ops.LAUNCHES.launches == before + 1
     assert got.dtype == dtype
-    assert _rel(got, want) <= (1e-5 if dtype == F32 else BF16_REL)
+    assert _rel(got, want) <= _tol(dtype)
 
 
-def test_every_tile_masks_a_ragged_edge_on_card(cuda):
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
+def test_every_tile_masks_a_ragged_edge_on_card(cuda, dtype):
     from repro_torch.kernels.matmul.matmul import matmul_kernel
 
     gen = torch.Generator(device=cuda).manual_seed(2)
-    a = torch.randn((77, 45), generator=gen, device=cuda)
-    b = torch.randn((45, 131), generator=gen, device=cuda)
+    a = torch.randn((77, 45), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((45, 131), generator=gen, device=cuda).to(dtype)
     for tile in LIBRARY_TILES:
-        torch.testing.assert_close(matmul_kernel(a, b, tile), a @ b,
-                                   **TOL)
+        assert _rel(matmul_kernel(a, b, tile), matmul_ref(a, b)) <= \
+            _tol(dtype)
 
 
-@pytest.mark.parametrize("dtype", [F32, BF16, torch.float16])
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
 def test_strided_operands_and_empty_k_on_card(cuda, dtype):
-    """Transposed views (no unit stride on the K axis of A or the N axis
-    of B) take the element loads; a valid K of 0 leaves the epilogue
-    over a zero accumulator."""
+    """Transposed views and views with a 300-byte row stride: the FFMA
+    body reads them through their strides, the wgmma body copies each
+    once (counted).  A valid K of 0 leaves the epilogue over a zero
+    accumulator; a valid M or N of 0 leaves all zeros (no tensor map is
+    encoded, no operand copied)."""
     from repro_torch.kernels.matmul.matmul import matmul_epilogue_kernel
 
     gen = torch.Generator(device=cuda).manual_seed(3)
-    m, k, n = 150, 200, 90
-    a = torch.randn((k, m), generator=gen, device=cuda).to(dtype).T
-    b = torch.randn((n, k), generator=gen, device=cuda).to(dtype).T
+    m, k, n = 150, 100, 90
+    operands = {
+        "transposed": (
+            torch.randn((k, m), generator=gen, device=cuda).to(dtype).T,
+            torch.randn((n, k), generator=gen, device=cuda).to(dtype).T),
+        "stride_300_bytes": (
+            torch.randn((m, 150), generator=gen, device=cuda).to(dtype)
+            [:, :k],
+            torch.randn((k, 150), generator=gen, device=cuda).to(dtype)
+            [:, :n]),
+    }
     program = identity_program(dtype)
-    for valid in ((147, 85, 193), (150, 90, 0)):
-        (got,) = matmul_epilogue_kernel(a, b, [], program, valid, [dtype])
-        (want,) = matmul_fused_ref(a, b, [], program, valid, [dtype])
-        torch.cuda.synchronize()
-        if valid[2]:
-            assert _rel(got, want) <= (1e-5 if dtype == F32 else BF16_REL)
-        else:
-            assert not got.any()
-        assert not got[valid[0]:].any() and not got[:, valid[1]:].any()
+    for kind, (a, b) in operands.items():
+        if dtype != F32 and kind == "stride_300_bytes":
+            assert a.stride(0) * a.element_size() == 300
+        for valid in ((147, 85, 93), (150, 90, 0), (0, 90, 100),
+                      (150, 0, 100)):
+            before = ops.OPERAND_COPIES.launches
+            (got,) = matmul_epilogue_kernel(a, b, [], program, valid,
+                                            [dtype])
+            (want,) = matmul_fused_ref(a, b, [], program, valid, [dtype])
+            torch.cuda.synchronize()
+            copies = ops.OPERAND_COPIES.launches - before
+            assert copies == (2 if dtype != F32 and min(valid) > 0 else 0)
+            if min(valid):
+                assert _rel(got, want) <= _tol(dtype)
+            else:
+                assert not got.any()
+            assert not got[valid[0]:].any() and not got[:, valid[1]:].any()
+
+
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
+def test_split_k_is_deterministic_on_card(cuda, dtype):
+    """Path 2's smallest bucket (T = 37 of 64) splits K: the partials'
+    fixed-order sum gives the same bits on every launch."""
+    from repro_torch.kernels.matmul.matmul import matmul_epilogue_kernel
+
+    program = _programs(dtype)["silu_h"][0]
+    m, k, n = 64, 2048, 5632
+    valid = (37, n, k)
+    assert gemm_plan(dtype, "kdot", *valid).splits > 1
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    b = (torch.randn((k, n), generator=gen, device=cuda) / 32).to(dtype)
+    h = torch.randn((m, n), generator=gen, device=cuda).to(dtype)
+    (one,) = matmul_epilogue_kernel(a, b, [h], program, valid, [dtype])
+    (two,) = matmul_epilogue_kernel(a, b, [h], program, valid, [dtype])
+    (want,) = matmul_fused_ref(a, b, [h], program, valid, [dtype])
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    assert _rel(one, want) <= _tol(dtype)
+    assert not one[valid[0]:].any()
