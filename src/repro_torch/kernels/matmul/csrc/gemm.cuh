@@ -17,24 +17,23 @@
 //   by the Tensor Memory Accelerator.  A 128 x BN output tile per block
 //   (BN = 256, 128 or 64), K steps of 64 (128 bytes of 16-bit values:
 //   the 128-byte swizzle atom), a ring of STAGES shared-memory stages.
-//   (A persistent block an SM, whose ring loads the next tile under this
-//   tile's epilogue, and a cluster of two blocks sharing each B tile by
-//   TMA multicast measured no faster on the path's shapes: PERF.md.)
-//   One producer thread issues
-//   the 2-D TMA loads of each stage (A as one 128 x 64 box, B as BN / 64
-//   boxes of 64 x 64) against a "full" mbarrier; two consumer
-//   warpgroups, each 64 rows of the tile, wait for it and issue
-//   wgmma.mma_async m64nBNk16 (A K-major, B N-major read through the
-//   transposed-B descriptor) into f32 accumulators in registers, keep
-//   one wgmma group in flight, and release a stage on its "empty"
-//   mbarrier once the group that read it has retired.  setmaxnreg moves
-//   registers from the producer warpgroup (40) to the consumers (232:
-//   BN / 2 accumulators a thread).  The loads cost the consumers no
+//   One producer thread issues the 2-D TMA loads of each stage (A as one
+//   128 x 64 box, B as BN / 64 boxes of 64 x 64) against a "full"
+//   mbarrier; two consumer warpgroups, each 64 rows of the tile, wait for
+//   it and issue wgmma.mma_async m64nBNk16 (A K-major, B N-major read
+//   through the transposed-B descriptor) into f32 accumulators in
+//   registers, keep one wgmma group in flight, and release a stage on its
+//   "empty" mbarrier once the group that read it has retired.  setmaxnreg
+//   moves registers from the producer warpgroup (40) to the consumers
+//   (232: BN / 2 accumulators a thread).  The loads cost the consumers no
 //   registers or instructions, and no __syncthreads runs after the
-//   set-up.  The epilogue reads the accumulators back through the ring
-//   and works in batches of 32 elements: their extras' loads first, then
-//   their arithmetic without branches, so loads and arithmetic overlap
-//   across elements.
+//   set-up.  The epilogue passes the f32 tile through the ring, row-major,
+//   and walks it row by row (coalesced extras and outputs) in batches
+//   whose extras' loads come first and whose arithmetic has no branch.
+//   Measured no faster on the path's shapes, and so not kept (PERF.md):
+//   a persistent block an SM; a cluster of two blocks sharing each B
+//   tile by TMA multicast; epilogue warps that run one tile's epilogue
+//   under the next tile's K loop.
 // * gemm_kernel, f32 operands: IEEE f32 FFMA (fmaf, never TF32, as the
 //   reference contracts f32 operands in f32) on the CUDA cores.  A
 //   BM x BN output tile per block, TM x TN outputs per thread held in
@@ -307,14 +306,21 @@ struct WgTile {
   static constexpr int B_BOX_BYTES = BK * 64 * 2;  // one 64-wide N box
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + alignment
+  // setmaxnreg moves registers only within the block's own allocation
+  // (launch bounds: 65536 / THREADS a thread, in steps of 8), or an inc
+  // waits forever
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static_assert(128 * PRODUCER_REGS + 128 * CONSUMERS * CONSUMER_REGS <=
+                    THREADS * (65536 / THREADS / 8 * 8),
+                "setmaxnreg within the block's registers");
   static_assert(BM == 128, "two consumer warpgroups of 64 rows");
   static_assert(BN % 64 == 0 && BN >= 64 && BN <= 256,
                 "N boxes of 64 (128-byte swizzle), at most 256");
   // the ring, its alignment slack and the two barriers of each stage
   static_assert(STAGES >= 2 && SMEM + 16 * STAGES <= 232448,
                 "227 KB of shared memory");
-  static_assert(STAGES * STAGE_BYTES >= CONSUMERS * 128 * (BN / 2) * 4,
-                "the ring holds the accumulators for the epilogue");
+  static_assert(STAGES * STAGE_BYTES >= BM * (BN + 8) * 4,
+                "the ring holds the f32 tile for the epilogue");
 };
 
 template <typename T> struct TmaType;
@@ -326,13 +332,48 @@ template <> struct TmaType<__half> {
   static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 };
 
+// The epilogue of a BM x BN f32 tile held in shared memory (row-major,
+// ld floats a row) at corner (m0, n0), by the THREADS threads of which
+// this is thread t: thread t takes column t % BN of every THREADS / BN-th
+// row, so a warp's extras' loads and outputs' stores are coalesced and
+// each thread's addresses step by whole rows.  A loop that is not
+// unrolled (unrolled over a tile's elements, a generated epilogue outgrew
+// the instruction cache: PERF.md); each step loads a batch of G
+// elements' extras first, then computes all G without a branch and
+// stores each under a predicate.
+template <int BM, int BN, int THREADS, int G, typename Epi>
+__device__ __forceinline__ void tile_epilogue(const float* tile, int ld,
+                                              int m0, int n0, int t,
+                                              const GemmArgs& g,
+                                              const Epi& epi) {
+  constexpr int RSTEP = THREADS / BN;  // rows a pass of the threads covers
+  static_assert(THREADS % BN == 0 && BM % (G * RSTEP) == 0, "tile walk");
+  const int cc = t % BN, n = n0 + cc;
+#pragma unroll 1
+  for (int r0 = t / BN; r0 < BM; r0 += G * RSTEP) {
+    typename Epi::In in[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int m = m0 + r0 + j * RSTEP;
+      const bool keep = m < g.vm && n < g.vn;
+      in[j] = keep ? epi.load(m, n) : typename Epi::In{};
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int r = r0 + j * RSTEP, m = m0 + r;
+      epi.apply(m, n, tile[r * ld + cc], m < g.vm && n < g.vn,
+                m < g.M && n < g.N, in[j]);
+    }
+  }
+}
+
 template <int BM, int BN, int STAGES, typename T, typename Epi>
 __global__ void __launch_bounds__(WgTile<BM, BN, STAGES>::THREADS, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
                   const __grid_constant__ CUtensorMap tma_b, GemmArgs g,
                   Epi epi, float* __restrict__ ws) {
   using Cfg = WgTile<BM, BN, STAGES>;
-  constexpr int BK = Cfg::BK;
+  constexpr int BK = Cfg::BK, CT = Cfg::CONSUMERS * 128;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
   // TMA's 128-byte swizzle repeats every 1024 bytes: align the ring so
@@ -362,7 +403,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
 
   if (wg == 0) {
     // producer warpgroup: one thread keeps the ring's loads in flight
-    setmaxnreg_dec<40>();
+    setmaxnreg_dec<Cfg::PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       for (int it = 0; it < nk; ++it) {
         const int s = it % STAGES;
@@ -378,7 +419,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
     }
   } else {
     // consumer warpgroup c: rows c * 64 .. c * 64 + 63 of the tile
-    setmaxnreg_inc<232>();
+    setmaxnreg_inc<Cfg::CONSUMER_REGS>();
     const int c = wg - 1;
     float acc[BN / 2];
 #pragma unroll
@@ -411,53 +452,40 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
 
-    if (ws != nullptr && !live) return;  // the finish kernel stores zeros
-    // The epilogue walks the accumulators in a loop that is not unrolled
-    // (unrolled over BN / 2 elements of a generated epilogue, the code
-    // outgrew the instruction cache: PERF.md), so it reads them back from
-    // the ring, free once both consumer warpgroups are past their last
-    // wgmma: thread t's element j at float j * 256 + t, no bank conflicts.
-    constexpr int CT = Cfg::CONSUMERS * 128;
-    named_barrier_sync<1, CT>();
-    float* stash = reinterpret_cast<float*>(smem) + (threadIdx.x - 128);
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) stash[i * CT] = acc[i];
-    float* part = ws == nullptr
-                      ? nullptr
-                      : ws + static_cast<long long>(blockIdx.z) * g.M * g.N;
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
-    const int row = m0 + c * 64 + warp * 16 + lane / 4;
-    const int col = n0 + (lane % 4) * 2;
-    // Element q of 8-column chunk i is (row + 8 (q / 2), col + 8 i + q % 2).
-    // A batch of 32 elements loads its extras first, then computes all 32
-    // without a branch and stores each under a predicate, so the loads
-    // are in flight together and the arithmetic interleaves.
-    constexpr int G = BN / 8 < 8 ? BN / 8 : 8;
-#pragma unroll 1
-    for (int i0 = 0; i0 < BN / 8; i0 += G) {
-      typename Epi::In in[G][4];
+    // this thread's accumulators: rows r0 + 8 h, columns c0 + 8 i + e
+    const int r0 = c * 64 + warp * 16 + lane / 4, c0 = (lane % 4) * 2;
+    if (ws != nullptr) {
+      // split-K: the f32 partial tile, straight from the registers; the
+      // finish kernel stores the zeros of blocks outside (vm, vn)
+      if (!live) return;
+      float* part = ws + static_cast<long long>(blockIdx.z) * g.M * g.N;
 #pragma unroll
-      for (int gi = 0; gi < G; ++gi)
+      for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const int m = row + (q / 2) * 8, n = col + (i0 + gi) * 8 + q % 2;
-          const bool keep = ws == nullptr && m < g.vm && n < g.vn;
-          in[gi][q] = keep ? epi.load(m, n) : typename Epi::In{};
+          const int m = m0 + r0 + (q / 2) * 8, n = n0 + c0 + 8 * i + q % 2;
+          if (m < g.vm && n < g.vn)
+            part[static_cast<long long>(m) * g.N + n] = acc[i * 4 + q];
         }
-#pragma unroll
-      for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int m = row + (q / 2) * 8, n = col + (i0 + gi) * 8 + q % 2;
-          const bool inside = m < g.M && n < g.N;
-          const bool keep = m < g.vm && n < g.vn;
-          const float v = stash[((i0 + gi) * 4 + q) * CT];
-          if (ws == nullptr)
-            epi.apply(m, n, v, keep, inside, in[gi][q]);
-          else if (keep)
-            part[static_cast<long long>(m) * g.N + n] = v;
-        }
+      return;
     }
+    // The ring is free once both consumer warpgroups are past their last
+    // wgmma: the f32 tile goes there, rows padded by 8 floats so the
+    // fragments' 8-byte stores hit distinct banks, and the consumers run
+    // its epilogue over it.
+    constexpr int LD = BN + 8;
+    float* tile = reinterpret_cast<float*>(smem);
+    named_barrier_sync<1, CT>();
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(&tile[(r0 + 8 * h) * LD + c0 + 8 * i]) =
+            make_float2(acc[i * 4 + h * 2], acc[i * 4 + h * 2 + 1]);
+    named_barrier_sync<1, CT>();
+    tile_epilogue<BM, BN, CT, 32>(tile, LD, m0, n0, threadIdx.x - 128, g,
+                                  epi);
   }
 }
 

@@ -290,8 +290,8 @@ def test_wgmma_tile_table(tile):
     assert bm % 64 == 0 and bm // 64 == 2
     assert bn % 8 == 0 and bn % 64 == 0 and 64 <= bn <= 256
     assert stages >= 2
-    # the ring holds the consumers' accumulators for the epilogue
-    assert stages * (bm + bn) * WGMMA_BK * 2 >= bm * bn * 4
+    # the ring holds the tile's f32 accumulators (rows padded by 8)
+    assert stages * (bm + bn) * WGMMA_BK * 2 >= bm * (bn + 8) * 4
     assert stages * (bm + bn) * WGMMA_BK * 2 <= SMEM_LIMIT
     assert wgmma_smem_bytes(bm, bn, stages) <= SMEM_LIMIT
     assert set(WGMMA_TILES) == set(TILES) == set(KDOT_TILES + LIBRARY_TILES)
@@ -527,3 +527,24 @@ def test_split_k_is_deterministic_on_card(cuda, dtype):
     assert torch.equal(one, two)
     assert _rel(one, want) <= _tol(dtype)
     assert not one[valid[0]:].any()
+
+
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
+def test_more_tiles_than_sms_on_card(cuda, dtype):
+    """More output tiles than SMs: the 16-bit body's blocks walk several
+    tiles each and hand all but their last to the epilogue warps; ragged
+    valid extents on every axis, one extra read in place."""
+    from repro_torch.kernels.matmul.matmul import matmul_epilogue_kernel
+
+    program = _programs(dtype)["silu_h"][0]
+    m, k, n = 2176, 320, 4100
+    valid = (2100, 4097, 317)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    b = (torch.randn((k, n), generator=gen, device=cuda) / 16).to(dtype)
+    h = torch.randn((m, n), generator=gen, device=cuda).to(dtype)
+    (got,) = matmul_epilogue_kernel(a, b, [h], program, valid, [dtype])
+    (want,) = matmul_fused_ref(a, b, [h], program, valid, [dtype])
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= _tol(dtype)
+    assert not got[valid[0]:].any() and not got[:, valid[1]:].any()
