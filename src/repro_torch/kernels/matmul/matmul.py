@@ -100,17 +100,8 @@ WGMMA_TILES: Dict[str, Tuple[int, int, int]] = {
     "deep_k": (128, 128, 6),
 }
 WGMMA_BK = 64
-#: shared memory one block may use on an H100 (227 KB)
-SMEM_LIMIT = 232448
 #: SMs of an H100 SXM; the wrapper asks the device for its own count
 SMS = 132
-
-
-def wgmma_smem_bytes(bm: int, bn: int, stages: int) -> int:
-    """Shared memory of a wgmma block: the ring, 1 KB of alignment slack
-    (the 128-byte swizzle repeats every 1024 bytes) and two mbarriers a
-    stage."""
-    return stages * (bm + bn) * WGMMA_BK * 2 + 1024 + 16 * stages
 
 
 #: the tile instances each kind of library carries
