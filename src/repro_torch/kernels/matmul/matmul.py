@@ -90,14 +90,16 @@ TILES: Dict[str, Tuple[int, int, int, int, int]] = {
 #: bf16 / f16 (wgmma) body: tile name -> (BM, BN, STAGES): a 128 x BN
 #: block tile (two consumer warpgroups of 64 rows), K steps of
 #: :data:`WGMMA_BK`, a ring of STAGES stages; one block an SM.  The small
-#: library shapes fill the card through split-K, not through the tile.
+#: library shapes fill the card through split-K, not through the tile,
+#: where 128 x 64 tiles (more tiles, fewer splits) measured faster than
+#: 128 x 128 (PERF.md, PR 18).
 WGMMA_TILES: Dict[str, Tuple[int, int, int]] = {
     "kdot": (128, 256, 4),
     "square_big": (128, 256, 4),
-    "balanced": (128, 128, 6),
-    "skinny_m": (128, 128, 6),
+    "balanced": (128, 64, 8),
+    "skinny_m": (128, 64, 8),
     "skinny_n": (128, 64, 8),
-    "deep_k": (128, 128, 6),
+    "deep_k": (128, 64, 8),
 }
 WGMMA_BK = 64
 #: SMs of an H100 SXM; the wrapper asks the device for its own count
