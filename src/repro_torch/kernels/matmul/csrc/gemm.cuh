@@ -489,8 +489,8 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no link against libcuda
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime at first
+// use, so the library needs no link against libcuda
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*,

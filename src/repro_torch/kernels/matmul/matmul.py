@@ -92,7 +92,7 @@ TILES: Dict[str, Tuple[int, int, int, int, int]] = {
 #: :data:`WGMMA_BK`, a ring of STAGES stages; one block an SM.  The small
 #: library shapes fill the card through split-K, not through the tile,
 #: where 128 x 64 tiles (more tiles, fewer splits) measured faster than
-#: 128 x 128 (PERF.md, PR 18).
+#: 128 x 128 (PERF.md).
 WGMMA_TILES: Dict[str, Tuple[int, int, int]] = {
     "kdot": (128, 256, 4),
     "square_big": (128, 256, 4),
