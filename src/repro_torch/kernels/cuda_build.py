@@ -30,6 +30,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -40,7 +41,7 @@ import torch
 from .triton_build import BUILD_DIR
 
 __all__ = ["NVCC_FLAGS", "COMMON_CSRC", "KernelBuildError", "nvcc",
-           "build", "load", "aligned_rows"]
+           "build", "load", "resources", "aligned_rows"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -137,6 +138,65 @@ def load(name: str, source: str,
             (path,) = build([(name, source, include_dirs)])
             hit = _LIBS[key] = ctypes.CDLL(str(path))
         return hit
+
+
+def resources(job: Tuple[str, str, Sequence[pathlib.Path]]) -> dict:
+    """Registers, stack, static shared and local memory of each kernel
+    instance of the library built from ``job`` (``cuobjdump
+    -res-usage``), and its FFMA and tensor-core instructions
+    (``cuobjdump -sass``: HMMA, ``mma.sync``; HGMMA, ``wgmma``), keyed
+    by the demangled name and template arguments without the epilogue
+    type.  Raises ``OSError`` where the toolkit has no ``cuobjdump``."""
+    (lib,) = build([job])
+    tool = pathlib.Path(nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        found = shutil.which("cuobjdump")
+        if found is None:
+            raise OSError("no cuobjdump")
+        tool = pathlib.Path(found)
+
+    def dump(flag):
+        return subprocess.run([str(tool), flag, str(lib)],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+
+    usage = re.findall(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+) "
+                       r"SHARED:(\d+) LOCAL:(\d+)", dump("-res-usage"))
+    ops: dict = {}
+    fn = None
+    for line in dump("-sass").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn is not None:
+            for op, pat in (("HGMMA", r"\bHGMMA\."), ("HMMA", r"\bHMMA\."),
+                            ("FFMA", r"\bFFMA\b")):
+                if re.search(pat, line):
+                    ops.setdefault(fn, {}).setdefault(op, 0)
+                    ops[fn][op] += 1
+    names = [u[0] for u in usage]
+    filt = pathlib.Path(nvcc()).with_name("cu++filt")
+    shown = names
+    if filt.exists() and names:
+        out = subprocess.run([str(filt)], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0:
+            shown = out.stdout.splitlines()
+    res = {}
+    for (name, reg, stack, shared, local), pretty in zip(usage, shown):
+        # the name and template arguments, without the parameter list
+        pretty = (pretty[:pretty.index(">(") + 1] if ">(" in pretty
+                  else pretty.split("(")[0])
+        pretty = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|"
+                        r"disc::", "", pretty)
+        pretty = re.sub(r", Epi>$", ">", pretty)
+        counts = ops.get(name, {})
+        res[pretty] = dict(reg=int(reg), stack=int(stack),
+                           static_shared=int(shared), local=int(local),
+                           hgmma=counts.get("HGMMA", 0),
+                           hmma=counts.get("HMMA", 0),
+                           ffma=counts.get("FFMA", 0))
+    return res
 
 
 def aligned_rows(t: torch.Tensor) -> torch.Tensor:

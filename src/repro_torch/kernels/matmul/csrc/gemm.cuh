@@ -35,13 +35,35 @@
 //   tile by TMA multicast; epilogue warps that run one tile's epilogue
 //   under the next tile's K loop.
 // * gemm_kernel, f32 operands: IEEE f32 FFMA (fmaf, never TF32, as the
-//   reference contracts f32 operands in f32) on the CUDA cores.  A
-//   BM x BN output tile per block, TM x TN outputs per thread held in
-//   registers (128 x 128 and 8 x 8 for the kDot instance), capped at 128
-//   registers so that two 256-thread blocks share an SM; A and B tiles
-//   of depth BK staged through registers into two shared-memory buffers,
-//   one __syncthreads per step; A stored k-major with 4 floats of
-//   padding per row, so the transposing stores do not collide on banks.
+//   reference contracts f32 operands in f32) on the CUDA cores, bounded
+//   by FFMA issue: 67 TFLOP/s at the boost clock, 128 FFMA an SM a
+//   cycle.  Shared memory returns 128 bytes an SM a cycle, so a thread
+//   tile of 8 x 8 outputs (16 floats loaded per 64 FFMA) would need all
+//   of it at the FFMA peak; the kDot tile takes 8 x 16 a thread (24 per
+//   128, 75 %) in 32 x 128 warp tiles of a 128 x 256 block, one block an
+//   SM with up to 255 registers.  Everything but the FFMAs is cut down to
+//   leave them the issue slots.  Operands move 16 bytes a thread: B
+//   (N-contiguous) by cp.async straight into a ring of STAGES
+//   shared-memory stages, A (K-contiguous) one step ahead through
+//   registers (LDG.128, in flight during a step's FFMAs) into a k-major
+//   tile whose 4-float m-chunks are XOR-swizzled by k, so the transposing
+//   stores hit distinct banks.  K steps of 32 and one __syncthreads a
+//   step, placed before the step's last depth so that the next step's
+//   first fragments load while that depth's FFMAs issue.  A block whose
+//   tile lies inside (vm, vn) loads its full K steps without a bounds
+//   check; edge blocks and the K tail load masked, with zeros.  A warp's
+//   lanes are 4 x 8 and a thread's outputs groups of 4 x 4, so the
+//   fragments are 16-byte shared loads of a few distinct chunks,
+//   broadcast, and each depth's load while the previous depth's FFMAs
+//   issue.  The launch bound caps the registers so that MINB blocks share
+//   an SM (gemm_plan's split-K counts on MINB).  Tiles and the variants
+//   measured and not kept: matmul.py TILES, tune.py, PERF.md.  The epilogue passes the
+//   f32 tile through the freed ring and walks it row by row, as the wgmma
+//   body does; split-K partials leave 16 bytes at a time.  Operands that
+//   the 16-byte loads cannot read in place (a start off 16 bytes, a row
+//   stride that is no multiple of 4 floats, a transposed view) take the
+//   element-by-element instance of the same kernel (VEC = false): the
+//   same tiles, filled one element at a time.
 //
 // Split-K.  Where the output tiles leave SMs idle (the small §4.5
 // shapes, path 2's small buckets) the wrapper cuts K into `splits`
@@ -61,13 +83,15 @@
 // beyond the valid extents enters the contraction: the wgmma body's
 // tensor maps are encoded on every call over the VALID (vk, vm) of A and
 // (vn, vk) of B, with the padded row strides, so TMA fills the K tail of
-// both operands and the M / N edge with zeros; the FFMA body masks its
-// loads.  Blocks entirely outside (vm, vn) skip the K loop.  Outputs at
-// m >= vm or n >= vn are stored as exact zeros.  vm, vn or vk = 0 (no
-// tensor map may have an extent of 0) runs the epilogue alone over a zero
-// accumulator.  The wgmma body reads A with unit stride along K and B
-// with unit stride along N, both 16-byte aligned with row strides that
-// are multiples of 16 bytes; the wrapper copies other layouts first.
+// both operands and the M / N edge with zeros; the FFMA body masks the
+// loads of its edge blocks and K tail.  Blocks entirely outside (vm, vn)
+// skip the K loop.  Outputs at m >= vm or n >= vn are stored as exact
+// zeros.  vm, vn or vk = 0 (no tensor map may have an extent of 0) runs
+// the epilogue alone over a zero accumulator.  Both bodies read A with
+// unit stride along K and B with unit stride along N, 16-byte aligned
+// with row strides that are multiples of 16 bytes, where the wrapper
+// lets them: it copies other 16-bit layouts first, and runs other f32
+// layouts on the FFMA body's element-by-element instance.
 #pragma once
 
 #include <cuda.h>
@@ -76,6 +100,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
 #include "tma_sm90.cuh"
 
 namespace disc {
@@ -144,43 +169,199 @@ cudaError_t launch_finish(const float* ws, const GemmArgs& g, int splits,
   return cudaGetLastError();
 }
 
+// ----------------------------------------------- the tile's epilogue --
+
+// The epilogue of a BM x BN f32 tile held in shared memory (row-major,
+// ld floats a row) at corner (m0, n0), by the THREADS threads of which
+// this is thread t: thread t takes column t % BN of every THREADS / BN-th
+// row, so a warp's extras' loads and outputs' stores are coalesced and
+// each thread's addresses step by whole rows.  A loop that is not
+// unrolled (unrolled over a tile's elements, a generated epilogue outgrew
+// the instruction cache: PERF.md); each step loads a batch of G
+// elements' extras first, then computes all G without a branch and
+// stores each under a predicate.
+template <int BM, int BN, int THREADS, int G, typename Epi>
+__device__ __forceinline__ void tile_epilogue(const float* tile, int ld,
+                                              int m0, int n0, int t,
+                                              const GemmArgs& g,
+                                              const Epi& epi) {
+  constexpr int RSTEP = THREADS / BN;  // rows a pass of the threads covers
+  static_assert(THREADS % BN == 0 && BM % (G * RSTEP) == 0, "tile walk");
+  const int cc = t % BN, n = n0 + cc;
+#pragma unroll 1
+  for (int r0 = t / BN; r0 < BM; r0 += G * RSTEP) {
+    typename Epi::In in[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int m = m0 + r0 + j * RSTEP;
+      const bool keep = m < g.vm && n < g.vn;
+      in[j] = keep ? epi.load(m, n) : typename Epi::In{};
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int r = r0 + j * RSTEP, m = m0 + r;
+      epi.apply(m, n, tile[r * ld + cc], m < g.vm && n < g.vn,
+                m < g.M && n < g.N, in[j]);
+    }
+  }
+}
+
 // --------------------------------------------------------- f32: FFMA --
 
-template <int BM, int BN, int BK, int TM, int TN>
+// cp.async of 16 (4) bytes from device to shared memory that reads the
+// first `bytes` of them and writes zeros for the rest (bytes = 0: reads
+// nothing).  16-byte copies bypass L1 (.cg), 4-byte ones may not (.ca).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(smem)), "l"(gmem), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
+                                                int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(smem)), "l"(gmem), "r"(bytes) : "memory");
+}
+
+// The FFMA body's shape.  A BM x BN block tile of THREADS threads in
+// warps of 4 TM x 8 TN outputs (32 x 128 for the kDot's 8 x 16): a
+// warp's lanes are WTY x WTX, and each thread holds TM x TN outputs as
+// (TM / 4) x (TN / 4) groups of 4 x 4, groups WTY * 4 rows and WTX * 4
+// columns apart, so that a warp's fragment loads are 16-byte reads of 4
+// (A) and 8 (B) distinct chunks, broadcast to the rest.  K steps of BK in
+// a ring of STAGES shared-memory stages; MINB blocks an SM (the launch
+// bound caps the registers at 65536 / (THREADS * MINB)).
+template <int BM, int BN, int BK, int TM, int TN, int STAGES, int MINB>
 struct Tile {
-  static constexpr int TX = BN / TN;  // threads along N
-  static constexpr int TY = BM / TM;  // threads along M
-  static constexpr int THREADS = TX * TY;
-  static constexpr int A_PER = BM * BK / THREADS;  // A loads per thread
-  static constexpr int B_PER = BK * BN / THREADS;
-  static_assert(TM % 4 == 0 && TN % 4 == 0, "TM, TN: multiples of 4");
-  static_assert(BM % TM == 0 && BN % TN == 0, "tile / thread shape");
-  static_assert((BM * BK) % THREADS == 0 && (BK * BN) % THREADS == 0,
-                "every thread stages the same number of elements");
-  static_assert(THREADS <= 1024, "threads per block");
+  static constexpr int WTY = 4, WTX = 8;  // a warp's lanes along M, N
+  static constexpr int WM = TM * WTY, WN = TN * WTX;
+  static constexpr int WARPS_M = BM / WM, WARPS_N = BN / WN;
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int A_CHUNKS = BM * BK / 4 / THREADS;  // 16 B a thread
+  static constexpr int B_CHUNKS = BK * BN / 4 / THREADS;
+  // XOR of an A row's 16-byte m-chunk index at depth k: (k / 4) * SWZ,
+  // below 8, so a warp's transposing stores hit 32 distinct banks
+  static constexpr int SWZ = 32 / BK;
+  static constexpr int RING = STAGES * BK * (BM + BN);  // floats
+  static constexpr int SMEM = 4 * (RING > BM * BN ? RING : BM * BN);
+  static_assert(TM % 4 == 0 && TN % 4 == 0, "TM, TN: groups of 4");
+  static_assert(BM % WM == 0 && BN % WN == 0, "whole warps");
+  static_assert(BM == 32 || BM == 64 || BM == 128 || BM == 256,
+                "BM: a power of two with at least 8 chunks of 4 a row");
+  static_assert(BK == 8 || BK == 16 || BK == 32, "BK: the swizzle's steps");
+  static_assert(A_CHUNKS >= 1 && B_CHUNKS >= 1 &&
+                    A_CHUNKS * THREADS * 4 == BM * BK &&
+                    B_CHUNKS * THREADS * 4 == BK * BN,
+                "every thread loads the same number of 16-byte chunks");
+  static_assert(THREADS <= 1024 && STAGES >= 2, "threads, stages");
+  static_assert(MINB * (SMEM + 1024) <= 233472, "MINB blocks' shared memory");
 };
 
 // ws == nullptr: the epilogue runs here; else the block's f32 partial
-// over its K range goes to ws[blockIdx.z]
-template <int BM, int BN, int BK, int TM, int TN, typename T, typename Epi>
-__global__ void __launch_bounds__(Tile<BM, BN, BK, TM, TN>::THREADS, 2)
-gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, GemmArgs g,
-            Epi epi, float* __restrict__ ws) {
-  static_assert(sizeof(T) == 4, "f32 operands; 16-bit ones take the "
-                                "wgmma body");
-  using Cfg = Tile<BM, BN, BK, TM, TN>;
-  constexpr int TX = Cfg::TX, TY = Cfg::TY, THREADS = Cfg::THREADS;
-  constexpr int AP = BM + 4;  // padded row of the k-major A tile
-  __shared__ __align__(16) float As[2][BK][AP];
-  __shared__ __align__(16) float Bs[2][BK][BN];
+// over its K range goes to ws[blockIdx.z].  VEC: A is K-contiguous and B
+// N-contiguous, both 16-byte aligned with row strides of a multiple of 4
+// floats, and are read 16 bytes a thread; else (any strides) element by
+// element into the same tiles.
+template <int BM, int BN, int BK, int TM, int TN, int STAGES, int MINB,
+          bool VEC, typename Epi>
+__global__ void __launch_bounds__(
+    (Tile<BM, BN, BK, TM, TN, STAGES, MINB>::THREADS), MINB)
+gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
+            GemmArgs g, Epi epi, float* __restrict__ ws) {
+  using Cfg = Tile<BM, BN, BK, TM, TN, STAGES, MINB>;
+  constexpr int THREADS = Cfg::THREADS, WTX = Cfg::WTX, WTY = Cfg::WTY;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  float* const As = smem;                       // STAGES x BK x BM, k-major
+  float* const Bs = smem + STAGES * BK * BM;    // STAGES x BK x BN
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int ty = lane / WTX, tx = lane % WTX;
+  const int wm = warp % Cfg::WARPS_M, wn = warp / Cfg::WARPS_M;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const bool live = m0 < g.vm && n0 < g.vn;
+  // the tile lies wholly inside (vm, vn): its full K steps load unmasked
+  const bool inner = m0 + BM <= g.vm && n0 + BN <= g.vn;
   const int kbeg = blockIdx.z * g.kchunk;
-  const int klim = kbeg + g.kchunk < g.vk ? kbeg + g.kchunk : g.vk;
-  const int kend = live ? klim : kbeg;
+  const int kend = kbeg + g.kchunk < g.vk ? kbeg + g.kchunk : g.vk;
+  const int nk = live && kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+
+  // B: straight into the stage by cp.async (zeros past vn and kend)
+  auto load_b = [&](int st, int k0) {
+    const bool full = inner && k0 + BK <= kend;
+    float* bs = Bs + st * BK * BN;
+    if constexpr (VEC) {
+#pragma unroll
+      for (int c = 0; c < Cfg::B_CHUNKS; ++c) {
+        const int e = tid + c * THREADS;
+        const int r = e / (BN / 4), q = e % (BN / 4);
+        const int gk = k0 + r, gn = n0 + q * 4;
+        int bytes = 16;
+        if (!full) {
+          const int left = g.vn - gn;
+          bytes = gk < kend ? 4 * (left < 0 ? 0 : (left > 4 ? 4 : left)) : 0;
+        }
+        cp_async16_zfill(bs + r * BN + q * 4,
+                         bytes ? B + (long long)gk * g.sbk + gn : B, bytes);
+      }
+    } else {
+      // not unrolled, so that no element's 64-bit offset stays live
+      // across the K loop (they spill at the register cap)
+#pragma unroll 1
+      for (int i = 0; i < 4 * Cfg::B_CHUNKS; ++i) {
+        const int e = tid + (i / 4) * THREADS;
+        const int r = e / (BN / 4), gk = k0 + r;
+        const int cn = (e % (BN / 4)) * 4 + i % 4, gn = n0 + cn;
+        const bool ok = full || (gk < kend && gn < g.vn);
+        cp_async4_zfill(
+            bs + r * BN + cn,
+            ok ? B + (long long)gk * g.sbk + (long long)gn * g.sbn : B,
+            ok ? 4 : 0);
+      }
+    }
+  };
+  // A: 16 bytes along K a thread into registers, then stored k-major
+  // (transposed) into the stage, its 4-float m-chunks XOR-swizzled by k
+  float4 ra[Cfg::A_CHUNKS];
+  auto load_a = [&](int k0) {
+    const bool full = inner && k0 + BK <= kend;
+#pragma unroll
+    for (int c = 0; c < Cfg::A_CHUNKS; ++c) {
+      const int e = tid + c * THREADS;
+      const int gm = m0 + e / (BK / 4), gk = k0 + (e % (BK / 4)) * 4;
+      float v[4];
+      if constexpr (VEC) {
+        const float* src = A + (long long)gm * g.sam + gk;
+        if (full) {
+          ra[c] = __ldg(reinterpret_cast<const float4*>(src));
+          continue;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = gm < g.vm && gk + j < kend ? src[j] : 0.0f;
+      } else {
+        // one pointer stepped along K: per-element offsets would stay
+        // live across the K loop and spill at the register cap
+        const float* src = A + (long long)gm * g.sam + (long long)gk * g.sak;
+#pragma unroll
+        for (int j = 0; j < 4; ++j, src += g.sak)
+          v[j] = full || (gm < g.vm && gk + j < kend) ? *src : 0.0f;
+      }
+      ra[c] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  };
+  auto store_a = [&](int st) {
+    float* as = As + st * BK * BM;
+#pragma unroll
+    for (int c = 0; c < Cfg::A_CHUNKS; ++c) {
+      const int e = tid + c * THREADS;
+      const int r = e / (BK / 4), q = e % (BK / 4);
+      float* col = as + q * 4 * BM + (((r / 4) ^ (q * Cfg::SWZ)) * 4 + r % 4);
+      col[0] = ra[c].x;
+      col[BM] = ra[c].y;
+      col[2 * BM] = ra[c].z;
+      col[3 * BM] = ra[c].w;
+    }
+  };
 
   float acc[TM][TN];
 #pragma unroll
@@ -188,106 +369,153 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, GemmArgs g,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
-  float ra[Cfg::A_PER], rb[Cfg::B_PER];
-  auto load = [&](int k0) {
+  // fragments of depth k of stage st: 16-byte reads
+  float a[2][TM], b[2][TN];
+  auto frag = [&](int buf, int st, int k) {
+    const float* as = As + st * BK * BM;
+    const float* bs = Bs + st * BK * BN;
 #pragma unroll
-    for (int i = 0; i < Cfg::A_PER; ++i) {
-      const int e = tid + i * THREADS;
-      const int r = e / BK, c = e % BK;
-      const int gm = m0 + r, gk = k0 + c;
-      ra[i] = (gm < g.vm && gk < kend)
-                  ? to_f32(A[gm * g.sam + gk * g.sak]) : 0.0f;
+    for (int q = 0; q < TM / 4; ++q) {
+      const int chunk = (wm * Cfg::WM) / 4 + q * WTY + ty;
+      const float4 v = *reinterpret_cast<const float4*>(
+          as + k * BM + ((chunk ^ ((k / 4) * Cfg::SWZ)) * 4));
+      a[buf][q * 4 + 0] = v.x; a[buf][q * 4 + 1] = v.y;
+      a[buf][q * 4 + 2] = v.z; a[buf][q * 4 + 3] = v.w;
     }
 #pragma unroll
-    for (int i = 0; i < Cfg::B_PER; ++i) {
-      const int e = tid + i * THREADS;
-      const int r = e / BN, c = e % BN;
-      const int gk = k0 + r, gn = n0 + c;
-      rb[i] = (gk < kend && gn < g.vn)
-                  ? to_f32(B[gk * g.sbk + gn * g.sbn]) : 0.0f;
+    for (int q = 0; q < TN / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          bs + k * BN + wn * Cfg::WN + (q * WTX + tx) * 4);
+      b[buf][q * 4 + 0] = v.x; b[buf][q * 4 + 1] = v.y;
+      b[buf][q * 4 + 2] = v.z; b[buf][q * 4 + 3] = v.w;
     }
   };
-  auto stage = [&](int buf) {
+  auto ffma = [&](int buf) {
 #pragma unroll
-    for (int i = 0; i < Cfg::A_PER; ++i) {
-      const int e = tid + i * THREADS;
-      As[buf][e % BK][e / BK] = ra[i];
-    }
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int i = 0; i < Cfg::B_PER; ++i) {
-      const int e = tid + i * THREADS;
-      Bs[buf][e / BN][e % BN] = rb[i];
-    }
+      for (int j = 0; j < TN; ++j)
+        acc[i][j] = fmaf(a[buf][i], b[buf][j], acc[i][j]);
   };
 
-  if (kend > kbeg) {
-    load(kbeg);
-    stage(0);
+  // the ring: B STAGES - 1 steps ahead, A one step ahead through
+  // registers; one barrier a step, before the step's last depth, so the
+  // next step's first fragments load while that depth's FFMAs issue
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < nk) load_b(p, kbeg + p * BK);
+    cp_async_commit();
   }
+  if (nk > 0) {
+    load_a(kbeg);
+    store_a(0);
+    cp_async_wait<STAGES - 2>();  // this thread's copies of step 0 landed
+    __syncthreads();              // everyone's
+    frag(0, 0, 0);
+  }
+  for (int s = 0; s < nk; ++s) {
+    const int st = s % STAGES, pf = s + STAGES - 1;
+    // into the stage step s - 1 read: every thread is past its reads
+    if (pf < nk) load_b(pf % STAGES, kbeg + pf * BK);
+    cp_async_commit();
+    const bool more = s + 1 < nk;
+    if (more) load_a(kbeg + (s + 1) * BK);  // in flight during the FFMAs
+#pragma unroll
+    for (int k = 0; k + 1 < BK; ++k) {
+      frag((k + 1) % 2, st, k + 1);  // the next depth's, during this one's
+      ffma(k % 2);
+    }
+    if (more) {
+      store_a((s + 1) % STAGES);  // its stage was read at s + 1 - STAGES
+      cp_async_wait<STAGES - 2>();  // this thread's copies of step s + 1
+      __syncthreads();  // everyone's, and stage st's reads are done
+      frag(0, (s + 1) % STAGES, 0);
+    }
+    ffma((BK - 1) % 2);
+  }
+  cp_async_wait<0>();
+
+  // this thread's outputs: rows rm(q) + i, columns cn(q) + j, i, j < 4
+  auto rm = [&](int q) { return wm * Cfg::WM + (q * WTY + ty) * 4; };
+  auto cn = [&](int q) { return wn * Cfg::WN + (q * WTX + tx) * 4; };
+  if (ws != nullptr) {
+    // split-K: the f32 partial tile, 16 bytes at a time where the row
+    // allows; the finish kernel stores the zeros of blocks outside
+    // (vm, vn)
+    if (!live) return;
+    float* part = ws + static_cast<long long>(blockIdx.z) * g.M * g.N;
+    const bool vec_rows = g.N % 4 == 0;
+#pragma unroll
+    for (int qm = 0; qm < TM / 4; ++qm)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = m0 + rm(qm) + i;
+        if (m >= g.vm) continue;
+#pragma unroll
+        for (int qn = 0; qn < TN / 4; ++qn) {
+          const int n = n0 + cn(qn), row = qm * 4 + i, col = qn * 4;
+          float* dst = part + static_cast<long long>(m) * g.N + n;
+          if (vec_rows && n + 4 <= g.vn) {
+            *reinterpret_cast<float4*>(dst) =
+                make_float4(acc[row][col], acc[row][col + 1],
+                            acc[row][col + 2], acc[row][col + 3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (n + j < g.vn) dst[j] = acc[row][col + j];
+          }
+        }
+      }
+    return;
+  }
+  // the ring is free: the f32 tile goes there, row-major (a quarter
+  // warp's 16-byte stores cover 128 contiguous bytes), and the block
+  // walks it row by row
   __syncthreads();
-  int buf = 0;
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    const bool more = k0 + BK < kend;
-    if (more) load(k0 + BK);  // in flight while this step computes
+  float* tile = smem;
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
+  for (int qm = 0; qm < TM / 4; ++qm)
 #pragma unroll
-      for (int q = 0; q < TM / 4; ++q) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&As[buf][k][(q * TY + ty) * 4]);
-        a[q * 4 + 0] = v.x; a[q * 4 + 1] = v.y;
-        a[q * 4 + 2] = v.z; a[q * 4 + 3] = v.w;
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int qn = 0; qn < TN / 4; ++qn) {
+        const int row = qm * 4 + i, col = qn * 4;
+        *reinterpret_cast<float4*>(&tile[(rm(qm) + i) * BN + cn(qn)]) =
+            make_float4(acc[row][col], acc[row][col + 1], acc[row][col + 2],
+                        acc[row][col + 3]);
       }
-#pragma unroll
-      for (int q = 0; q < TN / 4; ++q) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&Bs[buf][k][(q * TX + tx) * 4]);
-        b[q * 4 + 0] = v.x; b[q * 4 + 1] = v.y;
-        b[q * 4 + 2] = v.z; b[q * 4 + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (more) stage(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  if (ws != nullptr && !live) return;  // the finish kernel stores zeros
-  float* part = ws == nullptr
-                    ? nullptr
-                    : ws + static_cast<long long>(blockIdx.z) * g.M * g.N;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ((i / 4) * TY + ty) * 4 + i % 4;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + ((j / 4) * TX + tx) * 4 + j % 4;
-      if (n >= g.N) continue;
-      const bool keep = m < g.vm && n < g.vn;
-      if (ws == nullptr)
-        epi(m, n, acc[i][j], keep);
-      else if (keep)
-        part[static_cast<long long>(m) * g.N + n] = acc[i][j];
-    }
-  }
+  __syncthreads();
+  constexpr int RSTEP = THREADS / BN;
+  constexpr int G = BM / RSTEP < 16 ? BM / RSTEP : 16;
+  tile_epilogue<BM, BN, THREADS, G>(tile, BN, m0, n0, tid, g, epi);
 }
 
-template <int BM, int BN, int BK, int TM, int TN, typename T, typename Epi>
-cudaError_t launch_gemm(const T* A, const T* B, const GemmArgs& g,
+// VEC: the 16-byte instance (the wrapper checks the layout first, as
+// matmul.ffma_ready); else the element-by-element one
+template <int BM, int BN, int BK, int TM, int TN, int STAGES, int MINB,
+          bool VEC, typename Epi>
+cudaError_t launch_gemm(const float* A, const float* B, const GemmArgs& g,
                         const Epi& epi, float* ws, cudaStream_t stream) {
-  using Cfg = Tile<BM, BN, BK, TM, TN>;
+  using Cfg = Tile<BM, BN, BK, TM, TN, STAGES, MINB>;
   if (g.vm == 0 || g.vn == 0 || g.vk == 0)
     return launch_finish(nullptr, g, 0, epi, stream);
   if (g.splits < 1 || g.kchunk % BK || (g.splits > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
+  if (VEC && (g.sak != 1 || g.sbn != 1 || g.sam % 4 || g.sbk % 4 ||
+              reinterpret_cast<uintptr_t>(A) % 16 ||
+              reinterpret_cast<uintptr_t>(B) % 16))
+    return cudaErrorInvalidValue;
+  auto kernel = gemm_kernel<BM, BN, BK, TM, TN, STAGES, MINB, VEC, Epi>;
+  cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+  if (attr == cudaSuccess)
+    attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM, g.splits);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
-  gemm_kernel<BM, BN, BK, TM, TN, T, Epi><<<grid, Cfg::THREADS, 0, stream>>>(
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(
       A, B, g, epi, g.splits > 1 ? ws : nullptr);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || g.splits == 1) return err;
@@ -331,41 +559,6 @@ template <> struct TmaType<__nv_bfloat16> {
 template <> struct TmaType<__half> {
   static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 };
-
-// The epilogue of a BM x BN f32 tile held in shared memory (row-major,
-// ld floats a row) at corner (m0, n0), by the THREADS threads of which
-// this is thread t: thread t takes column t % BN of every THREADS / BN-th
-// row, so a warp's extras' loads and outputs' stores are coalesced and
-// each thread's addresses step by whole rows.  A loop that is not
-// unrolled (unrolled over a tile's elements, a generated epilogue outgrew
-// the instruction cache: PERF.md); each step loads a batch of G
-// elements' extras first, then computes all G without a branch and
-// stores each under a predicate.
-template <int BM, int BN, int THREADS, int G, typename Epi>
-__device__ __forceinline__ void tile_epilogue(const float* tile, int ld,
-                                              int m0, int n0, int t,
-                                              const GemmArgs& g,
-                                              const Epi& epi) {
-  constexpr int RSTEP = THREADS / BN;  // rows a pass of the threads covers
-  static_assert(THREADS % BN == 0 && BM % (G * RSTEP) == 0, "tile walk");
-  const int cc = t % BN, n = n0 + cc;
-#pragma unroll 1
-  for (int r0 = t / BN; r0 < BM; r0 += G * RSTEP) {
-    typename Epi::In in[G];
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const int m = m0 + r0 + j * RSTEP;
-      const bool keep = m < g.vm && n < g.vn;
-      in[j] = keep ? epi.load(m, n) : typename Epi::In{};
-    }
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const int r = r0 + j * RSTEP, m = m0 + r;
-      epi.apply(m, n, tile[r * ld + cc], m < g.vm && n < g.vn,
-                m < g.M && n < g.N, in[j]);
-    }
-  }
-}
 
 template <int BM, int BN, int STAGES, typename T, typename Epi>
 __global__ void __launch_bounds__(WgTile<BM, BN, STAGES>::THREADS, 1)

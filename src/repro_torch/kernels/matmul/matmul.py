@@ -35,10 +35,20 @@ with ``nvcc`` (``kernels/cuda_build.py``) and launches it through
   fills every tail with zeros; A must be K-contiguous and B
   N-contiguous, 16-byte aligned with row strides of a multiple of 16
   bytes (:func:`tma_ready`), and other layouts are copied once first
-  (counted in ``ops.OPERAND_COPIES``).  f32 operands run in IEEE f32
-  FFMA on the CUDA cores (:data:`TILES`; as the reference contracts,
-  never TF32), reading any strides; its ceiling is the 67 TFLOP/s FFMA
-  rate.
+  (counted in ``ops.OPERAND_COPIES``).  f32 operands run in IEEE f32 FFMA
+  on the CUDA cores (as the reference contracts, never TF32), bounded by
+  FFMA issue at 67 TFLOP/s; shared memory's 128 bytes an SM a cycle feed
+  the fragments, all of them at that rate for 8 × 8 outputs a thread,
+  three quarters for 8 × 16.  :data:`TILES` gives the kDot (and
+  ``square_big``) 128 × 256 block tiles of 32 × 128 warp tiles, 8 × 16
+  outputs a thread, one block an SM, K steps of 32 in a 4-stage ring (B
+  by 16-byte ``cp.async``, A one step ahead through registers into a
+  swizzled k-major tile), unmasked loads in blocks inside the valid
+  extents, and the f32 tile walked row by row for the epilogue.  Operands
+  that are K- / N-contiguous, 16-byte aligned, with rows a multiple of 4
+  floats apart are read 16 bytes a thread; any other strides take the
+  same kernel's element-by-element instance (:func:`ffma_operands`;
+  counted in ``ops.FFMA_SCALAR_LAUNCHES``), never a copy.
 * **Split-K** (:func:`gemm_splits`): where the valid output tiles leave
   SMs idle (the small §4.5 shapes, path 2's small buckets) K is cut
   into ranges of whole K steps, each block writes an f32 partial tile
@@ -64,10 +74,11 @@ import torch
 from .. import cuda_build
 from ..program import (Program, cuda_lines, cuda_load, cuda_store,
                        cuda_type)
-from .ops import BODY_LAUNCHES, OPERAND_COPIES
+from .ops import BODY_LAUNCHES, FFMA_SCALAR_LAUNCHES, OPERAND_COPIES
 
 __all__ = ["TILES", "WGMMA_TILES", "INCLUDE_DIRS", "GemmPlan", "gemm_splits",
-           "gemm_plan", "tma_ready", "matmul_epilogue_kernel",
+           "gemm_plan", "tma_ready", "ffma_operands",
+           "matmul_epilogue_kernel",
            "matmul_kernel", "identity_program", "kernel_source", "prebuild"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -75,16 +86,18 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 #: the shared ``tma_sm90.cuh``)
 INCLUDE_DIRS = [CSRC, cuda_build.COMMON_CSRC]
 
-#: f32 (FFMA) body: tile name -> (BM, BN, BK, TM, TN): block tile, K
-#: step, outputs per thread.  Threads per block = (BM / TM) * (BN / TN);
-#: two blocks share an SM.
-TILES: Dict[str, Tuple[int, int, int, int, int]] = {
-    "kdot": (128, 128, 8, 8, 8),
-    "square_big": (128, 128, 8, 8, 8),
-    "balanced": (64, 64, 16, 4, 4),
-    "skinny_m": (32, 64, 16, 4, 4),
-    "skinny_n": (64, 32, 16, 4, 4),
-    "deep_k": (64, 64, 32, 4, 4),
+#: f32 (FFMA) body: tile name -> (BM, BN, BK, TM, TN, STAGES, MINB): block
+#: tile, K step, outputs per thread, ring stages and blocks an SM.
+#: Threads per block = (BM / TM) * (BN / TN); the launch bound caps a
+#: thread's registers at 65536 / (threads * MINB).
+#: Each the fastest of ``tune.CANDIDATES`` at its shapes (PERF.md).
+TILES: Dict[str, Tuple[int, ...]] = {
+    "kdot": (128, 256, 32, 8, 16, 4, 1),
+    "square_big": (128, 256, 32, 8, 16, 4, 1),
+    "balanced": (128, 64, 32, 8, 4, 3, 2),
+    "skinny_m": (32, 64, 16, 4, 4, 4, 4),
+    "skinny_n": (64, 32, 16, 4, 4, 4, 2),
+    "deep_k": (64, 64, 32, 4, 4, 4, 2),
 }
 
 #: bf16 / f16 (wgmma) body: tile name -> (BM, BN, STAGES): a 128 x BN
@@ -151,13 +164,13 @@ def gemm_plan(dtype: torch.dtype, tile: str, vm: int, vn: int, vk: int,
               sms: int = SMS) -> GemmPlan:
     """The body, tile and split of a launch at ``tile`` over valid extents
     (vm, vn, vk): only blocks inside (vm, vn) do work, so they are the
-    tiles that must fill the SMs (one wgmma block an SM, two FFMA
-    blocks)."""
+    tiles that must fill the SMs (one wgmma block an SM, the FFMA tile's
+    MINB)."""
     if dtype in _WGMMA_DTYPES:
         body, shape, bk, slots = "wgmma", WGMMA_TILES[tile], WGMMA_BK, sms
     else:
-        body, shape, slots = "ffma", TILES[tile], 2 * sms
-        bk = shape[2]
+        body, shape = "ffma", TILES[tile]
+        bk, slots = shape[2], shape[6] * sms
     bm, bn = shape[0], shape[1]
     splits = gemm_splits(-(-vm // bm), -(-vn // bn), vk, bk, slots)
     return GemmPlan(body, shape, bk, splits, split_chunk(vk, bk, splits))
@@ -190,6 +203,25 @@ def _tma_operand(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
         OPERAND_COPIES.launches += 1
         t = out
     return t, (t.stride(0) if rows > 1 else -(-max(cols, 1) // vec) * vec)
+
+
+def _row_strides(t: torch.Tensor) -> Tuple[int, int]:
+    """``t``'s strides, with the stride of an axis of extent 1 (never
+    stepped) given as 0 along rows and 1 along columns."""
+    rows, cols = t.shape
+    return (t.stride(0) if rows > 1 else 0, t.stride(1) if cols > 1 else 1)
+
+
+def ffma_operands(a: torch.Tensor, b: torch.Tensor
+                  ) -> Tuple[bool, Tuple[int, int], Tuple[int, int]]:
+    """Which f32 instance reads ``a`` (M, K) and ``b`` (K, N) in place:
+    the 16-byte one where both pass :func:`tma_ready` (unit stride along
+    the contiguous axis, a 16-byte-aligned start, rows a multiple of 4
+    floats apart), else the element-by-element one; and the strides the
+    kernel is given."""
+    vec = all(tma_ready(t.shape, t.stride(), t.data_ptr(), t.element_size())
+              for t in (a, b))
+    return vec, _row_strides(a), _row_strides(b)
 
 
 _SM_COUNTS: Dict[int, int] = {}
@@ -293,12 +325,15 @@ def kernel_source(program: Program, dtype: torch.dtype,
     for t, tname in enumerate(tiles):
         if dtype in _WGMMA_DTYPES:
             bm, bn, stages = WGMMA_TILES[tname]
-            launch = f"launch_gemm_wgmma<{bm}, {bn}, {stages}>"
+            cases = [(t, f"launch_gemm_wgmma<{bm}, {bn}, {stages}>", "")]
         else:
-            bm, bn, bk, tm, tn = TILES[tname]
-            launch = f"launch_gemm<{bm}, {bn}, {bk}, {tm}, {tn}>"
-        L.append(f"    case {t}: return (int)disc::{launch}(A, B, g, epi, "
-                 f"ws, s);  // {tname}")
+            shape = ", ".join(map(str, TILES[tname]))
+            cases = [(2 * t, f"launch_gemm<{shape}, true>", ", 16-byte"),
+                     (2 * t + 1, f"launch_gemm<{shape}, false>",
+                      ", element by element")]
+        for case, launch, note in cases:
+            L.append(f"    case {case}: return (int)disc::{launch}(A, B, g, "
+                     f"epi, ws, s);  // {tname}{note}")
     L += ["  }", "  return (int)cudaErrorInvalidValue;", "}", ""]
     name = f"gemm_{program.key}_{str(dtype).split('.')[-1]}_" + \
         "-".join(tiles)
@@ -389,11 +424,17 @@ def matmul_epilogue_kernel(a: torch.Tensor, b: torch.Tensor,
     tiles, index = _tiles_for(tile)
     fn, err = _function(program, a.dtype, tiles)
     plan = gemm_plan(a.dtype, tile, vm, vn, vk, _sms(dev))
-    a_strides, b_strides = a.stride(), b.stride()
-    if plan.body == "wgmma" and min(vm, vn, vk) > 0:
-        a, lda = _tma_operand(a)
-        b, ldb = _tma_operand(b)
-        a_strides, b_strides = (lda, 1), (ldb, 1)
+    scalar = False  # the FFMA body's element-by-element instance
+    if plan.body == "wgmma":
+        a_strides, b_strides = a.stride(), b.stride()
+        if min(vm, vn, vk) > 0:
+            a, lda = _tma_operand(a)
+            b, ldb = _tma_operand(b)
+            a_strides, b_strides = (lda, 1), (ldb, 1)
+    else:
+        vec, a_strides, b_strides = ffma_operands(a, b)
+        scalar = not vec
+        index = 2 * index + scalar
     ws = (torch.empty((plan.splits, m, n), dtype=torch.float32, device=dev)
           if plan.splits > 1 else None)
     ptrs = (ctypes.c_void_p * max(1, len(views)))(
@@ -412,6 +453,7 @@ def matmul_epilogue_kernel(a: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"GEMM kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")
     BODY_LAUNCHES[plan.body].launches += 1
+    FFMA_SCALAR_LAUNCHES.launches += scalar
     return outs
 
 

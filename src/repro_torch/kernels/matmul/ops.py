@@ -27,7 +27,7 @@ from .ref import matmul_fused_ref, matmul_ref
 
 __all__ = ["GEMM_LIBRARY", "select_gemm_version", "matmul", "matmul_fused",
            "LAUNCHES", "EPILOGUE_LAUNCHES", "OPERAND_COPIES",
-           "BODY_LAUNCHES"]
+           "BODY_LAUNCHES", "FFMA_SCALAR_LAUNCHES"]
 
 # name -> (block_m, block_k, block_n) of the reference's library: the
 # divisibility table of the selection rules
@@ -49,6 +49,10 @@ OPERAND_COPIES = LaunchCounter()
 #: launches of either GEMM by the body they ran: "wgmma" (bf16 / f16
 #: operands) or "ffma" (f32)
 BODY_LAUNCHES = {"wgmma": LaunchCounter(), "ffma": LaunchCounter()}
+#: f32 launches of either GEMM on the FFMA body's element-by-element
+#: instance: an operand its 16-byte loads cannot read in place
+#: (``matmul.ffma_operands``)
+FFMA_SCALAR_LAUNCHES = LaunchCounter()
 
 
 def select_gemm_version(m: int, k: int, n: int) -> Optional[str]:

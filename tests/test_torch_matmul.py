@@ -27,7 +27,8 @@ from repro_torch.core.library import pick
 from repro_torch.kernels.matmul import ops
 from repro_torch.kernels.matmul.matmul import (KDOT_TILES, LIBRARY_TILES,
                                                TILES, WGMMA_BK, WGMMA_TILES,
-                                               _tma_operand, gemm_plan,
+                                               _tma_operand, ffma_operands,
+                                               gemm_plan,
                                                gemm_splits,
                                                identity_program,
                                                kernel_source, split_chunk,
@@ -228,7 +229,9 @@ def test_generated_source_covers_every_epilogue_rule():
         name, src = kernel_source(program, dt, LIBRARY_TILES)
         body = ("disc::launch_gemm<" if dt == F32
                 else "disc::launch_gemm_wgmma<")
-        assert src.count(body) == len(LIBRARY_TILES)
+        # f32: a 16-byte and an element-by-element instance a tile
+        assert src.count(body) == len(LIBRARY_TILES) * (2 if dt == F32
+                                                        else 1)
         assert "__fdiv_rn" in src and "fmaf" not in src
         assert name.startswith(f"gemm_{program.key}_")
 
@@ -298,6 +301,125 @@ def test_wgmma_tile_table(tile):
     assert set(WGMMA_TILES) == set(TILES) == set(KDOT_TILES + LIBRARY_TILES)
 
 
+def _check_ffma_tile(shape):
+    """``shape`` (BM, BN, BK, TM, TN, STAGES, MINB) is one the FFMA body
+    can run: whole warps of 4 x 8 lanes, at most 1024 threads; the ring
+    (and the f32 tile the epilogue walks, which reuses it) within the
+    227 KB a block may use, and MINB blocks' shared memory within the
+    SM's 228 KB; MINB blocks' registers within the SM's 65536, with a
+    thread's share holding its accumulators, two fragment buffers and its
+    staged A chunks; K steps of whole 16-byte chunks (BK a multiple of 4)
+    that the A swizzle covers; every thread loading the same number of
+    16-byte chunks; the epilogue's walk a whole number of rows."""
+    bm, bn, bk, tm, tn, stages, minb = shape
+    threads = (bm // tm) * (bn // tn)
+    smem = max(stages * bk * (bm + bn) * 4, bm * bn * 4)
+    regs = min(255, 65536 // (threads * minb) // 8 * 8)
+    assert tm % 4 == 0 and tn % 4 == 0
+    assert bm % (4 * tm) == 0 and bn % (8 * tn) == 0
+    assert threads % 32 == 0 and threads <= 1024
+    assert bk % 4 == 0 and bk in (8, 16, 32) and bm in (32, 64, 128, 256)
+    assert stages >= 2 and minb >= 1
+    assert stages * bk * (bm + bn) * 4 <= smem <= 232448
+    assert minb * (smem + 1024) <= 233472
+    a_chunks, b_chunks = bm * bk // 4, bk * bn // 4
+    assert a_chunks % threads == 0 and b_chunks % threads == 0
+    need = tm * tn + 2 * (tm + tn) + 4 * (a_chunks // threads)
+    assert need < regs and regs * threads * minb <= 65536
+    assert threads % bn == 0 and bm % (threads // bn) == 0
+
+
+@pytest.mark.parametrize("tile", sorted(TILES))
+def test_ffma_tile_table(tile):
+    """Every f32 tile is one the FFMA body can run
+    (:func:`_check_ffma_tile`)."""
+    _check_ffma_tile(TILES[tile])
+
+
+def test_tune_candidates_are_runnable_tiles():
+    """Every tile the tuning module times is one the FFMA body can run,
+    and each tile name's first candidate is the one :data:`TILES`
+    keeps."""
+    from repro_torch.kernels.matmul.tune import CANDIDATES, SHAPES
+
+    assert set(CANDIDATES) == set(TILES)
+    assert {tile for tile, *_ in SHAPES.values()} == set(TILES)
+    for tile, shapes in CANDIDATES.items():
+        assert shapes[0] == TILES[tile] and len(set(shapes)) == len(shapes)
+        for shape in shapes:
+            _check_ffma_tile(shape)
+
+
+@pytest.mark.parametrize("tile", sorted(TILES))
+@pytest.mark.parametrize("valid", [(1999, 5632, 2048), (1999, 2048, 5632),
+                                   (37, 5632, 2048), (37, 2048, 5632),
+                                   (1024, 256, 2048), (32, 2048, 2048),
+                                   (512, 32, 2048), (256, 256, 5632),
+                                   (77, 131, 45), (5, 7, 3)])
+def test_gemm_plan_ffma_blocks_per_sm(tile, valid):
+    """The f32 plan fills MINB blocks an SM: the splits are
+    :func:`gemm_splits` over the tile's MINB x SMs slots, in K steps of
+    the tile's BK, and cover K."""
+    bm, bn, bk, _, _, _, minb = TILES[tile]
+    vm, vn, vk = valid
+    plan = gemm_plan(F32, tile, vm, vn, vk)
+    assert plan.body == "ffma" and plan.tile == TILES[tile] and plan.bk == bk
+    assert plan.splits == gemm_splits(-(-vm // bm), -(-vn // bn), vk, bk,
+                                      minb * 132)
+    assert plan.kchunk % bk == 0 and plan.splits * plan.kchunk >= vk
+    assert gemm_plan(F32, tile, vm, vn, vk, sms=66).splits == gemm_splits(
+        -(-vm // bm), -(-vn // bn), vk, bk, minb * 66)
+
+
+def _ffma_case(kind):
+    """(a, b, whether the 16-byte instance reads both in place)."""
+    big = torch.from_numpy(np.random.RandomState(9).standard_normal(
+        (300, 208)).astype(np.float32))
+    b = big[:64, :40]
+    cases = {
+        "aligned": lambda: (big[:, :64], b, True),
+        "row_slice": lambda: (big[4:, :64], b, True),       # 832-B rows
+        "col_offset_4": lambda: (big[:, 4:68], b, True),    # 16 B in
+        "offset_by_one": lambda: (big.view(-1)[1:1 + 300 * 64]
+                                  .view(300, 64), b, False),
+        "col_offset_1": lambda: (big[:, 1:65], b, False),
+        "transposed_a": lambda: (big[:64, :50].T, big[:64, :40], False),
+        "transposed_b": lambda: (big[:, :64], big[:40, :64].T, False),
+        "odd_row_stride": lambda: (big.view(-1)[:300 * 65].view(300, 65)
+                                   [:, :64], b, False),
+        "odd_row_stride_b": lambda: (big[:, :64], big.view(-1)[:64 * 43]
+                                     .view(64, 43)[:, :40], False),
+        "one_row": lambda: (big.view(-1)[1:65].view(1, 64), b, False),
+        "one_row_aligned": lambda: (big[:1, :64], b, True),
+        "one_column_b": lambda: (big[:, :64], big[:64, 8:9], True),
+    }
+    return cases[kind]()
+
+
+@pytest.mark.parametrize("kind", ["aligned", "row_slice", "col_offset_4",
+                                  "offset_by_one", "col_offset_1",
+                                  "transposed_a", "transposed_b",
+                                  "odd_row_stride", "odd_row_stride_b",
+                                  "one_row", "one_row_aligned",
+                                  "one_column_b"])
+def test_ffma_instance_choice(kind):
+    """The f32 wrapper's choice, without a card: the 16-byte instance
+    where both operands are K- / N-contiguous, 16-byte aligned, with
+    rows a multiple of 4 floats apart; else the element-by-element one
+    over the operands' own strides, with no copy.  An axis of extent 1
+    is never stepped, so its stride is given as 0 (rows) or 1
+    (columns)."""
+    a, b, ready = _ffma_case(kind)
+    vec, sa, sb = ffma_operands(a, b)
+    assert vec == ready
+    for t, s in ((a, sa), (b, sb)):
+        rows, cols = t.shape
+        assert s == (t.stride(0) if rows > 1 else 0,
+                     t.stride(1) if cols > 1 else 1)
+        if vec:
+            assert s[1] == 1 and s[0] % 4 == 0 and t.data_ptr() % 16 == 0
+
+
 def _rand(shape, dtype=BF16):
     rs = np.random.RandomState(sum(shape))
     return torch.from_numpy(rs.standard_normal(shape).astype(np.float32)
@@ -348,16 +470,21 @@ def test_layout_rule_and_operand_copy(kind):
 @pytest.mark.parametrize("group", [KDOT_TILES, LIBRARY_TILES])
 def test_kernel_source_instantiates_the_body_per_dtype(dtype, group):
     """16-bit operands instantiate the wgmma body at every tile of the
-    library, f32 the FFMA body; the mma.sync body is gone."""
+    library, f32 the FFMA body twice a tile (the 16-byte instance at case
+    2t, the element-by-element one at 2t + 1); the mma.sync body is
+    gone."""
     name, src = kernel_source(identity_program(dtype), dtype, group)
     for t, tile in enumerate(group):
         if dtype == F32:
-            bm, bn, bk, tm, tn = TILES[tile]
-            want = f"disc::launch_gemm<{bm}, {bn}, {bk}, {tm}, {tn}>"
+            shape = ", ".join(map(str, TILES[tile]))
+            cases = {2 * t: f"disc::launch_gemm<{shape}, true>",
+                     2 * t + 1: f"disc::launch_gemm<{shape}, false>"}
         else:
             bm, bn, stages = WGMMA_TILES[tile]
-            want = f"disc::launch_gemm_wgmma<{bm}, {bn}, {stages}>"
-        assert f"case {t}: return (int){want}(A, B, g, epi, ws, s);" in src
+            cases = {t: f"disc::launch_gemm_wgmma<{bm}, {bn}, {stages}>"}
+        for case, want in cases.items():
+            assert (f"case {case}: return (int){want}(A, B, g, epi, ws, s);"
+                    in src)
     assert "launch_gemm_mma" not in src and "fmaf" not in src
     assert "g.splits = (int)dims[10]; g.kchunk = (int)dims[11];" in src
     assert name.endswith("-".join(group))
@@ -553,3 +680,64 @@ def test_more_tiles_than_sms_on_card(cuda, dtype):
     torch.cuda.synchronize()
     assert _rel(got, want) <= _tol(dtype)
     assert not got[valid[0]:].any() and not got[:, valid[1]:].any()
+
+
+FFMA_CARD_CASES = ["storage_offset_1", "row_stride_not_4",
+                   "k_tail_below_bk", "interior_and_edge_blocks"]
+
+
+def _ffma_card_operands(kind, dev):
+    """(a, b, valid (M, N, K), whether the 16-byte instance runs)."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    if kind == "storage_offset_1":      # both start 4 bytes past 16
+        m, k, n = 150, 200, 136
+        a = rnd(m * k + 1)[1:].view(m, k)
+        b = (rnd(k * n + 1) / 16)[1:].view(k, n)
+        return a, b, (147, 130, 197), False
+    if kind == "row_stride_not_4":      # rows 203 and 141 floats apart
+        m, k, n = 150, 200, 136
+        return rnd(m, k + 3)[:, :k], (rnd(k, n + 5) / 16)[:, :n], \
+            (150, 136, 200), False
+    if kind == "k_tail_below_bk":       # K = 7: one partial 16-byte chunk
+        return rnd(140, 8)[:, :7], rnd(7, 136), (133, 136, 7), True
+    # 128 x 128 (and 64 x 64) tiles inside (vm, vn), on its edge and past
+    # it; a K tail of 997 % 16 = 5 (997 % 4 = 1)
+    return rnd(700, 1000), (rnd(1000, 652) / 32)[:, :650], \
+        (650, 600, 997), True
+
+
+@pytest.mark.parametrize("tile", ["kdot", "balanced"])
+@pytest.mark.parametrize("kind", FFMA_CARD_CASES)
+def test_ffma_layouts_and_edges_on_card(cuda, kind, tile):
+    """The f32 body on an operand at storage offset 1, on row strides
+    that are no multiple of 4 (both on the element-by-element instance,
+    counted, nothing copied), on K % 4 != 0 with K < BK, and on a grid
+    of interior, edge and idle blocks (both on the 16-byte instance):
+    the silu·h kDot and the empty epilogue against their plain versions
+    at rtol = atol = 1e-5, tails exactly zero."""
+    from repro_torch.kernels.matmul.matmul import matmul_epilogue_kernel
+
+    a, b, valid, vec = _ffma_card_operands(kind, cuda)
+    assert ffma_operands(a, b)[0] == vec
+    m, n = a.shape[0], b.shape[1]
+    h = torch.randn((m, n), generator=torch.Generator(device=cuda)
+                    .manual_seed(11), device=cuda)
+    for program, extras in ((_programs(F32)["silu_h"][0], [h]),
+                            (identity_program(F32), [])):
+        scalar = ops.FFMA_SCALAR_LAUNCHES.launches
+        copies = ops.OPERAND_COPIES.launches
+        (got,) = matmul_epilogue_kernel(a, b, extras, program, valid, [F32],
+                                        tile=tile)
+        (want,) = matmul_fused_ref(a, b, extras, program, valid, [F32])
+        torch.cuda.synchronize()
+        assert ops.FFMA_SCALAR_LAUNCHES.launches == scalar + (not vec)
+        assert ops.OPERAND_COPIES.launches == copies
+        torch.testing.assert_close(got, want, **TOL)
+        assert not got[valid[0]:].any() and not got[:, valid[1]:].any()
+    vm, vn, vk = valid
+    torch.testing.assert_close(
+        got[:vm, :vn], matmul_ref(a[:vm, :vk], b[:vk, :vn]), **TOL)
