@@ -8,15 +8,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 1. **Card.**  Prints ``nvidia-smi``'s name and power limit and
    ``torch.cuda.get_device_name()``.  Then lowers path 2's functions and
    starts building every CUDA library the run needs (path 2's kDot
-   epilogues and the §4.5 library, both dtypes), one ``nvcc`` each, all
-   at once, in the background while path 1 runs.  When they are built,
-   prints each flash-attention and GEMM instance's registers, stack,
-   static shared memory, local memory, FFMA and tensor-core
-   instructions (HMMA: ``mma.sync``; HGMMA: ``wgmma``), from
+   epilogues and the §4.5 library in both dtypes, flash attention, WKV,
+   the SSD scan and the masked softmax), one ``nvcc`` each, all at once, in the background while path 1 runs.  When they are built,
+   prints each flash-attention, GEMM, SSD and masked softmax instance's
+   registers, stack, static shared memory, local memory, FFMA and
+   tensor-core instructions (HMMA: ``mma.sync``; HGMMA: ``wgmma``), from
    ``cuobjdump`` of the built libraries where the toolkit has it; every
    16-bit GEMM instance must show HGMMA, no HMMA and no local memory,
    every f32 one FFMA, no HMMA or HGMMA, no local memory and its
-   registers within its launch bound.
+   registers within its launch bound; the chunked SSD instances HMMA;
+   no SSD or softmax instance local memory.
 2. **Path 1.**  Compiles TinyLlama-1.1B's decoder stack at full width
    (d_model 2048, 32/4 heads, d_ff 5632, 22 layers unrolled, ``ln_f`` and
    the 32000-wide head; random weights drawn on the card from a seeded
@@ -166,7 +167,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     chunk from a state at B = 2 beside a row of ``lens = 0`` (its state
     back bit for bit, its y 0); a ragged T = 1999; decode B = 4, T = 1.
     y and the final state (f32 in both dtypes) within 1e-5 of the plain
-    chunked version.  Flash attention at hd 112 as phase 8 (prefill
+    chunked version.  Each row names the instance ``mamba2.ssd_plan``
+    gave it (decode, or chunked with its head group and blocks); its
+    bound divides the recurrence's flops by the peak of the unit the
+    instance runs them on (TF32 tensor cores for chunked, f32 FFMA for
+    decode), with the FFMA-based bound printed beside it.  Before the
+    path phases, each SSD instance's registers, stack and local memory
+    and its HMMA / FFMA counts are printed from ``cuobjdump``: none may
+    use local memory, and the chunked phases' must show HMMA (TF32
+    ``mma.sync``).  Flash attention at hd 112 as phase 8 (prefill
     S = 2048; a 512-row chunk at q_offset 1024; decode B = 4 at group
     1), timed against ``F.scaled_dot_product_attention``, and RMSNorm
     at width 3584 as phase 8.
@@ -176,7 +185,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     ``torch.Generator``, upcast in place for f32) served by the same
     engine with the same six requests.  Every attention runs the flash
     attention kernel at hd 128, every norm the RMSNorm kernel and every
-    router the Triton masked softmax (``n_valid = E``); the expert GEMMs
+    router the CUDA C++ masked softmax (``n_valid = E``); the expert GEMMs
     are batched ``torch.bmm``.  First bf16 at 8 layers (54.6 GB of
     weights) at capacity factor 4.0 = E / top_k, where no token drops,
     unchunked and chunked at 512; then 4 layers in f32 and bf16 at the
@@ -198,7 +207,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     in f32 and bf16 with ``n_valid`` 1500 and 2048, and at ``n_valid =
     0``, against its plain version (max|d|/max|ref| ≤ 1e-6 f32, ≤ 8e-3
     bf16; padded columns exactly 0), timed against the plain version and
-    ``torch.softmax`` over the valid columns.
+    ``torch.softmax`` over the valid columns.  Each row names its
+    ``softmax.softmax_plan``; at 4 x 16 the kernel and ``torch.softmax``
+    are also timed 1000 launches back to back with no flush (µs a
+    launch), and the wrapper's host µs a call is printed.  Its
+    instances' registers and local memory are printed from
+    ``cuobjdump`` (no local memory).
 15. Prints the kernels line, the card line, and the result line last.
 
 Run it from a checkout: it builds the kernels from ``src/`` into
@@ -206,6 +220,9 @@ Run it from a checkout: it builds the kernels from ``src/`` into
 without a CUDA device.  ``--layers`` cuts the depth of paths 1 and 2;
 paths 3 and 4 always run all their layers (22 and 32), path 5 all 81 in
 bf16 and 15 in both dtypes, path 6 8 in bf16 and 4 in both dtypes.
+``--kernels-only`` runs phases 12's SSD and 14's masked softmax rows
+alone (their launches on the paths then read 0), a quick check after a
+change to either kernel.
 """
 from __future__ import annotations
 
@@ -221,11 +238,12 @@ from typing import Callable, NamedTuple
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (700 W): HBM bytes/s, f32 non-tensor flop/s
-# and dense bf16 tensor-core flop/s
+# H100 SXM data-sheet peaks (700 W): HBM bytes/s, f32 non-tensor flop/s,
+# dense bf16 and TF32 tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 
 REQUESTS = (37, 200, 731, 1500, 1999, 45)
 # paths 1-2, f32 vs eager (summation order); bf16 takes the accuracy
@@ -298,8 +316,8 @@ KERNELS = {
         "replaces": "src/repro/kernels/mamba2/mamba2.py:68",
     },
     "masked_softmax": {
-        "route": "triton",
-        "source": "src/repro_torch/kernels/softmax/softmax.py",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/softmax/csrc/softmax.cu",
         "replaces": "src/repro/kernels/softmax/softmax.py:37",
     },
 }
@@ -417,12 +435,14 @@ CACHE_CHECK_LAYERS = 2
 TOL_WKV_STATE = 1e-5
 # the SSD kernel's y and final state vs its plain (chunked) version, in
 # both dtypes: inputs are widened to f32 at load and every product is
-# f32, so only summation order, fmaf and the cumulative sum's order differ
+# near-f32 (3 x TF32 on tensor cores; an f32 operand's dropped lo x lo
+# term and TF32 truncations ~2^-20 of a product), so summation order,
+# the split and the cumulative sum's order differ
 TOL_SSD = 1e-5
 # the masked softmax kernel vs its plain version: both compute in f32
-# with libdevice's expf and an IEEE divide, so only the summation order of
-# the row sum differs; a bf16 output by one rounding (2^-8) where the f32
-# results differ
+# with CUDA's IEEE expf and a correctly rounded divide, so only the
+# order of the row sum differs; a bf16 output by one rounding (2^-8)
+# where the f32 results differ
 TOL_SOFTMAX = {"f32": 1e-6, "bf16": 8e-3}
 
 # §4.5 library phase: a shape from TinyLlama's widths per entry, and the
@@ -597,6 +617,8 @@ def start_cuda_builds(arts: list):
         source_job
     from repro_torch.kernels.mamba2.mamba2 import source_job as ssd_job
     from repro_torch.kernels.rwkv6.rwkv6 import source_job as wkv_job
+    from repro_torch.kernels.softmax.softmax import \
+        source_job as softmax_job
     from repro_torch.kernels.matmul.matmul import (INCLUDE_DIRS,
                                                    LIBRARY_TILES,
                                                    identity_program,
@@ -614,6 +636,7 @@ def start_cuda_builds(arts: list):
     sources.append(source_job())   # the flash-attention library (path 3)
     sources.append(wkv_job())      # the WKV library (path 4)
     sources.append(ssd_job())      # the SSD library (path 5)
+    sources.append(softmax_job())  # the masked softmax library (path 6)
     result: dict = {"sources": len(sources), "gemm_jobs": gemm_jobs}
 
     def run():
@@ -2241,21 +2264,54 @@ def rwkv_kernel_phase(cfg, dname: str, report: dict, rows: list):
 
 
 def ssd_cost(b: int, h: int, n: int, p: int, steps: list, t: int,
-             elt: int, with_s0: bool):
+             elt: int, with_s0: bool, peak: float = F32_FLOPS):
     """(bound_ms, bound_by, bytes, flops) of one SSD call: x (elt bytes),
     the f32 decay a and the row's b and c (elt bytes) of the valid steps
     read once, y (f32, all T steps, zero past a row's length) and the
     final state written once, s0 read once where given.  The recurrent
     form needs 4 N P flops per head and valid step (b x^T, a h + ., c^T
-    h), on f32 FFMA in both dtypes."""
+    h), over ``peak``: the rate of the unit the instance runs its
+    products on (TF32 tensor cores for the chunked one, f32 FFMA for
+    decode)."""
     valid = sum(steps)
     nbytes = (valid * h * (p * elt + 4) + valid * 2 * n * elt
               + b * t * h * p * 4 + b * h * n * p * 4 * (2 if with_s0 else 1))
     flops = 4 * n * p * h * valid
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS * 1e3
+    ops_ms = flops / peak * 1e3
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
+
+
+def ssd_resources() -> str:
+    """``cuda_build.resources`` of the SSD library, as one JSON object.
+    Checks that no instance uses local memory (none spills) and that the
+    chunked instance's products run on tensor cores (HMMA: TF32
+    ``mma.sync``)."""
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.mamba2.mamba2 import source_job
+
+    res = cuda_build.resources(source_job())
+    for kname, r in res.items():
+        check(r["local"] == 0, f"SSD instance {kname}: {r}")
+        if kname.startswith("ssd_chunked<"):
+            check(r["hmma"] > 0, f"SSD instance {kname}: no HMMA, {r}")
+    check(any(k.startswith("ssd_decode<") for k in res)
+          and any(k.startswith("ssd_chunked<") for k in res),
+          f"SSD library: instances {sorted(res)}")
+    return json.dumps(res)
+
+
+def softmax_resources() -> str:
+    """``cuda_build.resources`` of the masked softmax library, as one JSON
+    object; checks that no instance uses local memory."""
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.softmax.softmax import source_job
+
+    res = cuda_build.resources(source_job())
+    for kname, r in res.items():
+        check(r["local"] == 0, f"masked softmax instance {kname}: {r}")
+    return json.dumps(res)
 
 
 def ssd_kernel_phase(cfg, dname: str, report: dict, rows: list):
@@ -2265,6 +2321,7 @@ def ssd_kernel_phase(cfg, dname: str, report: dict, rows: list):
     import torch
 
     from repro_torch.kernels.mamba2 import ops as ssd
+    from repro_torch.kernels.mamba2.mamba2 import ssd_plan
     from repro_torch.kernels.select import plain_versions
 
     dt = torch.float32 if dname == "f32" else torch.bfloat16
@@ -2327,8 +2384,11 @@ def ssd_kernel_phase(cfg, dname: str, report: dict, rows: list):
             z, s0 = c["zero_row"], c["args"][4]
             zero_ok = (not y[z].any()) and torch.equal(s1[z], s0[z])
         b, _, t, _ = c["args"][0].shape
+        plan = ssd_plan(b, h, t, n, p)
+        cost = (b, h, n, p, c["steps"], t, elt, c["args"][4] is not None)
         bound_ms, bound_by, nbytes, flops = ssd_cost(
-            b, h, n, p, c["steps"], t, elt, c["args"][4] is not None)
+            *cost, peak=F32_FLOPS if plan.instance == "decode"
+            else TF32_FLOPS)
         ms = cuda_ms(run)
         row = dict(name="mamba2", **KERNELS["mamba2"],
                    launches=launches["mamba2"], max_abs_err=err, ms=ms,
@@ -2337,6 +2397,8 @@ def ssd_kernel_phase(cfg, dname: str, report: dict, rows: list):
         detail = dict(dtype=dname, case=c["label"], max_ref=scale,
                       max_rel=err / scale, state_max_rel=s_rel,
                       bytes=nbytes, flops=flops, tflops=flops / ms / 1e9,
+                      bound_ffma_ms=ssd_cost(*cost)[0],
+                      plan=plan._asdict(),
                       path_launches_of_program=launches["mamba2"],
                       library_call="none", zero_row_ok=zero_ok)
         print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
@@ -2364,6 +2426,8 @@ def softmax_kernel_phase(report: dict, rows: list):
     from repro_torch.configs import get_config
     from repro_torch.kernels.select import plain_versions
     from repro_torch.kernels.softmax import ops as sm
+    from repro_torch.kernels.softmax.probe import launch_times
+    from repro_torch.kernels.softmax.softmax import softmax_plan
 
     gen = torch.Generator(device="cuda").manual_seed(23)
     e = get_config("dbrx_132b").n_experts
@@ -2409,8 +2473,15 @@ def softmax_kernel_phase(report: dict, rows: list):
                    plain_ms=cuda_ms(plain), bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    library_ms=cuda_ms(lib) if lib else None)
+        # the decode router's shape: launches back to back (no flush) and
+        # the wrapper's host µs a call, printed only
+        extra = {}
+        if r == SERVE_BATCH and on_path:
+            extra = dict(kernel_launch=launch_times(run),
+                         library_launch=launch_times(lib))
         detail = dict(dtype=dname, case=f"{r}x{c} n_valid={n}"
                       + (" (path 6 router)" if on_path else ""),
+                      plan=softmax_plan(r, c, elt)._asdict(), **extra,
                       max_ref=scale, max_rel=rel, bytes=nbytes, flops=flops,
                       path_launches_of_program=launches[dname] if on_path
                       else 0,
@@ -2449,6 +2520,8 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=22,
                     help="decoder layers to unroll (default: all 22)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run the SSD and masked softmax kernel rows alone")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2482,6 +2555,9 @@ def main(argv=None) -> int:
                 for d in ("f32", "bf16")}
         report: dict = {}
         rows: list = []
+        if args.kernels_only:
+            kernels_only(report, rows)
+            return finish(rows, report, card, kind)
         path2 = {d: build_token_major(cfgs[d], d, args.seed)
                  for d in cfgs}
         builds = start_cuda_builds(list(path2.values()))
@@ -2513,6 +2589,7 @@ def main(argv=None) -> int:
         except (OSError, subprocess.SubprocessError) as e:
             res = f"not available ({e})"
         print(f"[build] GEMM instances: {res}", flush=True)
+        print_resources()
         for dname, cfg in cfgs.items():
             t0 = time.perf_counter()
             calls = path_phase("path2", path2[dname], dname, args.seed, cfg,
@@ -2601,6 +2678,45 @@ def main(argv=None) -> int:
     finally:
         if builds is not None:
             builds[0].join()
+    return finish(rows, report, card, kind)
+
+
+def print_resources() -> None:
+    """The SSD and masked softmax instances' resources (``cuobjdump``),
+    checked where the toolkit has it."""
+    for name, fn in (("SSD", ssd_resources),
+                     ("masked softmax", softmax_resources)):
+        try:
+            res = fn()
+        except (OSError, subprocess.SubprocessError) as e:
+            res = f"not available ({e})"
+        print(f"[build] {name} instances: {res}", flush=True)
+
+
+def kernels_only(report: dict, rows: list) -> None:
+    """``--kernels-only``: build the SSD and softmax libraries, print
+    their resources, and run their kernel rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.mamba2.mamba2 import source_job as ssd_job
+    from repro_torch.kernels.softmax.softmax import \
+        source_job as softmax_job
+
+    t0 = time.perf_counter()
+    cuda_build.build([ssd_job(), softmax_job()])
+    print(f"[build] 2 CUDA sources built in {time.perf_counter() - t0:.1f} "
+          f"s (nvcc, in parallel)", flush=True)
+    print_resources()
+    cfg = get_config("zamba2_7b")
+    for dname in ("f32", "bf16"):
+        ssd_kernel_phase(cfg, dname, report, rows)
+    softmax_kernel_phase(report, rows)
+
+
+def finish(rows: list, report: dict, card: str, kind: str) -> int:
+    """The kernels line, the card line and the result line, last."""
+    import torch
+
     print(json.dumps({"kernels": summary(rows, report)}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,14 @@ it once with ``nvcc`` (``kernels/cuda_build.py``) into one small library
 with a plain C entry point, and launches it through :mod:`ctypes` on
 PyTorch's current stream.
 
+:func:`ssd_plan` picks the instance a call runs (testable without a
+card): the decode instance, one streaming pass over the state per (b, h)
+and step, up to ``DECODE_MAX_T`` steps (the engine's decode is T = 1);
+else the chunked instance, one launch over a (b, chunk, head group) grid
+whose blocks hand each chunk's end state to the next through a small
+ring the wrapper allocates with the ticket and flags they synchronise
+on (zeroed per call).
+
 The wrapper checks devices, dtypes and shapes and raises on what the
 kernel does not take; it passes T, every stride and ``lens`` as runtime
 arguments.  x (B, H, T, P) and the decay a (B, H, T) are read in place
@@ -22,13 +30,15 @@ from __future__ import annotations
 import ctypes
 import pathlib
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .. import cuda_build
+from .ref import CHUNK
 
-__all__ = ["STATE_SHAPES", "mamba2_kernel", "source_job"]
+__all__ = ["STATE_SHAPES", "DECODE_MAX_T", "SsdPlan", "ssd_plan",
+           "mamba2_kernel", "source_job"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "mamba2.cu"
@@ -38,9 +48,41 @@ STATE_SHAPES = ((64, 64),)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _N_DIMS = 18
+#: the longest T the decode instance takes (csrc DECODE_MAX_T)
+DECODE_MAX_T = 8
+#: heads a chunked block walks: at 2, a block's tiles (108 KB of shared
+#: memory) leave room for two blocks an SM
+HEADS_PER_BLOCK = 2
+_INSTANCES = {"decode": 0, "chunked": 1}
 
 _LOCK = threading.Lock()
 _FN = None
+
+
+class SsdPlan(NamedTuple):
+    """What one SSD launch runs."""
+    instance: str          # "decode" or "chunked"
+    chunks: int            # chunks of CHUNK steps (0 for decode)
+    heads_per_block: int   # heads a chunked block walks (1 for decode)
+    blocks: int            # blocks of the launch
+    work_floats: int       # the chunked instance's hand-off ring, else 0
+    sync_ints: int         # its ticket and flags (zeroed), else 0
+
+
+def ssd_plan(b: int, h: int, t: int, n: int = 64, p: int = 64) -> SsdPlan:
+    """The instance and grid of a call over (B, H, T): decode for T <=
+    ``DECODE_MAX_T``, one block a (b, h); else chunked, one launch of a
+    block a (b, chunk, group of ``HEADS_PER_BLOCK`` heads) (the heads of
+    a block share its C B^T), each chunk's end state handed to the next
+    chunk's block through a two-slot ring of (B, H, N, P) states, with a
+    ticket and a flag a (b, group)."""
+    if t <= DECODE_MAX_T:
+        return SsdPlan("decode", 0, 1, b * h, 0, 0)
+    heads = HEADS_PER_BLOCK
+    nc = -(-t // CHUNK)
+    groups = -(-h // heads)
+    return SsdPlan("chunked", nc, heads, b * nc * groups, 2 * b * h * n * p,
+                   1 + b * groups)
 
 
 def source_job() -> Tuple[str, str, list]:
@@ -57,8 +99,8 @@ def _function():
             if _FN is None:
                 lib = cuda_build.load(*source_job())
                 fn = lib.disc_mamba2
-                fn.argtypes = [ctypes.c_void_p] * 9 + [
-                    ctypes.c_int, ctypes.c_void_p]
+                fn.argtypes = [ctypes.c_void_p] * 11 + [
+                    ctypes.c_int] * 3 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
                 err = lib.disc_mamba2_error
                 err.argtypes = [ctypes.c_int]
@@ -113,6 +155,11 @@ def mamba2_kernel(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     y = torch.empty((bs, t, h, p), dtype=torch.float32,
                     device=dev).transpose(1, 2)
     s1 = torch.empty((bs, h, n, p), dtype=torch.float32, device=dev)
+    plan = ssd_plan(bs, h, t, n, p)
+    work = (torch.empty(plan.work_floats, dtype=torch.float32, device=dev)
+            if plan.work_floats else None)
+    sync = (torch.zeros(plan.sync_ints, dtype=torch.int32, device=dev)
+            if plan.sync_ints else None)
     fn, err = _function()
     dims = (ctypes.c_longlong * _N_DIMS)(
         bs, h, t, n, p, *x.stride()[:3], *a.stride(), *b.stride()[:2],
@@ -122,7 +169,10 @@ def mamba2_kernel(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         rc = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                 None if s0 is None else s0.data_ptr(), s1.data_ptr(),
                 y.data_ptr(), None if lens is None else lens.data_ptr(),
-                dims, _DTYPES[x.dtype], stream)
+                None if work is None else work.data_ptr(),
+                None if sync is None else sync.data_ptr(), dims,
+                _DTYPES[x.dtype], _INSTANCES[plan.instance],
+                plan.heads_per_block, stream)
     if rc != 0:
         raise RuntimeError(f"mamba2 kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")

@@ -1,7 +1,7 @@
 """Wrapper of the masked softmax kernel: picks kernel or plain version by
 device.
 
-A CUDA tensor launches the Triton kernel (and counts the launch); a CPU
+A CUDA tensor launches the CUDA C++ kernel (and counts the launch); a CPU
 tensor, or any tensor inside
 :func:`~repro_torch.kernels.select.plain_versions`, runs the plain
 version in ``ref.py``.  There is no fallback: a kernel that fails to

@@ -1,93 +1,125 @@
-"""Masked row softmax for Hopper (Triton).
+"""Masked row softmax for Hopper (CUDA C++).
 
 Replaces the JAX package's Pallas TPU kernel ``masked_softmax_kernel``
-(``kernels/softmax/softmax.py:37``): the softmax of each row of (R, C)
-over its columns below ``n_valid``; the other columns are exactly 0, and
-a row with no valid column is all zeros (its max kept finite, its sum of
-0 replaced by 1).  On the serve path it is the MoE router's softmax over
-the E experts (``n_valid = E``).
+(``kernels/softmax/softmax.py:37``).  The kernel is ``csrc/softmax.cu``
+(its header comment holds the design and what bounds it); this module
+builds it once with ``nvcc`` (``kernels/cuda_build.py``) into one small
+library with a plain C entry point, and launches it through
+:mod:`ctypes` on PyTorch's current stream.
 
-* **What bounds it on an H100: bytes.**  One read of x and one write of
-  the output, ~5 flops per element (max, subtract, exp, sum, divide).
-  Each program holds a block of ``BLOCK_R`` whole rows in registers, so
-  x is read from device memory once and both row reductions fuse into
-  that pass.  At the router's C = 16 a program per row would leave most
-  of a warp's lanes idle: ``BLOCK_R`` is chosen from C so that a program
-  covers ~2048 elements (128 rows of 16), whatever the row count.  At
-  the router's sizes (2048 x 16 f32 is 256 KB) the kernel is bound by
-  its launch, not by bytes.
-* **Lengths are runtime arguments** (``do_not_specialize``): the row
-  count (batch x sequence, the dynamic axis) and ``n_valid`` (the
-  reference's scalar-prefetched length) never recompile the kernel.  C
-  sets the block sizes, as the model's width sets the norms'.
-* **Numerics follow the plain version**: max, ``exp`` (``libdevice``'s,
-  as ``torch.exp`` on the card), sum and an IEEE divide (``div_rn``;
-  Triton's ``/`` is the approximate ``div.full``) in f32, rounded once
-  to x's dtype; only the summation order differs.  The reference's row
-  blocking for the TPU's VMEM (``ROW_VERSIONS``, a 4 MiB budget) is not
-  carried over.
-
-The source below is written to ``build/torch_kernels/`` and imported
-through ``triton_build.load_kernel`` on the first launch; nothing here
-imports Triton.
+:func:`softmax_plan` says how a launch covers the rows (testable without
+a card): a group of threads a row, each holding a few chunks of the row
+in registers, rows a block, and a grid sized to the rows.  The row count
+and ``n_valid`` are runtime arguments; C only picks the plan.  The
+wrapper reads x in place through its row stride (a tensor whose last
+axis is not unit-stride is copied first) and raises on what the kernel
+does not take.
 """
 from __future__ import annotations
 
-import hashlib
+import ctypes
+import functools
+import pathlib
+import threading
+from typing import NamedTuple, Tuple
 
 import torch
 
-from ..triton_build import load_kernel
+from .. import cuda_build
 
-__all__ = ["masked_softmax_kernel", "block_rows", "SOURCE"]
+__all__ = ["SoftmaxPlan", "softmax_plan", "masked_softmax_kernel",
+           "source_job", "MAX_COLS"]
 
-SOURCE = '''\
-import triton
-import triton.language as tl
-from triton.language.extra import libdevice
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "softmax.cu"
 
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: values of a row one thread holds at most (csrc MAX_ELEMS)
+_MAX_ELEMS = 32
+#: widest row a launch takes: 1024 threads of _MAX_ELEMS values
+MAX_COLS = 1024 * _MAX_ELEMS
+#: threads a block aims at when a row takes less than that
+_BLOCK_THREADS = 128
 
-@triton.jit(do_not_specialize=["n_rows", "n_valid"])
-def masked_softmax_kernel(x_ptr, o_ptr, n_rows, n_cols, n_valid, x_stride,
-                          o_stride, BLOCK_R: tl.constexpr,
-                          BLOCK_C: tl.constexpr):
-    rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-    cols = tl.arange(0, BLOCK_C)
-    row_ok = rows < n_rows
-    in_row = cols < n_cols
-    valid = in_row & (cols < n_valid)
-    r64 = rows.to(tl.int64)[:, None]
-    x = tl.load(x_ptr + r64 * x_stride + cols[None, :],
-                mask=row_ok[:, None] & valid[None, :],
-                other=float("-inf")).to(tl.float32)
-    m = tl.max(x, axis=1)
-    # a row without a finite max (no valid column): keep m finite, as
-    # the reference does, so that no -inf - -inf makes a nan
-    m = tl.where(tl.abs(m) < float("inf"), m, 0.0)
-    e = libdevice.exp(x - m[:, None])
-    e = tl.where(valid[None, :], e, 0.0)
-    s = tl.sum(e, axis=1)
-    s = tl.where(s == 0.0, 1.0, s)
-    y = libdevice.div_rn(e, tl.broadcast_to(s[:, None], (BLOCK_R, BLOCK_C)))
-    tl.store(o_ptr + r64 * o_stride + cols[None, :],
-             y.to(o_ptr.dtype.element_ty),
-             mask=row_ok[:, None] & in_row[None, :])
-'''
-
-_NAME = "masked_softmax_" + hashlib.sha1(SOURCE.encode()).hexdigest()[:12]
-_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-#: elements one program covers (whole rows; at least one row)
-_BLOCK_ELEMS = 2048
+_LOCK = threading.Lock()
+_FN = None
 
 
-def block_rows(n_cols: int):
-    """``(BLOCK_R, BLOCK_C, num_warps)`` for rows of ``n_cols`` columns:
-    BLOCK_C the next power of two, BLOCK_R rows of it per program."""
-    block_c = 1 << max(n_cols - 1, 0).bit_length()
-    block_r = max(1, _BLOCK_ELEMS // block_c)
-    elems = block_r * block_c
-    warps = 4 if elems <= 2048 else 8 if elems <= 8192 else 16
-    return block_r, block_c, warps
+class SoftmaxPlan(NamedTuple):
+    """How one launch covers R rows of C columns."""
+    vec: int        # consecutive columns a load (1, or 16 bytes' worth)
+    chunks: int     # loads a thread (1, 2, 4, 8)
+    group: int      # threads a row (a power of two, 1 to 1024)
+    rows: int       # rows a block
+    threads: int    # threads a block
+    grid: int       # blocks
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+@functools.lru_cache(maxsize=256)
+def softmax_plan(n_rows: int, n_cols: int, elt: int = 4,
+                 wide: bool = True) -> SoftmaxPlan:
+    """The plan for ``n_rows`` x ``n_cols`` of ``elt``-byte elements.
+    ``wide``: the rows may be read in 16-byte chunks (aligned, C a
+    multiple of 16 / elt).  Rows of at most 32 columns take one column a
+    thread, a group of the next power of two of C threads (at C = 16,
+    two rows a warp); wider rows take 16-byte chunks where ``wide`` allows
+    and a group of a warp or more, up to 4 chunks a thread (8 where the
+    group is a whole 1024-thread block).  The block holds whole rows, at
+    most ``_BLOCK_THREADS`` threads where a row needs fewer, and no more
+    than the rows need; the grid covers the rows."""
+    if n_cols > MAX_COLS:
+        raise ValueError(f"masked softmax: {n_cols} columns; the kernel "
+                         f"takes at most {MAX_COLS}")
+    if n_cols <= 32:
+        vec, group = 1, _pow2(n_cols)
+    else:
+        vec = 16 // elt if wide and n_cols % (16 // elt) == 0 else 1
+        group = min(1024, max(32, _pow2(-(-n_cols // vec // 4))))
+    units = -(-n_cols // vec)
+    chunks = _pow2(-(-units // group))
+    if vec * chunks > _MAX_ELEMS:
+        raise ValueError(f"masked softmax: {n_cols} columns do not fit "
+                         f"{_MAX_ELEMS} values a thread at 16-byte "
+                         f"chunks of {vec}; a row of {n_cols} columns "
+                         f"must be a multiple of {16 // elt} to be taken")
+    if group >= _BLOCK_THREADS:
+        rows, threads = 1, group
+    else:
+        threads = min(_BLOCK_THREADS,
+                      -(-max(n_rows, 1) * group // 32) * 32)
+        threads = max(threads, group)
+        rows = threads // group
+    return SoftmaxPlan(vec, chunks, group, rows, threads,
+                       max(1, -(-n_rows // rows)))
+
+
+def source_job() -> Tuple[str, str, list]:
+    """The ``(name, source, include_dirs)`` build job of the library (a
+    caller that knows its kernels ahead builds several at once with
+    ``cuda_build.build``)."""
+    return "masked_softmax", SOURCE.read_text(), [CSRC]
+
+
+def _function():
+    global _FN
+    if _FN is None:
+        with _LOCK:
+            if _FN is None:
+                lib = cuda_build.load(*source_job())
+                fn = lib.disc_masked_softmax
+                fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                               + [ctypes.c_longlong] * 2
+                               + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+                err = lib.disc_masked_softmax_error
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                _FN = (fn, err)
+    return _FN
 
 
 def masked_softmax_kernel(x: torch.Tensor, n_valid: int) -> torch.Tensor:
@@ -102,16 +134,30 @@ def masked_softmax_kernel(x: torch.Tensor, n_valid: int) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError("masked softmax kernel: x on a CUDA device")
     n_rows, n_cols = x.shape
+    if n_rows >= 2 ** 31:
+        raise ValueError("masked softmax: row count exceeds int32")
     if n_cols and x.stride(-1) != 1:
         x = x.contiguous()
     out = torch.empty((n_rows, n_cols), dtype=x.dtype, device=dev)
-    if n_rows and n_cols:
-        mod = load_kernel(_NAME, lambda: SOURCE)
-        block_r, block_c, warps = block_rows(n_cols)
-        grid = (-(-n_rows // block_r),)
+    if not (n_rows and n_cols):
+        return out
+    elt = x.element_size()
+    vec = 16 // elt
+    wide = (x.data_ptr() % 16 == 0 and (n_rows == 1 or x.stride(0) % vec
+                                        == 0))
+    plan = softmax_plan(n_rows, n_cols, elt, wide)
+    fn, err = _function()
+    args = (x.data_ptr(), out.data_ptr(), n_rows, n_cols,
+            min(max(int(n_valid), 0), n_cols), x.stride(0), out.stride(0),
+            _DTYPES[x.dtype], plan.vec, plan.chunks,
+            plan.group.bit_length() - 1, plan.threads, plan.grid,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
         with torch.cuda.device(dev):
-            mod.masked_softmax_kernel[grid](
-                x, out, n_rows, n_cols, int(n_valid), x.stride(0),
-                out.stride(0), BLOCK_R=block_r, BLOCK_C=block_c,
-                num_warps=warps)
+            rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"masked softmax kernel launch failed: "
+                           f"{err(rc).decode()} (cudaError {rc})")
     return out

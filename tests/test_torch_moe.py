@@ -21,10 +21,14 @@ package, on the CPU.
   ``decode_step``, and the port's ``ServeEngine`` against the JAX one at
   a drop-free capacity_factor 8.0 (identical token streams; at 1.25 the
   reference's output depends on the bucket).
-* **Card cases** (``-k on_card``): the Triton softmax kernel and the MoE
-  layer against their plain versions on the same card inputs.  They skip
-  here and run on the card, where JAX is not installed (``python -m
-  pytest -q tests/test_torch_moe.py -k on_card``).
+* **Softmax plan**: ``softmax_plan``'s lane group, rows a block and
+  grid over the row and column counts the kernel meets.
+* **Card cases** (``-k on_card``): the CUDA C++ softmax kernel (also in
+  f16 on strided rows at widths 1 to 4096 and ``n_valid`` 0, 1, C - 1
+  and C) and the MoE layer against their plain versions on the same card
+  inputs.  They skip here and run on the card, where JAX is not
+  installed (``python -m pytest -q tests/test_torch_moe.py -k
+  on_card``).
 """
 from __future__ import annotations
 
@@ -381,20 +385,66 @@ def test_launcher_refuses_full_dbrx_before_allocating(monkeypatch):
         launcher.main(["--arch", "dbrx_132b"])
 
 
+# ------------------------------------------------ softmax plan (CPU) --
+
+@pytest.mark.parametrize("rows", [1, 4, 2048])
+@pytest.mark.parametrize("cols", [1, 3, 16, 17, 32, 33, 2048, 4096])
+def test_softmax_plan_covers_the_rows(cols, rows):
+    """Rows of at most 32 columns: a group of the next power of two of C
+    lanes, one column a lane; wider rows: 16-byte chunks where C allows
+    them, a group of a warp or more.  A group holds the whole row, a block whole rows (no
+    more threads than the rows need, at most 1024) and the grid every
+    row."""
+    from repro_torch.kernels.softmax.softmax import softmax_plan
+
+    for elt in (4, 2):
+        plan = softmax_plan(rows, cols, elt, True)
+        if cols <= 32:
+            assert plan.vec == 1 and plan.chunks == 1
+            assert plan.group == 1 << (cols - 1).bit_length()
+        else:
+            wide = cols % (16 // elt) == 0
+            assert plan.vec == (16 // elt if wide else 1)
+            assert plan.group >= 32
+        assert plan.group * plan.chunks * plan.vec >= cols
+        assert plan.vec * plan.chunks <= 32
+        assert plan.threads % plan.group == 0
+        assert plan.rows == plan.threads // plan.group
+        assert plan.threads % 32 == 0 and plan.threads <= 1024
+        assert plan.threads <= max(plan.group, -(-rows * plan.group // 32)
+                                   * 32)
+        assert plan.grid == -(-rows // plan.rows)
+
+
+def test_softmax_plan_router_and_limits():
+    """The decode router (4 x 16) is one block of 64 threads, two rows a
+    warp; a row that is not 16-byte readable takes one column a load; a
+    row wider than the kernel holds is refused."""
+    from repro_torch.kernels.softmax.softmax import MAX_COLS, softmax_plan
+
+    assert tuple(softmax_plan(4, 16)) == (1, 1, 16, 4, 64, 1)
+    assert softmax_plan(2048, 16).grid == 256
+    assert softmax_plan(2, 36, 4, False).vec == 1
+    assert softmax_plan(2, 36, 4, True).vec == 4
+    with pytest.raises(ValueError, match="columns"):
+        softmax_plan(1, MAX_COLS + 1)
+
+
 # ----------------------------------------- kernels vs plain (card) --
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the masked softmax kernel "
-                    "(Triton) runs on the card only")
+                    "(CUDA C++) runs on the card only")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
 # kernel vs plain on the card, max|d|/max|ref|: both compute in f32 and
-# differ by summation order; a bf16 output by one rounding (2^-8)
-CARD_TOL = {torch.float32: 1e-6, torch.bfloat16: 8e-3}
+# differ by summation order; a bf16 output by one rounding (2^-8), an f16
+# one by one rounding (2^-11)
+CARD_TOL = {torch.float32: 1e-6, torch.bfloat16: 8e-3, torch.float16: 1e-3}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -417,6 +467,30 @@ def test_softmax_kernel_matches_plain_on_card(cuda, dtype, shape, n):
     else:
         err = (got.float() - want.float()).abs().max().item()
         assert err <= CARD_TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("which_n", ["zero", "one", "less", "all"])
+@pytest.mark.parametrize("cols", [1, 17, 32, 33, 1024, 4096])
+def test_softmax_kernel_f16_strided_on_card(cuda, cols, which_n):
+    """f16 rows read in place through a row stride wider than C (one row,
+    and five), at every plan shape, with ``n_valid`` 0, 1, C - 1 and C."""
+    n = {"zero": 0, "one": 1, "less": cols - 1, "all": cols}[which_n]
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for rows in (1, 5):
+        base = (torch.randn((rows, cols + 8), generator=gen, device=cuda)
+                * 3).half()
+        x = base[:, :cols]
+        before = sm_ops.LAUNCHES.launches
+        got = sm_ops.masked_softmax(x, n)
+        assert sm_ops.LAUNCHES.launches == before + 1
+        with select.plain_versions():
+            want = sm_ops.masked_softmax(x, n)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float16 and got.shape == x.shape
+        assert not got[:, n:].any()
+        if n:
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= CARD_TOL[torch.float16] * want.float().abs().max()
 
 
 def test_moe_layer_kernels_match_plain_on_card(cuda):

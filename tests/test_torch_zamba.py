@@ -19,10 +19,16 @@
   ``ServeEngine`` against the JAX one (identical token streams).
 * **Attention at hd 112** (Zamba2's head dim): the plain attention
   against the reference's ``_sdpa``.
-* **Card cases** (``-k on_card``): the SSD kernel and hd-112 flash
-  attention against their plain versions on the same card inputs.  They
-  skip here and run on the card, where JAX is not installed (``python -m
-  pytest -q tests/test_torch_zamba.py -k on_card``).
+* **SSD kernel plan and arithmetic**: ``ssd_plan``'s instance by T and
+  its grid, and the chunked instance's 3 x TF32 products emulated on the
+  CPU (TF32 by clearing 13 mantissa bits) against the oracle and the
+  Pallas kernel at N = P = 64.
+* **Card cases** (``-k on_card``): the SSD kernel's instances and
+  hd-112 flash attention against their plain versions on the same card
+  inputs, and a chain of one-step SSD launches against one launch over
+  the same steps.  They skip here and run on the card, where JAX is not
+  installed (``python -m pytest -q tests/test_torch_zamba.py -k
+  on_card``).
 
 Tolerances are max|d| over max|ref| (``_close``): 1e-5 in f32, where
 both sides compute in f32 and differ by summation order, by the chunked
@@ -164,6 +170,123 @@ def test_ssd_wrapper_takes_chunked_on_cpu():
     assert torch.equal(y, want_y) and torch.equal(s, want_s)
     assert torch.equal(y2, want_y) and torch.equal(s2, want_s)
     assert ssd_ops.LAUNCHES.launches == before
+
+
+# ------------------------------- SSD kernel: plan, 3 x TF32 split (CPU) --
+
+def test_ssd_plan_picks_instance_by_t():
+    """T up to ``DECODE_MAX_T`` takes the decode instance (a block a (b,
+    h), no scratch); longer T the chunked one, whose blocks cover every
+    (b, chunk, head) and, at B = 1, T = 2048, H = 112, fill the card
+    several times over (two blocks an SM)."""
+    from repro_torch.kernels.mamba2.mamba2 import DECODE_MAX_T, ssd_plan
+
+    for t in (0, 1, DECODE_MAX_T):
+        plan = ssd_plan(4, 112, t)
+        assert plan.instance == "decode" and plan.blocks == 4 * 112
+        assert plan.work_floats == plan.sync_ints == 0
+    for t in (DECODE_MAX_T + 1, 63, 64, 65, 1999, 2048):
+        plan = ssd_plan(2, 112, t)
+        assert plan.instance == "chunked" and plan.chunks == -(-t // 64)
+    plan = ssd_plan(1, 112, 2048)
+    groups = -(-112 // plan.heads_per_block)
+    assert plan.blocks == 32 * groups
+    assert plan.blocks * plan.heads_per_block >= 32 * 112
+    assert plan.blocks >= 4 * 132
+    assert plan.sync_ints == 1 + groups
+    assert plan.work_floats == 2 * 112 * 64 * 64
+
+
+def _tf32(v):
+    """v rounded to TF32 by clearing its low 13 mantissa bits."""
+    return (v.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(eq, a, b):
+    """The kernel's 3 x TF32 product: a_lo b_hi + a_hi b_lo + a_hi b_hi,
+    hi = tf32(v), lo = tf32(v - hi); an operand exact in TF32 (bf16
+    values) has lo = 0."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def _chunked_tf32x3(x, a, b, c, s0=None, lens=None):
+    """``mamba2_chunked`` as the chunked kernel computes it: its four
+    products by the 3 x TF32 split, the decay between steps of different
+    16-step blocks as the product of two factors through the later
+    block's first step, y = g (C h_prev) + S X."""
+    bs, h, t, p = x.shape
+    n = b.shape[-1]
+    ck = 64
+    la = torch.log(a.float().clamp(min=1e-37))
+    xf, bf, cf = x.float(), b.float(), c.float()
+    if lens is not None:
+        valid = torch.arange(t)[None, :] < lens[:, None]
+        la = torch.where(valid[:, None], la, 0.0)
+        xf = torch.where(valid[:, None, :, None], xf, 0.0)
+        bf = torch.where(valid[..., None], bf, 0.0)
+    pad = (-t) % ck
+    xf, la = (torch.nn.functional.pad(xf, (0, 0, 0, pad)),
+              torch.nn.functional.pad(la, (0, pad)))
+    bf, cf = (torch.nn.functional.pad(v, (0, 0, 0, pad)) for v in (bf, cf))
+    nc = (t + pad) // ck
+    xs = xf.reshape(bs, h, nc, ck, p)
+    bc, cc = bf.reshape(bs, nc, ck, n), cf.reshape(bs, nc, ck, n)
+    cum = torch.cumsum(la.reshape(bs, h, nc, ck), -1)
+    tt = torch.arange(ck)
+    blk = tt // 16
+    piv = cum[..., blk * 16]                          # cum at t's block start
+    direct = torch.exp(cum[..., :, None] - cum[..., None, :])
+    split = (torch.exp(cum - piv)[..., :, None]
+             * torch.exp(piv[..., :, None] - cum[..., None, :]))
+    decay = torch.where(blk[:, None] == blk[None, :], direct, split)
+    decay = torch.where(tt[:, None] >= tt[None, :], decay, 0.0)
+    scores = _mm3("bctn,bcsn->bcts", cc, bc)[:, None] * decay
+    de = torch.exp(cum[..., -1:] - cum)
+    bx = _mm3("bhcsn,bhcsp->bhcnp", bc[:, None] * de[..., None], xs)
+    g = torch.exp(cum)
+    state = torch.zeros((bs, h, n, p)) if s0 is None else s0.float()
+    prevs = []
+    for i in range(nc):
+        prevs.append(state)
+        state = g[..., i, -1, None, None] * state + bx[:, :, i]
+    h_prev = torch.stack(prevs, dim=2)
+    y = (g[..., None] * _mm3("bhctn,bhcnp->bhctp",
+                             cc[:, None].expand(bs, h, nc, ck, n), h_prev)
+         + _mm3("bhcts,bhcsp->bhctp", scores, xs))
+    y = y.reshape(bs, h, nc * ck, p)[:, :, :t]
+    if lens is not None:
+        y = torch.where(valid[:, None, :, None], y, 0.0)
+    return y, state
+
+
+@pytest.mark.parametrize("inputs", ["f32", "bf16"])
+@pytest.mark.parametrize("t", [1, 63, 200])
+def test_ssd_tf32x3_split_holds_the_tolerance(t, inputs):
+    """The chunked kernel's arithmetic, emulated on the CPU at N = P = 64:
+    within 1e-5 of the sequential oracle with a state and per-row lens
+    (a row of length 0 keeps its state bit for bit), and of the Pallas
+    kernel (interpret mode) on its own case (zero state, every step).
+    bf16 inputs are exact in TF32, so their products take no low part."""
+    from repro.kernels.mamba2.ops import mamba2_scan
+
+    x, a, b, c = _t(*_ssd_inputs(3, 3, t, 64, 64, seed=21))
+    if inputs == "bf16":
+        x, b, c = (v.bfloat16().float() for v in (x, b, c))
+    s0 = torch.from_numpy(np.random.RandomState(8).randn(3, 3, 64, 64)
+                          .astype(np.float32))
+    lens = _i32([t, max(t // 2, 1), 0])
+    y, s = _chunked_tf32x3(x, a, b, c, s0, lens)
+    want_y, want_s = mamba2_ref(x, a, b, c, s0, lens)
+    _close(y.numpy(), want_y.numpy(), what="y")
+    _close(s.numpy(), want_s.numpy(), what="state")
+    assert not y[2].any() and torch.equal(s[2], s0[2])
+    y0, _ = _chunked_tf32x3(x, a, b, c)
+    want = np.asarray(mamba2_scan(*_jax_ssd_args(*(v.numpy() for v in
+                                                   (x, a, b, c)))))
+    _close(y0.numpy(), want, what="vs Pallas")
 
 
 # ----------------------------------------------- Mamba-2 layer (CPU) --
@@ -579,6 +702,51 @@ def test_ssd_kernel_matches_plain_on_card(cuda, dtype, t):
             n1 = int(lens[1])
             assert not y[1, :, n1:].any() and not y[2].any()
             assert torch.equal(s[2], s0[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 2, 63, 65, 2048])
+def test_ssd_kernel_instances_on_card(cuda, dtype, t):
+    """Both instances (decode up to ``DECODE_MAX_T`` steps, chunked past
+    it) at B = 4 from a state, one row of each lens kind (all, half, 0,
+    1), H = 5 (a partial head group), against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, h = 4, 5
+    x, a, bm, cm = _card_ssd(gen, b, h, t, dtype, cuda)
+    s0 = torch.randn((b, h, 64, 64), generator=gen, device=cuda)
+    lens = torch.tensor([t, max(t // 2, 1), 0, 1], dtype=torch.int32,
+                        device=cuda)
+    for args in ((None, None), (s0, lens)):
+        y, s = ssd_ops.mamba2_scan(x, a, bm, cm, *args)
+        with select.plain_versions():
+            y_p, s_p = ssd_ops.mamba2_scan(x, a, bm, cm, *args)
+        torch.cuda.synchronize()
+        assert _rel(y, y_p) <= SSD_CARD_TOL
+        assert _rel(s, s_p) <= SSD_CARD_TOL
+        if args[1] is not None:
+            for row, n in enumerate(lens.tolist()):
+                assert not y[row, :, n:].any()
+            assert torch.equal(s[2], s0[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [5, 70])
+def test_ssd_decode_chain_matches_one_prefill_on_card(cuda, dtype, t):
+    """T one-step launches carrying the state give one launch over the T
+    steps (the decode instance at T = 5, the chunked one at T = 70)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x, a, bm, cm = _card_ssd(gen, 2, 3, t, dtype, cuda)
+    s0 = torch.randn((2, 3, 64, 64), generator=gen, device=cuda)
+    y_all, s_all = ssd_ops.mamba2_scan(x, a, bm, cm, s0)
+    state, ys = s0, []
+    for i in range(t):
+        yi, state = ssd_ops.mamba2_scan(x[:, :, i:i + 1], a[:, :, i:i + 1],
+                                        bm[:, i:i + 1], cm[:, i:i + 1],
+                                        state)
+        ys.append(yi)
+    torch.cuda.synchronize()
+    assert _rel(torch.cat(ys, dim=2), y_all) <= SSD_CARD_TOL
+    assert _rel(state, s_all) <= SSD_CARD_TOL
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
