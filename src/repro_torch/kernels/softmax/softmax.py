@@ -34,8 +34,10 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "softmax.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: values of a row one thread holds at most (csrc MAX_ELEMS)
+#: values of a row one thread holds at most (csrc MAX_ELEMS), and loads
+#: (the instances' CH: 1, 2, 4, 8)
 _MAX_ELEMS = 32
+_MAX_CHUNKS = 8
 #: widest row a launch takes: 1024 threads of _MAX_ELEMS values
 MAX_COLS = 1024 * _MAX_ELEMS
 #: threads a block aims at when a row takes less than that
@@ -81,11 +83,11 @@ def softmax_plan(n_rows: int, n_cols: int, elt: int = 4,
         group = min(1024, max(32, _pow2(-(-n_cols // vec // 4))))
     units = -(-n_cols // vec)
     chunks = _pow2(-(-units // group))
-    if vec * chunks > _MAX_ELEMS:
+    if chunks > _MAX_CHUNKS or vec * chunks > _MAX_ELEMS:
         raise ValueError(f"masked softmax: {n_cols} columns do not fit "
-                         f"{_MAX_ELEMS} values a thread at 16-byte "
-                         f"chunks of {vec}; a row of {n_cols} columns "
-                         f"must be a multiple of {16 // elt} to be taken")
+                         f"{_MAX_CHUNKS} loads of {vec} a thread; a row "
+                         f"this wide must be 16-byte readable (C a "
+                         f"multiple of {16 // elt}, aligned rows)")
     if group >= _BLOCK_THREADS:
         rows, threads = 1, group
     else:

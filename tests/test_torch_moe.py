@@ -418,8 +418,8 @@ def test_softmax_plan_covers_the_rows(cols, rows):
 
 def test_softmax_plan_router_and_limits():
     """The decode router (4 x 16) is one block of 64 threads, two rows a
-    warp; a row that is not 16-byte readable takes one column a load; a
-    row wider than the kernel holds is refused."""
+    warp; a row that is not 16-byte readable takes one column a load (at
+    most 8 a thread); a row wider than the kernel holds is refused."""
     from repro_torch.kernels.softmax.softmax import MAX_COLS, softmax_plan
 
     assert tuple(softmax_plan(4, 16)) == (1, 1, 16, 4, 64, 1)
@@ -428,6 +428,9 @@ def test_softmax_plan_router_and_limits():
     assert softmax_plan(2, 36, 4, True).vec == 4
     with pytest.raises(ValueError, match="columns"):
         softmax_plan(1, MAX_COLS + 1)
+    assert softmax_plan(1, 8192, 4, False).chunks == 8
+    with pytest.raises(ValueError, match="16-byte readable"):
+        softmax_plan(1, 8193, 4, False)
 
 
 # ----------------------------------------- kernels vs plain (card) --
