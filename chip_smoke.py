@@ -210,7 +210,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     ``torch.softmax`` over the valid columns.  Each row names its
     ``softmax.softmax_plan``; at 4 x 16 the kernel and ``torch.softmax``
     are also timed 1000 launches back to back with no flush (µs a
-    launch), and the wrapper's host µs a call is printed.  Its
+    launch), and the wrapper's host µs a call and ``torch.profiler``'s
+    device µs a call are printed.  Its
     instances' registers and local memory are printed from
     ``cuobjdump`` (no local memory).
 15. Prints the kernels line, the card line, and the result line last.
@@ -220,9 +221,6 @@ Run it from a checkout: it builds the kernels from ``src/`` into
 without a CUDA device.  ``--layers`` cuts the depth of paths 1 and 2;
 paths 3 and 4 always run all their layers (22 and 32), path 5 all 81 in
 bf16 and 15 in both dtypes, path 6 8 in bf16 and 4 in both dtypes.
-``--kernels-only`` runs phases 12's SSD and 14's masked softmax rows
-alone (their launches on the paths then read 0), a quick check after a
-change to either kernel.
 """
 from __future__ import annotations
 
@@ -499,6 +497,39 @@ def cuda_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def launch_times(fn, reps: int = 1000) -> dict:
+    """``fn`` called ``reps`` times back to back, no flush: the device µs
+    a call between two events (the card's issue rate for it, or the
+    host's, whichever is slower), the host µs a call before the closing
+    synchronise, and ``torch.profiler``'s device µs a call (the kernels'
+    own time, or None where the profiler sees no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(getattr(e, "self_device_time_total", 0.0)
+              for e in prof.key_averages())
+    return dict(back_to_back_us=start.elapsed_time(end) * 1e3 / reps,
+                host_us=host * 1e6 / reps,
+                device_us=dev / 100 if dev else None)
 
 
 def unique_bytes(t) -> int:
@@ -2426,7 +2457,6 @@ def softmax_kernel_phase(report: dict, rows: list):
     from repro_torch.configs import get_config
     from repro_torch.kernels.select import plain_versions
     from repro_torch.kernels.softmax import ops as sm
-    from repro_torch.kernels.softmax.probe import launch_times
     from repro_torch.kernels.softmax.softmax import softmax_plan
 
     gen = torch.Generator(device="cuda").manual_seed(23)
@@ -2520,8 +2550,6 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=22,
                     help="decoder layers to unroll (default: all 22)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="run the SSD and masked softmax kernel rows alone")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2555,9 +2583,6 @@ def main(argv=None) -> int:
                 for d in ("f32", "bf16")}
         report: dict = {}
         rows: list = []
-        if args.kernels_only:
-            kernels_only(report, rows)
-            return finish(rows, report, card, kind)
         path2 = {d: build_token_major(cfgs[d], d, args.seed)
                  for d in cfgs}
         builds = start_cuda_builds(list(path2.values()))
@@ -2691,26 +2716,6 @@ def print_resources() -> None:
         except (OSError, subprocess.SubprocessError) as e:
             res = f"not available ({e})"
         print(f"[build] {name} instances: {res}", flush=True)
-
-
-def kernels_only(report: dict, rows: list) -> None:
-    """``--kernels-only``: build the SSD and softmax libraries, print
-    their resources, and run their kernel rows."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import cuda_build
-    from repro_torch.kernels.mamba2.mamba2 import source_job as ssd_job
-    from repro_torch.kernels.softmax.softmax import \
-        source_job as softmax_job
-
-    t0 = time.perf_counter()
-    cuda_build.build([ssd_job(), softmax_job()])
-    print(f"[build] 2 CUDA sources built in {time.perf_counter() - t0:.1f} "
-          f"s (nvcc, in parallel)", flush=True)
-    print_resources()
-    cfg = get_config("zamba2_7b")
-    for dname in ("f32", "bf16"):
-        ssd_kernel_phase(cfg, dname, report, rows)
-    softmax_kernel_phase(report, rows)
 
 
 def finish(rows: list, report: dict, card: str, kind: str) -> int:

@@ -134,10 +134,9 @@ struct Args {
   float* s1;
   float* y;
   const int* lens;
-  float* work;    // chunk states (B, H, nc, D, D), then g_last (B, H, nc);
-                  // fused: the hand-off ring (2, B, H, D, D)
-  int* sync;      // fused: the ticket, then a flag per (b, head group)
-  int B, H, T, nc, hg, groups;
+  float* work;    // chunked: the hand-off ring (2, B, H, D, D)
+  int* sync;      // chunked: the ticket, then a flag per (b, head group)
+  int B, H, T, nc, groups;
   long long x_sb, x_sh, x_st, a_sb, a_sh, a_st, b_sb, b_st, c_sb, c_st;
   long long y_sb, y_sh, y_st;
 };
@@ -330,12 +329,11 @@ __device__ __forceinline__ void st_release(int* p, int v) {
 // polls of a predecessor's flag before a block gives up (__trap: a
 // launch error, never a hung card)
 constexpr long long kSpinLimit = 1ll << 26;
-constexpr int MAX_HG = 4;  // heads a block at most
-
-__host__ __device__ constexpr size_t chunked_smem(int hg) {
-  return (3 * L * LDR + (1 + hg) * L * LDC + 6 * hg * L + hg) *
-         sizeof(float);
-}
+// heads a chunked block walks: at 2, its tiles (108 KB of shared memory)
+// leave room for two blocks an SM (mamba2.HEADS_PER_BLOCK)
+constexpr int HG = 2;
+constexpr size_t kChunkedSmem =
+    (3 * L * LDR + (1 + HG) * L * LDC + 6 * HG * L + HG) * sizeof(float);
 
 __device__ __forceinline__ float* ring_slot(const Args& p, int parity, int b,
                                             int h) {
@@ -376,10 +374,10 @@ __global__ void __launch_bounds__(NT, 2) ssd_chunked(const Args p) {
   float* CB = Ss + L * LDR;      // C B^T [t][s], LDR
   float* Xs = CB + L * LDR;      // [s][p], LDC
   float* Hst = Xs + L * LDC;     // per head: D, then h_prev [n][p], LDC
-  float* cums = Hst + p.hg * L * LDC;  // per head [L]
-  float* des = cums + p.hg * L;  // per head [L] exp(cum_last - cum)
-  float* uvs = des + p.hg * L;   // per head [4 L] block decay factors
-  float* gl = uvs + 4 * p.hg * L;  // per head g_last
+  float* cums = Hst + HG * L * LDC;  // per head [L]
+  float* des = cums + HG * L;    // per head [L] exp(cum_last - cum)
+  float* uvs = des + HG * L;     // per head [4 L] block decay factors
+  float* gl = uvs + 4 * HG * L;  // per head g_last
 
   if (threadIdx.x == 0) tk_s = atomicAdd(p.sync, 1);
   __syncthreads();
@@ -388,8 +386,8 @@ __global__ void __launch_bounds__(NT, 2) ssd_chunked(const Args p) {
   const int c = tk / per_chunk;
   const int b = (tk % per_chunk) / p.groups;
   const int grp = tk % p.groups;
-  const int h0 = grp * p.hg;
-  const int nh = min(p.H, h0 + p.hg) - h0;
+  const int h0 = grp * HG;
+  const int nh = min(p.H, h0 + HG) - h0;
   const int c0 = c * L;
   const int n_b = valid_steps(p, b);
   const int ncb = (n_b + L - 1) / L;
@@ -677,17 +675,15 @@ cudaError_t launch(const Args& a, int instance, cudaStream_t stream) {
   if (!sized) {
     cudaError_t e = cudaFuncSetAttribute(
         ssd_chunked<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(chunked_smem(MAX_HG)));
+        static_cast<int>(kChunkedSmem));
     if (e != cudaSuccess) return e;
     sized = true;
   }
-  if (a.hg > MAX_HG || a.hg > NT / 32 || a.sync == nullptr ||
-      a.work == nullptr)
-    return cudaErrorInvalidValue;
+  if (a.sync == nullptr || a.work == nullptr) return cudaErrorInvalidValue;
   const long long tiles = static_cast<long long>(a.B) * a.nc * a.groups;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (tiles > 0)
-    ssd_chunked<T><<<static_cast<unsigned>(tiles), NT, chunked_smem(a.hg),
+    ssd_chunked<T><<<static_cast<unsigned>(tiles), NT, kChunkedSmem,
                      stream>>>(a);
   return cudaGetLastError();
 }
@@ -697,16 +693,16 @@ cudaError_t launch(const Args& a, int instance, cudaStream_t stream) {
 // dims: B H T N P, then the (batch, head, step) strides of x and a, the
 // (batch, step) strides of b and c, and the (batch, head, step) strides
 // of y, in elements.  dtype (of x, b and c): 0 f32, 1 bf16.  instance: 0
-// decode (T <= 8), 1 chunked, with heads_per_block heads a block (at
-// most 8), `work` 2 * B * H * N * P floats (the hand-off ring) and `sync`
-// 1 + B * ceil(H / heads_per_block) ints, zero (the ticket and flags).
+// decode (T <= 8), 1 chunked (HG = 2 heads a block), with `work` 2 * B *
+// H * N * P floats (the hand-off ring) and `sync` 1 + B * ceil(H / 2)
+// ints, zero (the ticket and flags).
 // s0 and lens may be null.  Returns the launch's cudaError_t (0 on
 // success).
 extern "C" int disc_mamba2(const void* x, const float* a, const void* b,
                            const void* c, const float* s0, float* s1,
                            float* y, const int* lens, float* work,
                            int* sync, const long long* dims, int dtype,
-                           int instance, int heads_per_block, void* stream) {
+                           int instance, void* stream) {
   Args p;
   p.x = x;
   p.a = a;
@@ -736,11 +732,8 @@ extern "C" int disc_mamba2(const void* x, const float* a, const void* b,
   p.y_sh = dims[16];
   p.y_st = dims[17];
   p.nc = (p.T + L - 1) / L;
-  p.hg = heads_per_block;
   if (p.B == 0 || p.H == 0) return 0;
-  if (instance != 0 && (p.hg < 1 || work == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  p.groups = instance != 0 ? (p.H + p.hg - 1) / p.hg : 0;
+  p.groups = (p.H + HG - 1) / HG;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return static_cast<int>(launch<float>(p, instance, s));

@@ -50,8 +50,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _N_DIMS = 18
 #: the longest T the decode instance takes (csrc DECODE_MAX_T)
 DECODE_MAX_T = 8
-#: heads a chunked block walks: at 2, a block's tiles (108 KB of shared
-#: memory) leave room for two blocks an SM
+#: heads a chunked block walks (csrc HG): at 2, a block's tiles (108 KB
+#: of shared memory) leave room for two blocks an SM
 HEADS_PER_BLOCK = 2
 _INSTANCES = {"decode": 0, "chunked": 1}
 
@@ -100,7 +100,7 @@ def _function():
                 lib = cuda_build.load(*source_job())
                 fn = lib.disc_mamba2
                 fn.argtypes = [ctypes.c_void_p] * 11 + [
-                    ctypes.c_int] * 3 + [ctypes.c_void_p]
+                    ctypes.c_int] * 2 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
                 err = lib.disc_mamba2_error
                 err.argtypes = [ctypes.c_int]
@@ -171,8 +171,7 @@ def mamba2_kernel(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                 y.data_ptr(), None if lens is None else lens.data_ptr(),
                 None if work is None else work.data_ptr(),
                 None if sync is None else sync.data_ptr(), dims,
-                _DTYPES[x.dtype], _INSTANCES[plan.instance],
-                plan.heads_per_block, stream)
+                _DTYPES[x.dtype], _INSTANCES[plan.instance], stream)
     if rc != 0:
         raise RuntimeError(f"mamba2 kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")

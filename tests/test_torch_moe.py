@@ -453,7 +453,13 @@ CARD_TOL = {torch.float32: 1e-6, torch.bfloat16: 8e-3, torch.float16: 1e-3}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,n", [((2048, 16), 16), ((4, 16), 16),
                                      ((3, 5, 100), 37), ((300, 2048), 1500),
-                                     ((64, 16), 0)])
+                                     ((64, 16), 0),
+                                     # more row blocks than the card holds
+                                     # at once, a last block with rows
+                                     # past R
+                                     ((4099, 2048), 2047),
+                                     ((20001, 128), 100),
+                                     ((9001, 256), 256)])
 def test_softmax_kernel_matches_plain_on_card(cuda, dtype, shape, n):
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = (torch.randn(shape, generator=gen, device=cuda) * 3).to(dtype)
