@@ -132,11 +132,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    decode ms per step.
 10. **Recurrent kernels.**  WKV at B = 1, T = 2048 from a zero state; on
     a 512-step chunk from a non-zero state beside a row of ``lens = 0``
-    (whose state must come back bit for bit and whose y must be 0); and
-    the decode step at B = 4, T = 1.  LayerNorm on 2048 x 2560.  Each
-    against its plain version on the same card inputs, timed against
-    the plain version and, for LayerNorm, ``F.layer_norm`` (WKV has no
-    PyTorch call).
+    (whose state must come back bit for bit and whose y must be 0); a
+    ragged T = 1999; T = 2048 with harsh decays (scale 3: about a tenth
+    at the model's floor e^{-e^4}); and the decode step at B = 4, T = 1.
+    Each WKV row names the plan ``rwkv6.wkv_plan`` gave it (instance,
+    chunk length, grid).  LayerNorm on 2048 x 2560.  Each against its plain version
+    on the same card inputs, timed against the plain version and, for
+    LayerNorm, ``F.layer_norm`` (WKV has no PyTorch call).
 11. **Path 5 ("serve", hybrid).**  Zamba2-7B at full width (d_model
     3584, 112 Mamba-2 heads of N = P = 64, one shared attention block of
     32 heads of hd 112 every 6 layers, d_ff 14336, vocab 32000, RMSNorm;
@@ -2161,6 +2163,7 @@ def rwkv_kernel_phase(cfg, dname: str, report: dict, rows: list):
 
     from repro_torch.kernels.layernorm import ops as ln
     from repro_torch.kernels.rwkv6 import ops as wkv
+    from repro_torch.kernels.rwkv6.rwkv6 import wkv_plan
     from repro_torch.kernels.select import plain_versions
 
     dt = torch.float32 if dname == "f32" else torch.bfloat16
@@ -2170,15 +2173,16 @@ def rwkv_kernel_phase(cfg, dname: str, report: dict, rows: list):
     tol = TOL_SERVE_KERNEL[dname]
     launches = path_launches(report, "path4", dname)
 
-    def inputs(b, t):
+    def inputs(b, t, decay_scale=1.0):
         """r, k, v as the path's (B, H, T, N) views of token-major
-        projections; w the f32 decay exp(-exp(clip(x, -8, 4)))."""
+        projections; w the f32 decay exp(-exp(clip(x s, -8, 4))), s the
+        decay scale."""
         def proj():
             return torch.randn((b, t, h, n), generator=gen, device="cuda") \
                 .to(dt).transpose(1, 2)
 
-        w = torch.exp(-torch.exp(torch.randn(
-            (b, t, h, n), generator=gen, device="cuda").clamp(-8, 4)))
+        w = torch.exp(-torch.exp((decay_scale * torch.randn(
+            (b, t, h, n), generator=gen, device="cuda")).clamp(-8, 4)))
         return (proj(), proj(), proj(), w.transpose(1, 2),
                 0.1 * torch.randn((h, n), generator=gen, device="cuda"))
 
@@ -2196,6 +2200,12 @@ def rwkv_kernel_phase(cfg, dname: str, report: dict, rows: list):
                             f"{lens.tolist()}",
                       args=(r, k, v, w, u, s0, lens), steps=[SERVE_CHUNK, 0],
                       zero_row=1))
+    cases.append(dict(label="ragged B=1 T=1999 s0=0",
+                      args=(*inputs(1, 1999), None, None), steps=[1999]))
+    cases.append(dict(label=f"harsh decays (scale 3) B=1 T={SERVE_SEQ} "
+                            f"s0=0",
+                      args=(*inputs(1, SERVE_SEQ, 3.0), None, None),
+                      steps=[SERVE_SEQ]))
     r, k, v, w, u = inputs(SERVE_BATCH, 1)
     cases.append(dict(label=f"decode B={SERVE_BATCH} T=1 from s0",
                       args=(r, k, v, w, u, state(SERVE_BATCH), None),
@@ -2225,6 +2235,7 @@ def rwkv_kernel_phase(cfg, dname: str, report: dict, rows: list):
             z, s0 = c["zero_row"], c["args"][5]
             zero_ok = (not y[z].any()) and torch.equal(s1[z], s0[z])
         b, _, t, _ = c["args"][0].shape
+        plan = wkv_plan(b, h, t, n)
         bound_ms, bound_by, nbytes, flops = wkv_cost(
             b, h, n, c["steps"], t, elt, c["args"][5] is not None)
         ms = cuda_ms(run)
@@ -2235,6 +2246,7 @@ def rwkv_kernel_phase(cfg, dname: str, report: dict, rows: list):
         detail = dict(dtype=dname, case=c["label"], max_ref=scale,
                       max_rel=err / scale, state_max_rel=s_rel,
                       bytes=nbytes, flops=flops, tflops=flops / ms / 1e9,
+                      plan=plan._asdict(),
                       path_launches_of_program=launches["rwkv6"],
                       library_call="none", zero_row_ok=zero_ok)
         print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)

@@ -10,6 +10,10 @@
 // * mma16816<T>: mma.sync.m16n8k16 with an f32 accumulator, for T bf16 or
 //   f16 (A row-major, B column-major, fragments as the PTX ISA lays them
 //   out).
+// * tf32_bits / split<SPLIT> / mma_tf32: the 3 x TF32 products of the
+//   SSD and WKV kernels (mamba2/csrc/mamba2.cu, rwkv6/csrc/rwkv6.cu): an
+//   f32 operand split into a TF32 high part and the rest, and
+//   mma.sync.m16n8k8 TF32 with an f32 accumulator.
 // * cp_async16: a 16-byte cp.async.cg copy from device to shared memory;
 //   with pred false it reads nothing and writes 16 zero bytes.
 //   cp_async_commit closes the group of copies issued since the last
@@ -60,6 +64,37 @@ __device__ __forceinline__ void mma16816<__half>(
     float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t tf32_bits(float v) {
+  return __float_as_uint(v) & 0xffffe000u;
+}
+
+// v = hi + lo: hi is v with its low 13 mantissa bits cleared, lo = v - hi
+// (exact), whose own low 13 bits the tensor core does not use (it reads
+// lo to within 2^-10 of itself, 2^-20 of v: the emulation in
+// tests/test_torch_zamba.py clears them); SPLIT false: v is exact in
+// TF32 and lo is not used
+template <bool SPLIT>
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  if (SPLIT) {
+    hi = tf32_bits(v);
+    lo = __float_as_uint(v - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(v);
+    lo = 0u;
+  }
+}
+
+// not volatile: the compiler may interleave independent products (a
+// volatile asm keeps every mma in source order, each waiting on the last)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -90,6 +90,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
 constexpr int L = 64;         // steps per chunk
@@ -232,36 +234,8 @@ __device__ __forceinline__ void head_decays(const float* a, long long a_st,
 
 // ---------------------------------------------------------- 3 x TF32 --
 
-__device__ __forceinline__ uint32_t tf32_bits(float v) {
-  return __float_as_uint(v) & 0xffffe000u;
-}
-
-// v = hi + lo: hi is v with its low 13 mantissa bits cleared, lo = v - hi
-// (exact), whose own low 13 bits the tensor core does not use (it reads
-// lo to within 2^-10 of itself, 2^-20 of v: the emulation in
-// tests/test_torch_zamba.py clears them); SPLIT false: v is exact in
-// TF32 and lo is not used
-template <bool SPLIT>
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  if (SPLIT) {
-    hi = tf32_bits(v);
-    lo = __float_as_uint(v - __uint_as_float(hi));
-  } else {
-    hi = __float_as_uint(v);
-    lo = 0u;
-  }
-}
-
-// not volatile: the compiler may interleave independent products (a
-// volatile asm keeps every mma in source order, each waiting on the last)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using disc::mma_tf32;
+using disc::split;
 
 // acc (a warp's 16 x 32 outputs at rows m0.., columns n0..) +=
 // sum_{k < kend} A(m, k) B(k, n), kend a multiple of 8.  Fragment

@@ -89,7 +89,7 @@ def source_job() -> Tuple[str, str, list]:
     """The ``(name, source, include_dirs)`` build job of the library (a
     caller that knows its kernels ahead builds several at once with
     ``cuda_build.build``)."""
-    return "mamba2", SOURCE.read_text(), [CSRC]
+    return "mamba2", SOURCE.read_text(), [CSRC, cuda_build.COMMON_CSRC]
 
 
 def _function():

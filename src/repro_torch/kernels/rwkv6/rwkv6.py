@@ -7,12 +7,21 @@ it once with ``nvcc`` (``kernels/cuda_build.py``) into one small library
 with a plain C entry point, and launches it through :mod:`ctypes` on
 PyTorch's current stream.
 
+:func:`wkv_plan` picks the instance a call runs (testable without a
+card): the decode instance, one streaming pass over the state per (b, h,
+column slice), up to ``DECODE_MAX_T`` steps (the engine's decode is T =
+1); else the chunked instance, one launch over a (b, chunk of ``CHUNK``
+steps, head) grid whose blocks hand each chunk's end state to the next
+through a small ring the wrapper allocates with the ticket and flags
+they synchronise on (zeroed per call).
+
 The wrapper checks devices, dtypes and shapes and raises on what the
 kernel does not take; it passes T, every stride and ``lens`` as runtime
 arguments.  r, k, v and w are read in place through their (b, h, t)
-strides when the head axis is unit-stride (the model's token-major
-projections, viewed as (B, H, T, N)); y is allocated token-major,
-(B, T, H, N), and returned as its (B, H, T, N) view, so the caller's
+strides when the head axis is unit-stride and every row starts on 16
+bytes (the model's token-major projections, viewed as (B, H, T, N)),
+else copied contiguous first; y is allocated token-major, (B, T, H, N),
+and returned as its (B, H, T, N) view, so the caller's
 ``transpose(1, 2).reshape(B, T, H * N)`` copies nothing.
 """
 from __future__ import annotations
@@ -20,13 +29,14 @@ from __future__ import annotations
 import ctypes
 import pathlib
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .. import cuda_build
 
-__all__ = ["HEAD_SIZES", "rwkv6_kernel", "source_job"]
+__all__ = ["HEAD_SIZES", "CHUNK", "DECODE_MAX_T", "WkvPlan", "wkv_plan",
+           "rwkv6_kernel", "source_job"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "rwkv6.cu"
@@ -36,16 +46,74 @@ HEAD_SIZES = (16, 64)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _N_DIMS = 19
+#: steps a chunked block takes (csrc CHUNK): it divides the serve path's
+#: prefill chunk and buckets, so a prompt prefilled in one launch or in
+#: several meets the same chunk boundaries and gets the same bits
+CHUNK = 64
+#: the longest T the decode instance takes (csrc DECODE_MAX_T)
+DECODE_MAX_T = 8
+#: threads of a chunked block, a whole head, by head size: a lane holds
+#: 8 x 4 (N = 64) or 2 x 4 (N = 16) of the state (csrc Lay)
+_THREADS = {64: 128, 16: 32}
+#: threads of a decode block (csrc Shape::DNT): a slice of the chunked
+#: block's lanes
+_DECODE_THREADS = 64
+_INSTANCES = {"decode": 0, "chunked": 1}
 
 _LOCK = threading.Lock()
 _FN = None
+
+
+class WkvPlan(NamedTuple):
+    """What one WKV launch runs."""
+    instance: str      # "decode" or "chunked"
+    chunk: int         # steps a chunked block takes (0 for decode)
+    chunks: int        # chunks of the launch (0 for decode)
+    threads: int       # threads a block
+    blocks: int        # blocks of the launch
+    work_floats: int   # the chunked instance's hand-off ring, else 0
+    sync_ints: int     # its ticket and flags (zeroed), else 0
+
+
+def wkv_plan(b: int, h: int, t: int, n: int = 64) -> WkvPlan:
+    """The instance and grid of a call over (B, H, T) with head size n:
+    decode for T <= ``DECODE_MAX_T``, one block a (b, h, slice of the
+    state's columns); else chunked, one launch of a block a (b, chunk of
+    ``CHUNK`` steps, h) in ticket order, each chunk's end state handed to
+    the next chunk's block through a two-slot ring of (B, H, N, N) states,
+    with a ticket and a flag a (b, h).  T = 0 takes the decode instance,
+    which copies s0 to the final state."""
+    if n not in _THREADS:
+        raise ValueError(f"rwkv6: head size {n}; the kernel is built for "
+                         f"{HEAD_SIZES}")
+    threads = _THREADS[n]
+    if t <= DECODE_MAX_T:
+        dthreads = min(threads, _DECODE_THREADS)
+        return WkvPlan("decode", 0, 0, dthreads,
+                       b * h * (threads // dthreads), 0, 0)
+    nc = -(-t // CHUNK)
+    return WkvPlan("chunked", CHUNK, nc, threads, b * nc * h,
+                   2 * b * h * n * n, 1 + b * h)
 
 
 def source_job() -> Tuple[str, str, list]:
     """The ``(name, source, include_dirs)`` build job of the library (a
     caller that knows its kernels ahead builds several at once with
     ``cuda_build.build``)."""
-    return "rwkv6", SOURCE.read_text(), [CSRC]
+    return "rwkv6", SOURCE.read_text(), [CSRC, cuda_build.COMMON_CSRC]
+
+
+def bind(lib: ctypes.CDLL):
+    """``(launch, error string, chunk length)`` of a built library."""
+    fn = lib.disc_rwkv6
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = lib.disc_rwkv6_error
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    lib.disc_rwkv6_chunk.restype = ctypes.c_int
+    return fn, err, lib.disc_rwkv6_chunk()
 
 
 def _function():
@@ -53,20 +121,12 @@ def _function():
     if _FN is None:
         with _LOCK:
             if _FN is None:
-                lib = cuda_build.load(*source_job())
-                fn = lib.disc_rwkv6
-                fn.argtypes = [ctypes.c_void_p] * 10 + [
-                    ctypes.c_int, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-                err = lib.disc_rwkv6_error
-                err.argtypes = [ctypes.c_int]
-                err.restype = ctypes.c_char_p
-                _FN = (fn, err)
+                fns = bind(cuda_build.load(*source_job()))
+                if fns[2] != CHUNK:
+                    raise RuntimeError(f"rwkv6: the library's chunk length "
+                                       f"{fns[2]} is not {CHUNK}")
+                _FN = fns
     return _FN
-
-
-def _unit_stride(t: torch.Tensor) -> torch.Tensor:
-    return t if t.stride(-1) == 1 else t.contiguous()
 
 
 def rwkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,8 +167,7 @@ def rwkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"rwkv6: lens {tuple(lens.shape)}, want ({b},)")
     if max(b * h * t, t * n) >= 2 ** 31:
         raise ValueError("rwkv6: extent exceeds int32")
-    r, k, v = _unit_stride(r), _unit_stride(k), _unit_stride(v)
-    w = _unit_stride(w.float())
+    r, k, v, w = (cuda_build.aligned_rows(x) for x in (r, k, v, w.float()))
     u = u.float().contiguous()
     if s0 is not None:
         s0 = s0.float().contiguous()
@@ -116,7 +175,12 @@ def rwkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lens = lens.to(torch.int32).contiguous()
     y = torch.empty((b, t, h, n), dtype=r.dtype, device=dev).transpose(1, 2)
     s1 = torch.empty((b, h, n, n), dtype=torch.float32, device=dev)
-    fn, err = _function()
+    plan = wkv_plan(b, h, t, n)
+    work = (torch.empty(plan.work_floats, dtype=torch.float32, device=dev)
+            if plan.work_floats else None)
+    sync = (torch.zeros(plan.sync_ints, dtype=torch.int32, device=dev)
+            if plan.sync_ints else None)
+    fn, err, _ = _function()
     dims = (ctypes.c_longlong * _N_DIMS)(
         b, h, t, n, *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *w.stride()[:3], *y.stride()[:3])
@@ -125,8 +189,10 @@ def rwkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                 u.data_ptr(), None if s0 is None else s0.data_ptr(),
                 s1.data_ptr(), y.data_ptr(),
-                None if lens is None else lens.data_ptr(), dims,
-                _DTYPES[r.dtype], stream)
+                None if lens is None else lens.data_ptr(),
+                None if work is None else work.data_ptr(),
+                None if sync is None else sync.data_ptr(), dims,
+                _DTYPES[r.dtype], _INSTANCES[plan.instance], stream)
     if rc != 0:
         raise RuntimeError(f"rwkv6 kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")

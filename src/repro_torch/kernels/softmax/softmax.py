@@ -9,8 +9,10 @@ library with a plain C entry point, and launches it through
 
 :func:`softmax_plan` says how a launch covers the rows (testable without
 a card): a group of threads a row, each holding a few chunks of the row
-in registers, rows a block, and a grid sized to the rows.  The row count
-and ``n_valid`` are runtime arguments; C only picks the plan.  The
+in registers, rows a block, and a grid sized to the rows; a row too wide
+for registers takes the loop instance, a block of 1024 threads a row
+that reads it three times.  The row count and ``n_valid`` are runtime
+arguments; C only picks the plan, and every C has one.  The
 wrapper reads x in place through its row stride (a tensor whose last
 axis is not unit-stride is copied first) and raises on what the kernel
 does not take.
@@ -35,11 +37,15 @@ SOURCE = CSRC / "softmax.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: values of a row one thread holds at most (csrc MAX_ELEMS), and loads
-#: (the instances' CH: 1, 2, 4, 8)
+#: (the register instances' CH: 1, 2, 4, 8)
 _MAX_ELEMS = 32
 _MAX_CHUNKS = 8
-#: widest row a launch takes: 1024 threads of _MAX_ELEMS values
+#: widest row held in registers: 1024 threads of _MAX_ELEMS values (a
+#: wider row, or one wider than 8192 columns that is not 16-byte
+#: readable, takes the loop instance)
 MAX_COLS = 1024 * _MAX_ELEMS
+#: threads of the loop instance's block, one row
+_LOOP_THREADS = 1024
 #: threads a block aims at when a row takes less than that
 _BLOCK_THREADS = 128
 
@@ -50,7 +56,8 @@ _FN = None
 class SoftmaxPlan(NamedTuple):
     """How one launch covers R rows of C columns."""
     vec: int        # consecutive columns a load (1, or 16 bytes' worth)
-    chunks: int     # loads a thread (1, 2, 4, 8)
+    chunks: int     # loads a thread (1, 2, 4, 8 held in registers; more,
+    #                 or more than 32 values: the loop instance, a pass)
     group: int      # threads a row (a power of two, 1 to 1024)
     rows: int       # rows a block
     threads: int    # threads a block
@@ -72,10 +79,11 @@ def softmax_plan(n_rows: int, n_cols: int, elt: int = 4,
     and a group of a warp or more, up to 4 chunks a thread (8 where the
     group is a whole 1024-thread block).  The block holds whole rows, at
     most ``_BLOCK_THREADS`` threads where a row needs fewer, and no more
-    than the rows need; the grid covers the rows."""
-    if n_cols > MAX_COLS:
-        raise ValueError(f"masked softmax: {n_cols} columns; the kernel "
-                         f"takes at most {MAX_COLS}")
+    than the rows need; the grid covers the rows.  A row that needs more
+    than 8 loads or 32 values a thread (more than ``MAX_COLS`` columns,
+    or more than 8192 where it is not 16-byte readable) takes the loop
+    instance: one block of 1024 threads a row, ``chunks`` loads a thread
+    a pass."""
     if n_cols <= 32:
         vec, group = 1, _pow2(n_cols)
     else:
@@ -84,10 +92,8 @@ def softmax_plan(n_rows: int, n_cols: int, elt: int = 4,
     units = -(-n_cols // vec)
     chunks = _pow2(-(-units // group))
     if chunks > _MAX_CHUNKS or vec * chunks > _MAX_ELEMS:
-        raise ValueError(f"masked softmax: {n_cols} columns do not fit "
-                         f"{_MAX_CHUNKS} loads of {vec} a thread; a row "
-                         f"this wide must be 16-byte readable (C a "
-                         f"multiple of {16 // elt}, aligned rows)")
+        return SoftmaxPlan(vec, -(-units // _LOOP_THREADS), _LOOP_THREADS,
+                           1, _LOOP_THREADS, max(1, n_rows))
     if group >= _BLOCK_THREADS:
         rows, threads = 1, group
     else:

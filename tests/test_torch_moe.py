@@ -419,18 +419,25 @@ def test_softmax_plan_covers_the_rows(cols, rows):
 def test_softmax_plan_router_and_limits():
     """The decode router (4 x 16) is one block of 64 threads, two rows a
     warp; a row that is not 16-byte readable takes one column a load (at
-    most 8 a thread); a row wider than the kernel holds is refused."""
+    most 8 a thread in registers); a row wider than registers hold (past
+    ``MAX_COLS``, or past 8192 columns read one at a time) takes the loop
+    instance, a block of 1024 threads a row, ``chunks`` loads a thread a
+    pass: no width is refused."""
     from repro_torch.kernels.softmax.softmax import MAX_COLS, softmax_plan
 
     assert tuple(softmax_plan(4, 16)) == (1, 1, 16, 4, 64, 1)
     assert softmax_plan(2048, 16).grid == 256
     assert softmax_plan(2, 36, 4, False).vec == 1
     assert softmax_plan(2, 36, 4, True).vec == 4
-    with pytest.raises(ValueError, match="columns"):
-        softmax_plan(1, MAX_COLS + 1)
+    assert tuple(softmax_plan(1, MAX_COLS)) == (4, 8, 1024, 1, 1024, 1)
+    assert tuple(softmax_plan(1, MAX_COLS + 1)) == (1, 33, 1024, 1, 1024, 1)
     assert softmax_plan(1, 8192, 4, False).chunks == 8
-    with pytest.raises(ValueError, match="16-byte readable"):
-        softmax_plan(1, 8193, 4, False)
+    assert tuple(softmax_plan(3, 8193, 4, False)) == (1, 9, 1024, 1, 1024,
+                                                      3)
+    assert tuple(softmax_plan(5, 65536, 2, True)) == (8, 8, 1024, 1, 1024,
+                                                      5)
+    assert tuple(softmax_plan(5, 65536, 4, True)) == (4, 16, 1024, 1, 1024,
+                                                      5)
 
 
 # ----------------------------------------- kernels vs plain (card) --
@@ -474,6 +481,35 @@ def test_softmax_kernel_matches_plain_on_card(cuda, dtype, shape, n):
     if n == 0:
         assert not got.any()
     else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= CARD_TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("which_n", ["zero", "one", "all"])
+@pytest.mark.parametrize("cols,dtype", [(8193, torch.float32),
+                                        (32769, torch.float32),
+                                        (32769, torch.bfloat16),
+                                        (65536, torch.float32),
+                                        (65536, torch.bfloat16)])
+def test_softmax_kernel_wide_rows_on_card(cuda, cols, dtype, which_n):
+    """Rows past what registers hold take the loop instance: 8193 (odd,
+    one column a load), 32769 and 65536 columns, with ``n_valid`` 0, 1
+    and C, against the plain version."""
+    from repro_torch.kernels.softmax.softmax import softmax_plan
+
+    n = {"zero": 0, "one": 1, "all": cols}[which_n]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = (torch.randn((3, cols), generator=gen, device=cuda) * 3).to(dtype)
+    assert softmax_plan(3, cols, x.element_size(), True).group == 1024
+    before = sm_ops.LAUNCHES.launches
+    got = sm_ops.masked_softmax(x, n)
+    assert sm_ops.LAUNCHES.launches == before + 1
+    with select.plain_versions():
+        want = sm_ops.masked_softmax(x, n)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    assert not got[:, n:].any()
+    if n:
         err = (got.float() - want.float()).abs().max().item()
         assert err <= CARD_TOL[dtype] * want.float().abs().max().item()
 

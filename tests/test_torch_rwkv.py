@@ -6,6 +6,14 @@
   ``s0`` and ``lens`` extensions against the oracle on the whole
   sequence.  f32 at 1e-5 (both sides step in f32; only the order of the
   dot over K differs).
+* **The chunked WKV kernel's decomposition** (``csrc/rwkv6.cu``),
+  emulated here in torch: per chunk a local scan from a zero state with
+  the running decay product P, the carry S_{c+1} = P_end S_c + L_end and
+  the output y += (r o P) . S_c; held against the plain version (f32 y
+  and state at 1e-5; bf16, where kv is rounded, the state at 1e-5 and y
+  to one rounding) and against the JAX oracle and ``_wkv_scan`` with
+  ``s0``, ragged ``lens`` and T not a multiple of the chunk, at mild,
+  harsh and floor decays; and ``wkv_plan``'s instances and sizes.
 * **LayerNorm plain version** against the Pallas ``layernorm`` in
   interpret mode, at ``tests/test_kernels.py``'s shapes and tolerances.
 * **Reduced ``rwkv6_3b``** (f32, the JAX parameters carried across by
@@ -33,6 +41,8 @@ from repro_torch.data.pipeline import Request
 from repro_torch.kernels import select
 from repro_torch.kernels.layernorm import ops as ln_ops
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
+from repro_torch.kernels.rwkv6.ref import rwkv6_ref
+from repro_torch.kernels.rwkv6.rwkv6 import CHUNK, DECODE_MAX_T, wkv_plan
 from repro_torch.models.convert import cache_from_numpy, params_from_numpy
 from repro_torch.models.registry import get_model, replay_prefill
 from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -114,6 +124,170 @@ def test_wkv_plain_lens():
         np.testing.assert_allclose(s[sl].numpy(), s_n.numpy(), **TOL)
         assert not y[row, :, n:].any()
     assert torch.equal(s[2], s0[2])
+
+
+# ------------------------- the chunked kernel's decomposition (CPU) --
+
+#: decays as ``tests/test_wkv_chunked.py`` makes them (exp(-exp(x s)),
+#: x standard normal, s the decay scale), and the model's floor: the
+#: clamp of log(-log w) at 4 (``models/layers.py:953``), w = e^{-e^4}
+DECAYS = {"mild": 0.1, "harsh": 3.0, "floor": None}
+
+
+def _wkv_decay_inputs(b, h, t, n, decay, seed=21):
+    rng = np.random.RandomState(seed)
+    r, k, v = (rng.randn(b, h, t, n).astype(np.float32) * 0.5
+               for _ in range(3))
+    scale = DECAYS[decay]
+    if scale is None:
+        w = np.full((b, h, t, n), np.exp(-np.exp(4.0)), np.float32)
+    else:
+        w = np.exp(-np.exp(rng.randn(b, h, t, n) * scale)).astype(np.float32)
+    u = rng.randn(h, n).astype(np.float32) * 0.1
+    s0 = rng.randn(b, h, n, n).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+def _tf32(v):
+    """v rounded to TF32 by clearing its low 13 mantissa bits."""
+    return (v.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mv3(a, b):
+    """The kernel's 3 x TF32 product (h, k) . (h, k, v): a_lo b_hi + a_hi
+    b_lo + a_hi b_hi, hi = tf32(x), lo = tf32(x - hi)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    eq = "hk,hkv->hv"
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def _wkv_three_phase(r, k, v, w, u, s0=None, lens=None, chunk=CHUNK):
+    """The chunked kernel's arithmetic in torch: per chunk of ``chunk``
+    steps, A the recurrence from a zero state (kv formed in the input
+    type, as the plain version forms it) with y_loc_t = r_t . (L_t + u
+    kv_t), P_t the running product of w before step t and r_t o P_t; B
+    S_{c+1} = P_end o S_c + L_end; C y_t = y_loc_t + (r_t o P_t) . S_c,
+    the product by the kernel's 3 x TF32 split.  Steps past a row's
+    length give y = 0 and leave the state."""
+    b, h, t, n = r.shape
+    y = torch.zeros((b, h, t, n), dtype=torch.float32)
+    s_out = torch.zeros((b, h, n, n), dtype=torch.float32)
+    uf = u.float()[:, :, None]
+    for row in range(b):
+        nb = t if lens is None else max(0, min(int(lens[row]), t))
+        state = (torch.zeros((h, n, n)) if s0 is None
+                 else s0[row].float().clone())
+        for c0 in range(0, nb, chunk):
+            loc = torch.zeros((h, n, n))
+            p = torch.ones((h, n))
+            ys, rps = [], []
+            for i in range(c0, min(c0 + chunk, nb)):
+                rt = r[row, :, i].float()
+                kv = (k[row, :, i, :, None] * v[row, :, i, None, :]).float()
+                ys.append(torch.einsum("hk,hkv->hv", rt, loc + uf * kv))
+                rps.append(rt * p)
+                wt = w[row, :, i].float()
+                loc = wt[:, :, None] * loc + kv
+                p = p * wt
+            s_c = state
+            state = p[:, :, None] * s_c + loc
+            for j, (yl, rp) in enumerate(zip(ys, rps)):
+                y[row, :, c0 + j] = yl + _mv3(rp, s_c)
+        s_out[row] = state
+    return y.to(r.dtype), s_out
+
+
+@pytest.mark.parametrize("decay", list(DECAYS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_three_phase_matches_plain(dtype, decay):
+    """T = 150 (chunks of 64, 64 and 22) from a state, ``lens`` T, 100
+    (inside the second chunk) and 0: f32 y and state at 1e-5; bf16 (kv
+    rounded per element in both) the state at 1e-5 and y within one bf16
+    rounding (2^-8) of max|y|."""
+    t = 150
+    r, k, v, w, u, s0 = _t(*_wkv_decay_inputs(3, 2, t, 16, decay))
+    r, k, v = (x.to(dtype) for x in (r, k, v))
+    lens = _i32([t, 100, 0])
+    y, s = _wkv_three_phase(r, k, v, w, u, s0, lens)
+    y_p, s_p = rwkv6_ref(r, k, v, w, u, s0, lens)
+    assert y.dtype == dtype
+    np.testing.assert_allclose(s.numpy(), s_p.numpy(), **TOL)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(y.numpy(), y_p.numpy(), **TOL)
+    else:
+        err = (y.float() - y_p.float()).abs().max()
+        assert err <= 2.0 ** -8 * y_p.float().abs().max()
+    assert not y[1, :, 100:].any() and not y[2].any()
+    assert torch.equal(s[2], s0[2])
+
+
+@pytest.mark.parametrize("decay", list(DECAYS))
+def test_wkv_three_phase_matches_jax(decay):
+    """Against the JAX oracle (``rwkv6_ref``) and ``_wkv_scan`` in f32 at
+    1e-5: the whole sequence (T = 150) from a zero state; then its last
+    113 steps (chunks of 64 and 49) from the state ``_wkv_scan`` reaches
+    after the first 37, with ``lens`` 113 (all), 0 and 90 (inside the
+    second chunk), each row against the scan over its own first 37 + lens
+    steps."""
+    import jax.numpy as jnp
+    from repro.kernels.rwkv6.ref import rwkv6_ref as jax_ref
+    from repro.models.layers import _wkv_scan
+
+    t, t1 = 150, 37
+    xs = _wkv_decay_inputs(3, 2, t, 16, decay, seed=22)[:5]
+    jx = [jnp.asarray(x) for x in xs]
+    r, k, v, w, u = _t(*xs)
+    y, s = _wkv_three_phase(r, k, v, w, u)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jax_ref(*jx)), **TOL)
+    y_scan, s_scan = _wkv_scan(*jx)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_scan), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_scan), **TOL)
+
+    _, s_pre = _wkv_scan(*[x[:, :, :t1] for x in jx[:4]], jx[4])
+    s0 = torch.from_numpy(np.array(s_pre))
+    lens = [t - t1, 0, 90]
+    y2, s2 = _wkv_three_phase(r[:, :, t1:], k[:, :, t1:], v[:, :, t1:],
+                              w[:, :, t1:], u, s0, _i32(lens))
+    for row, n in enumerate(lens):
+        y_n, s_n = _wkv_scan(*[x[row:row + 1, :, :t1 + n] for x in jx[:4]],
+                             jx[4])
+        np.testing.assert_allclose(y2[row, :, :n].numpy(),
+                                   np.asarray(y_n)[0, :, t1:], **TOL)
+        np.testing.assert_allclose(s2[row].numpy(), np.asarray(s_n)[0],
+                                   **TOL)
+        assert not y2[row, :, n:].any()
+    assert torch.equal(s2[1], s0[1])
+
+
+@pytest.mark.parametrize("b,h,t,n", [
+    (4, 40, 1, 64), (2, 3, DECODE_MAX_T, 64), (2, 3, DECODE_MAX_T + 1, 64),
+    (1, 40, 2048, 64), (1, 40, 1999, 64), (2, 40, 512, 64),
+    (8, 40, 4096, 64), (3, 5, 77, 16), (3, 5, 1, 16), (2, 3, 0, 64)])
+def test_wkv_plan(b, h, t, n):
+    """Decode up to ``DECODE_MAX_T`` steps: a block a (b, h, half of the
+    columns) at N = 64, 320 blocks at B = 4, H = 40 (T = 0 copies s0);
+    chunked from T = 9: a block a (b, chunk of ``CHUNK`` steps, h), a
+    whole head (128 threads at N = 64, 32 at N = 16), the ring two states
+    a (b, h), the ticket and a flag a (b, h)."""
+    plan = wkv_plan(b, h, t, n)
+    threads = 128 if n == 64 else 32
+    if t <= DECODE_MAX_T:
+        dthreads = min(threads, 64)
+        want = ("decode", 0, 0, dthreads, b * h * threads // dthreads, 0, 0)
+    else:
+        nc = -(-t // CHUNK)
+        want = ("chunked", CHUNK, nc, threads, b * nc * h, 2 * b * h * n * n,
+                1 + b * h)
+    assert tuple(plan) == want
+    if (b, h, t) == (4, 40, 1):
+        assert plan.blocks == 320
+
+
+def test_wkv_plan_refuses_other_head_sizes():
+    with pytest.raises(ValueError, match="head size 32"):
+        wkv_plan(1, 1, 16, 32)
 
 
 # ------------------------------------------ LayerNorm plain vs Pallas --
@@ -408,7 +582,10 @@ def _rel(a, b):
 CARD_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 
 
-def _card_wkv(gen, b, h, t, n, dtype, dev, token_major=True):
+def _card_wkv(gen, b, h, t, n, dtype, dev, token_major=True,
+              decay_scale=1.0):
+    """r, k, v as the model's views; w = exp(-exp(x)) with x standard
+    normal times ``decay_scale``, clamped to the model's [-8, 4]."""
     def proj():   # the model's (B, H, T, N) view of a (B, T, D) tensor
         x = torch.randn((b, t, h, n), generator=gen, device=dev) * 0.5
         x = x.to(dtype)
@@ -416,11 +593,33 @@ def _card_wkv(gen, b, h, t, n, dtype, dev, token_major=True):
             .contiguous()
 
     r, k, v = proj(), proj(), proj()
-    w = torch.exp(-torch.exp(torch.randn((b, t, h, n), generator=gen,
-                                         device=dev).clamp(-8, 4))) \
+    w = torch.exp(-torch.exp((decay_scale * torch.randn(
+        (b, t, h, n), generator=gen, device=dev)).clamp(-8, 4))) \
         .transpose(1, 2)
     u = torch.randn((h, n), generator=gen, device=dev) * 0.1
     return r, k, v, w, u
+
+
+def _card_wkv_check(args, dtype, lens=None, s0=None):
+    """Kernel (one launch) vs plain version on the same card inputs: y
+    within CARD_TOL and the state within 1e-5 of max|ref|; y exactly 0
+    past each row's length, and a row of length 0 keeps s0 bit for
+    bit."""
+    before = wkv_ops.LAUNCHES.launches
+    y, s = wkv_ops.rwkv6(*args, s0, lens)
+    assert wkv_ops.LAUNCHES.launches == before + 1
+    with select.plain_versions():
+        y_p, s_p = wkv_ops.rwkv6(*args, s0, lens)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and s.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    assert _rel(y, y_p) <= CARD_TOL[dtype]
+    assert _rel(s, s_p) <= 1e-5
+    if lens is not None:
+        for row, n in enumerate(lens.tolist()):
+            assert not y[row, :, n:].any()
+            if n == 0:
+                assert torch.equal(s[row], s0[row])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -445,6 +644,56 @@ def test_wkv_kernel_matches_plain_on_card(cuda, dtype, n):
         if args[1] is not None:
             assert not y[1, :, 40:].any() and not y[2].any()
             assert torch.equal(s[2], s0[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["harsh", "ragged_1999", "many_blocks",
+                                  "t8", "t9"])
+def test_wkv_kernel_chunked_cases_on_card(cuda, case, dtype):
+    """The chunked instance's edges: harsh decays (scale 3: about a tenth
+    of them at the clamp's e^{-e^4}); T = 1999 with ``lens`` ending inside
+    a chunk (and a row of length 0); B = 8, T = 4096, 20480 blocks, more
+    than the card holds at once, so later chunks wait on the ticket
+    order; T = 8 (the decode instance's longest) and T = 9 (the chunked
+    instance's shortest), from a state."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    n, h = 64, 40
+    b, t, scale, lens = {
+        "harsh": (2, 300, 3.0, None),
+        "ragged_1999": (3, 1999, 1.0, [1999, 1000, 0]),
+        "many_blocks": (8, 4096, 1.0, None),
+        "t8": (4, DECODE_MAX_T, 1.0, [DECODE_MAX_T, 3, 0, 1]),
+        "t9": (4, DECODE_MAX_T + 1, 1.0, [DECODE_MAX_T + 1, 3, 0, 1]),
+    }[case]
+    assert wkv_plan(b, h, t, n).instance == (
+        "decode" if t <= DECODE_MAX_T else "chunked")
+    args = _card_wkv(gen, b, h, t, n, dtype, cuda, decay_scale=scale)
+    s0 = torch.randn((b, h, n, n), generator=gen, device=cuda)
+    if lens is not None:
+        lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    _card_wkv_check(args, dtype, lens, s0)
+    if case == "many_blocks":   # and from a zero state
+        _card_wkv_check(args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_prefill_in_pieces_on_card(cuda, dtype):
+    """A 1024-step prompt in one launch, and in two 512-step launches (the
+    serve path's prefill chunk; the second from the first's state), give
+    the same y and state bit for bit: the chunk length divides 512, so
+    both meet the same chunk boundaries."""
+    assert 512 % CHUNK == 0
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, h, t, n = 2, 40, 1024, 64
+    r, k, v, w, u = _card_wkv(gen, b, h, t, n, dtype, cuda)
+    s0 = torch.randn((b, h, n, n), generator=gen, device=cuda)
+    y, s = wkv_ops.rwkv6(r, k, v, w, u, s0)
+    half = [x[:, :, :512] for x in (r, k, v, w)]
+    y1, s1 = wkv_ops.rwkv6(*half, u, s0)
+    y2, s2 = wkv_ops.rwkv6(*[x[:, :, 512:] for x in (r, k, v, w)], u, s1)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([y1, y2], dim=2), y)
+    assert torch.equal(s2, s)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
