@@ -9,15 +9,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``torch.cuda.get_device_name()``.  Then lowers path 2's functions and
    starts building every CUDA library the run needs (path 2's kDot
    epilogues and the §4.5 library in both dtypes, flash attention, WKV,
-   the SSD scan and the masked softmax), one ``nvcc`` each, all at once, in the background while path 1 runs.  When they are built,
-   prints each flash-attention, GEMM, SSD and masked softmax instance's
+   the SSD scan, the masked softmax, RMSNorm and LayerNorm), one
+   ``nvcc`` each, all at once, in the background while path 1 runs.
+   When they are built, prints each flash-attention, GEMM, SSD, masked
+   softmax, RMSNorm and LayerNorm instance's
    registers, stack, static shared memory, local memory, FFMA and
    tensor-core instructions (HMMA: ``mma.sync``; HGMMA: ``wgmma``), from
    ``cuobjdump`` of the built libraries where the toolkit has it; every
    16-bit GEMM instance must show HGMMA, no HMMA and no local memory,
    every f32 one FFMA, no HMMA or HGMMA, no local memory and its
    registers within its launch bound; the chunked SSD instances HMMA;
-   no SSD or softmax instance local memory.
+   no SSD, softmax or norm instance local memory.
 2. **Path 1.**  Compiles TinyLlama-1.1B's decoder stack at full width
    (d_model 2048, 32/4 heads, d_ff 5632, 22 layers unrolled, ``ln_f`` and
    the 32000-wide head; random weights drawn on the card from a seeded
@@ -83,8 +85,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (FIFO) on the jit pipeline: six requests of 37, 200, 731, 1500, 1999
    and 45 prompt tokens (ids from seeded numpy), 16 new tokens each —
    S buckets 64 to 2048, four slots for six requests.  Every attention
-   runs the CUDA C++ flash-attention kernel and every RMSNorm the Triton
-   one.  The same requests run again with ``prefill_chunk=512`` (offsets
+   runs the CUDA C++ flash-attention kernel and every RMSNorm the CUDA
+   C++ one.  The same requests run again with ``prefill_chunk=512`` (offsets
    > 0: the kernel's ``q_offset``), and once more through the same engine
    code inside ``plain_versions()``.  Checks: prefill compiles == the
    distinct (B, S) buckets used, decode compiles == 1; flash-attention
@@ -111,7 +113,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``F.rms_norm``), a yardstick the port never calls.  Each
    flash-attention row also prints TFLOP/s, ``library_ratio`` (ms over
    the library call's ms) and, for decode, ``n_split``: the key splits
-   of its grid (``ops.decode_splits``).
+   of its grid (``ops.decode_splits``).  Each RMSNorm row names its
+   ``row_norm.norm_plan``; at the decode rows the kernel and
+   ``F.rms_norm`` are also called 1000 times back to back with no flush:
+   the wrapper's host µs a call, the device µs a call between two events
+   and ``torch.profiler``'s device µs a launch.
 9. **Path 4 ("serve", recurrent).**  RWKV-6 3B at full width and all
    32 layers (d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536,
    LayerNorm; random bf16 weights from a seeded ``torch.Generator``,
@@ -119,7 +125,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    with the same six requests, unchunked, inside ``plain_versions()``
    and chunked at 512 (the chunked run continues each prompt from the
    cache's state: the WKV kernel's ``s0``).  Every time mix runs the
-   CUDA C++ WKV kernel and every LayerNorm the Triton one.  Checks:
+   CUDA C++ WKV kernel and every LayerNorm the CUDA C++ one.  Checks:
    prefill compiles == distinct (B, S) buckets, decode compiles == 1;
    WKV launches == 32 and LayerNorm launches == 65 per prefill launch
    and decode step, the plain run none; chunked vs unchunked under path
@@ -136,7 +142,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     ragged T = 1999; T = 2048 with harsh decays (scale 3: about a tenth
     at the model's floor e^{-e^4}); and the decode step at B = 4, T = 1.
     Each WKV row names the plan ``rwkv6.wkv_plan`` gave it (instance,
-    chunk length, grid).  LayerNorm on 2048 x 2560.  Each against its plain version
+    chunk length, grid).  LayerNorm on 2048 x 2560 and on a decode
+    step's 4 x 2560, with its plan and, at the decode rows, launches back
+    to back as RMSNorm's in phase 8.  Each against its plain version
     on the same card inputs, timed against the plain version and, for
     LayerNorm, ``F.layer_norm`` (WKV has no PyTorch call).
 11. **Path 5 ("serve", hybrid).**  Zamba2-7B at full width (d_model
@@ -296,13 +304,13 @@ KERNELS = {
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:94",
     },
     "rmsnorm": {
-        "route": "triton",
-        "source": "src/repro_torch/kernels/rmsnorm/rmsnorm.py",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:26",
     },
     "layernorm": {
-        "route": "triton",
-        "source": "src/repro_torch/kernels/layernorm/layernorm.py",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/layernorm/csrc/layernorm.cu",
         "replaces": "src/repro/kernels/layernorm/layernorm.py:24",
     },
     "rwkv6": {
@@ -649,6 +657,7 @@ def start_cuda_builds(arts: list):
     from repro_torch.kernels.flash_attention.flash_attention import \
         source_job
     from repro_torch.kernels.mamba2.mamba2 import source_job as ssd_job
+    from repro_torch.kernels.row_norm import source_job as norm_job
     from repro_torch.kernels.rwkv6.rwkv6 import source_job as wkv_job
     from repro_torch.kernels.softmax.softmax import \
         source_job as softmax_job
@@ -670,6 +679,8 @@ def start_cuda_builds(arts: list):
     sources.append(wkv_job())      # the WKV library (path 4)
     sources.append(ssd_job())      # the SSD library (path 5)
     sources.append(softmax_job())  # the masked softmax library (path 6)
+    sources.append(norm_job("rmsnorm"))    # paths 3, 5 and 6
+    sources.append(norm_job("layernorm"))  # path 4
     result: dict = {"sources": len(sources), "gemm_jobs": gemm_jobs}
 
     def run():
@@ -1952,7 +1963,6 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list,
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.rmsnorm import ops as rms
     from repro_torch.kernels.select import plain_versions
 
     dt = torch.float32 if dname == "f32" else torch.bfloat16
@@ -2086,50 +2096,105 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list,
 
     # RMSNorm over the rows of a 2048-token prefill and of a decode step
     # at B = 4, at the model's width
-    d = cfg.d_model
+    norm_kernel_rows("rmsnorm", cfg.d_model, dname, gen,
+                     launches["rmsnorm"], rows)
+
+
+def norm_kernel_rows(kind: str, d: int, dname: str, gen, launches: int,
+                     rows: list):
+    """RMSNorm (``kind`` "rmsnorm", eps 1e-6) or LayerNorm ("layernorm",
+    eps 1e-5, rows off zero mean as a residual stream is) at width ``d``
+    over the rows of a 2048-token prefill and of a decode step at B = 4,
+    the weights f32 as in the models; each against its plain version on
+    the same card inputs, timed against it and against ``F.rms_norm`` /
+    ``F.layer_norm`` (weights in x's dtype), with the plan
+    ``row_norm.norm_plan`` gave it.  The decode rows are also called back
+    to back (``launch_times``): the wrapper's and the library call's host
+    µs a call and device µs a launch."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.layernorm import ops as ln
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.kernels.row_norm import norm_plan
+    from repro_torch.kernels.select import plain_versions
+
+    dt = torch.float32 if dname == "f32" else torch.bfloat16
+    elt = torch.empty((), dtype=dt).element_size()
+    tol = TOL_SERVE_KERNEL[dname]
+    ops = rms if kind == "rmsnorm" else ln
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     w = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
-    w_lib = w.to(dt)
+    bias = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    w_lib, bias_lib = w.to(dt), bias.to(dt)
     for n_rows, case in ((SERVE_SEQ, f"{SERVE_SEQ}x{d}"),
                          (SERVE_BATCH, f"decode {SERVE_BATCH}x{d}")):
-        x = rnd(n_rows, d)
+        x = torch.randn((n_rows, d), generator=gen, device="cuda")
+        if kind == "rmsnorm":
+            x = x.to(dt)
 
-        def run_rms(x=x):
-            return rms.rmsnorm(x, w, eps=1e-6)
+            def run(x=x):
+                return rms.rmsnorm(x, w, eps=1e-6)
 
-        def plain_rms(run_rms=run_rms):
+            def lib(x=x):
+                return F.rms_norm(x, (d,), weight=w_lib, eps=1e-6)
+
+            # x read and y written once, the weight read once; square,
+            # sum, scale and weight an element on f32 FFMA
+            nbytes = 2 * x.numel() * elt + d * 4
+            flops = 4 * x.numel()
+        else:
+            x = (x + 3.0).to(dt)
+
+            def run(x=x):
+                return ln.layernorm(x, w, bias, eps=1e-5)
+
+            def lib(x=x):
+                return F.layer_norm(x, (d,), weight=w_lib, bias=bias_lib,
+                                    eps=1e-5)
+
+            nbytes = 2 * x.numel() * elt + 2 * d * 4
+            flops = 7 * x.numel()
+
+        def plain(run=run):
             with plain_versions():
-                return run_rms()
+                return run()
 
-        before = rms.LAUNCHES.launches
-        got = run_rms()
-        check(rms.LAUNCHES.launches == before + 1,
-              "rmsnorm wrapper launched no kernel")
-        want = plain_rms()
+        before = ops.LAUNCHES.launches
+        got = run()
+        check(ops.LAUNCHES.launches == before + 1,
+              f"{kind} wrapper launched no kernel")
+        want = plain()
         torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              f"{kind} {dname} {case}: non-finite output")
         err = (got.float() - want.float()).abs().max().item()
         scale = want.float().abs().max().item()
-        nbytes = 2 * x.numel() * elt + w.numel() * w.element_size()
-        flops = 4 * x.numel()
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / F32_FLOPS * 1e3
-
-        def lib(x=x):
-            return F.rms_norm(x, (d,), weight=w_lib, eps=1e-6)
-
-        row = dict(name="rmsnorm", **KERNELS["rmsnorm"],
-                   launches=launches["rmsnorm"], max_abs_err=err,
-                   ms=cuda_ms(run_rms), plain_ms=cuda_ms(plain_rms),
+        row = dict(name=kind, **KERNELS[kind], launches=launches,
+                   max_abs_err=err, ms=cuda_ms(run), plain_ms=cuda_ms(plain),
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    library_ms=cuda_ms(lib))
-        detail = dict(dtype=dname, case=case, max_ref=scale,
-                      max_rel=err / scale, bytes=nbytes,
-                      path_launches_of_program=launches["rmsnorm"],
-                      library_call="F.rms_norm (weight in the input's "
-                                   "dtype)",
+        # the decode rows: launches back to back (no flush), the
+        # wrappers' host µs a call, printed only
+        extra = {}
+        if n_rows == SERVE_BATCH:
+            extra = dict(kernel_launch=launch_times(run),
+                         library_launch=launch_times(lib))
+        detail = dict(dtype=dname, case=case,
+                      plan=norm_plan(n_rows, d, elt, True, sms,
+                                     layernorm=kind == "layernorm")._asdict(),
+                      **extra, max_ref=scale, max_rel=err / scale,
+                      bytes=nbytes, flops=flops,
+                      path_launches_of_program=launches,
+                      library_call=("F.rms_norm (weight" if kind == "rmsnorm"
+                                    else "F.layer_norm (weight and bias")
+                      + " in the input's dtype)",
                       library_max_rel=rel_err(lib().float(), want.float()))
         print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
-        check(err / scale <= tol, f"rmsnorm {dname} {case}: max|d|/max|ref| "
+        check(err / scale <= tol, f"{kind} {dname} {case}: max|d|/max|ref| "
                                   f"{err / scale:.3e} > {tol}")
         rows.append((row, detail))
 
@@ -2157,11 +2222,9 @@ def wkv_cost(b: int, h: int, n: int, steps: list, t: int, elt: int,
 def rwkv_kernel_phase(cfg, dname: str, report: dict, rows: list):
     """The WKV and LayerNorm kernels at path 4's shapes, each against its
     plain version on the same card inputs, timed against the plain
-    version (and ``F.layer_norm`` for LayerNorm)."""
+    version (and ``F.layer_norm`` for LayerNorm: ``norm_kernel_rows``)."""
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.kernels.layernorm import ops as ln
     from repro_torch.kernels.rwkv6 import ops as wkv
     from repro_torch.kernels.rwkv6.rwkv6 import wkv_plan
     from repro_torch.kernels.select import plain_versions
@@ -2259,51 +2322,10 @@ def rwkv_kernel_phase(cfg, dname: str, report: dict, rows: list):
                        f"is not 0 or its state moved")
         rows.append((row, detail))
 
-    # LayerNorm on 2048 x 2560 (the norm of a 2048-token prefill); rows
-    # off zero mean, as a residual stream is
-    x = (torch.randn((SERVE_SEQ, d), generator=gen, device="cuda")
-         + 3.0).to(dt)
-    g = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
-    bias = 0.1 * torch.randn(d, generator=gen, device="cuda")
-    g_lib, bias_lib = g.to(dt), bias.to(dt)
-
-    def run_ln():
-        return ln.layernorm(x, g, bias, eps=1e-5)
-
-    def plain_ln():
-        with plain_versions():
-            return run_ln()
-
-    before = ln.LAUNCHES.launches
-    got = run_ln()
-    check(ln.LAUNCHES.launches == before + 1,
-          "layernorm wrapper launched no kernel")
-    want = plain_ln()
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
-    nbytes = 2 * x.numel() * elt + 2 * d * 4
-    flops = 7 * x.numel()
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS * 1e3
-    lib = lambda: F.layer_norm(x, (d,), weight=g_lib, bias=bias_lib,
-                               eps=1e-5)
-    row = dict(name="layernorm", **KERNELS["layernorm"],
-               launches=launches["layernorm"], max_abs_err=err,
-               ms=cuda_ms(run_ln), plain_ms=cuda_ms(plain_ln),
-               bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               library_ms=cuda_ms(lib))
-    detail = dict(dtype=dname, case=f"{SERVE_SEQ}x{d}", max_ref=scale,
-                  max_rel=err / scale, bytes=nbytes,
-                  path_launches_of_program=launches["layernorm"],
-                  library_call="F.layer_norm (weight and bias in the "
-                               "input's dtype)",
-                  library_max_rel=rel_err(lib().float(), want.float()))
-    print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
-    check(err / scale <= tol, f"layernorm {dname}: max|d|/max|ref| "
-                              f"{err / scale:.3e} > {tol}")
-    rows.append((row, detail))
+    # LayerNorm over the rows of a 2048-token prefill and of a decode step
+    # at B = 4
+    norm_kernel_rows("layernorm", d, dname, gen, launches["layernorm"],
+                     rows)
 
 
 def ssd_cost(b: int, h: int, n: int, p: int, steps: list, t: int,
@@ -2354,6 +2376,22 @@ def softmax_resources() -> str:
     res = cuda_build.resources(source_job())
     for kname, r in res.items():
         check(r["local"] == 0, f"masked softmax instance {kname}: {r}")
+    return json.dumps(res)
+
+
+def norm_resources(kind: str) -> str:
+    """``cuda_build.resources`` of ``kind``'s norm library (``rmsnorm`` or
+    ``layernorm``), as one JSON object; checks that no instance uses local
+    memory (none spills) and that both instances are there."""
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.row_norm import source_job
+
+    res = cuda_build.resources(source_job(kind))
+    for kname, r in res.items():
+        check(r["local"] == 0, f"{kind} instance {kname}: {r}")
+    check(any(k.startswith("norm_rows<") for k in res)
+          and any(k.startswith("norm_loop<") for k in res),
+          f"{kind} library: instances {sorted(res)}")
     return json.dumps(res)
 
 
@@ -2719,10 +2757,12 @@ def main(argv=None) -> int:
 
 
 def print_resources() -> None:
-    """The SSD and masked softmax instances' resources (``cuobjdump``),
-    checked where the toolkit has it."""
+    """The SSD, masked softmax, RMSNorm and LayerNorm instances' resources
+    (``cuobjdump``), checked where the toolkit has it."""
     for name, fn in (("SSD", ssd_resources),
-                     ("masked softmax", softmax_resources)):
+                     ("masked softmax", softmax_resources),
+                     ("RMSNorm", lambda: norm_resources("rmsnorm")),
+                     ("LayerNorm", lambda: norm_resources("layernorm"))):
         try:
             res = fn()
         except (OSError, subprocess.SubprocessError) as e:

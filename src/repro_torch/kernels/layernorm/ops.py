@@ -1,6 +1,6 @@
 """Wrapper of the LayerNorm kernel: picks kernel or plain version by device.
 
-A CUDA tensor launches the Triton kernel (and counts the launch); a CPU
+A CUDA tensor launches the CUDA C++ kernel (and counts the launch); a CPU
 tensor, or any tensor inside
 :func:`~repro_torch.kernels.select.plain_versions`, runs the plain
 version in ``ref.py``.  There is no fallback: a kernel that fails to
@@ -12,6 +12,7 @@ import torch
 
 from ..select import use_kernel
 from ..triton_build import LaunchCounter
+from .layernorm import layernorm_kernel
 from .ref import layernorm_ref
 
 __all__ = ["layernorm", "LAUNCHES"]
@@ -26,8 +27,6 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     axis, in f32, cast to x's dtype."""
     if not use_kernel(x, "layernorm"):
         return layernorm_ref(x, scale, bias, eps)
-    from .layernorm import layernorm_kernel
-
     out = layernorm_kernel(x, scale, bias, eps=eps)
     LAUNCHES.launches += 1
     return out

@@ -1,6 +1,6 @@
 """Wrapper of the RMSNorm kernel: picks kernel or plain version by device.
 
-A CUDA tensor launches the Triton kernel (and counts the launch); a CPU
+A CUDA tensor launches the CUDA C++ kernel (and counts the launch); a CPU
 tensor, or any tensor inside
 :func:`~repro_torch.kernels.select.plain_versions`, runs the plain
 version in ``ref.py``.  There is no fallback: a kernel that fails to
@@ -12,6 +12,7 @@ import torch
 
 from ..select import use_kernel
 from ..triton_build import LaunchCounter
+from .rmsnorm import rmsnorm_kernel
 from .ref import rmsnorm_ref
 
 __all__ = ["rmsnorm", "LAUNCHES"]
@@ -25,8 +26,6 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
     """``x * rsqrt(mean(x^2, -1) + eps) * w`` in f32, cast to x's dtype."""
     if not use_kernel(x, "rmsnorm"):
         return rmsnorm_ref(x, w, eps)
-    from .rmsnorm import rmsnorm_kernel
-
     out = rmsnorm_kernel(x, w, eps=eps)
     LAUNCHES.launches += 1
     return out

@@ -12,9 +12,8 @@ the SSD scan go through their kernels' wrappers
 (``kernels/flash_attention/ops.py``, ``kernels/rmsnorm/ops.py``,
 ``kernels/layernorm/ops.py``, ``kernels/softmax/ops.py``,
 ``kernels/rwkv6/ops.py``, ``kernels/mamba2/ops.py``): the CUDA C++
-flash-attention, WKV and SSD kernels and the Triton RMSNorm, LayerNorm
-and masked softmax kernels on the card, their plain versions on the
-CPU.  The DHLO bridge traces these functions inside
+flash-attention, RMSNorm, LayerNorm, masked softmax, WKV and SSD kernels
+on the card, their plain versions on the CPU.  The DHLO bridge traces these functions inside
 ``plain_versions()``, so they trace into the same op structure the
 reference traces into (``dot_general`` for the grouped attention
 contractions, ``mean`` + ``rsqrt`` norms, explicit softmax).
@@ -64,7 +63,7 @@ def norm_init(cfg: ArchConfig, device, d: Optional[int] = None) -> Params:
 
 def norm_apply(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm (eps 1e-5) or RMSNorm (eps 1e-6), f32 accumulation, cast
-    back to x's dtype.  Each is its Triton kernel on the card and its
+    back to x's dtype.  Each is its CUDA C++ kernel on the card and its
     plain version (the reference's ops) on the CPU."""
     if cfg.norm == "layernorm":
         return ln_ops.layernorm(x, p["scale"], p["bias"], eps=1e-5)

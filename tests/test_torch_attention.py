@@ -9,7 +9,7 @@ the same numpy inputs.  Tolerances: f32 at 1e-5 relative (both sides sum
 in f32, in another order; the attention cases add an absolute 1e-5 for
 outputs near zero); bf16 as ``tests/test_kernels.py``'s ``TOL`` (2e-2).
 
-The CUDA C++ and Triton kernels need the card: the ``on_card`` cases skip
+The CUDA C++ kernels need the card: the ``on_card`` cases skip
 here and run there, where JAX is not installed (``python -m pytest -q
 tests/test_torch_attention.py -k on_card``); they hold each kernel
 against its plain version on the same card inputs through
@@ -210,8 +210,8 @@ def test_plain_versions_context_and_devices():
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA C++ and Triton kernels "
-                    "run on the card only")
+        pytest.skip("needs a CUDA device: the CUDA C++ kernels run on the "
+                    "card only")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 

@@ -566,8 +566,8 @@ def test_engine_batched_matches_replay(rwkv):
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the WKV (CUDA C++) and LayerNorm "
-                    "(Triton) kernels run on the card only")
+        pytest.skip("needs a CUDA device: the WKV and LayerNorm (CUDA C++) "
+                    "kernels run on the card only")
     return torch.device("cuda")
 
 
