@@ -27,11 +27,11 @@
 // * The weight loaded once a thread, not once a row.  A thread owns the
 //   same columns in every row, so it loads its weight (and bias) chunks
 //   once, widened to f32 in registers, and reuses them for every row its
-//   group takes: in whole chunks where the weight is f32 or of x's type
-//   and 16-byte aligned (the wrapper picks that instance), else an
-//   element a load.  The grid comes from row_norm.norm_plan: for many rows
-//   it is sized to the card and each group walks rows with a stride; for
-//   few rows (decode) it is sized to the rows.
+//   group takes: in whole chunks where the weight (and bias) is f32 and
+//   16-byte aligned, as in every model (the wrapper picks that instance),
+//   else an element a load.  The grid comes from row_norm.norm_plan: for
+//   many rows it is sized to the card and each group walks rows with a
+//   stride; for few rows (decode) it is sized to the rows.
 // * Loads first.  A chunk is held as loaded, in 32-bit words, and
 //   converted where it is used, so a thread issues its row's loads, then
 //   its weight's, with no instruction between them that waits on a load;
@@ -227,7 +227,11 @@ struct NormArgs {
 template <bool EACH, typename W, int VEC, int CH>
 __device__ __forceinline__ void load_weight(float (&r)[CH][VEC], const W* w,
                                             int lane, int glog, int units) {
-  NormChunk<W, VEC> raw[CH];
+  // A lane's chunk past the row is zeroed: left undefined, it let the
+  // compiler fill it with a copy of another chunk's registers, an
+  // instruction that waits on that chunk's load before the loads after it
+  // are issued (a memory round trip on a decode step's critical path).
+  NormChunk<W, VEC> raw[CH] = {};
 #pragma unroll
   for (int j = 0; j < CH; ++j) {
     const int u = lane + (j << glog);
@@ -239,28 +243,24 @@ __device__ __forceinline__ void load_weight(float (&r)[CH][VEC], const W* w,
         chunk_load(raw[j], src);
     }
   }
-  // (a lane's chunk past the row is never stored: no need to zero it)
 #pragma unroll
   for (int j = 0; j < CH; ++j)
 #pragma unroll
     for (int e = 0; e < VEC; ++e) r[j][e] = NormElt<W>::get(raw[j].w, e);
 }
 
-// The weight's chunks for the instance's weight path WSEL: kWeightF32 and
-// kWeightX read an f32 weight or one of x's type in whole chunks (the
-// wrapper takes them for 16-byte rows whose weight and bias are so
-// aligned and of one type); kWeightAny reads a weight of dtype dt (0 f32,
-// 1 bf16, 2 f16) an element a load.
-constexpr int kWeightF32 = 0, kWeightX = 1, kWeightAny = 2;
-template <int WSEL, typename T, int VEC, int CH>
+// The weight's chunks for the instance's weight path WSEL: kWeightF32
+// reads an f32 weight in whole chunks (the wrapper takes it for 16-byte
+// rows whose weight and bias are f32 and 16-byte aligned); kWeightAny
+// reads a weight of dtype dt (0 f32, 1 bf16, 2 f16) an element a load.
+constexpr int kWeightF32 = 0, kWeightAny = 1;
+template <int WSEL, int VEC, int CH>
 __device__ __forceinline__ void load_weight_sel(float (&r)[CH][VEC],
                                                 const void* w, int dt,
                                                 int lane, int glog,
                                                 int units) {
   if constexpr (WSEL == kWeightF32) {
     load_weight<false>(r, static_cast<const float*>(w), lane, glog, units);
-  } else if constexpr (WSEL == kWeightX) {
-    load_weight<false>(r, static_cast<const T*>(w), lane, glog, units);
   } else if (dt == 0) {
     load_weight<true>(r, static_cast<const float*>(w), lane, glog, units);
   } else if (dt == 1) {
@@ -373,9 +373,8 @@ __global__ void __launch_bounds__(kNormThreads)
   load_row<T, VEC, CH>(cur, p, row, lane, last);
   float w[CH][VEC];
   float b[LN ? CH : 1][VEC];
-  load_weight_sel<WSEL, T>(w, p.w, p.wdt, lane, glog, p.units);
-  if constexpr (LN)
-    load_weight_sel<WSEL, T>(b, p.b, p.bdt, lane, glog, p.units);
+  load_weight_sel<WSEL>(w, p.w, p.wdt, lane, glog, p.units);
+  if constexpr (LN) load_weight_sel<WSEL>(b, p.b, p.bdt, lane, glog, p.units);
 
   int k = 0;  // reductions so far: the next one meets in red[k & 1]
   for (long long base = first; base < p.R; base += stride, row += stride) {
@@ -488,8 +487,8 @@ __global__ void __launch_bounds__(kNormThreads) norm_loop(const NormArgs p) {
   }
 }
 
-// Register instances: the typed weight paths for 16-byte chunks only (a
-// row read a column a chunk is rare, and takes kWeightAny)
+// Register instances: kWeightF32 for 16-byte chunks only (a row read a
+// column a chunk is rare, and takes kWeightAny)
 template <typename T, bool LN, int VEC, int CH, bool WALK>
 cudaError_t norm_launch_w(const NormArgs& a, int wsel, int threads, int grid,
                           cudaStream_t s) {
@@ -497,12 +496,8 @@ cudaError_t norm_launch_w(const NormArgs& a, int wsel, int threads, int grid,
     norm_rows<T, VEC, CH, LN, kWeightAny, WALK><<<grid, threads, 0, s>>>(a);
   else if constexpr (VEC == 1)
     return cudaErrorInvalidValue;
-  else if (wsel == kWeightF32)
-    norm_rows<T, VEC, CH, LN, kWeightF32, WALK><<<grid, threads, 0, s>>>(a);
-  else if constexpr (sizeof(T) == 4)
-    return cudaErrorInvalidValue;  // an f32 x's weight path is kWeightF32
   else
-    norm_rows<T, VEC, CH, LN, kWeightX, WALK><<<grid, threads, 0, s>>>(a);
+    norm_rows<T, VEC, CH, LN, kWeightF32, WALK><<<grid, threads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -568,12 +563,11 @@ cudaError_t norm_launch(const NormArgs& a, bool wide, bool loop, int ch,
 // 2-3 the weight's, 4-5 the bias's, bit 6 wide (16-byte chunks: x's rows
 // and o 16-byte aligned, D a multiple of 16 / sizeof(x)), bit 7 the loop
 // instance, bits 8-11 chunks a thread (1-8), 12-15 log2 of the threads a
-// row (0-9), 16-23 rows a block, 24-25 the weight path (kWeightF32,
-// kWeightX: w and b 16-byte aligned, both f32 or both of x's type, the
-// rows wide; kWeightAny), bit 26 the walk (groups take several rows;
-// without it the grid must cover the rows); `grid` blocks.  DTYPES says which x
-// dtypes the library holds.  Returns the launch's cudaError_t (0 on
-// success).
+// row (0-9), 16-23 rows a block, bit 24 the weight path (kWeightF32: w
+// and b f32 and 16-byte aligned, the rows wide; kWeightAny), bit 26 the
+// walk (groups take several rows; without it the grid must cover the
+// rows); `grid` blocks.  DTYPES says which x dtypes the library holds.
+// Returns the launch's cudaError_t (0 on success).
 template <bool LN, int DTYPES>
 int norm_entry(const void* x, const void* w, const void* b, void* o,
                long long R, int D, long long xs, int cfg, int grid,
@@ -582,14 +576,14 @@ int norm_entry(const void* x, const void* w, const void* b, void* o,
   const int dt = cfg & 3, wdt = (cfg >> 2) & 3, bdt = (cfg >> 4) & 3;
   const bool wide = (cfg >> 6) & 1, loop = (cfg >> 7) & 1;
   const int ch = (cfg >> 8) & 15, glog = (cfg >> 12) & 15;
-  const int rows = (cfg >> 16) & 255, wsel = (cfg >> 24) & 3;
+  const int rows = (cfg >> 16) & 255, wsel = (cfg >> 24) & 1;
   const bool walk = (cfg >> 26) & 1;
   const int threads = rows << glog;
   const int vec = wide ? (dt == 0 ? 4 : 8) : 1;
   const cudaError_t bad = cudaErrorInvalidValue;
   if (dt >= DTYPES || wdt > 2 || bdt > 2 || (LN && b == nullptr) ||
       glog > kNormLoopLog || rows < 1 || threads > kNormThreads ||
-      threads % 32 || grid <= 0 || D % vec || wsel > kWeightAny ||
+      threads % 32 || grid <= 0 || D % vec ||
       (!walk && !loop && static_cast<long long>(grid) * rows < R))
     return static_cast<int>(bad);
   const int units = D / vec;

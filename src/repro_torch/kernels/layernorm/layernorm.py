@@ -21,15 +21,10 @@ import torch
 
 from .. import row_norm
 
-__all__ = ["layernorm_kernel", "source_job"]
+__all__ = ["layernorm_kernel"]
 
 _DTYPES = {t: c for t, c in row_norm.DTYPES.items()
            if t in (torch.float32, torch.bfloat16)}
-
-
-def source_job():
-    """The library's ``(name, source, include_dirs)`` build job."""
-    return row_norm.source_job("layernorm")
 
 
 def layernorm_kernel(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *,

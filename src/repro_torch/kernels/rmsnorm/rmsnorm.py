@@ -18,14 +18,9 @@ import torch
 
 from .. import row_norm
 
-__all__ = ["rmsnorm_kernel", "source_job"]
+__all__ = ["rmsnorm_kernel"]
 
 _DTYPES = row_norm.DTYPES
-
-
-def source_job():
-    """The library's ``(name, source, include_dirs)`` build job."""
-    return row_norm.source_job("rmsnorm")
 
 
 def rmsnorm_kernel(x: torch.Tensor, w: torch.Tensor, *,

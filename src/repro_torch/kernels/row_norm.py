@@ -52,7 +52,7 @@ MAX_ELEMS = {False: 32, True: 24}
 #: chunks a thread aims at: 2 for fewer rows than the card has SMs
 #: (decode: a short chain from load to store), 4 for more; a group stays
 #: at GROUP_CAP threads where its values allow more chunks a thread
-#: (timed with ``row_norm_tune``, PERF.md §6)
+#: (candidates timed with ``tools/row_norm_tune.py``, PERF.md §6)
 DECODE_CHUNKS, PREFILL_CHUNKS, GROUP_CAP = 2, 4, 256
 #: threads a block where a group is narrower
 BLOCK_THREADS = 128
@@ -84,22 +84,19 @@ def _pow2(n: int) -> int:
 
 @functools.lru_cache(maxsize=512)
 def norm_plan(n_rows: int, d: int, elt: int = 4, wide: bool = True,
-              sms: int = 132, target: Optional[int] = None,
-              block: int = BLOCK_THREADS,
-              sm_threads: Optional[int] = None,
-              layernorm: bool = False) -> NormPlan:
+              sms: int = 132, layernorm: bool = False) -> NormPlan:
     """The plan for ``n_rows`` x ``d`` of ``elt``-byte elements on a card
     of ``sms`` SMs.  ``wide``: the rows may be read in 16-byte chunks (x
     and its row stride 16-byte aligned); a width that is not a multiple of
     16 / ``elt`` is read a column a chunk all the same.  The group is the
-    smallest power of two of threads whose chunks, ``target`` a thread
-    (``DECODE_CHUNKS`` below ``sms`` rows, else ``PREFILL_CHUNKS``), cover
-    the row's units, but no wider than ``GROUP_CAP`` where more chunks a
-    thread fit (at most ``MAX_CHUNKS``, and ``MAX_ELEMS[layernorm]``
-    values); the chunks then cover the units once, the last one partly.
-    Groups narrower than ``block`` threads share a block.  The grid covers
-    the rows, but stops at ``sms`` x ``sm_threads`` threads (``SM_GROUPS``
-    groups an SM, at least ``SM_THREADS`` threads): each group then takes
+    smallest power of two of threads whose chunks, ``DECODE_CHUNKS`` a
+    thread below ``sms`` rows, else ``PREFILL_CHUNKS``, cover the row's
+    units, but no wider than ``GROUP_CAP`` where more chunks a thread fit
+    (at most ``MAX_CHUNKS``, and ``MAX_ELEMS[layernorm]`` values); the
+    chunks then cover the units once, the last one partly.  Groups
+    narrower than ``BLOCK_THREADS`` share a block.  The grid covers the
+    rows, but stops at ``SM_GROUPS`` groups an SM, at least ``SM_THREADS``
+    and at most ``MAX_SM_THREADS`` threads: each group then takes
     every ``grid x rows``-th row, the grid chosen so that every group
     takes as many.  A row that would need more than ``MAX_CHUNKS`` chunks
     or ``MAX_ELEMS[layernorm]`` values a thread at 512 threads takes the
@@ -109,8 +106,7 @@ def norm_plan(n_rows: int, d: int, elt: int = 4, wide: bool = True,
     vec = step if wide and d % step == 0 else 1
     units = -(-d // vec)
     most = min(MAX_CHUNKS, MAX_ELEMS[layernorm] // vec)   # chunks a thread
-    if target is None:
-        target = DECODE_CHUNKS if n_rows < sms else PREFILL_CHUNKS
+    target = DECODE_CHUNKS if n_rows < sms else PREFILL_CHUNKS
     group = _pow2(-(-units // max(1, min(target, most))))
     if group > GROUP_CAP:               # more chunks a thread, not threads
         group = max(GROUP_CAP, _pow2(-(-units // max(1, most))))
@@ -120,10 +116,9 @@ def norm_plan(n_rows: int, d: int, elt: int = 4, wide: bool = True,
         grid = max(1, min(n_rows, sms * MAX_SM_THREADS // LOOP_THREADS))
         return NormPlan(vec, -(-units // LOOP_THREADS), LOOP_THREADS, 1,
                         LOOP_THREADS, grid, True, grid < n_rows)
-    rows = max(1, block // group)
+    rows = max(1, BLOCK_THREADS // group)
     threads = rows * group
-    if sm_threads is None:
-        sm_threads = min(MAX_SM_THREADS, max(SM_THREADS, SM_GROUPS * group))
+    sm_threads = min(MAX_SM_THREADS, max(SM_THREADS, SM_GROUPS * group))
     blocks = max(1, -(-n_rows // rows))
     cap = sms * max(1, sm_threads // threads)
     walk = -(-blocks // cap)
@@ -152,17 +147,13 @@ def _word(kind: str, n_rows: int, d: int, elt: int, wide: bool, sms: int,
 def _weight_path(word: int, codes: Tuple[int, int, int], w: torch.Tensor,
                  b: Optional[torch.Tensor]) -> int:
     """The instance's weight path (``row_norm.cuh`` ``load_weight_sel``):
-    0 or 1 reads an f32 weight, or one of x's type, in whole chunks, where
-    the rows are read in 16-byte chunks and the weight (and bias, of the
-    same type) is 16-byte aligned; else 2, an element a load."""
-    xdt, wdt, bdt = codes
-    if (word >> 6 & 1 and w.data_ptr() % 16 == 0
-            and (b is None or (bdt == wdt and b.data_ptr() % 16 == 0))):
-        if wdt == 0:
-            return 0
-        if wdt == xdt:
-            return 1
-    return 2
+    0 reads an f32 weight (and bias) in whole chunks, where the rows are
+    read in 16-byte chunks and the weight and bias are 16-byte aligned, as
+    in every model; else 1, an element a load."""
+    _, wdt, bdt = codes
+    whole = (word >> 6 & 1 and wdt == 0 and w.data_ptr() % 16 == 0
+             and (b is None or (bdt == 0 and b.data_ptr() % 16 == 0)))
+    return 0 if whole else 1
 
 
 def source_job(kind: str) -> Tuple[str, str, list]:
@@ -204,12 +195,11 @@ def _sms(index: int) -> int:
 
 def launch(kind: str, x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor], eps: float,
-           codes: Tuple[int, int, int],
-           plan: Optional[NormPlan] = None) -> torch.Tensor:
+           codes: Tuple[int, int, int]) -> torch.Tensor:
     """One launch of ``kind``'s kernel over the last axis of the CUDA
     tensor ``x`` with weight ``w`` (and bias ``b``), each (D,); ``codes``
     the dtype codes of x, w and b.  Returns a tensor of ``x``'s shape and
-    dtype.  ``plan`` overrides :func:`norm_plan` (for timing candidates)."""
+    dtype."""
     d = x.shape[-1]
     if x.is_contiguous():
         rows, xs = x, d
@@ -231,10 +221,7 @@ def launch(kind: str, x: torch.Tensor, w: torch.Tensor,
     elt = x.element_size()
     wide = ptr % 16 == 0 and (n_rows == 1 or xs * elt % 16 == 0)
     idx = dev.index
-    if plan is None:
-        word, grid = _word(kind, n_rows, d, elt, wide, _sms(idx), codes)
-    else:
-        word, grid = launch_word(plan, *codes), plan.grid
+    word, grid = _word(kind, n_rows, d, elt, wide, _sms(idx), codes)
     word |= _weight_path(word, codes, w, b) << 24
     fn, err = _function(kind)
     args = (ptr, w.data_ptr(), None if b is None else b.data_ptr(),

@@ -10,16 +10,21 @@ arithmetic, their wrappers' checks, and the kernels on the card.
   the group = the threads, a multiple of 32, and a grid that covers the
   rows or fills the card with groups that walk them; 4 decode rows get a
   grid sized to the rows.
-* **Arithmetic** (CPU): the kernels' summation order emulated in f32 from
-  the plan (each thread's chunks in order, the warp butterfly, the second
-  level over a group's warps, the f32 1/D, the products in the plain
-  version's order) against the plain versions, which the JAX package's
-  Pallas kernels already hold (``tests/test_torch_attention.py``,
-  ``tests/test_torch_rwkv.py``).  Tolerance: 1e-5 of max|ref| in f32
-  (summation order), one bf16 rounding (8e-3) in bf16.
+* **Summation order** (CPU): a check of the order alone, not of the
+  kernel, which runs only on the card.  The kernels' order of sums,
+  emulated in f32 from the plan in PyTorch (each thread's chunks in
+  order, the warp butterfly, the second level over a group's warps, the
+  f32 1/D, the products in the plain version's order), stays within the
+  tolerance of the plain versions, which the JAX package's Pallas kernels
+  already hold (``tests/test_torch_attention.py``,
+  ``tests/test_torch_rwkv.py``).  Tolerance: 1e-5 of max|ref| in f32,
+  one bf16 rounding (8e-3) in bf16.  The card cases hold the kernel
+  itself at the same widths.
 * **Card cases** (``-k on_card``; they skip without CUDA): each kernel
   against its plain version on the same card inputs through
-  ``plain_versions()``, at the models' widths and an odd one, on row
+  ``plain_versions()``, at the models' widths, an odd one and those of
+  the summation-order check (96; 4097 and 20000, the loop instance), on
+  row
   views with a stride larger than D and on rows that are not 16-byte
   aligned, in f16 (RMSNorm) and with 16-bit weights, at 0, 1 and 20000
   rows (more rows than the grid holds groups, so the groups walk), and on
@@ -230,6 +235,8 @@ def _emulate(kind, x, w, b, eps, plan):
 @pytest.mark.parametrize("d,rows", [(2560, 6), (2048, 3), (2561, 3),
                                     (96, 5), (20000, 2), (4097, 2)])
 def test_kernel_arithmetic_matches_plain(kind, dtype, d, rows):
+    """The kernels' summation order, emulated on the CPU (the kernel
+    itself is held at these widths by test_norm_kernel_widths_on_card)."""
     rs = np.random.RandomState(d + rows)
     off = 3.0 if kind == "layernorm" else 0.0
     x = torch.from_numpy((rs.standard_normal((rows, d)) + off)
@@ -273,9 +280,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 def test_weight_path_takes_whole_chunks_only_where_it_may():
-    """An aligned f32 weight, or one of x's type, is read in whole chunks
-    for 16-byte rows; anything else (a mixed or unaligned weight, a bias
-    of another type, rows read a column a chunk) an element a load."""
+    """An aligned f32 weight (and bias), as every model has, is read in
+    whole chunks for 16-byte rows; anything else (a 16-bit weight or bias,
+    an unaligned one, rows read a column a chunk) an element a load."""
     wide = row_norm.launch_word(row_norm.norm_plan(8, 64, 2, True, SMS),
                                 1, 0)
     narrow = row_norm.launch_word(row_norm.norm_plan(8, 64, 2, False, SMS),
@@ -285,12 +292,15 @@ def test_weight_path_takes_whole_chunks_only_where_it_may():
     assert w32.data_ptr() % 16 == 0 and w16.data_ptr() % 16 == 0
     path = row_norm._weight_path
     assert path(wide, (1, 0, 0), w32[:64], None) == 0
-    assert path(wide, (1, 1, 0), w16[:64], None) == 1
+    assert path(wide, (1, 0, 0), w32[:64], w32[8:72]) == 0
+    assert path(wide, (0, 0, 0), w32[:64], None) == 0     # f32 x
+    assert path(wide, (1, 1, 0), w16[:64], None) == 1     # x's type
     assert path(wide, (1, 1, 1), w16[:64], w16[8:72]) == 1
-    assert path(wide, (1, 0, 1), w32[:64], w16[:64]) == 2
-    assert path(wide, (1, 2, 0), w16[:64], None) == 2     # f16 w, bf16 x
-    assert path(wide, (1, 0, 0), w32[1:65], None) == 2    # unaligned
-    assert path(narrow, (1, 0, 0), w32[:64], None) == 2
+    assert path(wide, (1, 0, 1), w32[:64], w16[:64]) == 1
+    assert path(wide, (1, 2, 0), w16[:64], None) == 1     # f16 w, bf16 x
+    assert path(wide, (1, 0, 0), w32[1:65], None) == 1    # unaligned
+    assert path(wide, (1, 0, 0), w32[:64], w32[1:65]) == 1
+    assert path(narrow, (1, 0, 0), w32[:64], None) == 1
 
 
 def test_build_jobs_name_the_sources():
@@ -351,7 +361,8 @@ KINDS_DTYPES = ([("rmsnorm", t) for t in (torch.float32, torch.bfloat16,
 
 
 @pytest.mark.parametrize("kind,dtype", KINDS_DTYPES)
-@pytest.mark.parametrize("d", [2048, 2560, 3584, 6144, 2561])
+@pytest.mark.parametrize("d", [2048, 2560, 3584, 6144, 2561, 96, 4097,
+                               20000])
 def test_norm_kernel_widths_on_card(cuda, kind, dtype, d):
     gen = torch.Generator(device=cuda).manual_seed(d)
     for rows in (4, 2048):      # the decode and the prefill plan
@@ -385,6 +396,7 @@ def test_norm_kernel_row_views_on_card(cuda, kind, dtype, view):
                                         ("rmsnorm", torch.float16),
                                         ("layernorm", torch.bfloat16)])
 def test_norm_kernel_16bit_weights_on_card(cuda, kind, dtype):
+    """A scale and bias of x's type, read an element a load."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     for rows in (4, 2048):
         _check(kind, *_card_inputs(gen, kind, (rows, 2560), dtype, dtype))
