@@ -46,7 +46,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    relative to the row's sum of magnitudes.  Times kernel, plain version
    and (where one exists) a single PyTorch call with CUDA events at the
    path's ``n_valid``, and computes each kernel's bound from the bytes
-   it must move.
+   it must move; then prints the path's kLoop and kInput device ms a
+   request (each program's launches in one request times its ms).  The
+   wrappers' host µs a call at S = 37 (bucket 64), 1000 calls back to
+   back (``launch_times``), print beside it.  After path 1 in f32, two
+   kInput rows beyond the paths: one row of 4 M elements (its columns
+   split over programs, the partials combined in a fixed order) and a
+   reduce over axis 0 of 2048 x 2048, each held row by row and run twice
+   (the same bits), timed beside ``torch.linalg.vecdot``.  Every kLoop
+   and kInput launch of the paths must fall in the aligned class
+   (``ops.UNALIGNED_LAUNCHES`` 0).
 4. **Path 2.**  The same model with a token-major residual stream,
    x (T, 2048): the layer functions composed so that the MLP's
    projections are plain 2-D dots, which the planner fuses with their
@@ -56,7 +65,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    the plan's kDots per request times the requests; every launch on the
    body of its dtype (``wgmma`` for bf16, ``ffma`` for f32) and no
    operand copied (``ops.OPERAND_COPIES``), every f32 launch on the
-   16-byte instance (``ops.FFMA_SCALAR_LAUNCHES`` 0).
+   16-byte instance (``ops.FFMA_SCALAR_LAUNCHES`` 0).  Path 2's kLoop
+   and kInput programs are held and timed as in phase 3.  Then every
+   kLoop and kInput program's generated modules and Triton
+   specialisations print beside the instances it launched (plan
+   constants, alignment class, operands' 16-byte bases), with each
+   kernel's global loads and stores by width from its PTX: a program
+   that built more kernels than instances (a recompile for a length)
+   fails the run, and so does an aligned instance whose PTX shows no
+   16-byte loads (kLoop: and stores).
 5. **kDot kernel.**  Every kDot program path 2 launched (recorded at
    T = 1999) against ``matmul_fused_ref`` on the same card inputs: at the
    path's valid M, at a smaller valid M, and once with ragged N and K;
@@ -786,7 +803,8 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
                 "matmul_epilogue": mm.EPILOGUE_LAUNCHES}
     runs0 = {t: k.runs for t, k in kern.items()}
     for c in (*counters.values(), mm.OPERAND_COPIES,
-              mm.FFMA_SCALAR_LAUNCHES, *mm.BODY_LAUNCHES.values()):
+              mm.FFMA_SCALAR_LAUNCHES, *mm.BODY_LAUNCHES.values(),
+              fe.UNALIGNED_LAUNCHES, fr.UNALIGNED_LAUNCHES):
         c.reset()
     rows = []
     for s in REQUESTS:
@@ -803,6 +821,8 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
         if s == 45:
             check(after == before, f"{tag} {s} compiled anew (bucket {key})")
     launches = {name: c.launches for name, c in counters.items()}
+    unaligned = {"fused_elementwise": fe.UNALIGNED_LAUNCHES.launches,
+                 "fused_reduce": fr.UNALIGNED_LAUNCHES.launches}
     copies = mm.OPERAND_COPIES.launches
     scalar = mm.FFMA_SCALAR_LAUNCHES.launches
     bodies = {b: c.launches for b, c in mm.BODY_LAUNCHES.items()}
@@ -847,8 +867,11 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
           f"distinct_buckets={sorted(buckets)} cache={f.cache_stats()}",
           flush=True)
     print(f"{tag} cluster runs: " + ", ".join(
-        f"{t}={n}" for t, n in runs.items()) + f"; launches={launches}",
+        f"{t}={n}" for t, n in runs.items()) + f"; launches={launches}; "
+        f"kLoop / kInput launches in the unaligned class {unaligned}",
         flush=True)
+    check(not any(unaligned.values()),
+          f"{tag} cluster launches in the unaligned class: {unaligned}")
     check(counts["total"] == len(buckets),
           f"{tag} {counts['total']} compiles for {len(buckets)} buckets")
     for template, name in (("kLoop", "fused_elementwise"),
@@ -880,10 +903,15 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
     report[(path, dtype_name)] = dict(launches=launches, compiles=counts,
                                       lower_s=art["lower_s"])
 
-    # one extra, uncounted run records every kernel program at 1999
+    # extra, uncounted runs record every kernel program at 1999, and at
+    # 37 for the wrappers' host cost
     with Recorder() as rec:
         f(inputs[1999])
         torch.cuda.synchronize()
+    with Recorder() as rec37:
+        f(inputs[37])
+        torch.cuda.synchronize()
+    host_phase(rec37.calls, tag)
     return rec.calls
 
 
@@ -951,9 +979,12 @@ def reduce_rows_ok(program, xs, n_cols, kind, ax, shape, out_k, out_p,
     return bool((d <= TOL_REDUCE_ROW[dname] * mag).all())
 
 
-def kernel_phase(calls: dict, dtype_name: str, launches: dict, rows: list):
+def kernel_phase(calls: dict, dtype_name: str, launches: dict, rows: list,
+                 path: str = "path1"):
     """Each recorded program through the wrapper the path calls, against
-    its plain version on the same card inputs."""
+    its plain version on the same card inputs; then the path's kLoop and
+    kInput device ms a request (each program's launches in one request
+    times its ms)."""
     import torch
 
     from repro_torch.kernels.fused_elementwise import ops as fe
@@ -1064,7 +1095,8 @@ def kernel_phase(calls: dict, dtype_name: str, launches: dict, rows: list):
                    bound_ms=bound_ms,
                    bound_by="bytes" if bytes_s >= ops_s else "operations",
                    library_ms=lib_ms)
-        detail = dict(dtype=dname, program=prog.key, shape=list(shape),
+        detail = dict(path=path, dtype=dname, program=prog.key,
+                      shape=list(shape),
                       n_valid=n_path, steps=[s.opcode for s in prog.steps],
                       path_launches_of_program=c["count"]
                       if dname == dtype_name else 0,
@@ -1075,6 +1107,135 @@ def kernel_phase(calls: dict, dtype_name: str, launches: dict, rows: list):
                   f"(max|ref| {scale:.3e})")
         check(tails_ok, f"{name} {dname} {prog.key}: padded tail not zero")
         rows.append((row, detail))
+    per_request = {}
+    for row, d in rows:
+        if d.get("path") == path and d["dtype"] == dtype_name:
+            per_request[row["name"]] = per_request.get(row["name"], 0.0) + \
+                d["path_launches_of_program"] * row["ms"]
+    print(f"[kernels] {path} {dtype_name} device ms a request at S = 1999 "
+          f"(bucket 2048), launches x ms summed over programs: "
+          + json.dumps(per_request), flush=True)
+
+
+def host_phase(calls: dict, tag: str) -> None:
+    """The kLoop and kInput wrappers' host µs a call at a recorded
+    request (path 1's S = 37: bucket 64), 1000 calls back to back, beside
+    the device µs a call (``launch_times``)."""
+    from repro_torch.kernels.fused_elementwise import ops as fe
+    from repro_torch.kernels.fused_reduce import ops as fr
+
+    for k, c in calls.items():
+        if k[0] == "fused_elementwise":
+            run = (lambda c=c: fe.fused_elementwise(
+                c["program"], c["inputs"], c["n_valid"], c["shape"]))
+        elif k[0] == "fused_reduce":
+            run = (lambda c=c: fr.fused_reduce(
+                c["program"], c["inputs"], c["n_valid"], c["kind"],
+                axis=c["axis"], shape=c["shape"], out_dtype=c["out_dtype"]))
+        else:
+            continue
+        t = launch_times(run)
+        print(f"[host] {tag} {k[0]} {c['program'].key} shape="
+              f"{list(c['shape'])} host_us={t['host_us']:.2f} "
+              f"back_to_back_us={t['back_to_back_us']:.2f} device_us="
+              f"{t['device_us']}", flush=True)
+
+
+def reduce_extra_rows(rows: list) -> None:
+    """kInput beyond the paths' shapes, f32, through the wrapper: one row
+    of 4 M elements (its columns split over programs, the partials
+    combined in a fixed order) and a reduce over axis 0 of 2048 x 2048
+    (lanes along the kept axis).  Each against its plain version row by
+    row and twice (the same bits), timed beside ``torch.linalg.vecdot``,
+    with its bound from the bytes it must move."""
+    import torch
+
+    from repro_torch.kernels.fused_reduce import ops as fr
+    from repro_torch.kernels.fused_reduce.ref import fused_reduce_ref
+    from repro_torch.kernels.program import Program, Step
+
+    f32 = torch.float32
+    prog = Program((f32,), (Step("mul", (("in", 0), ("in", 0)), f32),),
+                   (("t", 0),))
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for label, shape, axis, n_cols in (("one_row_4m", (1, 4 << 20), 1,
+                                        (4 << 20) - 77),
+                                       ("axis0", (2048, 2048), 0, 2048)):
+        x = torch.randn(shape, generator=gen, device="cuda")
+
+        def run_k(x=x, shape=shape, axis=axis, n=n_cols):
+            return fr.fused_reduce(prog, [x], n, "sum", axis=axis,
+                                   shape=shape, out_dtype=f32)
+
+        before = fr.LAUNCHES.launches
+        out_k, again = run_k(), run_k()
+        check(fr.LAUNCHES.launches == before + 2,
+              f"fused_reduce {label}: launches")
+        out_p = fused_reduce_ref(prog, [x], n_cols, "sum", axis, shape, f32)
+        torch.cuda.synchronize()
+        check(torch.equal(out_k, again), f"fused_reduce {label}: two runs "
+                                         f"gave different bits")
+        ok = reduce_rows_ok(prog, [x], n_cols, "sum", axis, shape, out_k,
+                            out_p, "f32")
+        err = (out_k - out_p).abs().max().item()
+        xv = x.narrow(axis, 0, n_cols)
+        ms = cuda_ms(run_k)
+        plain_ms = cuda_ms(lambda: fused_reduce_ref(prog, [x], n_cols, "sum",
+                                                    axis, shape, f32))
+        lib_ms = cuda_ms(lambda: torch.linalg.vecdot(xv, xv, dim=axis))
+        n_out = out_k.numel()
+        byts = n_out * n_cols * 4 + n_out * 4
+        bytes_s = byts / HBM_BYTES_PER_S * 1e3
+        ops_s = 2 * n_out * n_cols / F32_FLOPS * 1e3
+        row = dict(name="fused_reduce", **KERNELS["fused_reduce"],
+                   launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(bytes_s, ops_s),
+                   bound_by="bytes" if bytes_s >= ops_s else "operations",
+                   library_ms=lib_ms)
+        detail = dict(path="beyond the paths", case=label, dtype="f32",
+                      program=prog.key, shape=list(shape), axis=axis,
+                      n_valid=n_cols, path_launches_of_program=0,
+                      bytes=byts, max_ref=out_p.abs().max().item())
+        print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
+        check(ok, f"fused_reduce {label}: max|d| {err:.3e}")
+        rows.append((row, detail))
+
+
+def cluster_builds() -> None:
+    """Each kLoop / kInput program's generated modules and Triton
+    specialisations after paths 1-2 and their kernel phases, beside the
+    instances it launched (plan constants, alignment class, operands'
+    16-byte bases: every length is a runtime argument).  Fails where a
+    program built more kernels than instances (a recompile for a length)
+    or where no kernel of an aligned instance shows 16-byte global loads
+    (and, for kLoop, stores) in its PTX."""
+    from repro_torch.kernels import triton_build
+    from repro_torch.kernels.fused_elementwise import \
+        fused_elementwise as fe_k
+    from repro_torch.kernels.fused_reduce import fused_reduce as fr_k
+
+    for label, mod, fn in (("kLoop", fe_k, "kloop"),
+                           ("kInput", fr_k, "kinput")):
+        for key, insts in sorted(mod.INSTANCES.items()):
+            names = sorted({i[0] for i in insts})
+            kernels = [k for n in names for k in triton_build.compiled(n, fn)]
+            ptx = [triton_build.ptx_accesses(k.asm["ptx"]) for k in kernels]
+            aligned = sum(1 for i in insts if i[-2])
+            print(f"[build] {label} program {key}: modules {len(names)}, "
+                  f"Triton specialisations {len(kernels)}, instances "
+                  f"{len(insts)} ({aligned} aligned); PTX global accesses "
+                  f"{ptx}; registers "
+                  f"{[getattr(k, 'n_regs', None) for k in kernels]}",
+                  flush=True)
+            check(len(kernels) <= len(insts),
+                  f"{label} program {key}: {len(kernels)} Triton "
+                  f"specialisations for {len(insts)} instances")
+            if aligned:
+                check(any(c.get("ld.v4") for c in ptx),
+                      f"{label} program {key}: no 16-byte loads")
+                if label == "kLoop":
+                    check(any(c.get("st.v4") for c in ptx),
+                          f"{label} program {key}: no 16-byte stores")
 
 
 def gemm_bound(a_bytes: int, b_bytes: int, other_bytes: int, flops: int,
@@ -2644,6 +2805,8 @@ def main(argv=None) -> int:
             calls = path_phase("path1", art, dname, args.seed, cfg, report)
             kernel_phase(calls, dname, report[("path1", dname)]["launches"],
                          rows)
+            if dname == "f32":
+                reduce_extra_rows(rows)
             del art, calls
             print(f"[phase path1 {dname}] {time.perf_counter() - t0:.1f} s",
                   flush=True)
@@ -2671,11 +2834,14 @@ def main(argv=None) -> int:
                                report)
             gemm_phase(calls, dname, report[("path2", dname)]["launches"],
                        rows)
+            kernel_phase(calls, dname, report[("path2", dname)]["launches"],
+                         rows, path="path2")
             del calls
             path2[dname] = None
             print(f"[phase path2 {dname}] {time.perf_counter() - t0:.1f} s",
                   flush=True)
             torch.cuda.empty_cache()
+        cluster_builds()
         t0 = time.perf_counter()
         library_phase(rows, report)
         print(f"[phase library] {time.perf_counter() - t0:.1f} s",

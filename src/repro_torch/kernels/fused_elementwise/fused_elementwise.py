@@ -3,42 +3,58 @@
 Replaces the JAX package's ``kernels/fused_elementwise/fused_elementwise.py``
 ``fused_elementwise_kernel`` (a Pallas TPU kernel).
 
-One Triton kernel executes an entire kLoop fusion cluster over the
-flattened element domain and writes every live-out of the cluster from the
-same launch.  The cluster's expression is generated as Triton source from
-its :class:`~repro_torch.kernels.program.Program` (the reference unrolls a
+One Triton kernel executes an entire kLoop fusion cluster and writes
+every live-out of the cluster from the same launch.  The cluster's
+expression is generated as Triton source from its
+:class:`~repro_torch.kernels.program.Program` (the reference unrolls a
 Python closure at trace time; Triton cannot take one) and cached by the
-program's fingerprint, so the identical clusters of every layer share one
-compiled kernel.
+program's fingerprint and its operands' structure, so the identical
+clusters of every layer share one compiled kernel.
 
-* ``n_valid`` and ``total`` are runtime arguments listed in
-  ``do_not_specialize``, like every size and stride: a new length inside a
-  bucket, or a new bucket, reuses the compiled kernel.  Positions at or
-  beyond ``n_valid`` store exact zeros, as the reference does.
-* Operands may be broadcast views (a per-row scale, a bias row): each is
-  read in place through its own flat-index → offset terms
-  (:func:`~repro_torch.kernels.triton_build.index_terms`); a dense
-  operand is read at the flat index itself, which vectorizes.
 * What bounds it on an H100: bytes.  Every output element costs a few
-  flops against 4–12 bytes of traffic, far below the card's ~295 flop/byte
-  balance point, so the kernel is written to move each operand byte once:
-  1-D blocks of ``BLOCK`` elements, 4 warps (8 contiguous elements per
-  thread, 16-byte accesses for f32 and bf16 pairs), no shared memory.
-  The TPU's 8×128 tile versions and pad-to-1024 path are not carried over.
+  flops against 4–12 bytes of traffic, far below the card's ~295
+  flop/byte balance point, so the design moves each operand byte once,
+  in 16-byte accesses, with no integer division per element.
+* The iteration is rows × columns (:func:`cluster_plan.loop_plan`).  A
+  program covers a tile of ``BR`` rows × ``BC`` columns: a per-row
+  operand (an RMSNorm scale, a softmax sum) is loaded once a row of the
+  tile, a per-column operand (a weight) once a tile as one contiguous
+  vector, a dense one at its row offset plus the column.  Row offsets
+  come from each operand's row terms, once a row.
+* Tiles wholly inside the domain and inside ``n_valid`` take an
+  unmasked body; in the aligned class (a compile-time constant) their
+  offsets carry ``tl.multiple_of``, so Triton emits 16-byte loads and
+  stores though every length is a runtime argument.  The rest take a
+  masked body: the loads masked per row (``clamp(total − r·C, 0, C)``),
+  positions at or beyond ``n_valid`` stored as exact zeros, as the
+  reference does.
+* Sizes, strides and ``n_valid`` are listed in ``do_not_specialize``: a
+  new length inside a bucket, or a new bucket at the same width, reuses
+  the compiled kernel.  Values are computed with ``triton_lines``'
+  per-op roundings under ``triton_build.CLUSTER_OPTIONS`` (no FMA
+  contraction, libdevice without flush-to-zero), so the kernel matches
+  the plain version bit for bit, subnormal values included.
+* The TPU's 8×128 tile versions and pad-to-1024 path are not carried
+  over.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Set, Tuple
 
 import torch
 
+from ..cluster_plan import LoopPlan, layouts, loop_plan
 from ..program import Program, triton_dtype, triton_lines
-from ..triton_build import index_terms, load_kernel, term_source, triton
+from ..triton_build import CLUSTER_OPTIONS, load_kernel, term_source
+from .ops import UNALIGNED_LAUNCHES
 
-__all__ = ["fused_elementwise_kernel", "BLOCK", "NUM_WARPS"]
+__all__ = ["fused_elementwise_kernel", "launch", "module_name", "INSTANCES"]
 
-BLOCK = 1024
-NUM_WARPS = 4
+#: program key -> the (module, tile, warps, alignment class, operands'
+#: 16-byte bases) instances it launched: Triton, which specialises on
+#: nothing else (every length is in ``do_not_specialize``), builds at most
+#: one kernel for each
+INSTANCES: Dict[str, Set[Tuple]] = {}
 
 _HEADER = '''import triton
 import triton.language as tl
@@ -49,58 +65,123 @@ except ImportError:  # Triton < 3.0
 '''
 
 
-def _structure(inputs, shape) -> Tuple[Tuple, List[List[Tuple[int, int, int]]]]:
-    """Per operand: ``"flat"`` (dense, same shape) or its term count plus
-    whether the first term spans the whole index range (no modulo)."""
-    total = 1
-    for d in shape:
-        total *= d
-    kinds, terms = [], []
-    for x in inputs:
-        t = index_terms(x, shape)
-        if t == [(1, total, 1)]:
-            kinds.append("flat")
-            terms.append([])
+def _loads(plan: LoopPlan, masked: bool) -> List[str]:
+    lines = []
+    for i, op in enumerate(plan.operands):
+        p = f"in_{i}"
+        if op.col == "zero":
+            if op.terms:
+                m = ", mask=lim > 0, other=0" if masked else ""
+                lines.append(f"x{i} = tl.load({p} + roff_{i}{m})[:, None]")
+            else:
+                lines.append(f"x{i} = tl.load({p})")
+            continue
+        col = "cols" if op.col == "unit" else f"cols * c{i}_stride"
+        if op.terms:
+            m = ", mask=m, other=0" if masked else ""
+            lines.append(f"x{i} = tl.load({p} + (roff_{i}[:, None] + "
+                         f"{col}[None, :]){m})")
         else:
-            whole = bool(t) and t[0][0] * t[0][1] == total
-            kinds.append((len(t), whole))
-            terms.append(t)
-    return tuple(kinds), terms
+            # a per-column operand read through the tile's own shape, so
+            # that it takes the dense operands' register layout (a [BC]
+            # load took its own, and a 16-bit store's layout then cost a
+            # trip through shared memory)
+            m = ", mask=tl.broadcast_to((cols < n_cols)[None, :], " \
+                "(BR, BC)), other=0" if masked else ""
+            lines.append(f"x{i} = tl.load(tl.broadcast_to({p} + "
+                         f"{col}[None, :], (BR, BC)){m})")
+    return lines
 
 
-def _source(program: Program, kinds) -> str:
+def _source(program: Program, plan: LoopPlan) -> str:
     n_in, n_out = len(program.in_dtypes), len(program.outs)
     args = [f"in_{i}" for i in range(n_in)] + \
-        [f"out_{k}" for k in range(n_out)] + ["n_valid", "total"]
-    for i, kind in enumerate(kinds):
-        if kind != "flat":
-            for k in range(kind[0]):
-                args += [f"i{i}_{k}_inner", f"i{i}_{k}_size",
-                         f"i{i}_{k}_stride"]
+        [f"out_{k}" for k in range(n_out)] + \
+        ["n_rows", "n_cols", "n_valid", "total"]
+    for i, op in enumerate(plan.operands):
+        for k in range(len(op.terms)):
+            args += [f"r{i}_{k}_inner", f"r{i}_{k}_size", f"r{i}_{k}_stride"]
+        if op.col == "strided":
+            args.append(f"c{i}_stride")
     runtime = [a for a in args if not a.startswith(("in_", "out_"))]
     lines = [_HEADER, "",
              f"@triton.jit(do_not_specialize={runtime!r})",
-             f"def kloop({', '.join(args)}, BLOCK: tl.constexpr):",
+             f"def kloop({', '.join(args)}, BR: tl.constexpr, "
+             f"BC: tl.constexpr, ALIGNED: tl.constexpr):",
              "    pid = tl.program_id(0)",
-             "    idx = pid * BLOCK + tl.arange(0, BLOCK)",
-             "    inb = idx < total"]
-    loaded = []
-    for i, kind in enumerate(kinds):
-        if kind == "flat":
-            off = "idx"
-        else:
-            off = f"off_{i}"
-            lines.append("    " + term_source(off, "idx", kind[0], kind[1],
-                                              f"i{i}_"))
-        lines.append(f"    x{i} = tl.load(in_{i} + {off}, mask=inb, other=0)")
-        loaded.append(f"x{i}")
-    body, outs = triton_lines(program, loaded)
+             "    n_cb = tl.cdiv(n_cols, BC)",
+             "    rt = pid // n_cb",
+             "    r0 = rt * BR",
+             "    c0 = (pid - rt * n_cb) * BC",
+             "    rows = r0 + tl.arange(0, BR)",
+             "    cols = c0 + tl.arange(0, BC)",
+             "    orow = rows * n_cols",
+             "    if ALIGNED:",
+             f"        orow = tl.multiple_of(orow, {plan.out_vec})"]
+    for i, op in enumerate(plan.operands):
+        if not op.terms:
+            continue
+        lines.append("    " + term_source(f"roff_{i}", "rows", len(op.terms),
+                                          op.whole, f"r{i}_"))
+        if op.col == "unit" and plan.vec[i] > 1:
+            lines += ["    if ALIGNED:",
+                      f"        roff_{i} = tl.multiple_of(roff_{i}, "
+                      f"{plan.vec[i]})"]
+    loaded = [f"x{i}" for i in range(n_in)]
+    ind = "        "
+    lines += ["    full = (r0 + BR <= n_rows) & (c0 + BC <= n_cols) & "
+              "((r0 + BR - 1) * n_cols + c0 + BC <= n_valid)",
+              "    if full:"]
+    lines += [ind + s for s in _loads(plan, masked=False)]
+    body, outs = triton_lines(program, loaded, indent=ind)
     lines += body
-    lines.append("    keep = idx < n_valid")
     for k, (name, dt) in enumerate(zip(outs, program.out_dtypes)):
-        lines.append(f"    tl.store(out_{k} + idx, tl.where(keep, {name}, 0)"
-                     f".to({triton_dtype(dt)}), mask=inb)")
+        lines.append(f"{ind}tl.store(out_{k} + (orow[:, None] + "
+                     f"cols[None, :]), tl.broadcast_to(({name})"
+                     f".to({triton_dtype(dt)}), (BR, BC)))")
+    lines += ["    else:",
+              f"{ind}lim = tl.minimum(tl.maximum(total - orow, 0), n_cols)",
+              f"{ind}keep_n = tl.minimum(tl.maximum(n_valid - orow, 0), "
+              f"n_cols)",
+              f"{ind}m = cols[None, :] < lim[:, None]",
+              f"{ind}keep = cols[None, :] < keep_n[:, None]"]
+    lines += [ind + s for s in _loads(plan, masked=True)]
+    body, outs = triton_lines(program, loaded, indent=ind)
+    lines += body
+    for k, (name, dt) in enumerate(zip(outs, program.out_dtypes)):
+        lines.append(f"{ind}tl.store(out_{k} + (orow[:, None] + "
+                     f"cols[None, :]), tl.where(keep, {name}, 0)"
+                     f".to({triton_dtype(dt)}), mask=m)")
     return "\n".join(lines) + "\n"
+
+
+def module_name(program: Program, plan: LoopPlan) -> str:
+    """One generated module per (program, operand structure), whatever
+    the lengths."""
+    return f"kloop2_{program.key}_{plan.structure}"
+
+
+def launch(program: Program, inputs: Sequence[torch.Tensor], n_valid: int,
+           shape: Sequence[int], plan: LoopPlan) -> List[torch.Tensor]:
+    """Launch the kLoop kernel of ``program`` with ``plan`` (CUDA)."""
+    name = module_name(program, plan)
+    mod = load_kernel(name, lambda: _source(program, plan))
+    INSTANCES.setdefault(program.key, set()).add(
+        (name, plan.block_r, plan.block_c, plan.num_warps, plan.aligned,
+         plan.bases))
+    if not plan.aligned:
+        UNALIGNED_LAUNCHES.launches += 1
+    dev = inputs[0].device
+    outs = [torch.empty(shape, dtype=dt, device=dev)
+            for dt in program.out_dtypes]
+    if plan.total:
+        n_valid = min(max(int(n_valid), 0), plan.total)
+        mod.kloop[(plan.grid,)](*inputs, *outs, plan.n_rows, plan.n_cols,
+                                n_valid, plan.total, *plan.args(),
+                                BR=plan.block_r, BC=plan.block_c,
+                                ALIGNED=plan.aligned,
+                                num_warps=plan.num_warps, **CLUSTER_OPTIONS)
+    return outs
 
 
 def fused_elementwise_kernel(program: Program, inputs: Sequence[torch.Tensor],
@@ -108,34 +189,13 @@ def fused_elementwise_kernel(program: Program, inputs: Sequence[torch.Tensor],
                              ) -> List[torch.Tensor]:
     """Launch the kLoop kernel for ``program`` over ``shape`` (CUDA)."""
     shape = tuple(int(d) for d in shape)
-    total = 1
-    for d in shape:
-        total *= d
-    if total >= 2 ** 31:
-        raise ValueError(f"kLoop iteration space {shape} exceeds int32 "
-                         f"indexing")
     dev = inputs[0].device
     for x in inputs:
         if x.device != dev:
             raise ValueError(f"kLoop operands on {x.device} and {dev}")
-    kinds, terms = _structure(inputs, shape)
-    mod = load_kernel(f"kloop_{program.key}_{_key(kinds)}_b{BLOCK}",
-                      lambda: _source(program, kinds))
-    outs = [torch.empty(shape, dtype=dt, device=dev)
-            for dt in program.out_dtypes]
-    flat_args: List[int] = []
-    for t in terms:
-        for term in t:
-            flat_args += list(term)
-    if total:
-        grid = (triton().cdiv(total, BLOCK),)
-        mod.kloop[grid](*inputs, *outs, int(n_valid), total,
-                                    *flat_args, BLOCK=BLOCK,
-                                    num_warps=NUM_WARPS,
-                                    enable_fp_fusion=False)
-    return outs
-
-
-def _key(kinds) -> str:
-    return "".join("f" if k == "flat" else f"s{k[0]}{int(k[1])}"
-                   for k in kinds)
+    plan = loop_plan(shape, layouts(inputs, shape),
+                     tuple(dt.itemsize for dt in program.out_dtypes))
+    if plan.total + plan.block_r * plan.n_cols >= 2 ** 31:
+        raise ValueError(f"kLoop iteration space {shape} exceeds int32 "
+                         f"indexing")
+    return launch(program, inputs, n_valid, shape, plan)

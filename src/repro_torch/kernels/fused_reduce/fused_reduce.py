@@ -4,35 +4,55 @@ Replaces the JAX package's ``kernels/fused_reduce/fused_reduce.py``
 ``fused_reduce_kernel`` (a Pallas TPU kernel): elementwise producers
 recomputed inside a masked single-axis ``sum``/``max``/``min``/``prod``.
 
-* Layout: rows = the kept axes, columns = the reduced axis.  A non-last
-  reduce axis is not transposed in memory: each operand is read through
-  its own row terms and column stride, so the permutation is free.
-* Each program owns ``BLOCK_R`` rows and loops over the columns in
-  ``BLOCK_C`` chunks with a running f32 accumulator — the reference loads
-  whole rows into VMEM (4 MiB budget); a Hopper SM has 227 KB of shared
-  memory and registers are scarcer, so rows of any length stream through
-  a fixed (BLOCK_R, BLOCK_C) register tile.
-* ``n_cols`` is the *valid* column count, a runtime argument: the loop
-  stops there, so masked tail columns take the identity without being
-  read.  Sizes and strides are runtime arguments in ``do_not_specialize``
-  (no recompile per length or bucket).  The result is stored in the
-  reduce's dtype after f32 accumulation.
-* What bounds it on an H100: bytes (a few flops per element read).
+* What bounds it on an H100: bytes (a few flops per element read).  The
+  design reads each operand byte once in 16-byte accesses, keeps enough
+  loads in flight, and spreads the work over the 132 SMs.
+* Layout (:func:`cluster_plan.reduce_plan`), without moving any operand
+  in memory:
+
+  - **rows × columns** (``"cols"``) where every operand is contiguous or
+    broadcast along the reduced axis (a last-axis reduce): a tile of
+    ``BR`` rows streams its columns in chunks of ``BC``, ``U`` chunks'
+    loads issued before the first is combined, a per-row operand loaded
+    once a row, a per-column one once a chunk;
+  - **lanes** (``"lanes"``) where the reduced axis is strided but the
+    kept innermost axis is contiguous: the lanes of a tile run along that
+    kept axis (coalesced) and each accumulates down ``BK`` reduced
+    indices at a time.
+
+* Few tiles (a reduce to a few rows, down to one row of millions): the
+  reduced axis is split over ``n_split`` programs a tile, each writing
+  its partial to an f32 workspace; the program that takes the tile's
+  last ticket (an integer atomic) combines the partials in a fixed order
+  (16 splits' loads at a time, each group reduced as a tree, the groups
+  in split order).
+  No float atomics, so the same inputs give the same bits every run.
+* ``n_cols`` is the *valid* column count, a runtime argument: only that
+  far is read, and a tile's last, partial chunk is the only masked one.
+  In the aligned class (a compile-time constant) offsets carry
+  ``tl.multiple_of``, so Triton proves 16-byte loads though every size
+  and stride is a runtime argument in ``do_not_specialize``.  Each
+  kind keeps its identity (``n_cols = 0`` gives it); accumulation is
+  f32 and the result is stored in the reduce's dtype.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence, Set, Tuple
 
 import torch
 
+from ..cluster_plan import ReducePlan, layouts, reduce_plan
 from ..program import Program, triton_dtype, triton_lines
-from ..triton_build import index_terms, load_kernel, term_source, triton
+from ..triton_build import CLUSTER_OPTIONS, load_kernel, term_source
+from .ops import UNALIGNED_LAUNCHES
 
-__all__ = ["fused_reduce_kernel", "BLOCK_R", "BLOCK_C", "NUM_WARPS"]
+__all__ = ["fused_reduce_kernel", "launch", "module_name", "INSTANCES"]
 
-BLOCK_R = 8
-BLOCK_C = 256
-NUM_WARPS = 4
+#: program key -> the (module, tile, warps, alignment class, operands'
+#: 16-byte bases) instances it launched: Triton, which specialises on
+#: nothing else (every length is in ``do_not_specialize``), builds at most
+#: one kernel for each
+INSTANCES: Dict[str, Set[Tuple]] = {}
 
 _HEADER = '''import triton
 import triton.language as tl
@@ -47,74 +67,252 @@ def _mul(a, b):
     return a * b
 '''
 
+#: partials a combining program loads at once
+SPLITS_AT_ONCE = 16
+
 _IDENTITY = {"sum": "0.0", "max": "float('-inf')", "min": "float('inf')",
              "prod": "1.0"}
-_COMBINE = {"sum": "acc + y", "max": "tl.maximum(acc, y)",
-            "min": "tl.minimum(acc, y)", "prod": "acc * y"}
-_FINISH = {"sum": "tl.sum(acc, axis=1)", "max": "tl.max(acc, axis=1)",
-           "min": "tl.min(acc, axis=1)", "prod": "tl.reduce(acc, 1, _mul)"}
+_COMBINE = {"sum": "{0} + {1}", "max": "tl.maximum({0}, {1})",
+            "min": "tl.minimum({0}, {1})", "prod": "{0} * {1}"}
+_FINISH = {"sum": "tl.sum({0}, axis={1})", "max": "tl.max({0}, axis={1})",
+           "min": "tl.min({0}, axis={1})",
+           "prod": "tl.reduce({0}, {1}, _mul)"}
 
 
-def _structure(inputs, shape, perm):
-    """Per operand: row terms over the kept axes and the column stride
-    (``"unit"`` when 1, which vectorizes; ``0`` when broadcast)."""
-    rows_shape = [shape[a] for a in perm[:-1]]
-    n_rows = 1
-    for d in rows_shape:
-        n_rows *= d
-    kinds, args = [], []
-    for x in inputs:
-        xp = x.expand(tuple(shape)).permute(perm)
-        t = index_terms(xp.select(-1, 0), rows_shape) if rows_shape \
-            else []
-        cs = xp.stride(-1) if shape[perm[-1]] != 1 else 0
-        col = "unit" if cs == 1 else ("zero" if cs == 0 else "strided")
-        whole = bool(t) and t[0][0] * t[0][1] == n_rows
-        kinds.append((len(t), whole, col))
-        flat = [v for term in t for v in term]
-        args.append(flat + ([cs] if col == "strided" else []))
-    return tuple(kinds), args, n_rows
+def _load_chunk(plan: ReducePlan, u: int, mask: str) -> List[str]:
+    """Loads of chunk ``u`` (the varying operands only)."""
+    lines = []
+    m = f", mask={mask}, other=0" if mask else ""
+    for i, op in enumerate(plan.operands):
+        if plan.mode == "cols":
+            if op.col == "zero":
+                continue  # loop-invariant: loaded once
+            col = f"cols{u}" if op.col == "unit" else \
+                f"cols{u} * c{i}_stride"
+            if op.terms:
+                off = f"roff_{i}[:, None] + {col}[None, :]"
+            else:
+                off = f"{col}[None, :]"
+        else:
+            if not op.red_stride:
+                continue
+            lane = {"unit": "lanes[None, :]", "zero": "0"}[op.col]
+            off = f"ooff_{i} + koff{u}_{i}[:, None] + {lane}"
+        lines.append(f"x{i}_{u} = tl.load(in_{i} + ({off}){m})")
+    return lines
 
 
-def _source(program: Program, kinds, kind: str, out_dtype) -> str:
-    n_in = len(program.in_dtypes)
-    args = [f"in_{i}" for i in range(n_in)] + ["out", "n_rows", "n_cols"]
-    for i, (nt, _, col) in enumerate(kinds):
-        for k in range(nt):
-            args += [f"r{i}_{k}_inner", f"r{i}_{k}_size", f"r{i}_{k}_stride"]
-        if col == "strided":
-            args.append(f"c{i}_stride")
-    runtime = [a for a in args if not a.startswith(("in_", "out"))]
+def _chunk_offsets(plan: ReducePlan, u: int, k: str) -> List[str]:
+    if plan.mode == "cols":
+        return [f"cols{u} = ({k} + {u}) * BC + ar"]
+    lines = [f"ks{u} = ({k} + {u}) * BK + ar"]
+    for i, op in enumerate(plan.operands):
+        if op.red_stride:
+            lines.append(f"koff{u}_{i} = ks{u} * k{i}_stride")
+            if op.col == "unit" and plan.vec[i] > 1:
+                lines.append(f"if ALIGNED:")
+                lines.append(f"    koff{u}_{i} = tl.multiple_of("
+                             f"koff{u}_{i}, {plan.vec[i]})")
+    return lines
+
+
+def _chunks(program: Program, plan: ReducePlan, kind: str, n: int, k: str,
+            mask: str, ind: str) -> List[str]:
+    """``n`` chunks from chunk index ``k``: every load first, then each
+    chunk's values combined into ``acc`` in chunk order."""
+    lines = []
+    for u in range(n):
+        lines += _chunk_offsets(plan, u, k)
+    for u in range(n):
+        lines += _load_chunk(plan, u, mask)
     ident = _IDENTITY[kind]
+    for u in range(n):
+        loaded = [f"x{i}_{u}" if (op.col != "zero" if plan.mode == "cols"
+                                  else op.red_stride) else f"x{i}"
+                  for i, op in enumerate(plan.operands)]
+        body, (y,) = triton_lines(program, loaded, indent="")
+        lines += body
+        y = f"({y}).to(tl.float32)"
+        if mask:
+            cm = f"cols{u}[None, :] < n_cols" if plan.mode == "cols" \
+                else f"ks{u}[:, None] < n_cols"
+            y = f"tl.where({cm}, {y}, {ident})"
+        lines.append(f"acc = {_COMBINE[kind].format('acc', y)}")
+    return [ind + s for s in lines]
+
+
+def _reduction(program: Program, plan: ReducePlan, kind: str, ind: str,
+               lane_mask: str) -> List[str]:
+    """The chunk loop over this program's share of the reduced axis."""
+    U = plan.unroll
+    mask = lane_mask
+    return ([f"{ind}for j in range(0, n_full // {U}):",
+             f"{ind}    k = k_lo + j * {U}"]
+            + _chunks(program, plan, kind, U, "k", mask, ind + "    ")
+            + [f"{ind}for j in range((n_full // {U}) * {U}, n_full):",
+               f"{ind}    k = k_lo + j"]
+            + _chunks(program, plan, kind, 1, "k", mask, ind + "    ")
+            + [f"{ind}if k_lo + n_full < k_end:",
+               f"{ind}    k = k_lo + n_full"]
+            + _chunks(program, plan, kind, 1, "k",
+                      " & ".join(filter(None, [
+                          "(cols0[None, :] < n_cols)" if plan.mode == "cols"
+                          else "(ks0[:, None] < n_cols)", lane_mask])),
+                      ind + "    "))
+
+
+def _source(program: Program, plan: ReducePlan, kind: str, out_dtype) -> str:
+    n_in = len(program.in_dtypes)
+    cols = plan.mode == "cols"
+    args = [f"in_{i}" for i in range(n_in)] + ["out", "ws", "tickets",
+                                                "n_rows", "n_lanes",
+                                                "n_cols", "n_split", "span"]
+    for i, op in enumerate(plan.operands):
+        for k in range(len(op.terms)):
+            args += [f"r{i}_{k}_inner", f"r{i}_{k}_size", f"r{i}_{k}_stride"]
+        if op.col == "strided":
+            args.append(f"c{i}_stride")
+        if not cols and op.red_stride:
+            args.append(f"k{i}_stride")
+    runtime = [a for a in args if a not in
+               ("out", "ws", "tickets") and not a.startswith("in_")]
+    ident = _IDENTITY[kind]
+    A, B = ("BR", "BC") if cols else ("BK", "BL")
     lines = [_HEADER, "",
              f"@triton.jit(do_not_specialize={runtime!r})",
-             f"def kinput({', '.join(args)}, BLOCK_R: tl.constexpr, "
-             f"BLOCK_C: tl.constexpr):",
+             f"def kinput({', '.join(args)}, {A}: tl.constexpr, "
+             f"{B}: tl.constexpr, ALIGNED: tl.constexpr):",
              "    pid = tl.program_id(0)",
-             "    rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)",
-             "    rmask = rows < n_rows"]
-    for i, (nt, whole, _) in enumerate(kinds):
-        lines.append("    " + term_source(f"roff_{i}", "rows", nt, whole,
-                                          f"r{i}_"))
-    lines += [f"    acc = tl.full((BLOCK_R, BLOCK_C), {ident}, tl.float32)",
-              "    for c0 in range(0, n_cols, BLOCK_C):",
-              "        cols = c0 + tl.arange(0, BLOCK_C)",
-              "        m = rmask[:, None] & (cols < n_cols)[None, :]"]
-    loaded = []
-    for i, (_, _, col) in enumerate(kinds):
-        coff = {"unit": "cols[None, :]", "zero": "cols[None, :] * 0",
-                "strided": f"cols[None, :] * c{i}_stride"}[col]
-        lines.append(f"        x{i} = tl.load(in_{i} + roff_{i}[:, None] + "
-                     f"{coff}, mask=m, other=0)")
-        loaded.append(f"x{i}")
-    body, (y,) = triton_lines(program, loaded, indent="        ")
-    lines += body
-    lines += [f"        y = tl.where(m, ({y}).to(tl.float32), {ident})",
-              f"        acc = {_COMBINE[kind]}",
-              f"    r = {_FINISH[kind]}",
-              f"    tl.store(out + rows, r.to({triton_dtype(out_dtype)}), "
-              f"mask=rmask)"]
+             "    tile = pid // n_split",
+             "    s = pid - tile * n_split",
+             f"    ar = tl.arange(0, {'BC' if cols else 'BK'})"]
+    if cols:
+        lines += ["    rows = tile * BR + tl.arange(0, BR)",
+                  "    omask = rows < n_rows",
+                  "    idx = rows",
+                  "    rows_ld = tl.minimum(rows, n_rows - 1)"]
+        base = "rows_ld"
+    else:
+        lines += ["    n_lb = tl.cdiv(n_lanes, BL)",
+                  "    o = tile // n_lb",
+                  "    l0 = (tile - o * n_lb) * BL",
+                  "    lanes = l0 + tl.arange(0, BL)",
+                  "    omask = lanes < n_lanes",
+                  "    idx = o * n_lanes + lanes"]
+        base = "o"
+    pre = "roff" if cols else "ooff"
+    for i, op in enumerate(plan.operands):
+        if not op.terms and not (not cols and op.red_stride):
+            continue
+        lines.append("    " + term_source(f"{pre}_{i}", base, len(op.terms),
+                                          op.whole, f"r{i}_"))
+        if op.col == "unit" and plan.vec[i] > 1:
+            lines += ["    if ALIGNED:",
+                      f"        {pre}_{i} = tl.multiple_of({pre}_{i}, "
+                      f"{plan.vec[i]})"]
+    # operands constant along the reduced axis: loaded once
+    for i, op in enumerate(plan.operands):
+        if cols and op.col == "zero":
+            lines.append(f"    x{i} = tl.load(in_{i} + roff_{i})[:, None]"
+                         if op.terms else f"    x{i} = tl.load(in_{i})")
+        elif not cols and not op.red_stride:
+            lane = "lanes" if op.col == "unit" else "0"
+            off = " + ".join(filter(None, [f"ooff_{i}" if op.terms else "",
+                                           lane if op.col == "unit" else ""]))
+            if op.col == "unit":
+                lines.append(f"    x{i} = tl.load(in_{i} + ({off}), "
+                             f"mask=omask, other=0)[None, :]")
+            else:
+                lines.append(f"    x{i} = tl.load(in_{i}"
+                             f"{' + ' + off if off else ''})")
+    chunk = "BC" if cols else "BK"
+    lines += [f"    n_chunks = tl.cdiv(n_cols, {chunk})",
+              "    k_lo = s * span",
+              "    k_end = tl.minimum(k_lo + span, n_chunks)",
+              f"    n_full = tl.maximum(tl.minimum(k_lo + span, "
+              f"n_cols // {chunk}) - k_lo, 0)",
+              f"    acc = tl.full(({A}, {B}), {ident}, tl.float32)"]
+    if cols:
+        lines += _reduction(program, plan, kind, "    ", "")
+    else:
+        lines += [f"    if l0 + BL <= n_lanes:"]
+        lines += _reduction(program, plan, kind, "        ", "")
+        lines += ["    else:"]
+        lines += _reduction(program, plan, kind, "        ",
+                            "omask[None, :]")
+    axis = 1 if cols else 0
+    dt = triton_dtype(out_dtype)
+    n_out = "n_rows" if cols else "n_rows * n_lanes"
+    lines += [f"    r = {_FINISH[kind].format('acc', axis)}",
+              "    if n_split == 1:",
+              f"        tl.store(out + idx, r.to({dt}), mask=omask)",
+              "    else:",
+              f"        tl.store(ws + s * ({n_out}) + idx, r, mask=omask)",
+              "        tl.debug_barrier()",
+              "        t = tl.atomic_add(tickets + tile, 1, sem='acq_rel', "
+              "scope='gpu')",
+              "        if t == n_split - 1:",
+              f"            r = tl.full(({A if cols else B},), {ident}, "
+              f"tl.float32)",
+              f"            sj = tl.arange(0, {SPLITS_AT_ONCE})",
+              f"            for j in range(0, n_split, {SPLITS_AT_ONCE}):",
+              "                jm = (j + sj) < n_split",
+              f"                y = tl.load(ws + (j + sj)[:, None] * ({n_out})"
+              " + idx[None, :], mask=jm[:, None] & omask[None, :], "
+              f"other={ident}, cache_modifier='.cg')",
+              f"                y = {_FINISH[kind].format('y', 0)}",
+              f"                r = {_COMBINE[kind].format('r', 'y')}",
+              f"            tl.store(out + idx, r.to({dt}), mask=omask)"]
     return "\n".join(lines) + "\n"
+
+
+def module_name(program: Program, plan: ReducePlan, kind: str,
+                out_dtype) -> str:
+    """One generated module per (program, kind, out dtype, operand
+    structure, unroll), whatever the lengths."""
+    return (f"kinput2_{program.key}_{kind}_"
+            f"{str(out_dtype).split('.')[-1]}_{plan.structure}_u{plan.unroll}")
+
+
+_UNUSED: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _unused(dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    if dev not in _UNUSED:
+        _UNUSED[dev] = (torch.empty(1, dtype=torch.float32, device=dev),
+                        torch.empty(1, dtype=torch.int32, device=dev))
+    return _UNUSED[dev]
+
+
+def launch(program: Program, inputs: Sequence[torch.Tensor], n_cols: int,
+           kind: str, out: torch.Tensor, plan: ReducePlan) -> torch.Tensor:
+    """Launch the kInput kernel of ``program`` with ``plan`` into ``out``
+    (CUDA)."""
+    name = module_name(program, plan, kind, out.dtype)
+    mod = load_kernel(name, lambda: _source(program, plan, kind, out.dtype))
+    INSTANCES.setdefault(program.key, set()).add(
+        (name, plan.block_a, plan.block_b, plan.unroll, plan.num_warps,
+         plan.aligned, plan.bases))
+    if not plan.aligned:
+        UNALIGNED_LAUNCHES.launches += 1
+    if not plan.tiles:
+        return out
+    dev = out.device
+    if plan.n_split > 1:
+        ws = torch.empty((plan.n_split, out.numel()), dtype=torch.float32,
+                         device=dev)
+        tickets = torch.zeros(plan.tiles, dtype=torch.int32, device=dev)
+    else:  # not read: the same argument types, so the same compiled kernel
+        ws, tickets = _unused(dev)
+    blocks = ({"BR": plan.block_a, "BC": plan.block_b} if plan.mode == "cols"
+              else {"BK": plan.block_a, "BL": plan.block_b})
+    mod.kinput[(plan.grid,)](*inputs, out, ws, tickets, plan.n_rows,
+                             plan.n_lanes, min(max(int(n_cols), 0),
+                                               plan.n_red),
+                             plan.n_split, plan.span, *plan.args(),
+                             **blocks, ALIGNED=plan.aligned,
+                             num_warps=plan.num_warps, **CLUSTER_OPTIONS)
+    return out
 
 
 def fused_reduce_kernel(program: Program, inputs: Sequence[torch.Tensor],
@@ -124,26 +322,13 @@ def fused_reduce_kernel(program: Program, inputs: Sequence[torch.Tensor],
     shape = tuple(int(d) for d in shape)
     rank = len(shape)
     axis = axis % rank
-    perm = [a for a in range(rank) if a != axis] + [axis]
     total = 1
     for d in shape:
         total *= d
     if total >= 2 ** 31:
         raise ValueError(f"kInput iteration space {shape} exceeds int32 "
                          f"indexing")
-    dev = inputs[0].device
-    kinds, per_in, n_rows = _structure(inputs, shape, perm)
-    key = "".join(f"{nt}{int(w)}{c[0]}" for nt, w, c in kinds)
-    mod = load_kernel(f"kinput_{program.key}_{kind}_{key}_"
-                      f"{str(out_dtype).split('.')[-1]}_r{BLOCK_R}c{BLOCK_C}",
-                      lambda: _source(program, kinds, kind, out_dtype))
-    out = torch.empty([shape[a] for a in perm[:-1]], dtype=out_dtype,
-                      device=dev)
-    n_cols = min(int(n_valid_cols), shape[axis])
-    flat: List[int] = [v for a in per_in for v in a]
-    if n_rows:
-        grid = (triton().cdiv(n_rows, BLOCK_R),)
-        mod.kinput[grid](*inputs, out, n_rows, n_cols, *flat,
-                         BLOCK_R=BLOCK_R, BLOCK_C=BLOCK_C,
-                         num_warps=NUM_WARPS, enable_fp_fusion=False)
-    return out
+    plan = reduce_plan(shape, axis, layouts(inputs, shape))
+    out = torch.empty([shape[a] for a in range(rank) if a != axis],
+                      dtype=out_dtype, device=inputs[0].device)
+    return launch(program, inputs, n_valid_cols, kind, out, plan)

@@ -14,10 +14,13 @@ from ..program import Program
 from ..triton_build import LaunchCounter
 from .ref import fused_reduce_ref
 
-__all__ = ["fused_reduce", "LAUNCHES"]
+__all__ = ["fused_reduce", "LAUNCHES", "UNALIGNED_LAUNCHES"]
 
 #: launches of the kInput kernel on the card
 LAUNCHES = LaunchCounter()
+#: ... of them in the unaligned class (an operand or row pitch off 16
+#: bytes: element-wide accesses)
+UNALIGNED_LAUNCHES = LaunchCounter()
 
 
 def fused_reduce(program: Program, inputs: Sequence[torch.Tensor],

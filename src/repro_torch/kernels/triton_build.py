@@ -1,11 +1,11 @@
-"""Building generated Triton kernels, and the strided indexing they share.
+"""Building generated Triton kernels, and the row offsets they share.
 
 The cluster kernels are generated per fusion-cluster program as Triton
 source text (``triton.jit`` needs a real source file).  :func:`load_kernel`
 writes the text under ``build/torch_kernels/`` at the repository root (a
 directory git ignores) on first use, imports it, and caches the module by
-its name — which carries the program's fingerprint, the dtypes and the
-block configuration — so the 22 identical layers of a model share one
+its name — which carries the program's fingerprint and its operands'
+structure — so the 22 identical layers of a model share one
 compiled kernel per cluster shape.  Triton's own cache
 (``TRITON_CACHE_DIR``) points into the same directory.
 
@@ -13,27 +13,34 @@ Nothing here imports Triton: the generated modules do, when the first
 kernel is built on a machine with a card.
 
 Kernel operands are tensors *broadcastable* to the iteration shape, with
-any strides: :func:`index_terms` describes how a flat iteration index maps
-to an operand's storage offset, so broadcast operands are read in place
-instead of being materialized at full size first.
+any strides, read in place: ``cluster_plan`` describes each as rows ×
+columns, and :func:`term_source` writes a row's offset as the sum of its
+terms.
 """
 from __future__ import annotations
 
 import importlib.util
 import os
 import pathlib
+import re
 import sys
 import threading
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict
 
-import torch
-
-__all__ = ["BUILD_DIR", "triton", "load_kernel", "index_terms",
+__all__ = ["BUILD_DIR", "CLUSTER_OPTIONS", "triton", "load_kernel",
+           "compiled", "ptx_accesses",
            "term_source", "LaunchCounter"]
 
 #: repo-root/build/torch_kernels (src/repro_torch/kernels/<this file>)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "torch_kernels"
+
+#: compile options of the generated cluster kernels: nothing contracted
+#: into FMAs, and libdevice without flush-to-zero (Triton's default flushes
+#: subnormals in its calls: div_rn, rsqrt), so that every op rounds as the
+#: plain version's does
+CLUSTER_OPTIONS = dict(num_stages=1, enable_fp_fusion=False,
+                       enable_reflect_ftz=False)
 
 _LOCK = threading.Lock()
 _MODULES: Dict[str, object] = {}
@@ -75,39 +82,38 @@ def load_kernel(name: str, make_source: Callable[[], str]):
         return mod
 
 
-Term = Tuple[int, int, int]  # (inner, size, stride): ((i // inner) % size) * stride
+def compiled(name: str, fn: str) -> list:
+    """The kernels Triton has compiled for the jit function ``fn`` of the
+    generated module ``name``, one per specialisation (none if the module
+    was never loaded); each has ``asm["ptx"]``, ``n_regs``, ``n_spills``."""
+    mod = _MODULES.get(name)
+    if mod is None:
+        return []
+    jit = getattr(mod, fn)
+    caches = getattr(jit, "device_caches", None)
+    if caches is not None:  # Triton 3: device -> (kernel cache, ...)
+        return [k for c in caches.values() for k in c[0].values()]
+    return [k for c in getattr(jit, "cache", {}).values() for k in c.values()]
 
 
-def index_terms(t: torch.Tensor, shape: Sequence[int]) -> List[Term]:
-    """How the flat row-major index ``i`` over ``shape`` maps to an offset
-    into ``t`` (broadcastable to ``shape``): the sum over terms of
-    ``((i // inner) % size) * stride``.  Broadcast dims contribute nothing;
-    dims that are contiguous in ``t`` merge into one term, so a dense
-    operand is the single term ``(1, numel, 1)``."""
-    strides = t.expand(tuple(shape)).stride()
-    dims = [(int(n), int(st)) for n, st in zip(shape, strides) if n != 1]
-    merged: List[List[int]] = []  # [size, stride] outermost first
-    for n, st in dims:
-        if merged and ((merged[-1][1] == 0 and st == 0)
-                       or (st != 0 and merged[-1][1] == st * n)):
-            merged[-1][0] *= n
-            merged[-1][1] = st
-        else:
-            merged.append([n, st])
-    terms: List[Term] = []
-    inner = 1
-    for n, st in reversed(merged):
-        if st != 0:
-            terms.append((inner, n, st))
-        inner *= n
-    return list(reversed(terms))
+def ptx_accesses(ptx: str) -> Dict[str, int]:
+    """Global loads and stores in ``ptx`` by vector width: ``ld.v4`` /
+    ``st.v4`` are 16-byte accesses of 32-bit words, ``v1`` one word or
+    less."""
+    out: Dict[str, int] = {}
+    for op in re.findall(r"\b((?:ld|st)\.global\S*)", ptx):
+        width = re.search(r"\.(v[248])\.", op)
+        key = f"{op[:2]}.{width.group(1) if width else 'v1'}"
+        out[key] = out.get(key, 0) + 1
+    return dict(sorted(out.items()))
 
 
 def term_source(var: str, index: str, n_terms: int, outermost: bool,
                 prefix: str) -> str:
     """Source of ``var = Σ terms`` over runtime arguments named
-    ``{prefix}{k}_inner/_size/_stride``.  The outermost term of a dense
-    iteration never wraps, so it skips the modulo."""
+    ``{prefix}{k}_inner/_size/_stride`` (``cluster_plan.Operand.terms``).
+    The outermost term of a dense iteration never wraps, so it skips the
+    modulo."""
     if n_terms == 0:
         return f"{var} = {index} * 0"
     parts = []
