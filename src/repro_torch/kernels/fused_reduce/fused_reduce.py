@@ -79,14 +79,20 @@ _FINISH = {"sum": "tl.sum({0}, axis={1})", "max": "tl.max({0}, axis={1})",
            "prod": "tl.reduce({0}, {1}, _mul)"}
 
 
+def _varies(plan: ReducePlan, op) -> bool:
+    """Whether an operand changes along the reduced axis; one that does
+    not is loaded once, before the chunk loop."""
+    return op.col != "zero" if plan.mode == "cols" else bool(op.red_stride)
+
+
 def _load_chunk(plan: ReducePlan, u: int, mask: str) -> List[str]:
     """Loads of chunk ``u`` (the varying operands only)."""
     lines = []
     m = f", mask={mask}, other=0" if mask else ""
     for i, op in enumerate(plan.operands):
+        if not _varies(plan, op):
+            continue
         if plan.mode == "cols":
-            if op.col == "zero":
-                continue  # loop-invariant: loaded once
             col = f"cols{u}" if op.col == "unit" else \
                 f"cols{u} * c{i}_stride"
             if op.terms:
@@ -94,8 +100,6 @@ def _load_chunk(plan: ReducePlan, u: int, mask: str) -> List[str]:
             else:
                 off = f"{col}[None, :]"
         else:
-            if not op.red_stride:
-                continue
             lane = {"unit": "lanes[None, :]", "zero": "0"}[op.col]
             off = f"ooff_{i} + koff{u}_{i}[:, None] + {lane}"
         lines.append(f"x{i}_{u} = tl.load(in_{i} + ({off}){m})")
@@ -110,7 +114,7 @@ def _chunk_offsets(plan: ReducePlan, u: int, k: str) -> List[str]:
         if op.red_stride:
             lines.append(f"koff{u}_{i} = ks{u} * k{i}_stride")
             if op.col == "unit" and plan.vec[i] > 1:
-                lines.append(f"if ALIGNED:")
+                lines.append("if ALIGNED:")
                 lines.append(f"    koff{u}_{i} = tl.multiple_of("
                              f"koff{u}_{i}, {plan.vec[i]})")
     return lines
@@ -127,9 +131,12 @@ def _chunks(program: Program, plan: ReducePlan, kind: str, n: int, k: str,
         lines += _load_chunk(plan, u, mask)
     ident = _IDENTITY[kind]
     for u in range(n):
-        loaded = [f"x{i}_{u}" if (op.col != "zero" if plan.mode == "cols"
-                                  else op.red_stride) else f"x{i}"
-                  for i, op in enumerate(plan.operands)]
+        for i, op in enumerate(plan.operands):
+            if not _varies(plan, op):
+                # loaded before the loop: a local name here, so that its
+                # conversion to f32 reassigns nothing the loop carries
+                lines.append(f"x{i}_{u} = x{i}")
+        loaded = [f"x{i}_{u}" for i in range(len(plan.operands))]
         body, (y,) = triton_lines(program, loaded, indent="")
         lines += body
         y = f"({y}).to(tl.float32)"
@@ -145,13 +152,12 @@ def _reduction(program: Program, plan: ReducePlan, kind: str, ind: str,
                lane_mask: str) -> List[str]:
     """The chunk loop over this program's share of the reduced axis."""
     U = plan.unroll
-    mask = lane_mask
     return ([f"{ind}for j in range(0, n_full // {U}):",
              f"{ind}    k = k_lo + j * {U}"]
-            + _chunks(program, plan, kind, U, "k", mask, ind + "    ")
+            + _chunks(program, plan, kind, U, "k", lane_mask, ind + "    ")
             + [f"{ind}for j in range((n_full // {U}) * {U}, n_full):",
                f"{ind}    k = k_lo + j"]
-            + _chunks(program, plan, kind, 1, "k", mask, ind + "    ")
+            + _chunks(program, plan, kind, 1, "k", lane_mask, ind + "    ")
             + [f"{ind}if k_lo + n_full < k_end:",
                f"{ind}    k = k_lo + n_full"]
             + _chunks(program, plan, kind, 1, "k",
@@ -210,21 +216,21 @@ def _source(program: Program, plan: ReducePlan, kind: str, out_dtype) -> str:
             lines += ["    if ALIGNED:",
                       f"        {pre}_{i} = tl.multiple_of({pre}_{i}, "
                       f"{plan.vec[i]})"]
-    # operands constant along the reduced axis: loaded once
     for i, op in enumerate(plan.operands):
-        if cols and op.col == "zero":
+        if _varies(plan, op):
+            continue
+        if cols:  # one value a row
             lines.append(f"    x{i} = tl.load(in_{i} + roff_{i})[:, None]"
                          if op.terms else f"    x{i} = tl.load(in_{i})")
-        elif not cols and not op.red_stride:
-            lane = "lanes" if op.col == "unit" else "0"
-            off = " + ".join(filter(None, [f"ooff_{i}" if op.terms else "",
-                                           lane if op.col == "unit" else ""]))
-            if op.col == "unit":
-                lines.append(f"    x{i} = tl.load(in_{i} + ({off}), "
-                             f"mask=omask, other=0)[None, :]")
-            else:
-                lines.append(f"    x{i} = tl.load(in_{i}"
-                             f"{' + ' + off if off else ''})")
+            continue
+        off = " + ".join([f"ooff_{i}"] * bool(op.terms)
+                         + ["lanes"] * (op.col == "unit"))
+        if op.col == "unit":  # one value a lane
+            lines.append(f"    x{i} = tl.load(in_{i} + ({off}), "
+                         f"mask=omask, other=0)[None, :]")
+        else:
+            lines.append(f"    x{i} = tl.load(in_{i}"
+                         f"{' + ' + off if off else ''})")
     chunk = "BC" if cols else "BK"
     lines += [f"    n_chunks = tl.cdiv(n_cols, {chunk})",
               "    k_lo = s * span",

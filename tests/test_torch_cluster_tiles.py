@@ -583,6 +583,9 @@ KINPUT_CARD = [
     ((3, 40, 16), 1, 0, ("dense",)),
     ((300, 2047), 1, 2040, ("dense",)),
     ((6, 1000), 1, None, ("transposed",)),
+    ((6, 1000), 1, 990, ("transposed", "dense")),    # strided columns
+    ((256, 96), 1, None, ("dense", "row")),          # a per-row operand
+    ((64, 32, 128), 1, 30, ("dense", "mid")),        # lanes, one per lane
 ]
 
 
@@ -600,16 +603,21 @@ def test_kinput_tiles_match_plain_on_card(cuda, case, kind, dtype):
     shape, axis, n_cols, kinds = KINPUT_CARD[case]
     n_cols = shape[axis] if n_cols is None else n_cols
     gen = torch.Generator().manual_seed(case)
+    n = len(kinds)
     if kind == "prod":   # products near 1 stay finite over 4 M terms
         xs = [(_card_operand(k, shape, gen, F32) * 1e-4 + 1.0).to(dtype)
               for k in kinds]
-        prog = _retype(_p(1, [("mul", (("in", 0), ("c", 1.0)), F32)],
-                          [("t", 0)]), dtype)
+        step = ("mul", (("in", 0), ("in", 1) if n == 2 else ("c", 1.0)),
+                F32)
     else:
         xs = [_card_operand(k, shape, gen, dtype) for k in kinds]
-        prog = _retype(SQUARE if kind == "sum" else
-                       _p(1, [("neg", (("in", 0),), F32)], [("t", 0)]),
-                       dtype)
+        if kind == "sum":    # x * y, or x²
+            step = ("mul", (("in", 0), ("in", n - 1)), F32)
+        elif n == 2:         # x - y
+            step = ("sub", (("in", 0), ("in", 1)), F32)
+        else:                # -x
+            step = ("neg", (("in", 0),), F32)
+    prog = _retype(_p(len(kinds), [step], [("t", 0)]), dtype)
     before = red_ops.LAUNCHES.launches
     got = red_ops.fused_reduce(prog, xs, n_cols, kind, axis=axis,
                                shape=shape, out_dtype=dtype)
