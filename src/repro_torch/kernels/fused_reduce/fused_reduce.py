@@ -25,7 +25,8 @@ recomputed inside a masked single-axis ``sum``/``max``/``min``/``prod``.
   its partial to an f32 workspace; the program that takes the tile's
   last ticket (an integer atomic) combines the partials in a fixed order
   (16 splits' loads at a time, each group reduced as a tree, the groups
-  in split order).
+  in split order) and sets the ticket back to 0, so the tickets need no
+  clearing launch.
   No float atomics, so the same inputs give the same bits every run.
 * ``n_cols`` is the *valid* column count, a runtime argument: only that
   far is read, and a tile's last, partial chunk is the only masked one.
@@ -268,7 +269,8 @@ def _source(program: Program, plan: ReducePlan, kind: str, out_dtype) -> str:
               f"other={ident}, cache_modifier='.cg')",
               f"                y = {_FINISH[kind].format('y', 0)}",
               f"                r = {_COMBINE[kind].format('r', 'y')}",
-              f"            tl.store(out + idx, r.to({dt}), mask=omask)"]
+              f"            tl.store(out + idx, r.to({dt}), mask=omask)",
+              "            tl.store(tickets + tile, 0)"]
     return "\n".join(lines) + "\n"
 
 
@@ -280,14 +282,19 @@ def module_name(program: Program, plan: ReducePlan, kind: str,
             f"{str(out_dtype).split('.')[-1]}_{plan.structure}_u{plan.unroll}")
 
 
-_UNUSED: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+#: (device, stream) -> int32 tickets, zero between launches: the program
+#: that takes a tile's last ticket sets it back to 0, and launches on one
+#: stream run in order
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _unused(dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    if dev not in _UNUSED:
-        _UNUSED[dev] = (torch.empty(1, dtype=torch.float32, device=dev),
-                        torch.empty(1, dtype=torch.int32, device=dev))
-    return _UNUSED[dev]
+def _tickets(dev: torch.device, n: int) -> torch.Tensor:
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                        device=dev)
+    return t
 
 
 def launch(program: Program, inputs: Sequence[torch.Tensor], n_cols: int,
@@ -304,17 +311,15 @@ def launch(program: Program, inputs: Sequence[torch.Tensor], n_cols: int,
     if not plan.tiles:
         return out
     dev = out.device
-    if plan.n_split > 1:
-        ws = torch.empty((plan.n_split, out.numel()), dtype=torch.float32,
-                         device=dev)
-        tickets = torch.zeros(plan.tiles, dtype=torch.int32, device=dev)
-    else:  # not read: the same argument types, so the same compiled kernel
-        ws, tickets = _unused(dev)
+    # f32 partials, [split][out]; one unread word where nothing is split
+    # (the same argument types, so the same compiled kernel)
+    ws = torch.empty(plan.n_split * out.numel() if plan.n_split > 1 else 1,
+                     dtype=torch.float32, device=dev)
     blocks = ({"BR": plan.block_a, "BC": plan.block_b} if plan.mode == "cols"
               else {"BK": plan.block_a, "BL": plan.block_b})
-    mod.kinput[(plan.grid,)](*inputs, out, ws, tickets, plan.n_rows,
-                             plan.n_lanes, min(max(int(n_cols), 0),
-                                               plan.n_red),
+    n_cols = min(max(int(n_cols), 0), plan.n_red)
+    mod.kinput[(plan.grid,)](*inputs, out, ws, _tickets(dev, plan.tiles),
+                             plan.n_rows, plan.n_lanes, n_cols,
                              plan.n_split, plan.span, *plan.args(),
                              **blocks, ALIGNED=plan.aligned,
                              num_warps=plan.num_warps, **CLUSTER_OPTIONS)
