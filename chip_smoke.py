@@ -56,7 +56,31 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (the same bits), timed beside ``torch.linalg.vecdot``.  Every kLoop
    and kInput launch of the paths must fall in the aligned class
    (``ops.UNALIGNED_LAUNCHES`` 0).
-4. **Path 2.**  The same model with a token-major residual stream,
+4. **Path 7 (control flow).**  (a) Path 1's model with its 22 layers as
+   one ``d.scan``: path 1's weights stacked (L, ...) and the port's
+   ``block_apply`` scanned over them with ``torch._higher_order_ops.scan``
+   (the reference's ``_run_blocks``), then ``ln_f`` and the head, compiled
+   with ``disc_torch.compile(..., backend="hopper")`` in f32 and bf16 and
+   run on path 1's requests.  The artifact must hold exactly one
+   ``d.scan`` of 22 trips; compiles == buckets; f32 within 1e-3 of path
+   1's eager output for the same weights, bf16 under the accuracy rule;
+   the cluster kernels outside the scan (``ln_f``'s kLoop at least) run
+   and are counted (the scan's bodies run op by op, as the reference's
+   executor runs them).  (b) The control-flow functions of
+   ``tests/test_control_flow.py`` at D = 2048 and S = 37, 731 and 1999
+   (a while loop, a data-dependent trip count, a scan's carry and its ys,
+   a reverse scan, a cond taking both branches, a while inside a scan;
+   the doubling carries halve instead, since 2^S overflows f32), each
+   under ``"hopper"`` and ``"nimble_vm"``, held against the function run
+   by torch itself within 1e-4 max|d|/max|ref| (f32 summation order over
+   up to 4 M elements), with each call's ``d.while`` predicate and
+   ``d.cond`` index reads printed.  (c) The paper's §5.2 comparison,
+   printed only: path 1's and path 7's lowered graphs timed per request
+   under ``"hopper"``, ``"eager"``, ``"nimble_vm"`` and
+   ``NimbleVM(sync_per_op=True)``, with the VM's op dispatches, its
+   interpretation seconds and their host share (the device time from
+   ``torch.profiler``) at S = 1999.  Path 7's wall seconds are printed.
+5. **Path 2.**  The same model with a token-major residual stream,
    x (T, 2048): the layer functions composed so that the MLP's
    projections are plain 2-D dots, which the planner fuses with their
    epilogues into kDot clusters (``x @ w_gate`` with ``silu(g) * h``,
@@ -74,7 +98,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    that built more kernels than instances (a recompile for a length)
    fails the run, and so does an aligned instance whose PTX shows no
    16-byte loads (kLoop: and stores).
-5. **kDot kernel.**  Every kDot program path 2 launched (recorded at
+6. **kDot kernel.**  Every kDot program path 2 launched (recorded at
    T = 1999) against ``matmul_fused_ref`` on the same card inputs: at the
    path's valid M, at a smaller valid M, and once with ragged N and K;
    max|Δ|/max|ref| ≤ 1e-5 (f32) and ≤ 8e-3 (bf16), padded tails exactly
@@ -89,13 +113,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    split-K fills the card), checked the same way, twice (the two
    launches' outputs equal bit for bit), and timed beside
    ``torch.matmul`` (printed).
-6. **Library.**  ``core.library.pick`` at shapes from TinyLlama's widths
+7. **Library.**  ``core.library.pick`` at shapes from TinyLlama's widths
    that select each of the five §4.5 versions and the vendor entry,
    once through ``pick`` (the counted run), then each version against
    ``matmul_ref`` under the same limits, timed like the kDot kernel,
    with the same body, tile, splits, ``bound_share`` and
    ``library_ratio``.
-7. **Path 3 ("serve").**  TinyLlama-1.1B at full width and all 22
+8. **Path 3 ("serve").**  TinyLlama-1.1B at full width and all 22
    layers (random bf16 weights from a seeded ``torch.Generator``, upcast
    for the f32 run), f32 then bf16, served by
    ``disc_torch.ServeEngine(max_batch=4, max_seq=2048)``
@@ -120,7 +144,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    below 2e-2; chunked vs unchunked keeps the logits within 2e-2 while
    the streams agree.  Prints time to first token and decode ms per
    step.
-8. **Serve kernels.**  Flash attention at the path's shapes (prefill
+9. **Serve kernels.**  Flash attention at the path's shapes (prefill
    B=1, S=2048; a 512-row chunk at q_offset 1024; decode B=4 at the
    requests' fills) and RMSNorm on 2048 x 2048 and on a decode step's
    4 x 2048, each against its plain
@@ -135,25 +159,25 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``F.rms_norm`` are also called 1000 times back to back with no flush:
    the wrapper's host µs a call, the device µs a call between two events
    and ``torch.profiler``'s device µs a launch.
-9. **Path 4 ("serve", recurrent).**  RWKV-6 3B at full width and all
-   32 layers (d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536,
-   LayerNorm; random bf16 weights from a seeded ``torch.Generator``,
-   upcast for the f32 run), f32 then bf16, served by the same engine
-   with the same six requests, unchunked, inside ``plain_versions()``
-   and chunked at 512 (the chunked run continues each prompt from the
-   cache's state: the WKV kernel's ``s0``).  Every time mix runs the
-   CUDA C++ WKV kernel and every LayerNorm the CUDA C++ one.  Checks:
-   prefill compiles == distinct (B, S) buckets, decode compiles == 1;
-   WKV launches == 32 and LayerNorm launches == 65 per prefill launch
-   and decode step, the plain run none; chunked vs unchunked under path
-   3's rules in both dtypes, kernels vs plain under them in f32.  In
-   bf16 two equally exact evaluations of this random 32-layer model
-   part by far more than 2e-2 (PERF.md, PR 14), so kernels vs plain
-   there is an accuracy check: each request's first-token logits, from
-   both runs, against the f32 run over the same weights; the kernels'
-   may lie at most 1.25 times as far.  Prints time to first token and
-   decode ms per step.
-10. **Recurrent kernels.**  WKV at B = 1, T = 2048 from a zero state; on
+10. **Path 4 ("serve", recurrent).**  RWKV-6 3B at full width and all
+    32 layers (d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536,
+    LayerNorm; random bf16 weights from a seeded ``torch.Generator``,
+    upcast for the f32 run), f32 then bf16, served by the same engine
+    with the same six requests, unchunked, inside ``plain_versions()``
+    and chunked at 512 (the chunked run continues each prompt from the
+    cache's state: the WKV kernel's ``s0``).  Every time mix runs the
+    CUDA C++ WKV kernel and every LayerNorm the CUDA C++ one.  Checks:
+    prefill compiles == distinct (B, S) buckets, decode compiles == 1;
+    WKV launches == 32 and LayerNorm launches == 65 per prefill launch
+    and decode step, the plain run none; chunked vs unchunked under path
+    3's rules in both dtypes, kernels vs plain under them in f32.  In
+    bf16 two equally exact evaluations of this random 32-layer model
+    part by far more than 2e-2 (PERF.md), so kernels vs plain
+    there is an accuracy check: each request's first-token logits, from
+    both runs, against the f32 run over the same weights; the kernels'
+    may lie at most 1.25 times as far.  Prints time to first token and
+    decode ms per step.
+11. **Recurrent kernels.**  WKV at B = 1, T = 2048 from a zero state; on
     a 512-step chunk from a non-zero state beside a row of ``lens = 0``
     (whose state must come back bit for bit and whose y must be 0); a
     ragged T = 1999; T = 2048 with harsh decays (scale 3: about a tenth
@@ -161,10 +185,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     Each WKV row names the plan ``rwkv6.wkv_plan`` gave it (instance,
     chunk length, grid).  LayerNorm on 2048 x 2560 and on a decode
     step's 4 x 2560, with its plan and, at the decode rows, launches back
-    to back as RMSNorm's in phase 8.  Each against its plain version
+    to back as RMSNorm's in phase 9.  Each against its plain version
     on the same card inputs, timed against the plain version and, for
     LayerNorm, ``F.layer_norm`` (WKV has no PyTorch call).
-11. **Path 5 ("serve", hybrid).**  Zamba2-7B at full width (d_model
+12. **Path 5 ("serve", hybrid).**  Zamba2-7B at full width (d_model
     3584, 112 Mamba-2 heads of N = P = 64, one shared attention block of
     32 heads of hd 112 every 6 layers, d_ff 14336, vocab 32000, RMSNorm;
     random bf16 weights from a seeded ``torch.Generator``, the LoRA
@@ -189,7 +213,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     part like two evaluations of the random model do
     (``ServePath.bf16_chunked_parts``): their agreement is printed.  At
     81 layers the f32 weights alone would be 51 GB beside the bf16 set.
-12. **Hybrid kernels.**  The SSD scan at H = 112, N = P = 64, f32 and
+13. **Hybrid kernels.**  The SSD scan at H = 112, N = P = 64, f32 and
     bf16 inputs: prefill B = 1, T = 2048 from a zero state; a 512-step
     chunk from a state at B = 2 beside a row of ``lens = 0`` (its state
     back bit for bit, its y 0); a ragged T = 1999; decode B = 4, T = 1.
@@ -202,11 +226,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     path phases, each SSD instance's registers, stack and local memory
     and its HMMA / FFMA counts are printed from ``cuobjdump``: none may
     use local memory, and the chunked phases' must show HMMA (TF32
-    ``mma.sync``).  Flash attention at hd 112 as phase 8 (prefill
+    ``mma.sync``).  Flash attention at hd 112 as phase 9 (prefill
     S = 2048; a 512-row chunk at q_offset 1024; decode B = 4 at group
     1), timed against ``F.scaled_dot_product_attention``, and RMSNorm
-    at width 3584 as phase 8.
-13. **Path 6 ("serve", MoE).**  DBRX at full width (d_model 6144, 48 / 8
+    at width 3584 as phase 9.
+14. **Path 6 ("serve", MoE).**  DBRX at full width (d_model 6144, 48 / 8
     heads of hd 128, 16 experts of width 10752 with the top 4 taken,
     vocab 100352, RMSNorm; random bf16 weights from a seeded
     ``torch.Generator``, upcast in place for f32) served by the same
@@ -228,7 +252,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     3-6) its objects are deleted and, with no gc pass, the card's
     allocated memory must be back within 1 GB of its value before the
     phase.
-14. **MoE kernels.**  Flash attention at hd 128 as phase 8 (decode at
+15. **MoE kernels.**  Flash attention at hd 128 as phase 9 (decode at
     group 6) and RMSNorm at width 6144; the masked softmax at the
     router's 2048 x 16 and 4 x 16 f32 (``n_valid = 16``), at 4096 x 2048
     in f32 and bf16 with ``n_valid`` 1500 and 2048, and at ``n_valid =
@@ -241,11 +265,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     device µs a call are printed.  Its
     instances' registers and local memory are printed from
     ``cuobjdump`` (no local memory).
-15. Prints the kernels line, the card line, and the result line last.
+16. Prints the kernels line, the card line, and the result line last.
 
 Run it from a checkout: it builds the kernels from ``src/`` into
 ``build/torch_kernels/`` and refuses to run without the repository or
-without a CUDA device.  ``--layers`` cuts the depth of paths 1 and 2;
+without a CUDA device.  ``--layers`` cuts the depth of paths 1, 2 and 7;
 paths 3 and 4 always run all their layers (22 and 32), path 5 all 81 in
 bf16 and 15 in both dtypes, path 6 8 in bf16 and 4 in both dtypes.
 """
@@ -526,6 +550,16 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return total / reps
 
 
+def kernel_device_us(prof) -> float:
+    """Device µs ``torch.profiler`` recorded, from the kernels' own
+    entries: a PyTorch operator's entry repeats the device time of the
+    kernels it launched (counting both doubles a library call's time)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
 def launch_times(fn, reps: int = 1000) -> dict:
     """``fn`` called ``reps`` times back to back, no flush: the device µs
     a call between two events (the card's issue rate for it, or the
@@ -552,8 +586,7 @@ def launch_times(fn, reps: int = 1000) -> dict:
         for _ in range(100):
             fn()
         torch.cuda.synchronize()
-    dev = sum(getattr(e, "self_device_time_total", 0.0)
-              for e in prof.key_averages())
+    dev = kernel_device_us(prof)
     return dict(back_to_back_us=start.elapsed_time(end) * 1e3 / reps,
                 host_us=host * 1e6 / reps,
                 device_us=dev / 100 if dev else None)
@@ -1464,6 +1497,272 @@ def library_phase(rows: list, report: dict):
             check(rel <= TOL_GEMM[dname],
                   f"{want} {dname}: max|d|/max|ref| {rel:.3e}")
             rows.append((row, detail))
+
+
+# ------------------------------------------------------------- path 7 --
+
+# path 7 (b): the control-flow functions at path 1's width, f32, vs the
+# same function run by torch: the compiled path masks a bucket's padding
+# and sums in other orders over up to S x D = 4 M elements
+CONTROL_FLOW_D = 2048
+CONTROL_FLOW_S = (37, 731, 1999)
+TOL_CONTROL_FLOW = 1e-4
+# path 7 (c): the backends of the paper's §5.2 comparison (and the
+# standalone NimbleVM interpreter beside them)
+BASELINE_BACKENDS = ("hopper", "eager", "nimble_vm")
+# timed rounds over the requests (each request's median is printed)
+BASELINE_ROUNDS = 3
+
+
+def build_scan(cfg, art: dict) -> dict:
+    """Path 7: path 1's weights stacked (L, ...) and its layers run as one
+    ``scan`` of the port's ``block_apply`` (the reference's
+    ``_run_blocks``), then ``ln_f`` and the head.  Eager references stay
+    path 1's own (layers unrolled over the same weights)."""
+    import torch
+    from torch._higher_order_ops.scan import scan
+
+    import disc_torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    params = art["params"]
+    stacked = torch.utils._pytree.tree_map(lambda *ls: torch.stack(ls),
+                                           *params["blocks"])
+
+    def fn(x):
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)[None, :]
+
+        def body(h, bp):
+            h, _ = T.block_apply(cfg, bp, h, positions=positions)
+            return h, []
+
+        x, _ = scan(body, x, stacked)
+        x = L.norm_apply(cfg, params["ln_f"], x)
+        return T.logits_from_hidden(cfg, params, x)
+
+    t0 = time.perf_counter()
+    f = disc_torch.compile(
+        fn, [((1, disc_torch.Dim("S", max=2048), cfg.d_model), art["dt"])],
+        backend="hopper")
+    low = f.lower()
+    return dict(art, f=f, low=low, lower_s=time.perf_counter() - t0)
+
+
+def scan_phase(cfg, dname: str, art1: dict, seed: int, report: dict):
+    """Path 7 (a): one ``d.scan`` of ``cfg.n_layers`` trips, served like
+    path 1 and held to path 1's limits against path 1's eager function."""
+    art = build_scan(cfg, art1)
+    tag = f"[path7 {dname}]"
+    scans = [op for op in art["low"].graph.ops if op.opcode == "d.scan"]
+    trips = [op.attrs["length_dim"] for op in scans]
+    body_ops = [len(op.attrs["body_graph"].ops) for op in scans]
+    print(f"{tag} d.scan ops {len(scans)}, trips {trips}, body ops "
+          f"{body_ops}, graph ops {len(art['low'].graph.ops)}", flush=True)
+    check(len(scans) == 1 and trips == [cfg.n_layers],
+          f"{tag} want one d.scan of {cfg.n_layers} trips: {trips}")
+    path_phase("path7", art, dname, seed, cfg, report)
+    launches = report[("path7", dname)]["launches"]
+    check(launches["fused_elementwise"] > 0,
+          f"{tag} no kLoop launched outside the scan: {launches}")
+    return art
+
+
+def control_flow_fns(torch):
+    """The functions of ``tests/test_control_flow.py`` in torch, each with
+    the ``x`` inputs it runs on; the carries that double there halve
+    here (2^S overflows f32 at S > 127)."""
+    from torch._higher_order_ops.scan import scan
+    from torch._higher_order_ops.while_loop import while_loop
+
+    def f32(v, x):
+        return torch.tensor(v, dtype=torch.float32, device=x.device)
+
+    def i32(v, x):
+        return torch.tensor(v, dtype=torch.int32, device=x.device)
+
+    def while_fn(x):
+        return while_loop(lambda i, c: i < 7,
+                          lambda i, c: (i + 1, c * 1.25 + x.sum()),
+                          (i32(0, x), f32(1.0, x)))[1]
+
+    def trip_fn(x):
+        return while_loop(lambda i, c: c < x[0, 0],
+                          lambda i, c: (i + 1, c * 2.0),
+                          (i32(0, x), f32(1.0, x)))[0]
+
+    def scan_carry_fn(x):
+        def body(c, xi):
+            return c * 0.5 + xi.sum(), c.clone()
+        return scan(body, f32(1.0, x), x)[0]
+
+    def scan_ys_fn(x):
+        def body(c, xi):
+            return c + 1.0, xi * c
+        return scan(body, f32(1.0, x), x)[1]
+
+    def reverse_fn(x):
+        def body(c, xi):
+            return c * 0.5 + xi.sum(), c + xi[0]
+        return scan(body, f32(1.0, x), x, reverse=True)
+
+    def cond_fn(x):
+        return torch.cond(x.sum() > 0.0, lambda a: a * 2.0,
+                          lambda a: a - 1.0, (x,))
+
+    def nested_fn(x):
+        def body(c, xi):
+            _, acc = while_loop(lambda i, s: i < 3,
+                                lambda i, s: (i + 1, s + xi.sum()),
+                                (i32(0, x), c))
+            return acc.clone(), acc.clone()
+        return scan(body, f32(0.0, x), x)[1]
+
+    def thresholds(x):   # trip counts 1, 7 and 20
+        out = []
+        for t in (1.5, 100.0, 1e6):
+            y = x.clone()
+            y[0, 0] = t
+            out.append(y)
+        return out
+
+    return {"while": (while_fn, lambda x: [x]),
+            "trip_count": (trip_fn, thresholds),
+            "scan_carry": (scan_carry_fn, lambda x: [x]),
+            "scan_ys": (scan_ys_fn, lambda x: [x]),
+            "reverse_scan": (reverse_fn, lambda x: [x]),
+            "cond": (cond_fn, lambda x: [x.abs() + 0.1, -x.abs() - 0.1]),
+            "nested": (nested_fn, lambda x: [x])}
+
+
+def control_flow_phase() -> None:
+    """Path 7 (b): each function under ``"hopper"`` and ``"nimble_vm"``
+    at S = 37, 731 and 1999, held against torch's own run; each call's
+    ``d.while`` predicate and ``d.cond`` index reads printed."""
+    import torch
+
+    import disc_torch
+    from repro_torch.core.codegen import REGION_SYNCS
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xs = {s: torch.randn((s, CONTROL_FLOW_D), generator=gen,
+                         device="cuda") * 0.1 for s in CONTROL_FLOW_S}
+    spec = [(disc_torch.Dim("S", max=2048), CONTROL_FLOW_D)]
+    for name, (fn, variants) in control_flow_fns(torch).items():
+        for backend in ("hopper", "nimble_vm"):
+            tag = f"[path7 cf {name} {backend}]"
+            cf = disc_torch.compile(fn, spec, backend=backend)
+            buckets = set()
+            for s, x0 in xs.items():
+                buckets.add(cf.policy.bucket("S", s))
+                for vi, x in enumerate(variants(x0)):
+                    REGION_SYNCS.reset()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = cf(x)
+                    torch.cuda.synchronize()
+                    dt_s = time.perf_counter() - t0
+                    syncs = (REGION_SYNCS.whiles, REGION_SYNCS.conds)
+                    want = fn(x)
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = want if isinstance(want, (tuple, list)) \
+                        else (want,)
+                    check(len(got) == len(want), f"{tag} outputs")
+                    rels = []
+                    for g, w in zip(got, want):
+                        check(tuple(g.shape) == tuple(w.shape),
+                              f"{tag} S={s} shape {tuple(g.shape)} vs "
+                              f"{tuple(w.shape)}")
+                        check(bool(torch.isfinite(g.float()).all()),
+                              f"{tag} S={s}: non-finite output")
+                        d = (g.float() - w.float()).abs().max().item()
+                        rels.append(d / max(w.float().abs().max().item(),
+                                            1e-30))
+                    print(f"{tag} S={s:5d} case={vi} latency_s={dt_s:.4f} "
+                          f"while_syncs={syncs[0]} cond_syncs={syncs[1]} "
+                          f"rel={max(rels):.3e}", flush=True)
+                    check(max(rels) <= TOL_CONTROL_FLOW,
+                          f"{tag} S={s}: rel {max(rels):.3e} > "
+                          f"{TOL_CONTROL_FLOW}")
+            check(cf.n_compiles == len(buckets),
+                  f"{tag} {cf.n_compiles} compiles for {len(buckets)} "
+                  f"buckets")
+
+
+def baseline_phase(dname: str, arts: dict, card: str, seed: int) -> None:
+    """Path 7 (c), printed only: path 1's and path 7's lowered graphs,
+    each request timed (host clock, synchronised; the median of
+    ``BASELINE_ROUNDS`` rounds) under the backends of
+    ``BASELINE_BACKENDS`` and ``NimbleVM(sync_per_op=True)``; at
+    S = 1999 the VM's op dispatches, interpretation seconds and their
+    host share (1 - the device time ``torch.profiler`` sums / the call's
+    seconds)."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from disc_torch import NimbleVM
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    any_art = next(iter(arts.values()))
+    inputs = {s: torch.randn(any_art["shape"](s), generator=gen,
+                             device="cuda").to(any_art["dt"])
+              for s in REQUESTS}
+    at = {}
+    for path, art in arts.items():
+        low = art["low"]
+        runners = {b: low.compile(dataclasses.replace(low.options,
+                                                      backend=b))
+                   for b in BASELINE_BACKENDS}
+        vm = NimbleVM(low.graph, sync_per_op=True)
+        runners["NimbleVM(sync_per_op)"] = lambda x, vm=vm: vm(x)[0]
+        for name, run in runners.items():
+            tag = f"[path7 baseline {dname} {path} {name}]"
+            for s in REQUESTS:       # first call a bucket builds its entry
+                run(inputs[s])
+            torch.cuda.synchronize()
+            samples = {s: [] for s in REQUESTS}
+            for _ in range(BASELINE_ROUNDS):
+                for s in REQUESTS:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    y = run(inputs[s])
+                    torch.cuda.synchronize()
+                    samples[s].append(time.perf_counter() - t0)
+                    check(bool(torch.isfinite(y).all()),
+                          f"{tag} S={s}: non-finite output")
+            times = [sorted(samples[s])[len(samples[s]) // 2]
+                     for s in REQUESTS]
+            at[(path, name)] = dict(zip(REQUESTS, times))
+            print(f"{tag} ms a request " + " ".join(
+                f"S={s}:{t * 1e3:.2f}" for s, t in zip(REQUESTS, times))
+                + f" | {card}", flush=True)
+        # one call's interpretation seconds, the next call's device time
+        dispatches, secs0 = vm.stats.op_dispatches, vm.stats.interp_seconds
+        vm(inputs[1999])
+        torch.cuda.synchronize()
+        interp = vm.stats.interp_seconds - secs0
+        dispatches = vm.stats.op_dispatches - dispatches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            vm(inputs[1999])
+            torch.cuda.synchronize()
+        dev_us = kernel_device_us(prof)
+        share = (1.0 - dev_us * 1e-6 / interp) if dev_us else None
+        print(f"[path7 baseline {dname} {path}] NimbleVM S=1999: "
+              f"op_dispatches {dispatches} (graph ops {len(low.graph.ops)}),"
+              f" interp_s {interp:.4f}, device_s {dev_us * 1e-6:.4f}, host "
+              f"share {'not measured' if share is None else f'{share:.3f}'}"
+              f" | {card}", flush=True)
+        del runners, vm
+    hop = at[("path1", "hopper")][1999]
+    ratios = " ".join(
+        f"{path}/{name}={at[(path, name)][1999] / hop:.3f}"
+        for path, name in at)
+    print(f"[path7 baseline {dname}] S=1999 over path1 hopper "
+          f"({hop * 1e3:.2f} ms): {ratios} | {card}", flush=True)
 
 
 # ------------------------------------------------------------- path 3 --
@@ -2807,10 +3106,22 @@ def main(argv=None) -> int:
                          rows)
             if dname == "f32":
                 reduce_extra_rows(rows)
-            del art, calls
+            del calls
             print(f"[phase path1 {dname}] {time.perf_counter() - t0:.1f} s",
                   flush=True)
+            # path 7 (a) and (c) on path 1's weights and lowered graph
+            t0 = time.perf_counter()
+            art7 = scan_phase(cfg, dname, art, args.seed, report)
+            baseline_phase(dname, {"path1": art, "path7": art7}, card,
+                           args.seed)
+            del art, art7
+            print(f"[phase path7 {dname}] {time.perf_counter() - t0:.1f} s",
+                  flush=True)
             torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        control_flow_phase()
+        print(f"[phase path7 control flow] {time.perf_counter() - t0:.1f} s",
+              flush=True)
         builds[0].join()
         built = builds[1]
         if "error" in built:

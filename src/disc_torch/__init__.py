@@ -23,6 +23,7 @@ from repro_torch.api import (  # noqa: F401
     EXACT,
     LaunchError,
     Lowered,
+    NimbleVM,
     NoDeviceError,
     POW2,
     RetryPolicy,

@@ -14,13 +14,15 @@ Artifacts run on the card (``device="cuda"``, the default) unless the
 caller asks for ``device="cpu"``.  ``CompileOptions(pipeline="jit")``
 buckets a plain PyTorch function without the DHLO bridge (``None`` specs
 pass pytrees through, :class:`TreeSpec` pads their leaves);
-:class:`ServeEngine` serves a model on it with continuous batching.  Backends (``eager``, ``hopper``, or
-your own via :func:`register_backend`) are selected by name through
-``CompileOptions.backend``.
+:class:`ServeEngine` serves a model on it with continuous batching.  Backends (``eager``, ``hopper``,
+``nimble_vm``, or your own via :func:`register_backend`) are selected by name through
+``CompileOptions.backend``; ``nimble_vm`` and :class:`NimbleVM` are the
+interpreted per-op baseline of the paper's §5.2.
 """
 from ..core.bucketing import BucketPolicy, EXACT, POW2, pow2_bucket  # noqa: F401
 from ..core.cache import CompileCache, CacheStats  # noqa: F401
 from ..core.primitives import dot_general  # noqa: F401
+from ..core.vm import NimbleVM  # noqa: F401
 from ..errors import (  # noqa: F401
     CompileError,
     DiscError,
@@ -55,8 +57,8 @@ __all__ = [
     # error taxonomy
     "DiscError", "CompileError", "LaunchError", "NoDeviceError",
     "RetryPolicy",
-    # frontend + lax-level primitives
-    "bridge", "dot_general",
+    # frontend + lax-level primitives, the interpreted baseline
+    "bridge", "dot_general", "NimbleVM",
 ]
 
 

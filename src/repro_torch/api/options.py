@@ -78,6 +78,7 @@ class CompileOptions:
     * ``policy``               — default bucketing rule (per-``Dim``
       contracts are layered on top as overrides)
     * ``backend``              — registry name: ``"eager"``, ``"hopper"``,
+      ``"nimble_vm"``,
       or anything registered via :func:`repro_torch.api.register_backend`
     * ``device``               — where the artifact runs: ``"cuda"`` (the
       default; compiling raises :class:`~repro_torch.errors.NoDeviceError`

@@ -89,24 +89,39 @@ _CONTENT_HASH_BYTES = 1 << 16
 
 
 def _graph_const_token(graph) -> str:
-    """Hash of a DHLO graph's literal payloads, in deterministic order."""
+    """Hash of a DHLO graph's literal payloads, in deterministic order.
+
+    Recurses into region ops' nested body graphs (attrs holding a
+    ``DGraph`` or a tuple of them): a constant inside a loop body is as
+    cache-relevant as a top-level literal."""
+    from ..core.dhlo import DGraph
+
     h = hashlib.sha1()
     seen = set()
-    for op in graph.ops:
-        for v in list(op.inputs) + list(op.shape_operands):
-            if v.literal is None or v.vid in seen:
-                continue
-            seen.add(v.vid)
-            t = v.literal
-            h.update(dtype_key(t.dtype).encode())
-            h.update(repr(tuple(t.shape)).encode())
-            if t.numel() * t.element_size() <= _CONTENT_HASH_BYTES:
-                h.update(t.detach().cpu().contiguous().view(-1)
-                         .view(torch.uint8).numpy().tobytes())
-            else:
-                h.update(repr((t.untyped_storage().data_ptr(),
-                               t.storage_offset(), tuple(t.stride()),
-                               t._version, str(t.device))).encode())
+
+    def walk(g) -> None:
+        for op in g.ops:
+            for v in list(op.inputs) + list(op.shape_operands):
+                if v.literal is None or v.vid in seen:
+                    continue
+                seen.add(v.vid)
+                t = v.literal
+                h.update(dtype_key(t.dtype).encode())
+                h.update(repr(tuple(t.shape)).encode())
+                if t.numel() * t.element_size() <= _CONTENT_HASH_BYTES:
+                    h.update(t.detach().cpu().contiguous().view(-1)
+                             .view(torch.uint8).numpy().tobytes())
+                else:
+                    h.update(repr((t.untyped_storage().data_ptr(),
+                                   t.storage_offset(), tuple(t.stride()),
+                                   t._version, str(t.device))).encode())
+            for av in op.attrs.values():
+                bodies = av if isinstance(av, (tuple, list)) else (av,)
+                for x in bodies:
+                    if isinstance(x, DGraph):
+                        walk(x)
+
+    walk(graph)
     return h.hexdigest()[:16]
 
 

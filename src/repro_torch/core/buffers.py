@@ -26,6 +26,9 @@ layers:
   and the executor realizes by dropping each dead value's last
   reference (``BufferPlan.frees_after``), so PyTorch's caching allocator
   hands the storage to the next allocation of that size.
+* :class:`CachedArena` — the runtime cached allocator of §4.2.2: free
+  lists keyed by dtype, byte size and device, so an alloc of a recurring
+  size is O(1).
 
 ``plan_report`` quantifies peak memory over the program (per binding),
 counting a donated output and its donor as *one* buffer — graph outputs
@@ -37,12 +40,15 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch
+
 from .dhlo import DGraph, DValue
+from .dtypes import as_torch, dtype_key
 from .dtypes import itemsize as _itemsize
 from .symshape import SizeExpr, SymDim
 
 __all__ = ["liveness", "plan_buffers", "plan_report", "BufferPlan",
-           "ByteSize", "DimBounds", "compare_sizes",
+           "ByteSize", "DimBounds", "compare_sizes", "CachedArena",
            "MemoryPlanningLine", "AllocLine", "ReuseLine", "DonateLine",
            "FreeLine"]
 
@@ -607,3 +613,43 @@ def plan_report(graph: DGraph, plan: BufferPlan,
         "values": plan.n_values,
         "reuse_counts": dict(plan.reuse_counts),
     }
+
+
+# ----------------------------------------------------------- allocator --
+
+class CachedArena:
+    """Runtime cached allocator: free lists keyed by (dtype, nbytes,
+    device).  ``peak_bytes`` is the most storage it ever allocated."""
+
+    def __init__(self) -> None:
+        self._free: Dict[Tuple[str, int, str], List[torch.Tensor]] = \
+            defaultdict(list)
+        self.allocs = 0
+        self.reuses = 0
+        self.peak_bytes = 0
+        self._live_bytes = 0
+
+    @staticmethod
+    def _key(dtype, nbytes: int, device) -> Tuple[str, int, str]:
+        return (dtype_key(dtype), int(nbytes), str(torch.device(device)))
+
+    def alloc(self, shape: Tuple[int, ...], dtype, *,
+              device) -> torch.Tensor:
+        dt = as_torch(dtype)
+        n = 1
+        for d in shape:
+            n *= int(d)
+        nbytes = n * dt.itemsize
+        pool = self._free.get(self._key(dt, nbytes, device))
+        if pool:
+            self.reuses += 1
+            return pool.pop().view(tuple(shape))
+        self.allocs += 1
+        self._live_bytes += nbytes
+        self.peak_bytes = max(self.peak_bytes, self._live_bytes)
+        return torch.empty(tuple(shape), dtype=dt, device=device)
+
+    def dealloc(self, buf: torch.Tensor) -> None:
+        key = self._key(buf.dtype, buf.numel() * buf.element_size(),
+                        buf.device)
+        self._free[key].append(buf.reshape(-1))

@@ -47,6 +47,13 @@ Clusters whose template a backend does not register run per op.  A
 registered kernel that fails to build or launch raises; the cluster never
 moves to the per-op path in its place.
 
+Region ops (``d.while`` / ``d.scan`` / ``d.cond``) run on the host
+(:func:`emit_region_op`): their bodies run op by op, never through
+cluster kernels, as the JAX package's executor runs them.  A ``d.while``
+reads its predicate once an iteration and a ``d.cond`` its index once
+(:data:`REGION_SYNCS` counts those reads); a ``d.scan`` takes its trip
+count from the host lengths and reads nothing back.
+
 Values are dropped by their last use **in the order the executor runs
 them** (a fused cluster runs all its ops at once, in fusion-plan order),
 so PyTorch's caching allocator recycles their storage for later ops.
@@ -73,12 +80,30 @@ __all__ = [
     "ClusterKernel",
     "hopper_cluster_kernels",
     "kdot_jobs",
+    "emit_region_op",
     "REGION_OPS",
+    "REGION_SYNCS",
 ]
 
-# DHLO region ops: bodies are nested DGraphs in attrs; the port's frontend
-# does not produce them yet
+# DHLO region ops: bodies are nested DGraphs in attrs
 REGION_OPS = frozenset({"d.while", "d.scan", "d.cond"})
+
+
+class RegionSyncs:
+    """Host reads of a device value made by region ops: one per
+    ``d.while`` predicate (an iteration) and one per ``d.cond`` index.
+    On the card each is a synchronisation with the stream."""
+
+    def __init__(self) -> None:
+        self.whiles = 0
+        self.conds = 0
+
+    def reset(self) -> None:
+        self.whiles = 0
+        self.conds = 0
+
+
+REGION_SYNCS = RegionSyncs()
 
 
 def dyn_symbols(graph: DGraph) -> List[SymDim]:
@@ -321,6 +346,98 @@ def _emit_masked(op: DOp, inputs, out_shapes, env: _ShapeEnv):
         return emit_op(op, inputs, out_shapes, dev)
 
     return emit_op(op, inputs, out_shapes, dev)
+
+
+# ------------------------------------------------------- region ops --
+
+def _region_setup(env: _ShapeEnv, body: DGraph):
+    """A body's run order and literals, built once per executor (kept in
+    its ``static`` memo) and reused by every iteration and call."""
+    return env.memo(("region", body),
+                    lambda: (_Schedule(body), _Literals(env.device)))
+
+
+def _run_body(body: DGraph, args, env: _ShapeEnv, masked: bool):
+    schedule, literals = _region_setup(env, body)
+    return _run_graph(body, args, env, masked, schedule, literals)
+
+
+def _as_carry(vals, like: Sequence[DValue], device) -> List[torch.Tensor]:
+    """Loop carries as tensors of their declared dtypes (a rank-0 literal
+    reaches a region as a Python number)."""
+    out = []
+    for x, v in zip(vals, like):
+        if not isinstance(x, torch.Tensor):
+            x = torch.tensor(x, dtype=as_torch(v.dtype), device=device)
+        out.append(x)
+    return out
+
+
+def emit_region_op(op: DOp, ins: Sequence[Any], env: _ShapeEnv,
+                   masked: bool) -> List[Any]:
+    """Execute a DHLO region op as host control flow around its bodies.
+
+    Each body runs through :func:`_run_graph` op by op, with no fusion
+    plan and no cluster kernels (the JAX package's executor does the
+    same), in the caller's shape environment: eager execution has no
+    traced scopes, so the padded and actual bindings and the canonical
+    masks are shared with the enclosing graph.  Loop carries keep their
+    entry-bucket padded shapes.
+
+    * ``d.while`` — a host loop; each iteration reads its predicate once
+      (one sync, counted in ``REGION_SYNCS.whiles``).
+    * ``d.scan``  — runs the *actual* trip count, taken from the host
+      lengths (no sync), in reverse order when ``reverse`` is set; the
+      stacked ys are allocated zero, so their padded tail rows stay
+      exactly 0.
+    * ``d.cond``  — reads the index once (``REGION_SYNCS.conds``),
+      clamps it into range and runs that branch alone.
+    """
+    code = op.opcode
+    attrs = op.attrs
+    dev = env.device
+    if code == "d.while":
+        cn, bn = attrs["cond_nconsts"], attrs["body_nconsts"]
+        cond_g, body_g = attrs["cond_graph"], attrs["body_graph"]
+        cond_consts = list(ins[:cn])
+        body_consts = list(ins[cn:cn + bn])
+        carry = _as_carry(ins[cn + bn:], op.outputs, dev)
+        while True:
+            (pred,) = _run_body(cond_g, cond_consts + carry, env, masked)
+            REGION_SYNCS.whiles += 1
+            if not bool(pred):
+                return carry
+            carry = _as_carry(_run_body(body_g, body_consts + carry, env,
+                                        masked), op.outputs, dev)
+
+    if code == "d.scan":
+        nc, ncar = attrs["num_consts"], attrs["num_carry"]
+        body_g = attrs["body_graph"]
+        length_dim = attrs["length_dim"]
+        consts = list(ins[:nc])
+        carry = _as_carry(ins[nc:nc + ncar], op.outputs, dev)
+        xs = list(ins[nc + ncar:])
+        n = env.actual_dim(length_dim) if masked and \
+            env.is_dynamic(length_dim) else env.padded_dim(length_dim)
+        ys = [torch.zeros(env.padded_shape(v.shape), dtype=as_torch(v.dtype),
+                          device=dev) for v in op.outputs[ncar:]]
+        steps = range(int(n) - 1, -1, -1) if attrs["reverse"] \
+            else range(int(n))
+        for i in steps:
+            outs = _run_body(body_g, consts + carry + [x[i] for x in xs],
+                             env, masked)
+            carry = _as_carry(outs[:ncar], op.outputs, dev)
+            for y, val in zip(ys, outs[ncar:]):
+                y[i] = val
+        return carry + ys
+
+    if code == "d.cond":
+        branches = attrs["branch_graphs"]
+        REGION_SYNCS.conds += 1
+        idx = min(max(int(ins[0]), 0), len(branches) - 1)
+        return _run_body(branches[idx], list(ins[1:]), env, masked)
+
+    raise NotImplementedError(f"unknown region op {code}")
 
 
 # --------------------------------------------------- cluster kernels --
@@ -708,13 +825,15 @@ def _run_graph(graph: DGraph, arrays, env: _ShapeEnv, masked: bool,
     def run_op(op):
         ins = [read(v) for v in op.inputs] + [read(v) for v in op.shape_operands]
         if op.opcode in REGION_OPS:
-            raise NotImplementedError(
-                f"region op {op.opcode}: control flow is not ported yet")
-        out_shapes = [env.padded_shape(o.shape) for o in op.outputs]
-        if masked:
-            outs = _emit_masked(op, ins, out_shapes, env)
+            outs = emit_region_op(op, ins, env, masked)
+        elif masked:
+            outs = _emit_masked(op, ins,
+                                [env.padded_shape(o.shape)
+                                 for o in op.outputs], env)
         else:
-            outs = emit_op(op, ins, out_shapes, env.device)
+            outs = emit_op(op, ins,
+                           [env.padded_shape(o.shape) for o in op.outputs],
+                           env.device)
         for o, val in zip(op.outputs, outs):
             vals[o.vid] = val
 

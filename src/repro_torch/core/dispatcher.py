@@ -220,6 +220,9 @@ class DispatchLens:
     * ``pass_lens`` — prepend the tuple of true lengths to the entry call
       (DHLO masked executors take it; jit-pipeline functions carry
       lengths as ordinary arguments).
+    * ``regions``   — one-line summaries of the artifact's region ops
+      (``d.while`` / ``d.scan`` / ``d.cond``), a header of the generated
+      dispatch source.
     """
 
     name: str
@@ -228,6 +231,7 @@ class DispatchLens:
     args: Tuple[ArgPlan, ...]
     outputs: Optional[Tuple[Tuple[Any, ...], ...]] = ()
     pass_lens: bool = True
+    regions: Tuple[str, ...] = ()
 
 
 def dhlo_lens(graph: DGraph, syms: Sequence[SymDim]) -> DispatchLens:
@@ -280,10 +284,24 @@ def dhlo_lens(graph: DGraph, syms: Sequence[SymDim]) -> DispatchLens:
                 axes.append(None)
         outputs.append(tuple(axes))
 
+    regions: List[str] = []
+    for op in graph.ops:
+        if op.opcode == "d.while":
+            regions.append(
+                f"d.while(cond={len(op.attrs['cond_graph'].ops)} ops, "
+                f"body={len(op.attrs['body_graph'].ops)} ops)")
+        elif op.opcode == "d.scan":
+            regions.append(
+                f"d.scan(body={len(op.attrs['body_graph'].ops)} ops, "
+                f"carries={op.attrs['num_carry']})")
+        elif op.opcode == "d.cond":
+            regions.append(
+                f"d.cond(branches={len(op.attrs['branch_graphs'])})")
+
     return DispatchLens(
         name=graph.name, sym_names=tuple(s.name for s in syms),
         sym_sites=tuple(tuple(s) for s in sites), args=tuple(args),
-        outputs=tuple(outputs))
+        outputs=tuple(outputs), regions=tuple(regions))
 
 
 def jit_lens(specs: Sequence[Any], sym_names: Sequence[str],
@@ -449,8 +467,18 @@ def generate_dispatch(
     bytes_expr = " + ".join(byte_terms) if byte_terms else "0"
     true_bytes_expr = " + ".join(true_terms) if true_terms else "0"
 
-    # --- memory-plan block: the wrapper-IR view of the buffer plan -----
+    # --- region-op block: control flow runs inside the bucket's entry -----
     header: List[str] = []
+    if lens.regions:
+        header.append("# -- region ops (control flow traced INTO the "
+                      "bucketed artifact; the")
+        header.append("#    bucket key below is entry shapes only — "
+                      "iteration-varying shapes")
+        header.append("#    never multiply compile counts) --")
+        for r in lens.regions:
+            header.append(f"#   {r}")
+
+    # --- memory-plan block: the wrapper-IR view of the buffer plan -----
     if memory_plan is not None and getattr(memory_plan, "lines_text", None):
         rc = dict(memory_plan.reuse_counts)
         header.append("# -- memory plan (bucket-generic, symbolic; every "

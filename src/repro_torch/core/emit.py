@@ -256,8 +256,8 @@ def _emit(op: DOp, inputs: Sequence[Any], out_shapes, device) -> List[Any]:
         return [torch.sort(inputs[0], dim=dim).values]
     if code in ("d.while", "d.scan", "d.cond"):
         raise NotImplementedError(
-            f"region op {code} carries nested DGraph bodies; the port "
-            f"does not execute control-flow regions yet")
+            f"region op {code} carries nested DGraph bodies; it runs "
+            f"through codegen.emit_region_op, not emit_op")
     raise NotImplementedError(f"no emission rule for {code}")
 
 

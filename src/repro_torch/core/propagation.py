@@ -127,9 +127,9 @@ _reg(["scatter_add"], OpInfo(PropClass.UPDATE, _M))
 _reg(["sort"], OpInfo(PropClass.ELEMENTWISE, _M))
 # region ops (d.* control flow): bodies are nested DGraphs in attrs.
 # COMPUTE keeps them out of fusion clusters — a region executes as one
-# opaque launch (the port's frontend does not lower control flow yet);
-# its shape behavior is captured by the carry fixed-point rule below, not
-# by a propagation class.
+# opaque step (codegen.emit_region_op runs it on the host); its shape
+# behavior is captured by the carry fixed-point rule below, not by a
+# propagation class.
 _reg(["d.while", "d.scan", "d.cond"],
      OpInfo(PropClass.OPAQUE, CostClass.COMPUTE))
 # shape-calculation ops (host-placed by the placer, §4.2.1)

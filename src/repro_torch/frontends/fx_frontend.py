@@ -30,9 +30,19 @@ The mapping mirrors how ``jax.numpy`` lowers the same source-level code:
 * ``mean`` is ``reduce_sum`` then ``div``; ``chunk``/``split`` become
   independent ``slice`` ops plus the frontend's equal-shape hints.
 
+Control flow traces (``make_fx``) into ``torch.ops.higher_order`` nodes
+whose bodies are ``get_attr`` GraphModules.  ``while_loop``, ``scan`` and
+``cond`` lower to the region ops ``d.while`` / ``d.scan`` / ``d.cond``,
+each body a nested ``DGraph`` sharing the parent's constraint store and
+derived-dim table (:func:`_bridge_region`), its operands laid out as the
+JAX bridge lays them out: loop-invariant operands first, then the carry,
+then the scanned slices.  A reverse scan traces as ``flip → scan → flip``
+and is folded back into one ``d.scan(reverse=True)``.
+
 Every op records its ATen overload and its non-tensor arguments in
-``attrs["_prim"]`` / ``attrs["_params"]``.  An ATen op with no rule raises
-:class:`UnsupportedPrimitiveError`, naming it.
+``attrs["_prim"]`` / ``attrs["_params"]``.  An ATen op with no rule, and
+any other higher-order op, raises :class:`UnsupportedPrimitiveError`,
+naming it.
 """
 from __future__ import annotations
 
@@ -47,7 +57,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from ..core.dhlo import DGraph, DValue
 from ..core.dtypes import as_torch
 from ..core.primitives import DOT_GENERAL_OP
-from ..core.propagation import collect_semantic_constraints
+from ..core.propagation import carry_fixed_point, collect_semantic_constraints
 from ..core.symshape import Dim, SymDim, SymShape, dim_value, fresh_symdim
 
 __all__ = ["ArgSpec", "TreeSpec", "UnsupportedPrimitiveError", "bridge",
@@ -57,7 +67,7 @@ aten = torch.ops.aten
 
 
 class UnsupportedPrimitiveError(NotImplementedError):
-    """An ATen op the bridge cannot lower to DHLO.
+    """An ATen or higher-order op the bridge cannot lower to DHLO.
 
     Raised (naming the op) instead of guessing: an op traced at
     representative shapes and replayed blindly at another bucket would
@@ -147,6 +157,11 @@ class _Bridge:
         self.graph = DGraph(name=name)
         self.graph.dim_exprs = {}
         self.env: Dict[torch.fx.Node, Any] = {}
+        # declared Dim(max=...) caps by symbol name: a loop carry whose dim
+        # varies across iterations widens to a symbol with this bound
+        self.bounds: Dict[str, int] = {}
+        # scan nodes traced as flip -> scan -> flip (see _reverse_scans)
+        self.reverse_scans: set = set()
         self.symbols: Dict[str, SymDim] = {}
         # representative value -> SymDim, for resymbolization
         self.rep_to_dim: Dict[int, SymDim] = {}
@@ -334,8 +349,9 @@ _EW_UNARY = {
 }
 
 # ops that are value identities in DHLO (values are immutable)
-_IDENTITY = {"clone", "alias", "detach", "lift_fresh_copy", "contiguous",
-             "lift_fresh", "_conj", "resolve_conj", "resolve_neg"}
+_IDENTITY = {"clone", "alias", "detach", "detach_", "lift_fresh_copy",
+             "contiguous", "lift_fresh", "_conj", "resolve_conj",
+             "resolve_neg"}
 
 _VIEWS = {"view", "_unsafe_view", "reshape"}
 _BROADCASTS = {"unsqueeze", "expand"}
@@ -628,6 +644,213 @@ def _matmul_folds(gm: torch.fx.GraphModule):
     return folds, skip
 
 
+# ---------------------------------------------------------- region ops --
+
+def _hop_name(node) -> Optional[str]:
+    t = node.target if isinstance(node, torch.fx.Node) else None
+    if isinstance(t, torch._ops.HigherOrderOperator):
+        return t.name()
+    return None
+
+
+def _is_flip0(node) -> bool:
+    return (isinstance(node, torch.fx.Node) and node.op == "call_function"
+            and node.target is aten.flip.default
+            and [int(d) for d in node.args[1]] == [0])
+
+
+def _reverse_scans(gm: torch.fx.GraphModule):
+    """``scan(..., reverse=True)`` traces as ``flip(xs, [0]) → scan →
+    flip(ys, [0])``.  Fold the pattern back into one reverse scan, as
+    :func:`_matmul_folds` folds ``view → mm → view``: unfolded, the flip
+    of a zero-padded dynamic axis would move the bucket's padding to the
+    front, and the scan would start on padded rows.
+
+    A scan folds when every ``xs`` operand is a flip over axis 0 used by
+    the scan alone and every used ``ys`` output feeds only such flips.
+    Returns ``(scans, xs flips to skip, {ys flip: scan output})``."""
+    scans, skip, alias = set(), set(), {}
+    for n in gm.graph.nodes:
+        if _hop_name(n) != "scan" or len(n.args) != 4:
+            continue
+        ncar, xs = len(n.args[1]), list(n.args[2])
+        if not xs or not all(_is_flip0(x) and len(x.users) == 1
+                             for x in xs):
+            continue
+        outs = {}
+        for g in n.users:
+            if g.target is not operator.getitem:
+                break
+            if int(g.args[1]) < ncar:
+                continue
+            if not all(_is_flip0(u) for u in g.users):
+                break
+            outs.update({u: g for u in g.users})
+        else:
+            scans.add(n)
+            skip.update(xs)
+            alias.update(outs)
+    return scans, skip, alias
+
+
+def _bridge_region(b: _Bridge, gm: torch.fx.GraphModule, params, order,
+                   name: str) -> DGraph:
+    """Lower a traced body into a nested region ``DGraph``.
+
+    The body *shares* the parent's constraint store and derived-dim table
+    (one symbolic universe, so shapes keep their identity across the
+    region boundary); only the value environment is scoped.  ``params``
+    are the body's ``(shape, dtype)`` pairs in DHLO order, and ``order``
+    gives, for each placeholder of ``gm`` in turn, its param's index."""
+    outer_graph, outer_env = b.graph, b.env
+    sub = DGraph(name=name)
+    sub.store = outer_graph.store
+    sub.dim_exprs = outer_graph.dim_exprs
+    b.graph, b.env = sub, {}
+    try:
+        vals = [sub.add_param(tuple(sh), dt) for sh, dt in params]
+        placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
+        if len(placeholders) != len(order):
+            raise UnsupportedPrimitiveError(
+                f"{name}: the body takes {len(placeholders)} operands, the "
+                f"op passes {len(order)}")
+        for node, i in zip(placeholders, order):
+            b.env[node] = vals[i]
+        sub.set_outputs(_walk(b, gm))
+    finally:
+        b.graph, b.env = outer_graph, outer_env
+    # op-semantic constraints of the body land in the shared store now
+    # (the top-level pass does not descend into regions), so the carry
+    # fixed point that runs next sees them
+    collect_semantic_constraints(sub)
+    return sub
+
+
+def _tensor_operands(b: _Bridge, node, seq) -> List[DValue]:
+    out = []
+    for a in seq:
+        if not isinstance(a, torch.fx.Node):
+            raise UnsupportedPrimitiveError(
+                f"higher-order op {node.target.name()!r}: non-tensor "
+                f"operand {a!r}")
+        out.append(b.env[a])
+    return out
+
+
+def _carry_shapes(b: _Bridge, carry, outs, what: str):
+    g = b.graph
+    return [carry_fixed_point(g.store, g.dim_exprs, cv.shape, ov.shape,
+                              bounds=b.bounds, label=f"{what} carry {i}")
+            for i, (cv, ov) in enumerate(zip(carry, outs))]
+
+
+def _bridge_while(b: _Bridge, node) -> None:
+    """``while_loop(cond, body, carried, additional)`` → ``d.while``.
+
+    Both traced bodies take ``(*carried, *additional)``; the region op
+    takes the JAX bridge's layout ``cond_consts + body_consts + carry``
+    with ``additional`` as the consts of both bodies (so it appears
+    twice among the operands), and its bodies' params are reordered to
+    ``consts + carry`` to match."""
+    cond_gm, body_gm, carried, additional = node.args
+    g = b.graph
+    carry = _tensor_operands(b, node, carried)
+    consts = _tensor_operands(b, node, additional)
+    params = [(v.shape, v.dtype) for v in consts + carry]
+    nc, ncar = len(consts), len(carry)
+    order = [nc + k for k in range(ncar)] + list(range(nc))
+    cond_graph = _bridge_region(b, b.env[cond_gm], params, order,
+                                f"{g.name}.while.cond")
+    body_graph = _bridge_region(b, b.env[body_gm], params, order,
+                                f"{g.name}.while.body")
+    out_shapes = _carry_shapes(b, carry, body_graph.outputs, "while")
+    op = g.add_op("d.while", consts + consts + carry, out_shapes,
+                  [v.dtype for v in carry],
+                  attrs={"cond_graph": cond_graph, "body_graph": body_graph,
+                         "cond_nconsts": nc, "body_nconsts": nc})
+    b.env[node] = tuple(op.outputs)
+
+
+def _bridge_scan(b: _Bridge, node) -> None:
+    """``scan(combine, init, xs, additional)`` → ``d.scan`` over axis 0 of
+    ``xs``, its length the dim of ``xs[0]``; the ys get that axis in
+    front.  The combine body takes ``(*carry, *x_slices, *additional)``;
+    its params are reordered to the JAX bridge's ``consts + carry + xs``."""
+    combine, init, xs_nodes, additional = node.args
+    g = b.graph
+    reverse = node in b.reverse_scans
+    if reverse:
+        xs_nodes = [x.args[0] for x in xs_nodes]
+    carry = _tensor_operands(b, node, init)
+    xs = _tensor_operands(b, node, xs_nodes)
+    consts = _tensor_operands(b, node, additional)
+    nc, ncar, nx = len(consts), len(carry), len(xs)
+    if not xs:
+        raise UnsupportedPrimitiveError("scan over no xs has no length")
+    length_dim = xs[0].shape[0]
+    params = ([(v.shape, v.dtype) for v in consts + carry]
+              + [(tuple(v.shape[1:]), v.dtype) for v in xs])
+    order = [nc + k for k in range(ncar + nx)] + list(range(nc))
+    body = _bridge_region(b, b.env[combine], params, order,
+                          f"{g.name}.scan.body")
+    out_shapes = _carry_shapes(b, carry, body.outputs[:ncar], "scan")
+    out_shapes += [(length_dim,) + tuple(y.shape)
+                   for y in body.outputs[ncar:]]
+    op = g.add_op("d.scan", consts + carry + xs, out_shapes,
+                  [v.dtype for v in body.outputs],
+                  attrs={"body_graph": body, "num_consts": nc,
+                         "num_carry": ncar, "length_dim": length_dim,
+                         "reverse": reverse, "unroll": 1})
+    b.env[node] = tuple(op.outputs)
+
+
+def _bridge_cond(b: _Bridge, node) -> None:
+    """``cond(pred, true_fn, false_fn, operands)`` → ``d.cond`` over the
+    branch graphs ``(false, true)``, indexed by ``pred`` converted to
+    int32: how ``lax.cond`` lowers to the JAX bridge's ``d.cond``."""
+    pred, true_gm, false_gm, operands = node.args
+    g = b.graph
+    p = b.env[pred]   # a constant predicate never reaches the trace
+    index = g.add_op("convert", [p], [p.shape], [torch.int32],
+                     attrs={"new_dtype": torch.int32}).outputs[0]
+    ops = _tensor_operands(b, node, operands)
+    params = [(v.shape, v.dtype) for v in ops]
+    order = list(range(len(ops)))
+    branches = tuple(
+        _bridge_region(b, b.env[gm], params, order, f"{g.name}.cond.br{i}")
+        for i, gm in enumerate((false_gm, true_gm)))
+    base = branches[0]
+    for a, o in zip(base.outputs, branches[1].outputs):
+        g.store.assert_shape_eq(a.shape, o.shape)
+    op = g.add_op("d.cond", [index] + ops, [v.shape for v in base.outputs],
+                  [v.dtype for v in base.outputs],
+                  attrs={"branch_graphs": branches})
+    b.env[node] = tuple(op.outputs)
+
+
+_REGION_BRIDGES = {"while_loop": _bridge_while, "scan": _bridge_scan,
+                   "cond": _bridge_cond}
+
+
+def _bridge_higher_order(b: _Bridge, node) -> None:
+    name = node.target.name()
+    lower = _REGION_BRIDGES.get(name)
+    if lower is None:
+        bodies = [i for i, a in enumerate(node.args)
+                  if isinstance(a, torch.fx.Node) and a.op == "get_attr"]
+        raise UnsupportedPrimitiveError(
+            f"higher-order op 'torch.ops.higher_order.{name}' (traced "
+            f"bodies in args {bodies}) is not supported by the DHLO bridge; "
+            f"supported region ops are while_loop/scan/cond")
+    if len(node.args) != 4 or node.kwargs:
+        # the form torch 2.11 to 2.13 traces: (body or bodies, operands)
+        raise UnsupportedPrimitiveError(
+            f"higher-order op {name!r} traced with {len(node.args)} args "
+            f"and kwargs {sorted(node.kwargs)}; the bridge reads 4 "
+            f"positional args")
+    lower(b, node)
+
+
 # ------------------------------------------------------------- the walk --
 
 def _bridge_node(b: _Bridge, node, folds, skip, fold_out) -> None:
@@ -640,6 +863,9 @@ def _bridge_node(b: _Bridge, node, folds, skip, fold_out) -> None:
     args, kwargs = node.args, node.kwargs
     if target is operator.getitem:
         b.env[node] = b.env[args[0]][args[1]]
+        return
+    if isinstance(target, torch._ops.HigherOrderOperator):
+        _bridge_higher_order(b, node)
         return
     if target is DOT_GENERAL_OP:
         lhs, rhs = b.env[args[0]], b.env[args[1]]
@@ -768,9 +994,11 @@ def _bridge_node(b: _Bridge, node, folds, skip, fold_out) -> None:
         src = b.env[args[0]]
         dim = int(args[1]) % src.rank
         idx = int(args[2]) % dim_value(src.shape[dim])
-        if not isinstance(src.shape[dim], int):
+        if not isinstance(src.shape[dim], int) and int(args[2]) < 0:
+            # a prefix index is valid at every length; one counted from
+            # the end would land in a bucket's padding
             raise UnsupportedPrimitiveError(
-                f"{target}: indexing a dynamic axis")
+                f"{target}: indexing a dynamic axis from its end")
         sl = _slice(b, node, args[0], dim, idx, idx + 1)
         shape = tuple(d for i, d in enumerate(sl.shape) if i != dim)
         b.env[node] = b.emit1("reshape", node, [sl], shape, sl.dtype)
@@ -796,6 +1024,33 @@ def _bridge_node(b: _Bridge, node, folds, skip, fold_out) -> None:
         f"function with supported ops or add a rule to fx_frontend.py")
 
 
+def _walk(b: _Bridge, gm: torch.fx.GraphModule) -> List[DValue]:
+    """Lower every node of ``gm`` (its placeholders already bound in
+    ``b.env``) into ``b.graph``; returns the output values."""
+    folds, skip = _matmul_folds(gm)
+    fold_out = {out: mm for mm, (_, out) in folds.items()}
+    scans, flips, flip_out = _reverse_scans(gm)
+    b.reverse_scans |= scans
+    skip |= flips
+    fold_out.update(flip_out)
+    outputs: List[DValue] = []
+    for node in gm.graph.nodes:
+        if node.op == "placeholder":
+            continue
+        if node.op == "get_attr":
+            attr = getattr(gm, node.target)
+            # a GraphModule is a region body, lowered with its op
+            b.env[node] = attr if isinstance(attr, torch.fx.GraphModule) \
+                else b.graph.add_const(attr)
+            continue
+        if node.op == "output":
+            flat, _ = torch.utils._pytree.tree_flatten(node.args[0])
+            outputs = [b.env[n] for n in flat]
+            continue
+        _bridge_node(b, node, folds, skip, fold_out)
+    return outputs
+
+
 def _trace(fn: Callable, arg_specs, sym_shapes, device) -> torch.fx.GraphModule:
     """``make_fx`` of ``fn`` over fake examples on ``device``, with every
     kernel wrapper in its plain version: a fake CUDA tensor must never
@@ -807,7 +1062,11 @@ def _trace(fn: Callable, arg_specs, sym_shapes, device) -> torch.fx.GraphModule:
     examples = [torch.empty(tuple(dim_value(d) for d in sh),
                             dtype=as_torch(spec.dtype), device=device)
                 for sh, spec in zip(sym_shapes, arg_specs)]
-    with torch.no_grad(), plain_versions():
+    # control flow is captured by dynamo inside torch's higher-order ops:
+    # keep it at the representative sizes (after calls at other sizes it
+    # would turn shapes dynamic and lift them as extra loop operands)
+    with torch.no_grad(), plain_versions(), torch._dynamo.config.patch(
+            automatic_dynamic_shapes=False):
         return make_fx(fn, tracing_mode="fake",
                        decomposition_table=core_aten_decompositions(),
                        _allow_non_fake_inputs=True)(*examples)
@@ -836,28 +1095,16 @@ def bridge(fn: Callable, arg_specs: Sequence[ArgSpec], *, name: str = "graph",
         tuple(b.symbol(s) if isinstance(s, str) else int(s)
               for s in spec.shape) for spec in arg_specs]
     gm = _trace(fn, arg_specs, sym_shapes, device)
-    for nm, cap in dict(bounds or {}).items():
-        if nm in b.symbols and cap is not None:
-            b.graph.store.note_dim_bound(b.symbols[nm], int(cap))
-    folds, skip = _matmul_folds(gm)
-    fold_out = {out: mm for mm, (_, out) in folds.items()}
+    b.bounds = {nm: int(cap) for nm, cap in dict(bounds or {}).items()
+                if cap is not None}
+    for nm, cap in b.bounds.items():
+        if nm in b.symbols:
+            b.graph.store.note_dim_bound(b.symbols[nm], cap)
     placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
     for spec, sh, node in zip(arg_specs, sym_shapes, placeholders):
         b.env[node] = b.graph.add_param(sh, as_torch(spec.dtype),
                                         name=spec.name)
-    outputs: List[DValue] = []
-    for node in gm.graph.nodes:
-        if node.op == "placeholder":
-            continue
-        if node.op == "get_attr":
-            b.env[node] = b.graph.add_const(getattr(gm, node.target))
-            continue
-        if node.op == "output":
-            flat, _ = torch.utils._pytree.tree_flatten(node.args[0])
-            outputs = [b.env[n] for n in flat]
-            continue
-        _bridge_node(b, node, folds, skip, fold_out)
-    b.graph.set_outputs(outputs)
+    b.graph.set_outputs(_walk(b, gm))
 
     # constraint source #1: op semantics
     collect_semantic_constraints(b.graph)

@@ -37,9 +37,13 @@ def plain_versions() -> Iterator[None]:
 def use_kernel(t: torch.Tensor, op: str) -> bool:
     """True where ``op``'s wrapper launches its kernel: a CUDA tensor
     outside :func:`plain_versions`.  A CPU tensor (or the context) takes
-    the plain version; any other device raises."""
+    the plain version; any other device raises.  Inside a dynamo trace
+    (the body of a ``while_loop`` / ``scan`` / ``cond``, captured while
+    the DHLO bridge traces it) nothing launches: the plain version is
+    what the trace records, and the context variable is never read
+    there (dynamo cannot trace ``ContextVar.get``)."""
     dev = t.device.type
-    if dev == "cpu" or _PLAIN.get():
+    if dev == "cpu" or torch.compiler.is_compiling() or _PLAIN.get():
         return False
     if dev == "cuda":
         return True

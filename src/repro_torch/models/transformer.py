@@ -4,8 +4,8 @@ The counterpart of the JAX package's ``models/transformer.py`` for the
 dense and MoE families (a block's FFN is the routed MoE where
 ``cfg.is_moe``).  The reference stacks its layers and runs them under
 ``lax.scan``; the port keeps a Python list of per-layer parameter dicts
-and unrolls the layers, which is what the DHLO bridge traces (the port's
-frontend lowers no control flow yet).
+and unrolls the layers, which is what the DHLO bridge traces, so each
+layer's clusters fuse (a body of the bridge's ``d.scan`` runs op by op).
 
 The token embedding is a gather, which the DHLO pipeline does not lower:
 on that pipeline :func:`embed_tokens` runs outside ``disc_torch.compile``,

@@ -43,10 +43,11 @@ def test_dim_contract_layers_onto_policy():
 
 
 def test_registry_lists_and_rejects():
-    assert list_backends() == ["eager", "hopper"]
+    assert list_backends() == ["eager", "hopper", "nimble_vm"]
     assert set(get_backend("hopper").cluster_kernels) == {"kLoop", "kInput",
                                                           "kDot"}
     assert get_backend("eager").cluster_kernels == {}
+    assert get_backend("nimble_vm").cluster_kernels == {}
     with pytest.raises(disc_torch.UnknownBackendError, match="registered"):
         get_backend("pallas")
     with pytest.raises(ValueError, match="already registered"):

@@ -19,7 +19,9 @@
 * **Reduced ``rwkv6_3b``** (f32, the JAX parameters carried across by
   ``params_from_numpy``, caches by ``cache_from_numpy``): ``decode_step``,
   the port's single-pass ``prefill`` against the JAX model's
-  ``replay_prefill``, ``forward`` and ``greedy_decode``; and the port's
+  ``replay_prefill``, ``forward`` and ``greedy_decode`` (also compiled
+  whole on the jit pipeline, one artifact per batch bucket, as
+  ``tests/test_system.py``'s single-artifact decode); and the port's
   ``ServeEngine`` against the JAX one (identical token streams).
   Tolerance 1e-5 on logits and every cache leaf: the same f32 math, the
   projections and the dot over K summed in other orders.
@@ -503,6 +505,47 @@ def test_greedy_decode_matches_jax(rwkv, case):
     if case == "eos_row0":
         assert (buf[0] == eos).all()
     _leaves_close(c, jax.tree.map(np.asarray, jc), **TOL)
+
+
+def test_single_artifact_decode_matches_jax(rwkv):
+    """Twin of ``tests/test_system.py``'s RWKV-6 single-artifact decode:
+    the whole greedy decode compiled once per batch bucket on the port's
+    jit pipeline (the cache a ``TreeSpec`` padded along its batch axis),
+    batches of 3, 4 and 2 in buckets of 4, 4 and 2: two compiles, and the
+    valid rows' tokens equal the JAX model's ``greedy_decode``."""
+    import disc_torch
+    import jax.numpy as jnp
+    from disc_torch import ArgSpec, BucketPolicy, Dim, TreeSpec
+
+    maxn = 4
+    m, jm = rwkv["model"], rwkv["jmodel"]
+    dim_b = Dim("B", max=8)
+
+    def step(params, cache, toks, lens):
+        return m.greedy_decode(params, cache, toks, lens, max_new=maxn,
+                               eos_id=-1)
+
+    cf = disc_torch.compile(
+        step, specs=[None, TreeSpec({1: "B"}),
+                     ArgSpec((dim_b, 1), torch.int32, name="tokens"),
+                     ArgSpec((dim_b,), torch.int32, name="lens")],
+        pipeline="jit", name="rwkv6_3b_greedy", device="cpu",
+        policy=BucketPolicy(kind="multiple", granule=2))
+    rng = np.random.RandomState(3)
+    buckets = set()
+    for b in (3, 4, 2):
+        toks = rng.randint(1, rwkv["cfg"].vocab, size=(b, 1)).astype(np.int32)
+        lens = np.ones((b,), np.int32)
+        buf, n, _ = cf(rwkv["params"], m.init_cache(b, 32, "cpu"),
+                       _i32(toks), _i32(lens))
+        want, wn, _ = jm.greedy_decode(rwkv["jparams"], jm.init_cache(b, 32),
+                                       jnp.asarray(toks), jnp.asarray(lens),
+                                       max_new=maxn, eos_id=-1)
+        # jit pipeline: batch rows beyond b are bucket padding
+        np.testing.assert_array_equal(buf.numpy()[:b], np.asarray(want))
+        assert n == int(wn) == maxn
+        buckets.add(-(-b // 2) * 2)
+    assert cf.n_compiles == len(buckets) == 2
 
 
 # ------------------------------------------------- serving (CPU) --
