@@ -22,10 +22,10 @@ Built-ins:
   hand-written kernels (Triton: ``kernels/fused_elementwise``,
   ``kernels/fused_reduce``; CUDA C++: ``kernels/matmul``), the rest per
   op; the counterpart of ``"pallas"``
-* ``"nimble_vm"`` — the interpreted baseline: the same padded executor
-  with no fusion plan, every op dispatched on its own per call (the
-  paper's VM approach; :class:`~repro_torch.core.vm.NimbleVM` is the
-  standalone interpreter)
+* ``"nimble_vm"`` — the interpreted baseline under the paper's name:
+  ``"eager"``'s per-op executor (no cluster kernels), which in the port
+  is already uncompiled; :class:`~repro_torch.core.vm.NimbleVM` is the
+  standalone interpreter that works out every shape again per call
 
 Each bucket's entry is the padded executor, run eagerly on the
 artifact's device.  Third parties register their own with
@@ -90,24 +90,6 @@ def _make_executor_backend(name: str, description: str,
                    cluster_kernels=kernels)
 
 
-def _make_vm_backend() -> Backend:
-    """The interpreted baseline: identical numerics, no fusion plan —
-    every call walks the graph per op (what the paper calls the VM
-    approach)."""
-
-    def build_bucket(graph: DGraph, plan, syms: Sequence[SymDim],
-                     padded: Dict[int, int], device):
-        return build_padded_executor(graph, padded, syms, plan=None,
-                                     device=device)
-
-    def build_exact(graph: DGraph, plan, device):
-        return build_exact_executor(graph, device=device)
-
-    return Backend(
-        name="nimble_vm", build_bucket=build_bucket, build_exact=build_exact,
-        description="interpreted per-op baseline (Nimble-style VM)")
-
-
 _REGISTRY: Dict[str, Backend] = {}
 
 
@@ -142,4 +124,5 @@ register_backend("hopper", _make_executor_backend(
     "kLoop/kInput clusters through hand-written Triton kernels, kDot "
     "through a CUDA C++ GEMM with a generated epilogue, rest per op",
     cluster_kernels=hopper_cluster_kernels()))
-register_backend("nimble_vm", _make_vm_backend())
+register_backend("nimble_vm", _make_executor_backend(
+    "nimble_vm", "interpreted per-op baseline (Nimble-style VM)"))

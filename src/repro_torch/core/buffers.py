@@ -28,7 +28,9 @@ layers:
   hands the storage to the next allocation of that size.
 * :class:`CachedArena` — the runtime cached allocator of §4.2.2: free
   lists keyed by dtype, byte size and device, so an alloc of a recurring
-  size is O(1).
+  size is O(1).  It is the JAX package's API twin only: no executor of
+  the port allocates through it, since dropping a value's last reference
+  already hands its storage to PyTorch's caching allocator.
 
 ``plan_report`` quantifies peak memory over the program (per binding),
 counting a donated output and its donor as *one* buffer — graph outputs
@@ -619,7 +621,8 @@ def plan_report(graph: DGraph, plan: BufferPlan,
 
 class CachedArena:
     """Runtime cached allocator: free lists keyed by (dtype, nbytes,
-    device).  ``peak_bytes`` is the most storage it ever allocated."""
+    device).  ``peak_bytes`` is the most storage it ever allocated.  An
+    API twin of the JAX package's; no code path of the port uses it."""
 
     def __init__(self) -> None:
         self._free: Dict[Tuple[str, int, str], List[torch.Tensor]] = \

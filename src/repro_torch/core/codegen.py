@@ -51,7 +51,7 @@ Region ops (``d.while`` / ``d.scan`` / ``d.cond``) run on the host
 (:func:`emit_region_op`): their bodies run op by op, never through
 cluster kernels, as the JAX package's executor runs them.  A ``d.while``
 reads its predicate once an iteration and a ``d.cond`` its index once
-(:data:`REGION_SYNCS` counts those reads); a ``d.scan`` takes its trip
+(:data:`WHILE_SYNCS` and :data:`COND_SYNCS` count those reads); a ``d.scan`` takes its trip
 count from the host lengths and reads nothing back.
 
 Values are dropped by their last use **in the order the executor runs
@@ -66,6 +66,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from ..kernels.program import Program, Step
+from ..kernels.triton_build import LaunchCounter
 from .dhlo import DGraph, DOp, DValue
 from .dtypes import as_torch, is_integer
 from .emit import emit_op
@@ -82,28 +83,19 @@ __all__ = [
     "kdot_jobs",
     "emit_region_op",
     "REGION_OPS",
-    "REGION_SYNCS",
+    "WHILE_SYNCS",
+    "COND_SYNCS",
 ]
 
 # DHLO region ops: bodies are nested DGraphs in attrs
 REGION_OPS = frozenset({"d.while", "d.scan", "d.cond"})
 
 
-class RegionSyncs:
-    """Host reads of a device value made by region ops: one per
-    ``d.while`` predicate (an iteration) and one per ``d.cond`` index.
-    On the card each is a synchronisation with the stream."""
-
-    def __init__(self) -> None:
-        self.whiles = 0
-        self.conds = 0
-
-    def reset(self) -> None:
-        self.whiles = 0
-        self.conds = 0
-
-
-REGION_SYNCS = RegionSyncs()
+# host reads of a device value made by region ops, each a synchronisation
+# with the stream on the card: one per d.while predicate (an iteration)
+# and one per d.cond index
+WHILE_SYNCS = LaunchCounter()
+COND_SYNCS = LaunchCounter()
 
 
 def dyn_symbols(graph: DGraph) -> List[SymDim]:
@@ -385,12 +377,12 @@ def emit_region_op(op: DOp, ins: Sequence[Any], env: _ShapeEnv,
     entry-bucket padded shapes.
 
     * ``d.while`` — a host loop; each iteration reads its predicate once
-      (one sync, counted in ``REGION_SYNCS.whiles``).
+      (one sync, counted in ``WHILE_SYNCS``).
     * ``d.scan``  — runs the *actual* trip count, taken from the host
       lengths (no sync), in reverse order when ``reverse`` is set; the
       stacked ys are allocated zero, so their padded tail rows stay
       exactly 0.
-    * ``d.cond``  — reads the index once (``REGION_SYNCS.conds``),
+    * ``d.cond``  — reads the index once (counted in ``COND_SYNCS``),
       clamps it into range and runs that branch alone.
     """
     code = op.opcode
@@ -404,7 +396,7 @@ def emit_region_op(op: DOp, ins: Sequence[Any], env: _ShapeEnv,
         carry = _as_carry(ins[cn + bn:], op.outputs, dev)
         while True:
             (pred,) = _run_body(cond_g, cond_consts + carry, env, masked)
-            REGION_SYNCS.whiles += 1
+            WHILE_SYNCS.launches += 1
             if not bool(pred):
                 return carry
             carry = _as_carry(_run_body(body_g, body_consts + carry, env,
@@ -433,7 +425,7 @@ def emit_region_op(op: DOp, ins: Sequence[Any], env: _ShapeEnv,
 
     if code == "d.cond":
         branches = attrs["branch_graphs"]
-        REGION_SYNCS.conds += 1
+        COND_SYNCS.launches += 1
         idx = min(max(int(ins[0]), 0), len(branches) - 1)
         return _run_body(branches[idx], list(ins[1:]), env, masked)
 

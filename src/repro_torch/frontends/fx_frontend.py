@@ -994,11 +994,13 @@ def _bridge_node(b: _Bridge, node, folds, skip, fold_out) -> None:
         src = b.env[args[0]]
         dim = int(args[1]) % src.rank
         idx = int(args[2]) % dim_value(src.shape[dim])
-        if not isinstance(src.shape[dim], int) and int(args[2]) < 0:
-            # a prefix index is valid at every length; one counted from
-            # the end would land in a bucket's padding
+        if not isinstance(src.shape[dim], int) and int(args[2]) != 0:
+            # index 0 is valid at every length of at least 1; any
+            # other index could land in a bucket's padding on a short
+            # request, where torch would raise
             raise UnsupportedPrimitiveError(
-                f"{target}: indexing a dynamic axis from its end")
+                f"{target}: indexing a dynamic axis at {int(args[2])} "
+                f"(only index 0 is valid at every length)")
         sl = _slice(b, node, args[0], dim, idx, idx + 1)
         shape = tuple(d for i, d in enumerate(sl.shape) if i != dim)
         b.env[node] = b.emit1("reshape", node, [sl], shape, sl.dtype)

@@ -21,16 +21,22 @@ import torch
 __all__ = ["plain_versions", "use_kernel"]
 
 _PLAIN = contextvars.ContextVar("repro_torch_plain_versions", default=False)
+# open plain_versions() contexts, as a module global: dynamo reads (and
+# guards on) a global, while it cannot trace ContextVar.get
+_PLAIN_DEPTH = 0
 
 
 @contextlib.contextmanager
 def plain_versions() -> Iterator[None]:
     """Inside this context every wrapper runs its plain version, whatever
     the device of its tensors."""
+    global _PLAIN_DEPTH
     token = _PLAIN.set(True)
+    _PLAIN_DEPTH += 1
     try:
         yield
     finally:
+        _PLAIN_DEPTH -= 1
         _PLAIN.reset(token)
 
 
@@ -39,11 +45,19 @@ def use_kernel(t: torch.Tensor, op: str) -> bool:
     outside :func:`plain_versions`.  A CPU tensor (or the context) takes
     the plain version; any other device raises.  Inside a dynamo trace
     (the body of a ``while_loop`` / ``scan`` / ``cond``, captured while
-    the DHLO bridge traces it) nothing launches: the plain version is
-    what the trace records, and the context variable is never read
-    there (dynamo cannot trace ``ContextVar.get``)."""
+    the DHLO bridge traces it) the context is read from its module
+    global: inside it the trace records the plain version, outside it
+    the call raises, since a compiled graph cannot launch the kernel."""
     dev = t.device.type
-    if dev == "cpu" or torch.compiler.is_compiling() or _PLAIN.get():
+    if dev == "cpu":
+        return False
+    if torch.compiler.is_compiling():
+        if _PLAIN_DEPTH > 0:
+            return False
+        raise RuntimeError(
+            f"{op}: a kernel wrapper on a {t.device} tensor inside "
+            f"torch.compile / torch.export; trace it inside plain_versions()")
+    if _PLAIN.get():
         return False
     if dev == "cuda":
         return True

@@ -44,7 +44,7 @@ import disc_torch
 from _hypothesis_compat import given, settings, st
 from repro_torch.api.backends import get_backend
 from repro_torch.api.staged import _graph_const_token
-from repro_torch.core.codegen import REGION_SYNCS
+from repro_torch.core.codegen import COND_SYNCS, WHILE_SYNCS
 from repro_torch.core.constraints import (ConstraintViolation,
                                           ShapeConstraintStore)
 from repro_torch.core.propagation import carry_fixed_point
@@ -145,14 +145,14 @@ def j_trip_fn(x):
 def test_while_parity_across_buckets(pipeline):
     cf = _compile(while_fn, pipeline)
     ref = _ref_compile(j_while_fn, pipeline)
-    REGION_SYNCS.reset()
+    WHILE_SYNCS.reset()
     for s in (5, 13, 37, 61):
         _check(cf, j_while_fn, _x(s), pipeline)
         ref(_x(s))
     assert cf.n_compiles == ref.n_compiles == 2
     if pipeline == "dhlo":
         # the predicate is read once per iteration, 8 times a call
-        assert REGION_SYNCS.whiles == 4 * 8
+        assert WHILE_SYNCS.launches == 4 * 8
 
 
 def test_trip_count_does_not_multiply_compiles():
@@ -305,7 +305,7 @@ def j_cond_fn(x):
 def test_cond_both_branches_both_buckets(pipeline):
     cf = _compile(cond_fn, pipeline)
     ref = _ref_compile(j_cond_fn, pipeline)
-    REGION_SYNCS.reset()
+    COND_SYNCS.reset()
     for s in (9, 40):
         pos = np.abs(_x(s)) + 0.1
         for x in (pos, -pos):          # true branch, false branch
@@ -313,7 +313,7 @@ def test_cond_both_branches_both_buckets(pipeline):
             ref(x)
     assert cf.n_compiles == ref.n_compiles == 2
     if pipeline == "dhlo":
-        assert REGION_SYNCS.conds == 4   # one index read a call
+        assert COND_SYNCS.launches == 4   # one index read a call
 
 
 # --------------------------------------------------------------- nested --
@@ -404,15 +404,12 @@ def test_constant_inside_body_keys_the_artifact():
     assert _graph_const_token(same.graph) == _graph_const_token(la.graph)
 
 
-def test_wrapper_in_a_traced_body_takes_its_plain_version():
-    """A kernel wrapper called in a scan body on a tensor off the CPU (as
-    on the card) while dynamo captures the body: nothing launches, the
-    trace records the plain version, and the wrapper never reads its
-    context variable there (which dynamo cannot trace)."""
+def _trace_wrapper_in_scan_body():
+    """``make_fx`` of a scan whose body calls a kernel wrapper on a tensor
+    off the CPU (as on the card): dynamo captures the body."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     from repro_torch.kernels.rmsnorm import ops as rms_ops
-    from repro_torch.kernels.select import plain_versions
 
     def fn(x):
         def body(c, xi):
@@ -421,13 +418,47 @@ def test_wrapper_in_a_traced_body_takes_its_plain_version():
 
         return scan(body, torch.zeros(4, device=x.device), x)[0]
 
-    with torch.no_grad(), plain_versions():
-        gm = make_fx(fn, tracing_mode="fake", _allow_non_fake_inputs=True)(
+    with torch.no_grad():
+        return make_fx(fn, tracing_mode="fake", _allow_non_fake_inputs=True)(
             torch.empty(5, 4, device="meta"))
+
+
+def test_wrapper_in_a_traced_body_takes_its_plain_version():
+    """Inside ``plain_versions()`` nothing launches while dynamo captures
+    the body: the trace records the plain version, the context read from
+    its module global (dynamo cannot trace the context variable)."""
+    from repro_torch.kernels.select import plain_versions
+
+    with plain_versions():
+        gm = _trace_wrapper_in_scan_body()
     (body,) = [m for m in gm.children() if isinstance(m, torch.fx.GraphModule)]
     targets = {str(n.target) for n in body.graph.nodes
                if n.op == "call_function"}
     assert "aten.rsqrt.default" in targets
+
+
+def _compile_wrapper_call():
+    """``torch.compile`` of a kernel wrapper call on tensors off the CPU."""
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+    f = torch.compile(lambda x, w: rms_ops.rmsnorm(x, w, eps=1e-6),
+                      backend="eager", fullgraph=True)
+    return f(torch.empty(2, 4, device="meta"), torch.empty(4, device="meta"))
+
+
+@pytest.mark.parametrize("capture", [_trace_wrapper_in_scan_body,
+                                     _compile_wrapper_call],
+                         ids=["scan_body", "torch_compile"])
+def test_wrapper_compiled_outside_plain_versions_raises(capture):
+    """A wrapper captured by dynamo outside ``plain_versions()`` raises: a
+    compiled graph never records the plain version in the kernel's place;
+    inside the context it records the plain version."""
+    from repro_torch.kernels.select import plain_versions
+
+    with pytest.raises(RuntimeError, match="rmsnorm: a kernel wrapper"):
+        capture()
+    with plain_versions():
+        capture()
 
 
 # ------------------------------------------------------- carry widening --
@@ -519,6 +550,23 @@ def test_named_error_for_higher_order_map():
 
     with pytest.raises(UnsupportedPrimitiveError, match="higher_order.map"):
         _compile(f, spec=_spec(cap=32)).lower()
+
+
+def test_dynamic_axis_index_zero_matches_the_jax_function():
+    """``x[0]`` on the dynamic axis is valid at every length."""
+    cf = _compile(lambda x: x[0] * 2.0)
+    for s in (1, 5, 40):
+        _check(cf, lambda x: x[0] * 2.0, _x(s), "dhlo")
+
+
+@pytest.mark.parametrize("k", [1, 3, -1])
+def test_dynamic_axis_index_past_zero_is_refused(k):
+    """``x[k]`` for k != 0 on the dynamic axis is refused when lowered: a
+    request shorter than k + 1 would read the bucket's zero padding where
+    torch raises."""
+    with pytest.raises(UnsupportedPrimitiveError,
+                       match=f"dynamic axis at {k}"):
+        _compile(lambda x: x[k] * 2.0).lower()
 
 
 def test_error_is_a_not_implemented_error():
