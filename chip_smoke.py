@@ -127,15 +127,28 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    and 45 prompt tokens (ids from seeded numpy), 16 new tokens each —
    S buckets 64 to 2048, four slots for six requests.  Every attention
    runs the CUDA C++ flash-attention kernel and every RMSNorm the CUDA
-   C++ one.  The same requests run again with ``prefill_chunk=512`` (offsets
-   > 0: the kernel's ``q_offset``), and once more through the same engine
-   code inside ``plain_versions()``.  Checks: prefill compiles == the
-   distinct (B, S) buckets used, decode compiles == 1; flash-attention
-   launches == 22 and RMSNorm launches == 45 per prefill launch and
-   decode step; f32 token streams identical to the plain versions' (and
-   chunked to unchunked) with every token's logits within 1e-3
-   max|d|/max|ref|.  In bf16, kernels vs plain versions is the accuracy
-   rule of paths 1-2 and 4-6: each request's first-token logits, from
+   C++ one.  Each prefill bucket and the decode step is one CUDA graph:
+   its first call runs eagerly and is then captured, and every later
+   call replays it (``core/graphs.py``).  The same requests run again with
+   ``prefill_chunk=512`` (offsets > 0: the kernel's ``q_offset``), once
+   more through the same engine code inside ``plain_versions()``, and
+   once under ``eager_entries()`` (the same kernels launched one by one,
+   no graph).  Checks: prefill compiles == the distinct (B, S) buckets
+   used, decode compiles == 1; in the graphed runs captures == compiles,
+   every prefill launch and decode step after an entry's first a
+   replay, and a decode step copying at most 1 KiB into its graph (its
+   prefill copies, capture seconds, input buffers and the pool's bytes
+   printed); flash-attention launches == 22 and RMSNorm launches == 45
+   per prefill launch and decode step (a replay counts what its capture
+   launched); the graphed streams identical to the eager run's, f32
+   first-token logits within 1e-6 max|d|/max|ref|; one decode step of
+   the graphed and of the eager run under ``torch.profiler`` (wall ms
+   beside the card's busy ms, and the port's kernels the card ran in it
+   held to the counts above); f32
+   token streams identical to the plain versions' (and chunked to
+   unchunked) with every token's logits within 1e-3 max|d|/max|ref|.
+   In bf16, kernels vs plain versions is the accuracy rule of paths 1-2
+   and 4-6: each request's first-token logits, from
    both runs, against the f32 run over the same weights; the kernels'
    may lie at most 1.25 times as far (equally exact kernels read 1.866e-2
    to 2.143e-2 from the plain versions there, PERF.md: a fixed 2e-2
@@ -213,6 +226,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     part like two evaluations of the random model do
     (``ServePath.bf16_chunked_parts``): their agreement is printed.  At
     81 layers the f32 weights alone would be 51 GB beside the bf16 set.
+    Every depth also runs unchunked and chunked under ``eager_entries()``,
+    as path 3's eager run: the shared-block replay reads its inputs from
+    those runs (a Python hook sees no graph replay), the graphed runs'
+    streams are held identical to them, and at 81 layers one decode step
+    of each unchunked run is profiled as on path 3.
 13. **Hybrid kernels.**  The SSD scan at H = 112, N = P = 64, f32 and
     bf16 inputs: prefill B = 1, T = 2048 from a zero state; a 512-step
     chunk from a state at B = 2 beside a row of ``lens = 0`` (its state
@@ -248,7 +266,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     layer 0, and of layer 1 in f32: in bf16 layer 1 reads layer 0's MoE,
     whose router may swap a near-tie between two evaluations).  Prints
     each first launch's smallest router top-k margin and dropped
-    (token, expert) pairs per layer.  After every serve phase (paths
+    (token, expert) pairs per layer, from the plain runs and from runs
+    under ``eager_entries()`` beside the graphed ones (unchunked and
+    chunked at 8 layers, unchunked at 4), whose streams the graphed runs
+    must match; the accuracy rule reads a graphed run's routing there.
+    Paths 4-6 run as CUDA graphs as path 3 does, with the same graph
+    checks.  After every serve phase (paths
     3-6) its objects are deleted and, with no gc pass, the card's
     allocated memory must be back within 1 GB of its value before the
     phase.
@@ -460,6 +483,30 @@ PATH6_LAYERS, PATH6_CUT_LAYERS, PATH6_DROP_FREE_CF = 8, 4, 4.0
 # card memory a phase may leave allocated after its objects are deleted,
 # before any gc pass (an engine's entries hold it only weakly)
 MEM_SLACK_BYTES = 1 << 30
+# a graphed run against its eager twin (the same kernels launched one by
+# one): f32 first-token logits, max|d|/max|ref|; the bytes a decode step
+# may copy into its graph (tokens, lens and active; the cache stays put)
+TOL_GRAPHS = 1e-6
+DECODE_COPY_BYTES = 1024
+# the paths whose kernels and eager runs each put one decode step under
+# torch.profiler
+PROFILED_PATHS = ("path3", "path5")
+#: the device kernel of each counted wrapper on the profiled paths, as
+#: torch.profiler names it: one for each counted launch (flash decode's
+#: combine pass, its second kernel, left out)
+TRACE_KERNELS = {
+    "flash_attention": r"\b(prefill_kernel|prefill_tc_kernel|decode_kernel)\b",
+    "rmsnorm": r"\bnorm_(rows|loop)\b",
+    "mamba2": r"\bssd_(chunked|decode)\b",
+}
+# host seconds between a profiled step's launches and either edge of the
+# profiler's recorded window: the window's device side at times opens
+# late, and a trace whose step launched at once after ``prof.step()``
+# then lacked the step's first kernels (a graph's replay whole), graphed
+# and eager alike; with 5 ms none was lost, and this is four times that
+PROFILE_MARGIN_S = 0.02
+# a graphed run's eager twin
+EAGER_TWIN = {"kernels": "eager", "chunked": "eager chunked"}
 
 # path 3 (serve): prompt lengths, new tokens per request, engine shape
 SERVE_PROMPTS = (37, 200, 731, 1500, 1999, 45)
@@ -550,14 +597,22 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return total / reps
 
 
-def kernel_device_us(prof) -> float:
-    """Device µs ``torch.profiler`` recorded, from the kernels' own
-    entries: a PyTorch operator's entry repeats the device time of the
-    kernels it launched (counting both doubles a library call's time)."""
+def device_events(prof) -> list:
+    """The kernels' and copies' own entries of ``torch.profiler``'s
+    averages: a PyTorch operator's entry repeats the device time of the
+    kernels it launched, and a scheduled profiler's step (``ProfilerStep``)
+    records on the card the span of all of them (counting either doubles
+    the time)."""
     from torch.autograd import DeviceType
 
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+
+
+def kernel_device_us(prof) -> float:
+    """Device µs ``torch.profiler`` recorded, from :func:`device_events`."""
+    return sum(e.self_device_time_total for e in device_events(prof))
 
 
 def launch_times(fn, reps: int = 1000) -> dict:
@@ -1777,7 +1832,7 @@ def serve_engine_class():
 
     class Recording(ServeEngine):
         def __init__(self, *a, shared_block: bool = False,
-                     router: bool = False, **kw):
+                     router: bool = False, profile: bool = False, **kw):
             super().__init__(*a, **kw)
             self.logits = {}     # (rid, token index) -> (V,) f32 on host
             self.arrived = {}    # rid -> host seconds of its first token
@@ -1793,6 +1848,11 @@ def serve_engine_class():
             self.first_launch = {}
             self.host = None     # the last host array moved to the card
             self.t0 = time.perf_counter()
+            # with profile: (wall ms, device-busy ms, top kernels, the
+            # port's kernels) of the second decode step after every
+            # request has its first token, under torch.profiler, the
+            # first its warm-up step (both kept out of step_s)
+            self.profiled = None if profile else False
 
         def _tensor(self, a):
             self.host = a
@@ -1839,9 +1899,53 @@ def serve_engine_class():
             self._timed("prefill", super()._prefill_group)
 
         def _decode(self):
+            if self.profiled is None and not self.queue and all(
+                    s is None or s.state == "decode" for s in self.slots):
+                self.profiled = profile_ms(super()._decode,
+                                           super()._decode)
+                return
             self._timed("decode", super()._decode)
 
     return Recording
+
+
+def profile_ms(fn, warm, margin_s: float = PROFILE_MARGIN_S):
+    """``fn()`` under ``torch.profiler``, between two synchronises, after
+    ``warm()`` in the profiler's warm-up step (tracing, its records
+    dropped: a trace that starts with the call loses some of its first
+    kernels), ``margin_s`` of host time between ``fn``'s launches and
+    either edge of the recorded window: its wall ms (the profiler's own
+    host cost included), the ms the card spent in kernels (``None`` where
+    the profiler saw none), the four kernels that took most of it (name,
+    ms, launches), and the launches the card ran of each wrapper's kernel
+    in ``TRACE_KERNELS``."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(margin_s)
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        time.sleep(margin_s)
+        prof.step()
+    busy = kernel_device_us(prof)
+    events = device_events(prof)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+    seen = {k: sum(e.count for e in events if re.search(pattern, e.key))
+            for k, pattern in TRACE_KERNELS.items()}
+    return (1e3 * wall, busy / 1e3 if busy else None,
+            [(e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count)
+             for e in top], seen)
 
 
 @contextlib.contextmanager
@@ -2006,26 +2110,31 @@ def path_launches(report: dict, path: str, dname: str) -> dict:
 
 
 def serve_run(model, params, cfg_kw: dict, requests: list, plain: bool,
-              shared_block: bool = False, router: bool = False):
+              eager: bool = False, shared_block: bool = False,
+              router: bool = False, profile: bool = False):
     """One engine over ``requests`` until done; returns the engine and the
     launches of every serve kernel in its run (counts set to 0 just
-    before).  ``shared_block``: record the shared block's inputs in each
-    kind's first launch; ``router``: its MoE routing."""
+    before).  Its prefill and decode entries run as CUDA graphs, or with
+    ``plain`` inside ``plain_versions()``, with ``eager`` inside
+    ``eager_entries()`` (the kernels launched one by one: the Python hooks
+    see every launch only there).  ``shared_block``: record the shared
+    block's inputs in each kind's first launch; ``router``: its MoE
+    routing; ``profile``: one decode step under ``torch.profiler``."""
+    from repro_torch.core.graphs import eager_entries
     from repro_torch.kernels.select import plain_versions
     from repro_torch.serve.engine import ServeConfig
 
     eng = serve_engine_class()(model, params, ServeConfig(
         max_batch=SERVE_BATCH, max_seq=SERVE_SEQ, **cfg_kw),
-        shared_block=shared_block, router=router)
+        shared_block=shared_block, router=router, profile=profile)
     counters = serve_counters()
     for c in counters.values():
         c.reset()
     eng.t0 = time.perf_counter()
     eng.submit(requests)
-    if plain:
-        with plain_versions():
-            eng.run_until_done()
-    else:
+    ctx = plain_versions() if plain else eager_entries() if eager \
+        else contextlib.nullcontext()
+    with ctx:
         eng.run_until_done()
     import torch
     torch.cuda.synchronize()
@@ -2152,12 +2261,14 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
                 labels=("kernels", "plain", "chunked"),
                 capacity_factor=None):
     """A serve path (3: TinyLlama, 4: RWKV-6 3B, 5: Zamba2-7B, 6: DBRX) in
-    one dtype: the runs of ``labels`` (kernels, plain versions, chunked),
-    at ``layers`` (None: the config's depth) and ``capacity_factor``
-    (None: the config's).  With ``accuracy_ref`` (each request's
-    first-token logits from an f32 run over the same weights), kernels vs
-    plain is the accuracy check of :func:`accuracy_check` instead of the
-    stream rules.  Each engine's cache is freed after its run; at the end
+    one dtype: the runs of ``labels`` (kernels and chunked as CUDA graphs,
+    plain versions, and the kernels launched one by one under
+    ``eager_entries()``: "eager", "eager chunked"), at ``layers`` (None:
+    the config's depth) and ``capacity_factor`` (None: the config's).
+    With ``accuracy_ref`` (each request's first-token logits from an f32
+    run over the same weights), kernels vs plain is the accuracy check of
+    :func:`accuracy_check` instead of the stream rules.  Each engine's
+    cache and graphs are freed after its run; at the end
     the phase's objects are deleted and the card's allocated memory must
     be back within ``MEM_SLACK_BYTES`` of its value before the phase,
     with no gc pass.  Returns the config, the decode fills of the first
@@ -2202,15 +2313,23 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
 
     launches = dict.fromkeys(serve_counters(), 0)
     runs = {}
-    settings = {"kernels": ({}, False), "plain": ({}, True),
-                "chunked": ({"prefill_chunk": SERVE_CHUNK}, False)}
+    chunk = {"prefill_chunk": SERVE_CHUNK}
+    # label -> (engine options, plain versions, eager entries); the other
+    # runs' entries are CUDA graphs
+    settings = {"kernels": ({}, False, False), "plain": ({}, True, False),
+                "chunked": (chunk, False, False),
+                "eager": ({}, False, True),
+                "eager chunked": (chunk, False, True)}
     for label in labels:
-        kw, plain = settings[label]
-        eng, counted = serve_run(model, params, kw, requests(), plain,
-                                 shared_block=sp.shared_block and not plain,
-                                 router=sp.router)
-        eng.cache = None   # the logits and first launches stay on record
-        torch.cuda.empty_cache()
+        kw, plain, eager = settings[label]
+        # the Python hooks see an entry's first call and its capture pass,
+        # never a replay: they record only where every launch runs its
+        # Python
+        eng, counted = serve_run(
+            model, params, kw, requests(), plain, eager,
+            shared_block=sp.shared_block and eager,
+            router=sp.router and (plain or eager),
+            profile=path in PROFILED_PATHS and label in ("kernels", "eager"))
         runs[label] = eng
         st = eng.stats
         steps = st["prefill_calls"] + st["decode_steps"]
@@ -2220,7 +2339,16 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
               f"tokens={st['tokens_generated']} "
               f"bucket_pairs={sorted(eng._bucket_pairs)} compiles={cc} "
               f"launches={counted}", flush=True)
-        if sp.router:
+        graph_line(f"{tag} {label}", eng, graphed=not (plain or eager))
+        # the logits and first launches stay on record; the cache and the
+        # graphs (their inputs, outputs and pool: ~18 GB at 81 layers) leave
+        # the card before the next run (a later plain call of the engine's
+        # artifacts compiles an entry again, which runs eagerly there)
+        for fn in (eng._prefill_fn, eng._decode_fn):
+            eng.compile_cache.drop_fingerprint(fn._fingerprint)
+        eng.cache = None
+        torch.cuda.empty_cache()
+        if eng.routes is not None:
             print(f"{tag} {label}: {router_line(eng.routes)}", flush=True)
         check(len(eng.done) == len(SERVE_PROMPTS) and not eng.failed,
               f"{tag} {label}: {len(eng.done)} done, failed {eng.failed}")
@@ -2239,16 +2367,38 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
                      for k, n in sp.per_step(cfg.n_layers).items()})
         check(counted == want, f"{tag} {label}: launches {counted}, the "
                                f"path predicts {want}")
-        for k in launches:
-            launches[k] += counted[k]
+        if not eager:   # the main path's launches: its graph replays
+            for k in launches:
+                launches[k] += counted[k]
         ttft = [round(eng.arrived[r], 4) for r in range(len(SERVE_PROMPTS))]
         dec = eng.step_s["decode"]
         print(f"{tag} {label}: time to first token s {ttft}; decode "
-              f"ms/step mean {1e3 * sum(dec) / len(dec):.2f} "
+              f"ms/step mean {1e3 * sum(dec) / len(dec):.2f} median "
+              f"{1e3 * sorted(dec)[len(dec) // 2]:.2f} "
               f"min {1e3 * min(dec):.2f} max {1e3 * max(dec):.2f} over "
               f"{len(dec)} steps; prefill s "
               f"{[round(x, 4) for x in eng.step_s['prefill']]}",
               flush=True)
+        if eng.profiled:
+            wall, busy, top, seen = eng.profiled
+            share = "not measured" if busy is None else \
+                f"{1 - busy / wall:.3f}"
+            print(f"{tag} {label}: one decode step under torch.profiler: "
+                  f"wall {wall:.3f} ms, device busy "
+                  f"{'not measured' if busy is None else f'{busy:.3f}'} "
+                  f"ms, idle share {share}; most device time (kernel, ms, "
+                  f"launches): {top}", flush=True)
+            # the port's kernels as the card ran them in that step, held
+            # to the path's count: in a graphed run the launch counters
+            # add what the capture counted, the trace sees the replay
+            step = sp.per_step(cfg.n_layers)
+            if busy is not None:
+                ran = {k: seen[k] for k in step}
+                check(ran == step, f"{tag} {label}: the profiled decode "
+                                   f"step ran {ran}, the path predicts "
+                                   f"{step}")
+                print(f"{tag} {label}: the profiled decode step ran the "
+                      f"port's kernels {ran} (the path's count)", flush=True)
         for rid, toks in eng.done.items():
             # 16 new tokens after the prompt's first, or fewer up to EOS
             check(all(0 <= t < cfg.vocab for t in toks)
@@ -2264,10 +2414,15 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
         cache_check(f"{tag} chunked", runs["chunked"], dname, held,
                     kinds=("prefill_cont",))
     if sp.shared_block:
-        shared_block_check(f"{tag} kernels", runs["kernels"], dname,
+        shared_block_check(f"{tag} eager", runs["eager"], dname,
                            ("prefill", "decode"))
-        shared_block_check(f"{tag} chunked", runs["chunked"], dname,
-                           ("prefill_cont",))
+        shared_block_check(f"{tag} eager chunked", runs["eager chunked"],
+                           dname, ("prefill_cont",))
+    for graphed, eager in (("kernels", "eager"),
+                           ("chunked", "eager chunked")):
+        if eager in runs:
+            graphs_vs_eager(f"{tag} {graphed} vs {eager}", runs[graphed],
+                            runs[eager], dname)
     tol = TOL_SERVE[dname]
     exact = dname == "f32"
     parts = dname == "bf16" and sp.bf16_chunked_parts
@@ -2301,6 +2456,63 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
     return cfg, fills, first
 
 
+def graph_line(tag: str, eng, graphed: bool) -> None:
+    """A run's graph entries: in a graphed run captures == compiles, every
+    prefill launch and decode step after an entry's first (which runs
+    eagerly and is then captured) a replay, and a decode step copies at
+    most ``DECODE_COPY_BYTES`` into its graph (the cache stays in place);
+    its prefill copies, capture seconds, the entries' input buffers and
+    pool bytes are printed.  Other runs capture nothing."""
+    import torch
+
+    pre, dec = eng._prefill_fn.graph_stats, eng._decode_fn.graph_stats
+    if not graphed:
+        check(pre.captures == dec.captures == 0,
+              f"{tag}: captured outside the graphed runs")
+        return
+    cc, st = eng.compile_counts(), eng.stats
+    check(pre.captures == cc["prefill"]["total"]
+          and dec.captures == cc["decode"]["total"],
+          f"{tag}: captures {pre.captures} / {dec.captures}, compiles {cc}")
+    check(pre.replays + pre.captures == st["prefill_calls"]
+          and dec.replays + dec.captures == st["decode_steps"],
+          f"{tag}: replays {pre.replays} / {dec.replays} and captures for "
+          f"{st['prefill_calls']} prefill launches and "
+          f"{st['decode_steps']} decode steps")
+    per_step = dec.bytes_in / st["decode_steps"]
+    check(per_step <= DECODE_COPY_BYTES,
+          f"{tag}: a decode step copies {per_step:.0f} B into its graph")
+    print(f"{tag}: graphs: captures prefill {pre.captures} decode "
+          f"{dec.captures} (== compiles); replays prefill {pre.replays} "
+          f"decode {dec.replays}; decode bytes copied a step in "
+          f"{per_step:.0f} out "
+          f"{dec.bytes_out / max(dec.replays, 1):.0f}; prefill "
+          f"bytes copied in {pre.bytes_in} out {pre.bytes_out}; capture s "
+          f"prefill {[round(x, 3) for x in pre.capture_seconds]} decode "
+          f"{[round(x, 3) for x in dec.capture_seconds]}; input buffers "
+          f"{pre.buffer_bytes + dec.buffer_bytes} B; pool reserved "
+          f"{eng.compile_cache.graph_pool.reserved_bytes} B; card memory "
+          f"allocated {torch.cuda.memory_allocated()} B", flush=True)
+
+
+def graphs_vs_eager(tag: str, got, ref, dname: str) -> None:
+    """A graphed run against the same engine under ``eager_entries()``
+    (the same kernels launched one by one): identical token streams, and
+    in f32 each request's first-token logits within ``TOL_GRAPHS`` of
+    max|ref| (bf16: printed); every token's distance printed."""
+    check(got.done == ref.done,
+          f"{tag}: streams part: {got.done} vs {ref.done}")
+    first = max(rel_err(got.logits[(r, 0)], ref.logits[(r, 0)])
+                for r in ref.done)
+    worst = max(rel_err(got.logits[k], ref.logits[k]) for k in ref.logits)
+    print(f"{tag}: streams identical; first-token logits max|d|/max|ref| "
+          f"{first:.3e}, every token's {worst:.3e}"
+          f"{'' if dname == 'f32' else ' (printed, not held)'}", flush=True)
+    if dname == "f32":
+        check(first <= TOL_GRAPHS, f"{tag}: first-token logits "
+                                   f"{first:.3e} > {TOL_GRAPHS}")
+
+
 def accuracy_check(tag: str, runs: dict, ref: dict,
                    label: str = "kernels", held: bool = True) -> None:
     """bf16 kernels vs plain versions where two bf16 evaluations of the
@@ -2319,15 +2531,18 @@ def accuracy_check(tag: str, runs: dict, ref: dict,
     equally exact evaluations swaps it like the f32 run is chance
     (PERF.md §6).  A near-tie moves a few tokens; more than
     ``ROUTE_PART_FRACTION`` of a launch's valid tokens routed apart in
-    one layer fails."""
+    one layer fails.  A graphed run's routing is its eager twin's (the
+    hooks see no replay), whose streams :func:`graphs_vs_eager` holds
+    equal."""
     failed = []
     for rid, want in sorted(ref.items()):
         got, plain = (runs[k].logits[(rid, 0)] for k in (label, "plain"))
         e_k, e_p = rel_err(got, want), rel_err(plain, want)
         note = "" if held else ", printed, not held"
         bad = held and e_k > ACCURACY_RATIO * e_p
-        if runs[label].routes is not None:
-            parts = routing_parts(runs[label], runs["plain"], rid)
+        routed = runs.get(EAGER_TWIN[label], runs[label])
+        if routed.routes is not None:
+            parts = routing_parts(routed, runs["plain"], rid)
             note = f"; routing by layer (tokens apart, valid, last token " \
                    f"apart) {parts}"
             if parts is None or any(last for _, _, last in parts):
@@ -3162,8 +3377,9 @@ def main(argv=None) -> int:
         first_f32 = None  # path 3's bf16 accuracy reference
         for dname in ("f32", "bf16"):
             t0 = time.perf_counter()
-            cfg, fills, first = serve_phase("path3", dname, args.seed,
-                                            report, accuracy_ref=first_f32)
+            cfg, fills, first = serve_phase(
+                "path3", dname, args.seed, report, accuracy_ref=first_f32,
+                labels=("kernels", "plain", "chunked", "eager"))
             first_f32 = first
             serve_kernel_phase(cfg, dname, fills, report, rows)
             print(f"[phase path3 {dname}] {time.perf_counter() - t0:.1f} s",
@@ -3184,7 +3400,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         serve_phase("path5", "bf16", args.seed, report,
                     layers=get_config("zamba2_7b").n_layers,
-                    labels=("kernels", "chunked"))
+                    labels=("kernels", "chunked", "eager", "eager chunked"))
         torch.cuda.empty_cache()
         print(f"[phase path5 bf16 81L] {time.perf_counter() - t0:.1f} s",
               flush=True)
@@ -3193,7 +3409,9 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             cfg, fills, first = serve_phase(
                 "path5", dname, args.seed, report, accuracy_ref=first_f32,
-                layers=PATH5_CUT_LAYERS)
+                layers=PATH5_CUT_LAYERS,
+                labels=("kernels", "plain", "chunked", "eager",
+                        "eager chunked"))
             first_f32 = first
             ssd_kernel_phase(cfg, dname, report, rows)
             serve_kernel_phase(cfg, dname, fills, report, rows,
@@ -3206,7 +3424,7 @@ def main(argv=None) -> int:
         # bf16 run's accuracy reference)
         t0 = time.perf_counter()
         serve_phase("path6", "bf16", args.seed, report, layers=PATH6_LAYERS,
-                    labels=("kernels", "chunked"),
+                    labels=("kernels", "chunked", "eager", "eager chunked"),
                     capacity_factor=PATH6_DROP_FREE_CF)
         print(f"[phase path6 bf16 {PATH6_LAYERS}L] "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -3215,7 +3433,7 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             cfg, fills, first = serve_phase(
                 "path6", dname, args.seed, report, accuracy_ref=first_f32,
-                layers=PATH6_CUT_LAYERS, labels=("kernels", "plain"))
+                layers=PATH6_CUT_LAYERS, labels=("kernels", "plain", "eager"))
             first_f32 = first
             serve_kernel_phase(cfg, dname, fills, report, rows,
                                path="path6")

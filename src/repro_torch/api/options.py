@@ -106,8 +106,12 @@ class CompileOptions:
       dispatch); ``"jit"`` skips the DHLO bridge and buckets a plain
       PyTorch function directly: declared dynamic args are bucket-padded,
       ``None`` args (parameter / KV-cache trees) pass through, and each
-      bucket entry runs the function eagerly (the serving engine's
-      prefill and decode)
+      bucket entry on the card is one CUDA graph of the function: its
+      first call runs eagerly and is captured, later calls replay it
+      (``core/graphs.py``; pass-through args read in place, every other
+      tensor leaf copied into the entry's own buffer;
+      eager on the CPU and inside ``plain_versions()`` /
+      ``eager_entries()``): the serving engine's prefill and decode
     * ``mesh`` / ``sharding_profile`` — SPMD placement; both arrive with
       the multi-GPU slice and raise ``NotImplementedError`` until then
     * ``cache``                — share a :class:`CompileCache` between

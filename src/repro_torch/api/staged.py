@@ -22,10 +22,13 @@ Two pipelines share this surface (selected by
   bridging it through DHLO: declared dynamic args are bucket-padded,
   ``None`` args (parameter and KV-cache trees) pass through, ``TreeSpec``
   pytrees are leaf-padded, and one entry is cached per bucket signature.
-  An entry runs the function eagerly (PyTorch has no trace to compile);
-  a "compile" is the creation of an entry, so ``compile_counts()`` keeps
-  the O(#buckets) contract observable.  This is what the serving engine
-  builds prefill and decode on.
+  On the card an entry is one CUDA graph, captured at its first call and
+  replayed at every later one (:mod:`repro_torch.core.graphs`: the
+  counterpart of the JAX package's ``jax.jit`` per bucket); on the CPU,
+  and inside ``plain_versions()`` or ``eager_entries()``, it runs the
+  function eagerly.  ``compile_counts()`` counts entries, so the
+  O(#buckets) contract stays observable.  This is what the serving
+  engine builds prefill and decode on.
 
 Both pipelines share one host-dispatch emitter
 (:func:`repro_torch.core.dispatcher.generate_dispatch`), parameterized by
@@ -36,6 +39,7 @@ identically under either.
 from __future__ import annotations
 
 import hashlib
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -46,6 +50,7 @@ from ..core.cache import CompileCache
 from ..core.codegen import dyn_symbols
 from ..core.dispatcher import dhlo_lens, generate_dispatch, jit_lens
 from ..core.dtypes import dtype_key
+from ..core.graphs import GraphEntry, GraphStats
 from ..core.symshape import SymDim
 from ..errors import CONTROL_EXCEPTIONS, CompileError, classify_transient
 from ..frontends.fx_frontend import ArgSpec, TreeSpec, bridge
@@ -162,7 +167,7 @@ class Lowered:
 
     For the ``"dhlo"`` pipeline all plan fields are populated; for the
     ``"jit"`` pipeline only ``specs`` / ``sym_names`` are (there is no
-    DHLO graph: the function runs eagerly per bucket).
+    DHLO graph: each bucket entry captures the function itself).
     """
 
     fn: Callable
@@ -224,8 +229,8 @@ class Lowered:
         lines.append(f"  fingerprint: {self.fingerprint()}")
         lines.append(f"  dynamic symbols: {list(self.sym_names)}")
         if self.graph is None:
-            lines.append("  (no DHLO graph: the jit pipeline runs the "
-                         "function eagerly per bucket)")
+            lines.append("  (no DHLO graph: the jit pipeline captures "
+                         "the function per bucket)")
             return "\n".join(lines)
         lines.append(f"  params: {len(self.graph.params)}  "
                      f"ops: {len(self.graph.ops)}  "
@@ -307,6 +312,7 @@ class Compiled:
                          escalation_threshold=options.escalation_threshold)
         self._bucket_compiles = 0
         self._exact_compiles = 0
+        self.graph_stats = GraphStats()
         if lowered.pipeline == "dhlo":
             lens = dhlo_lens(lowered.graph, lowered.syms)
             compile_bucket = self._compile_bucket
@@ -316,9 +322,12 @@ class Compiled:
                             name=options.name)
             compile_bucket = self._compile_jit_bucket
             compile_exact = self._compile_jit_exact
+        # the generated dispatch reaches this artifact weakly: a cycle
+        # through it would keep the cache's entries (a graph holds its
+        # inputs: parameters, a KV cache) alive until a gc pass
         self._dispatch, self.dispatch_source = generate_dispatch(
-            lens, lowered.policy, self.cache, compile_bucket,
-            compile_exact, fingerprint=self._fingerprint,
+            lens, lowered.policy, self.cache, weak_method(compile_bucket),
+            weak_method(compile_exact), fingerprint=self._fingerprint,
             escalation_threshold=options.escalation_threshold,
             on_tie_break=on_tie_break, memory_plan=lowered.buffer_plan)
         self._mstats = self._dispatch._mstats
@@ -418,22 +427,52 @@ class Compiled:
                                         self.lowered.plan, self.device)
 
     # ----------------------------------------------------- jit pipeline --
-    def _jit_entry(self) -> Callable:
-        fn = self.lowered.fn
-        return lambda *args: fn(*args)
+    def _jit_entry(self, kind: str) -> GraphEntry:
+        """An entry of the jit pipeline: a CUDA graph of the function
+        captured at its first call on the card.  A capture that fails
+        takes the entry out of the cache and out of the compile count."""
+        ref = weakref.ref(self)
+
+        def dropped(entry):
+            compiled = ref()
+            if compiled is not None:
+                compiled.cache.discard(entry)
+                if kind == "bucket":
+                    compiled._bucket_compiles -= 1
+                else:
+                    compiled._exact_compiles -= 1
+
+        # the pass-through (None-spec) arguments, the parameter and cache
+        # trees, are read in place; the graph copies every other leaf
+        held = [i for i, s in enumerate(self.lowered.specs) if s is None]
+        return GraphEntry(self.lowered.fn, f"{self.options.name!r} {kind} "
+                          f"entry", self.graph_stats, self.cache.graph_pool,
+                          dropped, held)
 
     def _compile_jit_bucket(self, key: Tuple[int, ...]):
         """One entry per bucket signature: the dispatch pads dynamic args
-        to the bucket, and the entry runs the function eagerly on them."""
+        to the bucket, and the entry's graph is captured on them."""
         self._bucket_compiles += 1
-        return self._jit_entry()
+        return self._jit_entry("bucket")
 
     def _compile_jit_exact(self):
         """§4.4 for the jit pipeline: the escalated path calls the
         function at *unpadded* shapes.  One fresh entry per escalated
         signature, so the cache's LRU budget bounds them one by one."""
         self._exact_compiles += 1
-        return self._jit_entry()
+        return self._jit_entry("exact")
+
+
+def weak_method(method: Callable) -> Callable:
+    """``method`` (a bound method) called through a weak reference to its
+    instance."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        return ref()(*args)
+
+    call.__qualname__ = method.__qualname__
+    return call
 
 
 # ------------------------------------------------------ public entrypoint --

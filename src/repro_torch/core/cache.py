@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, Optional, Set, Tuple
 
 from ..errors import (CONTROL_EXCEPTIONS, DEFAULT_RETRY, RetryPolicy,
                       wrap_compile_error)
+from .graphs import GraphPool
 
 __all__ = ["CompileCache", "CacheStats"]
 
@@ -72,6 +73,9 @@ class CompileCache:
         self._failed_exact: Set[Tuple] = set()
         self.retry_policy: RetryPolicy = DEFAULT_RETRY
         self.stats = CacheStats()
+        # the card memory pool that the CUDA graphs of this cache's jit
+        # entries share (core/graphs.py)
+        self.graph_pool = GraphPool()
 
     def _compile_with_retry(self, compile_fn: Callable[[], Any],
                             what: str, site: str) -> Any:
@@ -186,6 +190,12 @@ class CompileCache:
         self._failed_exact = {k for k in self._failed_exact
                               if k[0] != fingerprint}
         return len(dead)
+
+    def discard(self, entry: Any) -> None:
+        """Take ``entry`` out of the cache (a jit entry whose CUDA graph
+        capture failed): the next call of its signature compiles anew."""
+        for key in [k for k, v in self._entries.items() if v is entry]:
+            del self._entries[key]
 
     def _evict(self) -> None:
         while len(self._entries) > self.max_entries:

@@ -668,7 +668,9 @@ def generate_dispatch(
     ns["_compile"] = _compile
 
     exec(compile(src, f"<disc-dispatch:{lens.name}>", "exec"), ns)
-    dispatch = ns["_dispatch"]
+    # out of its own globals: a function in the namespace it reads is a
+    # cycle, which would keep the cache's entries until a gc pass
+    dispatch = ns.pop("_dispatch")
     dispatch._mstats = mstats          # staging accounting (report)
     dispatch._memory_plan = memory_plan
     return dispatch, src

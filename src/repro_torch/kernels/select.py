@@ -18,7 +18,7 @@ from typing import Iterator
 
 import torch
 
-__all__ = ["plain_versions", "use_kernel"]
+__all__ = ["plain_versions", "in_plain_versions", "use_kernel"]
 
 _PLAIN = contextvars.ContextVar("repro_torch_plain_versions", default=False)
 # open plain_versions() contexts, as a module global: dynamo reads (and
@@ -38,6 +38,11 @@ def plain_versions() -> Iterator[None]:
     finally:
         _PLAIN_DEPTH -= 1
         _PLAIN.reset(token)
+
+
+def in_plain_versions() -> bool:
+    """True inside :func:`plain_versions`."""
+    return _PLAIN.get()
 
 
 def use_kernel(t: torch.Tensor, op: str) -> bool:

@@ -25,11 +25,12 @@ import pathlib
 import re
 import sys
 import threading
+import weakref
 from typing import Callable, Dict
 
 __all__ = ["BUILD_DIR", "CLUSTER_OPTIONS", "triton", "load_kernel",
            "compiled", "ptx_accesses",
-           "term_source", "LaunchCounter"]
+           "term_source", "LaunchCounter", "launch_counts"]
 
 #: repo-root/build/torch_kernels (src/repro_torch/kernels/<this file>)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
@@ -132,6 +133,17 @@ class LaunchCounter:
 
     def __init__(self) -> None:
         self.launches = 0
+        _COUNTERS.add(self)
 
     def reset(self) -> None:
         self.launches = 0
+
+
+#: every LaunchCounter made: a CUDA graph entry reads them around its
+#: capture and adds what the capture counted on every replay
+_COUNTERS: "weakref.WeakSet[LaunchCounter]" = weakref.WeakSet()
+
+
+def launch_counts() -> Dict[LaunchCounter, int]:
+    """Every launch counter's count now."""
+    return {c: c.launches for c in list(_COUNTERS)}

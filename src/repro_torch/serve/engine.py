@@ -37,14 +37,17 @@ on the public ``disc_torch.compile`` API (``pipeline="jit"``):
 On the card every attention runs the flash-attention kernel, every
 norm its RMSNorm or LayerNorm kernel, every RWKV time mix the WKV kernel,
 every Mamba-2 block the SSD kernel and every MoE router the masked
-softmax kernel (the model's layers call their wrappers).  The compiled
-entries hold the engine weakly, so a dropped engine frees its cache and
-parameters at once.  The cache lives on the
-card; the engine updates its rows in place (``index_copy_``) where the
-JAX package rebuilds the array.  A cache is any tree of layer-stacked
-leaves with the batch on axis 1 (the dense KV cache, RWKV's nested
-recurrent state): row gathers, scatters, zeroing and gating map over its
-leaves.
+softmax kernel (the model's layers call their wrappers).  On the card
+each prefill bucket and the decode step is one CUDA graph, captured at
+its first call and replayed after (:mod:`repro_torch.core.graphs`); the
+graphs of one engine share a memory pool.  The compiled entries hold
+the engine weakly, so a dropped engine frees its cache, parameters and
+graphs at once.  The cache lives on the card; the engine updates its
+rows in place (prefill's rows by ``index_copy_``, a decode step inside
+its graph) where the JAX package rebuilds the array.  A cache is any
+tree of layer-stacked leaves with the batch on axis 1 (the dense KV
+cache, RWKV's nested recurrent state): row gathers, scatters, zeroing
+and gating map over its leaves.
 
 Not ported yet, each raising ``NotImplementedError`` naming its slice:
 paged KV (``kv_block_size``), speculative decoding (``speculative``),
@@ -56,7 +59,6 @@ from __future__ import annotations
 
 import dataclasses
 import time
-import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple, Union
 
@@ -64,7 +66,7 @@ import numpy as np
 import torch
 
 from ..api.options import CompileOptions, Dim, TreeSpec, resolve_device
-from ..api.staged import compile as disc_compile
+from ..api.staged import compile as disc_compile, weak_method
 from ..core.bucketing import BucketPolicy, POW2
 from ..core.cache import CompileCache
 from ..data.pipeline import Request
@@ -250,7 +252,7 @@ class ServeEngine:
         # references: a dropped engine frees its cache and parameters at
         # once, without waiting for a gc pass over a cycle
         self._prefill_fn = disc_compile(
-            _weak_method(self._prefill_call),
+            weak_method(self._prefill_call),
             specs=[None,                 # params tree
                    TreeSpec({1: "B"}),   # gathered cache rows (L, B, ...)
                    ArgSpec((dim_b, Dim("S", max=scfg.max_seq)), i32,
@@ -262,8 +264,14 @@ class ServeEngine:
                                    escalation_threshold=
                                    scfg.escalation_threshold,
                                    cache=self.compile_cache))
+        n = self.n_slots
         self._decode_fn = disc_compile(
-            _weak_method(self._decode_step),
+            weak_method(self._decode_step),
+            # the parameter and cache trees are read in place (the cache
+            # written in place); a step's own inputs are static
+            specs=[None, None, ArgSpec((n, 1), i32, name="tokens"),
+                   ArgSpec((n,), i32, name="lens"),
+                   ArgSpec((n,), torch.bool, name="active")],
             options=CompileOptions(pipeline="jit", name="decode",
                                    device=scfg.device,
                                    cache=self.compile_cache))
@@ -281,11 +289,16 @@ class ServeEngine:
         return self._prefill_impl(params, rows, tokens, lens, offsets)
 
     def _decode_step(self, params, cache, tokens, lens, active):
-        """One decode step; cache writes gated to ``active`` rows so
-        mid-prefill and empty slots keep their state untouched."""
+        """One decode step, written into ``cache`` in place and gated to
+        ``active`` rows, so mid-prefill and empty slots keep their state
+        untouched.  Returns the logits and ``cache``'s own leaves: the
+        decode entry's CUDA graph reads and writes the engine's cache where
+        it lies, and a step copies only ``tokens``, ``lens`` and
+        ``active`` into the graph."""
         logits, new_cache = self.model.decode_step(params, cache, tokens,
                                                    lens)
-        return logits, gate_rows(active, new_cache, cache)
+        return logits, tree_map(lambda c, g: c.copy_(g), cache,
+                                gate_rows(active, new_cache, cache))
 
     def _next_tokens(self, slots: List[int],
                      logits: torch.Tensor) -> List[int]:
@@ -636,18 +649,6 @@ class ServeEngine:
         if self._busy_s > 0:
             self.stats["tokens_per_sec"] = \
                 self.stats["tokens_generated"] / self._busy_s
-
-
-def _weak_method(method: Callable) -> Callable:
-    """``method`` (bound to an engine) called through a weak reference to
-    the engine."""
-    ref = weakref.WeakMethod(method)
-
-    def call(*args):
-        return ref()(*args)
-
-    call.__qualname__ = method.__qualname__
-    return call
 
 
 def _leaves(tree) -> List[torch.Tensor]:
