@@ -36,9 +36,23 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    summation order alone).  Checks compiles ==
    distinct buckets, the cluster kernels' runs, and the launch counts of
    the kernels in that run (a kernel that fails raises: the path has no
-   per-op fallback to count).
+   per-op fallback to count).  Each bucket's entry is one CUDA graph of
+   its padded executor, which reads the request's lengths on the card:
+   captured at the bucket's first request, replayed at every later one
+   (checked: captures == compiles, the rest replays), the bytes copied
+   into the graph a request exactly the padded input plus ``lens`` (no
+   weight copied), launch counts counted through replays as the capture
+   launched, and every graphed output equal bit for bit to the same
+   request run under ``eager_entries()`` (the same kernels launched one
+   by one).  One request at S = 37 and 1999, graphed and eager, is timed
+   (median of 3 on the host clock) and run once under
+   ``torch.profiler`` (wall and device-busy ms), on paths 1 and 2; the
+   kLoop, kInput and GEMM kernels the card ran in that traced request
+   must equal what the launch counters added (through a replay, the
+   capture's counts) and the path's own count a request.
 3. **Kernels.**  Holds every kernel program path 1 launched (recorded
-   from one extra, uncounted run at S = 1999) against its plain version
+   from one extra, uncounted run at S = 1999 under ``eager_entries()``:
+   a replay calls no wrapper) against its plain version
    on the same card inputs, through the wrappers the path calls, in f32
    and bf16: at the path's ``n_valid`` and at one below the padded size,
    whose tails must be exactly zero.  kLoop must match bit for bit; a
@@ -66,7 +80,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    1's eager output for the same weights, bf16 under the accuracy rule;
    the cluster kernels outside the scan (``ln_f``'s kLoop at least) run
    and are counted (the scan's bodies run op by op, as the reference's
-   executor runs them).  (b) The control-flow functions of
+   executor runs them); graphed as path 1, with path 1's graph checks.
+   (b) The control-flow functions of
    ``tests/test_control_flow.py`` at D = 2048 and S = 37, 731 and 1999
    (a while loop, a data-dependent trip count, a scan's carry and its ys,
    a reverse scan, a cond taking both branches, a while inside a scan;
@@ -74,19 +89,29 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    under ``"hopper"`` and ``"nimble_vm"``, held against the function run
    by torch itself within 1e-4 max|d|/max|ref| (f32 summation order over
    up to 4 M elements), with each call's ``d.while`` predicate and
-   ``d.cond`` index reads printed.  (c) The paper's §5.2 comparison,
-   printed only: path 1's and path 7's lowered graphs timed per request
-   under ``"hopper"``, ``"eager"`` (whose executor ``"nimble_vm"``
-   shares) and ``NimbleVM(sync_per_op=True)``, with the VM's op dispatches, its
-   interpretation seconds and their host share (the device time from
-   ``torch.profiler``) at S = 1999.  Path 7's wall seconds are printed.
+   ``d.cond`` index reads printed; under ``"hopper"`` the functions
+   holding ``d.while`` / ``d.cond`` must report host entries and no
+   capture, the ``d.scan``-only ones one graph a bucket, and
+   ``"nimble_vm"`` no capture.  (c) The paper's §5.2 comparison,
+   printed only: path 1's and path 7's lowered graphs timed at S = 37,
+   731 and 1999 under ``"hopper"`` and ``"eager"`` (each bucket one
+   CUDA graph; checked for each: captures == compiles, no host entry,
+   the rest replays, each request's graphed output equal bit for bit to
+   the same backend under ``eager_entries()``), under
+   ``"hopper"`` inside ``eager_entries()`` (the same kernels launched
+   one by one) and under ``NimbleVM(sync_per_op=True)``, the VM and the
+   eager entries each as a ratio over the graph, with the VM's op
+   dispatches, its interpretation seconds and their host share (the
+   device time from ``torch.profiler``) at S = 1999.  Path 7's wall
+   seconds are printed.
 5. **Path 2.**  The same model with a token-major residual stream,
    x (T, 2048): the layer functions composed so that the MLP's
    projections are plain 2-D dots, which the planner fuses with their
    epilogues into kDot clusters (``x @ w_gate`` with ``silu(g) * h``,
    ``h @ w_out`` with the residual add).  Same requests, limits and
-   checks as path 1, and kDot cluster runs == GEMM-epilogue launches ==
-   the plan's kDots per request times the requests; every launch on the
+   checks as path 1 (graphs included), and kDot cluster runs ==
+   GEMM-epilogue launches == the plan's kDots per request times the
+   requests; every launch on the
    body of its dtype (``wgmma`` for bf16, ``ffma`` for f32) and no
    operand copied (``ops.OPERAND_COPIES``), every f32 launch on the
    16-byte instance (``ops.FFMA_SCALAR_LAUNCHES`` 0).  Path 2's kLoop
@@ -100,9 +125,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    16-byte loads (kLoop: and stores).
 6. **kDot kernel.**  Every kDot program path 2 launched (recorded at
    T = 1999) against ``matmul_fused_ref`` on the same card inputs: at the
-   path's valid M, at a smaller valid M, and once with ragged N and K;
-   max|Δ|/max|ref| ≤ 1e-5 (f32) and ≤ 8e-3 (bf16), padded tails exactly
-   zero.  Timed against its plain version and ``torch.matmul`` on the
+   path's valid M, at a smaller valid M, and once with ragged N and K,
+   the valid extents an int32[3] on the card that the kernel reads, as
+   the path hands them over; max|Δ|/max|ref| ≤ 1e-5 (f32) and ≤ 8e-3
+   (bf16), padded tails exactly zero.  Timed against its plain version and ``torch.matmul`` on the
    same operands (the GEMM alone, without the epilogue); its bound is
    the larger of bytes over 3.35 TB/s and 2·M·N·K over the peak of its
    type (67 TFLOP/s f32 FFMA; 989 TFLOP/s dense bf16 tensor cores).
@@ -288,7 +314,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     device µs a call are printed.  Its
     instances' registers and local memory are printed from
     ``cuobjdump`` (no local memory).
-16. Prints the kernels line, the card line, and the result line last.
+16. Prints the run's seconds in all, the kernels line, the card line,
+    and the result line last.
 
 Run it from a checkout: it builds the kernels from ``src/`` into
 ``build/torch_kernels/`` and refuses to run without the repository or
@@ -491,13 +518,17 @@ DECODE_COPY_BYTES = 1024
 # the paths whose kernels and eager runs each put one decode step under
 # torch.profiler
 PROFILED_PATHS = ("path3", "path5")
-#: the device kernel of each counted wrapper on the profiled paths, as
-#: torch.profiler names it: one for each counted launch (flash decode's
-#: combine pass, its second kernel, left out)
+#: the device kernel of each counted wrapper on the profiled paths (and
+#: on paths 1 and 2's timed requests), as torch.profiler names it: one
+#: for each counted launch (flash decode's combine pass and split-K's
+#: second pass, ``gemm_finish_kernel``, left out)
 TRACE_KERNELS = {
     "flash_attention": r"\b(prefill_kernel|prefill_tc_kernel|decode_kernel)\b",
     "rmsnorm": r"\bnorm_(rows|loop)\b",
     "mamba2": r"\bssd_(chunked|decode)\b",
+    "kloop": r"^kloop(_\w+)?$",
+    "kinput": r"^kinput(_\w+)?$",
+    "gemm": r"\bdisc::gemm_(wgmma_)?kernel\b",
 }
 # host seconds between a profiled step's launches and either edge of the
 # profiler's recorded window: the window's device side at times opens
@@ -505,6 +536,11 @@ TRACE_KERNELS = {
 # then lacked the step's first kernels (a graph's replay whole), graphed
 # and eager alike; with 5 ms none was lost, and this is four times that
 PROFILE_MARGIN_S = 0.02
+# paths 1 and 2 (path 7 is path 1's model): one request at S = 37 and
+# 1999 timed graphed and eager, synchronised calls a request and mode
+# (median), then once under torch.profiler
+TIMED_PATHS = ("path1", "path2")
+PROFILE_ROUNDS = 3
 # a graphed run's eager twin
 EAGER_TWIN = {"kernels": "eager", "chunked": "eager chunked"}
 
@@ -801,9 +837,24 @@ def start_cuda_builds(arts: list):
     return th, result
 
 
+def host_ints(v):
+    """A length a wrapper was given (an int, or lengths on the card that
+    the kernel reads) as host ints: the recorder reads them back once,
+    outside any graph."""
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        vals = v.reshape(-1).tolist()
+        return vals[0] if len(vals) == 1 else tuple(vals)
+    return tuple(int(x) for x in v) if isinstance(v, (tuple, list)) \
+        else int(v)
+
+
 class Recorder:
     """Records the first call of each distinct kernel program (uncounted
-    run) so the kernel phase can replay it at the path's shapes."""
+    run) so the kernel phase can replay it at the path's shapes.  Run the
+    function under ``eager_entries()``: a graph's replay calls no
+    wrapper."""
 
     def __init__(self):
         self.calls = {}
@@ -831,7 +882,8 @@ class Recorder:
             key = ("fused_reduce", program.key, tuple(shape), kind, axis)
             if key not in self.calls:
                 self.calls[key] = dict(program=program, inputs=list(inputs),
-                                       n_valid=n_valid_cols, kind=kind,
+                                       n_valid=host_ints(n_valid_cols),
+                                       kind=kind,
                                        axis=axis, shape=tuple(shape),
                                        out_dtype=out_dtype, count=0)
             self.calls[key]["count"] += 1
@@ -844,7 +896,7 @@ class Recorder:
             if key not in self.calls:
                 self.calls[key] = dict(program=program, a=a, b=b,
                                        extras=list(extras),
-                                       valid=tuple(valid_mnk),
+                                       valid=host_ints(valid_mnk),
                                        out_dtypes=tuple(out_dtypes),
                                        count=0)
             self.calls[key]["count"] += 1
@@ -874,6 +926,7 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
     from repro_torch.kernels.fused_elementwise import ops as fe
     from repro_torch.kernels.fused_reduce import ops as fr
     from repro_torch.kernels.matmul import ops as mm
+    from repro_torch.core.graphs import eager_entries
     from repro_torch.kernels.select import plain_versions
 
     fn, f, low, dt = art["fn"], art["f"], art["low"], art["dt"]
@@ -895,8 +948,11 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
               fe.UNALIGNED_LAUNCHES, fr.UNALIGNED_LAUNCHES):
         c.reset()
     rows = []
+    st = f.graph_stats
+    graph_io = []   # per request: bytes copied into its graph, captured
     for s in REQUESTS:
         before = f.compile_counts()["total"]
+        b_in, b_out, caps = st.bytes_in, st.bytes_out, st.captures
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         y = f(inputs[s])
@@ -906,9 +962,12 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
         key = f.policy.bucket(art["dim"], s)
         buckets.add(key)
         rows.append((s, key, dt_s, after - before, y))
+        graph_io.append((s, key, st.bytes_in - b_in, st.bytes_out - b_out,
+                         st.captures - caps))
         if s == 45:
             check(after == before, f"{tag} {s} compiled anew (bucket {key})")
     launches = {name: c.launches for name, c in counters.items()}
+    runs = {t: k.runs - runs0[t] for t, k in kern.items()}
     unaligned = {"fused_elementwise": fe.UNALIGNED_LAUNCHES.launches,
                  "fused_reduce": fr.UNALIGNED_LAUNCHES.launches}
     copies = mm.OPERAND_COPIES.launches
@@ -950,7 +1009,7 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
                   f"{e32:.3e}")
         del ref, ref32
     counts = f.compile_counts()
-    runs = {t: k.runs - runs0[t] for t, k in kern.items()}
+    graph_checks(tag, art, inputs, rows, graph_io)
     print(f"{tag} compile_counts={counts} "
           f"distinct_buckets={sorted(buckets)} cache={f.cache_stats()}",
           flush=True)
@@ -991,16 +1050,142 @@ def path_phase(path: str, art: dict, dtype_name: str, seed: int,
     report[(path, dtype_name)] = dict(launches=launches, compiles=counts,
                                       lower_s=art["lower_s"])
 
+    if path in TIMED_PATHS:
+        request_times(tag, f, inputs, {
+            "kloop": launches["fused_elementwise"],
+            "kinput": launches["fused_reduce"],
+            "kdot": launches["matmul_epilogue"]})
     # extra, uncounted runs record every kernel program at 1999, and at
-    # 37 for the wrappers' host cost
-    with Recorder() as rec:
+    # 37 for the wrappers' host cost (eagerly: a replay calls no wrapper)
+    with eager_entries(), Recorder() as rec:
         f(inputs[1999])
         torch.cuda.synchronize()
-    with Recorder() as rec37:
+    with eager_entries(), Recorder() as rec37:
         f(inputs[37])
         torch.cuda.synchronize()
     host_phase(rec37.calls, tag)
     return rec.calls
+
+
+def graph_checks(tag: str, art: dict, inputs: dict, rows: list,
+                 graph_io: list) -> None:
+    """Paths 1, 2 and 7 under CUDA graphs: one capture a bucket (captures
+    == compiles), every other request a replay; the bytes copied into a
+    bucket's graph a request are its padded input plus ``lens`` (one
+    int32 a symbol) and nothing more, so no weight is copied; and each
+    graphed output equals the same kernels launched one by one under
+    ``eager_entries()`` bit for bit."""
+    import torch
+
+    from repro_torch.core.graphs import eager_entries
+
+    f = art["f"]
+    st = f.graph_stats
+    rep = f.report()["graphs"]
+    counts = f.compile_counts()
+    check(not rep["host_entries"] and rep["graphed_entries"] ==
+          counts["total"], f"{tag} entries {rep} for compiles {counts}")
+    check(st.captures == counts["total"],
+          f"{tag} captures {st.captures} != compiles {counts['total']}")
+    elt = torch.empty((), dtype=art["dt"]).element_size()
+    lens_bytes = 4 * len(f.syms)
+    for (s, key, dt_s, compiled, y), (_, _, b_in, _, cap) in zip(rows,
+                                                                  graph_io):
+        want = math.prod(art["shape"](key)) * elt + lens_bytes
+        check(cap == compiled, f"{tag} S={s}: captured {cap}, compiled "
+                               f"{compiled}")
+        check(b_in == want, f"{tag} S={s}: {b_in} B copied into the graph, "
+                            f"the padded input and lens are {want} B")
+    check(st.replays == len(rows) - counts["total"],
+          f"{tag} replays {st.replays} for {len(rows)} requests and "
+          f"{counts['total']} captures")
+    same = []
+    with eager_entries():
+        for s, key, dt_s, compiled, y in rows:
+            ye = f(inputs[s])
+            torch.cuda.synchronize()
+            same.append(bool(torch.equal(y, ye)))
+            del ye
+    print(f"{tag} graphs: captures {st.captures} (== compiles "
+          f"{counts['total']}), replays {st.replays}; bytes copied in a "
+          f"request {[io[2] for io in graph_io]} (padded input + lens "
+          f"{lens_bytes} B), out {[io[3] for io in graph_io]}; capture s "
+          f"{[round(x, 3) for x in st.capture_seconds]}; input buffers "
+          f"{st.buffer_bytes} B; pool reserved {rep['pool_bytes']} B; "
+          f"graphed == eager_entries() bit for bit {same}", flush=True)
+    check(all(same), f"{tag} graphed outputs differ from eager_entries()")
+
+
+def request_times(tag: str, f, inputs: dict, path_launches: dict) -> None:
+    """One request at S = 37 and S = 1999, graphed and under
+    ``eager_entries()`` (the same kernels launched one by one): the host
+    clock's median of ``PROFILE_ROUNDS`` synchronised calls, and one call
+    under ``torch.profiler`` (its wall ms, the profiler's cost included,
+    and the ms the card was busy in kernels).  The traced call's kLoop,
+    kInput and GEMM kernels as the card ran them (``TRACE_KERNELS``) must
+    equal what the launch counters added in that call (a replay adds the
+    capture's counts; GEMMs beyond the kDots, the §4.5 library's, add to
+    both), and the kLoop, kInput and kDot counts must be the path's own
+    a request: ``path_launches`` over its ``REQUESTS``."""
+    import torch
+
+    from repro_torch.core.graphs import eager_entries
+    from repro_torch.kernels.fused_elementwise import ops as fe
+    from repro_torch.kernels.fused_reduce import ops as fr
+    from repro_torch.kernels.matmul import ops as mm
+
+    def count():
+        return {"kloop": fe.LAUNCHES.launches,
+                "kinput": fr.LAUNCHES.launches,
+                "gemm": sum(c.launches for c in mm.BODY_LAUNCHES.values()),
+                "kdot": mm.EPILOGUE_LAUNCHES.launches}
+
+    for s in (37, 1999):
+        for mode in ("graphed", "eager"):
+            ctx = eager_entries if mode == "eager" else contextlib.nullcontext
+            counted = {}
+
+            def traced(s=s, counted=counted):
+                before = count()
+                f(inputs[s])
+                counted.update({k: n - before[k]
+                                for k, n in count().items()})
+
+            with ctx():
+                times = []
+                for _ in range(PROFILE_ROUNDS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    f(inputs[s])
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                wall, busy, top, seen = profile_ms(traced,
+                                                   lambda: f(inputs[s]))
+            med = 1e3 * sorted(times)[len(times) // 2]
+            print(f"{tag} S={s} {mode}: ms a request {med:.3f} (median of "
+                  f"{PROFILE_ROUNDS}); under torch.profiler wall "
+                  f"{wall:.3f} ms, device busy "
+                  f"{'not measured' if busy is None else f'{busy:.3f}'} "
+                  f"ms; top kernels {top}", flush=True)
+            ran = {k: seen[k] for k in ("kloop", "kinput", "gemm")}
+            check(all(counted[k] * len(REQUESTS) == n
+                      for k, n in path_launches.items()),
+                  f"{tag} S={s} {mode}: the launch counters added "
+                  f"{counted} in the traced request, the path counts "
+                  f"{path_launches} in {len(REQUESTS)} requests")
+            if busy is None:
+                print(f"{tag} S={s} {mode}: kernels as the card ran them "
+                      f"not measured (the profiler saw no device time)",
+                      flush=True)
+                continue
+            check(ran == {k: counted[k] for k in ran},
+                  f"{tag} S={s} {mode}: the card ran {ran} in the traced "
+                  f"request, the launch counters added {counted}")
+            print(f"{tag} S={s} {mode}: the card ran kLoop / kInput / GEMM "
+                  f"{ran} in the traced request (== the counters; kDots "
+                  f"{counted['kdot']}; the path's {path_launches} in "
+                  f"{len(REQUESTS)} requests)",
+                  flush=True)
 
 
 def retype(program, dt):
@@ -1080,6 +1265,7 @@ def kernel_phase(calls: dict, dtype_name: str, launches: dict, rows: list,
         fused_elementwise_ref
     from repro_torch.kernels.fused_reduce import ops as fr
     from repro_torch.kernels.fused_reduce.ref import fused_reduce_ref
+    from repro_torch.kernels.lengths import device_ints
 
     def launched(counter, fn):
         before = counter.launches
@@ -1107,9 +1293,12 @@ def kernel_phase(calls: dict, dtype_name: str, launches: dict, rows: list,
             name = "fused_reduce"
             kind, ax, out_dtype = c["kind"], c["axis"] % len(shape), \
                 c["out_dtype"]
+            # the column counts on the card, as the path hands them over
+            on_card = {n: device_ints([n], "cuda")
+                       for n in (n_path, shape[ax] - 48)}
 
             def run_k(n):
-                return fr.fused_reduce(prog, xs, n, kind, axis=ax,
+                return fr.fused_reduce(prog, xs, on_card[n], kind, axis=ax,
                                        shape=shape, out_dtype=out_dtype)
 
             def run_p(n):
@@ -1211,15 +1400,18 @@ def host_phase(calls: dict, tag: str) -> None:
     the device µs a call (``launch_times``)."""
     from repro_torch.kernels.fused_elementwise import ops as fe
     from repro_torch.kernels.fused_reduce import ops as fr
+    from repro_torch.kernels.lengths import device_ints
 
     for k, c in calls.items():
         if k[0] == "fused_elementwise":
             run = (lambda c=c: fe.fused_elementwise(
                 c["program"], c["inputs"], c["n_valid"], c["shape"]))
         elif k[0] == "fused_reduce":
-            run = (lambda c=c: fr.fused_reduce(
-                c["program"], c["inputs"], c["n_valid"], c["kind"],
-                axis=c["axis"], shape=c["shape"], out_dtype=c["out_dtype"]))
+            # the column count on the card, as the path hands it over
+            run = (lambda c=c, n=device_ints([c["n_valid"]], "cuda"):
+                   fr.fused_reduce(c["program"], c["inputs"], n, c["kind"],
+                                   axis=c["axis"], shape=c["shape"],
+                                   out_dtype=c["out_dtype"]))
         else:
             continue
         t = launch_times(run)
@@ -1240,6 +1432,7 @@ def reduce_extra_rows(rows: list) -> None:
 
     from repro_torch.kernels.fused_reduce import ops as fr
     from repro_torch.kernels.fused_reduce.ref import fused_reduce_ref
+    from repro_torch.kernels.lengths import device_ints
     from repro_torch.kernels.program import Program, Step
 
     f32 = torch.float32
@@ -1251,7 +1444,8 @@ def reduce_extra_rows(rows: list) -> None:
                                        ("axis0", (2048, 2048), 0, 2048)):
         x = torch.randn(shape, generator=gen, device="cuda")
 
-        def run_k(x=x, shape=shape, axis=axis, n=n_cols):
+        def run_k(x=x, shape=shape, axis=axis,
+                  n=device_ints([n_cols], "cuda")):
             return fr.fused_reduce(prog, [x], n, "sum", axis=axis,
                                    shape=shape, out_dtype=f32)
 
@@ -1340,9 +1534,12 @@ def gemm_bound(a_bytes: int, b_bytes: int, other_bytes: int, flops: int,
 def gemm_phase(calls: dict, dtype_name: str, launches: dict, rows: list):
     """Each recorded kDot program through the wrapper the path calls,
     against ``matmul_fused_ref`` on the same card inputs: at the path's
-    valid M, at a smaller valid M, and with ragged N and K."""
+    valid M, at a smaller valid M, and with ragged N and K, the valid
+    extents given as the path gives them (an int32[3] on the card that
+    the kernel reads)."""
     import torch
 
+    from repro_torch.kernels.lengths import device_ints
     from repro_torch.kernels.matmul import ops as mm
     from repro_torch.kernels.matmul.matmul import gemm_plan
     from repro_torch.kernels.matmul.ref import matmul_fused_ref
@@ -1369,7 +1566,8 @@ def gemm_phase(calls: dict, dtype_name: str, launches: dict, rows: list):
         err, scale, worst = 0.0, 0.0, 0.0
         for label, a, b, xs, valid in cases:
             before = mm.EPILOGUE_LAUNCHES.launches
-            outs_k = mm.matmul_fused(a, b, xs, prog, valid_mnk=valid,
+            outs_k = mm.matmul_fused(a, b, xs, prog,
+                                     valid_mnk=device_ints(valid, "cuda"),
                                      out_dtypes=c["out_dtypes"])
             check(mm.EPILOGUE_LAUNCHES.launches == before + 1,
                   "matmul_fused launched no kernel")
@@ -1387,9 +1585,10 @@ def gemm_phase(calls: dict, dtype_name: str, launches: dict, rows: list):
                   f"shape=({a.shape[0]},{a.shape[1]},{b.shape[1]}) "
                   f"valid={valid} rel={worst:.3e}", flush=True)
         a, b, xs = c["a"], c["b"], c["extras"]
+        on_card = device_ints((vm, vn, vk), "cuda")
 
         def run_k():
-            return mm.matmul_fused(a, b, xs, prog, valid_mnk=(vm, vn, vk),
+            return mm.matmul_fused(a, b, xs, prog, valid_mnk=on_card,
                                    out_dtypes=c["out_dtypes"])
 
         ms = cuda_ms(run_k)
@@ -1413,7 +1612,7 @@ def gemm_phase(calls: dict, dtype_name: str, launches: dict, rows: list):
                    launches=launches.get(name, 0), max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=lib_ms)
-        plan = gemm_plan(a.dtype, "kdot", vm, vn, vk)
+        plan = gemm_plan(a.dtype, "kdot", m, n, k)   # the padded extents
         detail = dict(dtype=dtype_name, program=prog.key,
                       shape=[m, k, n], valid=[vm, vn, vk],
                       steps=[st.opcode for st in prog.steps],
@@ -1439,6 +1638,7 @@ def small_bucket(c: dict, dtype_name: str) -> None:
     bit for bit equal, and timed beside ``torch.matmul`` (printed)."""
     import torch
 
+    from repro_torch.kernels.lengths import device_ints
     from repro_torch.kernels.matmul import ops as mm
     from repro_torch.kernels.matmul.matmul import gemm_plan
     from repro_torch.kernels.matmul.ref import matmul_fused_ref
@@ -1453,8 +1653,10 @@ def small_bucket(c: dict, dtype_name: str) -> None:
     xs = [torch.randn((m, n), generator=gen, device="cuda").to(dt)
           for dt in prog.in_dtypes[1:]]
 
+    on_card = device_ints((vm, vn, vk), "cuda")
+
     def run():
-        return mm.matmul_fused(a, b, xs, prog, valid_mnk=(vm, vn, vk),
+        return mm.matmul_fused(a, b, xs, prog, valid_mnk=on_card,
                                out_dtypes=c["out_dtypes"])
 
     outs_k = run()
@@ -1474,7 +1676,7 @@ def small_bucket(c: dict, dtype_name: str) -> None:
           f"kDot {dtype_name} {prog.key} T={vm}: rel {worst:.3e}")
     ms = cuda_ms(run)
     lib_ms = cuda_ms(lambda: torch.matmul(a[:vm, :vk], b[:vk, :vn]))
-    plan = gemm_plan(a.dtype, "kdot", vm, vn, vk)
+    plan = gemm_plan(a.dtype, "kdot", m, n, k)
     print(f"[gemm] matmul_epilogue {dtype_name} {prog.key} small_bucket "
           f"shape=({m},{k},{n}) valid={(vm, vn, vk)} rel={worst:.3e} "
           f"ms={ms:.5f} library_ms={lib_ms:.5f} "
@@ -1562,11 +1764,14 @@ def library_phase(rows: list, report: dict):
 CONTROL_FLOW_D = 2048
 CONTROL_FLOW_S = (37, 731, 1999)
 TOL_CONTROL_FLOW = 1e-4
-# path 7 (c): the backends of the paper's §5.2 comparison, the standalone
-# NimbleVM interpreter beside them ("nimble_vm" is eager's per-op executor
-# under the paper's name, so its time is eager's)
+# path 7 (c): the paper's §5.2 comparison: DISC (``"hopper"``) and its
+# per-op counterpart ``"eager"`` (the reference's ``"pallas"`` and
+# ``"xla"``), each bucket one CUDA graph, the same kernels launched one by
+# one (``eager_entries()``) and the standalone NimbleVM interpreter
 BASELINE_BACKENDS = ("hopper", "eager")
-# timed rounds over the requests (each request's median is printed)
+# its requests (one a bucket of path 1's, short to long) and timed rounds
+# over them (each request's median is printed)
+BASELINE_REQUESTS = (37, 731, 1999)
 BASELINE_ROUNDS = 3
 
 
@@ -1695,11 +1900,15 @@ def control_flow_fns(torch):
 def control_flow_phase() -> None:
     """Path 7 (b): each function under ``"hopper"`` and ``"nimble_vm"``
     at S = 37, 731 and 1999, held against torch's own run; each call's
-    ``d.while`` predicate and ``d.cond`` index reads printed."""
+    ``d.while`` predicate and ``d.cond`` index reads printed.  Under
+    ``"hopper"`` a function holding ``d.while`` or ``d.cond`` keeps host
+    entries and captures nothing, and a ``d.scan``-only one is one CUDA
+    graph a bucket; ``"nimble_vm"`` captures nothing."""
     import torch
 
     import disc_torch
-    from repro_torch.core.codegen import COND_SYNCS, WHILE_SYNCS
+    from repro_torch.core.codegen import (COND_SYNCS, WHILE_SYNCS,
+                                          host_control_flow)
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     xs = {s: torch.randn((s, CONTROL_FLOW_D), generator=gen,
@@ -1745,13 +1954,68 @@ def control_flow_phase() -> None:
             check(cf.n_compiles == len(buckets),
                   f"{tag} {cf.n_compiles} compiles for {len(buckets)} "
                   f"buckets")
+            rep = cf.report()["graphs"]
+            host = backend == "nimble_vm" or \
+                bool(host_control_flow(cf.lower().graph))
+            print(f"{tag} entries: graphed {rep['graphed_entries']}, host "
+                  f"{rep['host_entries']} {rep['host_control_flow']}; "
+                  f"captures {rep['captures']}, replays {rep['replays']}",
+                  flush=True)
+            if host:
+                check(rep["host_entries"] == cf.n_compiles
+                      and rep["captures"] == rep["graphed_entries"] == 0,
+                      f"{tag} host entries expected: {rep}")
+            else:
+                check(rep["graphed_entries"] == rep["captures"]
+                      == cf.n_compiles and not rep["host_entries"],
+                      f"{tag} one graph a bucket expected: {rep}")
+            del cf
+
+
+def baseline_graph_check(tag: str, run, inputs: dict, last: dict) -> None:
+    """A path 7 (c) runner of ``BASELINE_BACKENDS`` after its timed
+    rounds: one graph a bucket (captures == compiles, no host entry),
+    every call past a bucket's first a replay, and ``last``, each
+    request's last graphed output, equal bit for bit to the same entries
+    run under ``eager_entries()``."""
+    import torch
+
+    from repro_torch.core.graphs import eager_entries
+
+    st, counts = run.graph_stats, run.compile_counts()
+    rep = run.report()["graphs"]
+    calls = len(BASELINE_REQUESTS) * (1 + BASELINE_ROUNDS)
+    check(not rep["host_entries"] and rep["graphed_entries"] ==
+          counts["total"] == st.captures,
+          f"{tag} entries {rep}, captures {st.captures} for compiles "
+          f"{counts}")
+    check(st.replays == calls - counts["total"],
+          f"{tag} replays {st.replays} for {calls} calls and "
+          f"{counts['total']} captures")
+    same = []
+    with eager_entries():
+        for s in BASELINE_REQUESTS:
+            ye = run(inputs[s])
+            torch.cuda.synchronize()
+            same.append(bool(torch.equal(last[s], ye)))
+            del ye
+    print(f"{tag} graphs: captures {st.captures} (== compiles "
+          f"{counts['total']}), replays {st.replays}; graphed == "
+          f"eager_entries() bit for bit at S = {BASELINE_REQUESTS}: {same}",
+          flush=True)
+    check(all(same), f"{tag} graphed outputs differ from eager_entries()")
 
 
 def baseline_phase(dname: str, arts: dict, card: str, seed: int) -> None:
     """Path 7 (c), printed only: path 1's and path 7's lowered graphs,
     each request timed (host clock, synchronised; the median of
     ``BASELINE_ROUNDS`` rounds) under the backends of
-    ``BASELINE_BACKENDS`` and ``NimbleVM(sync_per_op=True)``; at
+    ``BASELINE_BACKENDS`` (each bucket one CUDA graph: captures ==
+    compiles, no host entry, every call past a bucket's first a replay,
+    and each request's last graphed output equal bit for bit to the same
+    backend's entries run under ``eager_entries()``), ``"hopper"``
+    under ``eager_entries()`` (the same kernels launched one by one) and
+    ``NimbleVM(sync_per_op=True)``; at
     S = 1999 the VM's op dispatches, interpretation seconds and their
     host share (1 - the device time ``torch.profiler`` sums / the call's
     seconds)."""
@@ -1761,40 +2025,51 @@ def baseline_phase(dname: str, arts: dict, card: str, seed: int) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from disc_torch import NimbleVM
+    from repro_torch.core.graphs import eager_entries
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     any_art = next(iter(arts.values()))
     inputs = {s: torch.randn(any_art["shape"](s), generator=gen,
                              device="cuda").to(any_art["dt"])
-              for s in REQUESTS}
+              for s in BASELINE_REQUESTS}
     at = {}
     for path, art in arts.items():
         low = art["low"]
         runners = {b: low.compile(dataclasses.replace(low.options,
                                                       backend=b))
                    for b in BASELINE_BACKENDS}
+        def eager_run(x, run=runners["hopper"]):
+            with eager_entries():
+                return run(x)
+
+        runners["hopper eager_entries"] = eager_run
         vm = NimbleVM(low.graph, sync_per_op=True)
         runners["NimbleVM(sync_per_op)"] = lambda x, vm=vm: vm(x)[0]
         for name, run in runners.items():
             tag = f"[path7 baseline {dname} {path} {name}]"
-            for s in REQUESTS:       # first call a bucket builds its entry
+            for s in BASELINE_REQUESTS:  # a bucket's first call builds it
                 run(inputs[s])
             torch.cuda.synchronize()
-            samples = {s: [] for s in REQUESTS}
+            samples = {s: [] for s in BASELINE_REQUESTS}
+            last = {}
             for _ in range(BASELINE_ROUNDS):
-                for s in REQUESTS:
+                for s in BASELINE_REQUESTS:
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    y = run(inputs[s])
+                    y = last[s] = run(inputs[s])
                     torch.cuda.synchronize()
                     samples[s].append(time.perf_counter() - t0)
                     check(bool(torch.isfinite(y).all()),
                           f"{tag} S={s}: non-finite output")
+            if name in BASELINE_BACKENDS:
+                baseline_graph_check(tag, run, inputs, last)
+            del y, last
             times = [sorted(samples[s])[len(samples[s]) // 2]
-                     for s in REQUESTS]
-            at[(path, name)] = dict(zip(REQUESTS, times))
+                     for s in BASELINE_REQUESTS]
+            at[(path, name)] = dict(zip(BASELINE_REQUESTS, times))
             print(f"{tag} ms a request " + " ".join(
-                f"S={s}:{t * 1e3:.2f}" for s, t in zip(REQUESTS, times))
+                f"S={s}:{t * 1e3:.2f}"
+                for s, t in zip(BASELINE_REQUESTS, times))
                 + f" | {card}", flush=True)
         # one call's interpretation seconds, the next call's device time
         dispatches, secs0 = vm.stats.op_dispatches, vm.stats.interp_seconds
@@ -1820,6 +2095,15 @@ def baseline_phase(dname: str, arts: dict, card: str, seed: int) -> None:
         for path, name in at)
     print(f"[path7 baseline {dname}] S=1999 over path1 hopper "
           f"({hop * 1e3:.2f} ms): {ratios} | {card}", flush=True)
+    for path in arts:   # the paper's §5.2 ratio, DISC graphed over the VM
+        graphed = at[(path, "hopper")]
+        print(f"[path7 baseline {dname} {path}] NimbleVM(sync_per_op) / "
+              f"hopper graphed " + " ".join(
+                  f"S={s}:{at[(path, 'NimbleVM(sync_per_op)')][s] / t:.3f}"
+                  for s, t in graphed.items())
+              + "; hopper eager_entries / graphed " + " ".join(
+                  f"S={s}:{at[(path, 'hopper eager_entries')][s] / t:.3f}"
+                  for s, t in graphed.items()) + f" | {card}", flush=True)
 
 
 # ------------------------------------------------------------- path 3 --
@@ -3278,6 +3562,7 @@ def main(argv=None) -> int:
                     help="decoder layers to unroll (default: all 22)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_run = time.perf_counter()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -3450,6 +3735,8 @@ def main(argv=None) -> int:
     finally:
         if builds is not None:
             builds[0].join()
+    print(f"[run] {time.perf_counter() - t_run:.1f} s in all, the CUDA "
+          f"builds included", flush=True)
     return finish(rows, report, card, kind)
 
 

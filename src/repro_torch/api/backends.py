@@ -23,13 +23,20 @@ Built-ins:
   ``kernels/fused_reduce``; CUDA C++: ``kernels/matmul``), the rest per
   op; the counterpart of ``"pallas"``
 * ``"nimble_vm"`` — the interpreted baseline under the paper's name:
-  ``"eager"``'s per-op executor (no cluster kernels), which in the port
-  is already uncompiled; :class:`~repro_torch.core.vm.NimbleVM` is the
-  standalone interpreter that works out every shape again per call
+  ``"eager"``'s per-op executor (no cluster kernels), never captured, as
+  the reference's ``_make_vm_backend`` runs uncompiled;
+  :class:`~repro_torch.core.vm.NimbleVM` is the standalone interpreter
+  that works out every shape again per call
 
-Each bucket's entry is the padded executor, run eagerly on the
-artifact's device.  Third parties register their own with
-``register_backend("mine", Backend(...))``.
+Each bucket's entry is the padded executor on the artifact's device.
+Where ``Backend.graphs`` is set (``"eager"``, ``"hopper"``: the
+counterparts of the reference's ahead-of-time compiled ``"xla"`` and
+``"pallas"``), the compiled function wraps each bucket entry, and each
+escalated exact entry, in a CUDA graph on the card
+(:class:`~repro_torch.core.graphs.GraphEntry`), unless the graph holds a
+``d.while`` or ``d.cond``, whose host reads no capture can hold.  Third
+parties register their own with ``register_backend("mine",
+Backend(...))``.
 """
 from __future__ import annotations
 
@@ -58,7 +65,8 @@ class Backend:
     the exact-shape executor for the static-escalation path;
     ``cluster_kernels`` maps fusion-plan templates to the
     :class:`~repro_torch.core.codegen.ClusterKernel` objects that execute
-    them.
+    them; ``graphs`` says whether the compiled function captures each
+    entry into a CUDA graph on the card.
     """
 
     name: str
@@ -66,14 +74,16 @@ class Backend:
     build_exact: Callable[..., Callable]
     description: str = ""
     cluster_kernels: Mapping[str, ClusterKernel] = field(default_factory=dict)
+    graphs: bool = True
 
 
 def _make_executor_backend(name: str, description: str,
                            cluster_kernels: Optional[
-                               Mapping[str, ClusterKernel]] = None
-                           ) -> Backend:
-    """A backend whose bucket entries are padded executors running eagerly,
-    clusters through its registered ``cluster_kernels``."""
+                               Mapping[str, ClusterKernel]] = None,
+                           graphs: bool = True) -> Backend:
+    """A backend whose bucket entries are padded executors, clusters
+    through its registered ``cluster_kernels``, each entry a CUDA graph on
+    the card where ``graphs`` is set."""
     kernels = dict(cluster_kernels or {})
 
     def build_bucket(graph: DGraph, plan, syms: Sequence[SymDim],
@@ -87,7 +97,7 @@ def _make_executor_backend(name: str, description: str,
 
     return Backend(name=name, build_bucket=build_bucket,
                    build_exact=build_exact, description=description,
-                   cluster_kernels=kernels)
+                   cluster_kernels=kernels, graphs=graphs)
 
 
 _REGISTRY: Dict[str, Backend] = {}
@@ -125,4 +135,5 @@ register_backend("hopper", _make_executor_backend(
     "through a CUDA C++ GEMM with a generated epilogue, rest per op",
     cluster_kernels=hopper_cluster_kernels()))
 register_backend("nimble_vm", _make_executor_backend(
-    "nimble_vm", "interpreted per-op baseline (Nimble-style VM)"))
+    "nimble_vm", "interpreted per-op baseline (Nimble-style VM)",
+    graphs=False))

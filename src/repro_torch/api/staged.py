@@ -17,7 +17,15 @@ Two pipelines share this surface (selected by
 
 * ``"dhlo"`` — the paper's: ATen FX graph → DHLO bridge, shape
   constraints, fusion, placement, buffers, bucketed per-backend
-  executors, generated host dispatch with output recovery.
+  executors, generated host dispatch with output recovery.  On the card
+  each bucket (and escalated exact) entry of a backend with
+  ``Backend.graphs`` (``"eager"``, ``"hopper"``) is one CUDA graph of
+  its executor, captured at its first call and replayed at every later
+  one whatever the lengths in the bucket (the executor reads them on the
+  card): the counterpart of the JAX package's AOT-compiled executable
+  per bucket.  A graph holding a ``d.while`` or ``d.cond`` keeps host
+  entries (their predicate reads cannot be captured), decided from the
+  graph before any call, and ``"nimble_vm"`` is never captured.
 * ``"jit"``  — bucketed dispatch over a plain PyTorch function *without*
   bridging it through DHLO: declared dynamic args are bucket-padded,
   ``None`` args (parameter and KV-cache trees) pass through, ``TreeSpec``
@@ -47,7 +55,7 @@ import torch
 
 from ..core.bucketing import BucketPolicy
 from ..core.cache import CompileCache
-from ..core.codegen import dyn_symbols
+from ..core.codegen import dyn_symbols, host_control_flow
 from ..core.dispatcher import dhlo_lens, generate_dispatch, jit_lens
 from ..core.dtypes import dtype_key
 from ..core.graphs import GraphEntry, GraphStats
@@ -313,8 +321,17 @@ class Compiled:
         self._bucket_compiles = 0
         self._exact_compiles = 0
         self.graph_stats = GraphStats()
+        # entries made by kind ("graphed" / "host"), and why the dhlo
+        # entries stay on the host: the region ops that read the device
+        # on the host, found in the graph before any call
+        self.entries = {"graphed": 0, "host": 0}
+        self.host_control_flow = sorted(set(host_control_flow(
+            lowered.graph))) if lowered.graph is not None else []
         if lowered.pipeline == "dhlo":
             lens = dhlo_lens(lowered.graph, lowered.syms)
+            # the arguments the dispatch passes unpadded: read in place
+            self._static_args = [i for i, a in enumerate(lens.args)
+                                 if not a.dynamic]
             compile_bucket = self._compile_bucket
             compile_exact = self._compile_exact
         else:
@@ -329,7 +346,8 @@ class Compiled:
             lens, lowered.policy, self.cache, weak_method(compile_bucket),
             weak_method(compile_exact), fingerprint=self._fingerprint,
             escalation_threshold=options.escalation_threshold,
-            on_tie_break=on_tie_break, memory_plan=lowered.buffer_plan)
+            on_tie_break=on_tie_break, memory_plan=lowered.buffer_plan,
+            lens_device=self.device)
         self._mstats = self._dispatch._mstats
 
     # ------------------------------------------------------------ public --
@@ -382,6 +400,22 @@ class Compiled:
                 "exact": self._exact_compiles,
                 "total": self._bucket_compiles + self._exact_compiles}
 
+    def graph_report(self) -> Dict[str, Any]:
+        """The artifact's entries and their CUDA graphs: graphed and host
+        entries (and the region ops that keep a dhlo artifact's on the
+        host), captures, replays, bytes copied into the graphs' buffers
+        and out of their outputs, the buffers' bytes, capture seconds
+        and the bytes the cache's graph pool reserved."""
+        st = self.graph_stats
+        return {"graphed_entries": self.entries["graphed"],
+                "host_entries": self.entries["host"],
+                "host_control_flow": list(self.host_control_flow),
+                "captures": st.captures, "replays": st.replays,
+                "bytes_in": st.bytes_in, "bytes_out": st.bytes_out,
+                "buffer_bytes": st.buffer_bytes,
+                "capture_seconds": sum(st.capture_seconds),
+                "pool_bytes": self.cache.graph_pool.reserved_bytes}
+
     def report(self) -> Dict[str, Any]:
         low = self.lowered
         if low.graph is None:
@@ -389,7 +423,8 @@ class Compiled:
                     "device": str(self.device), "cache": self.cache_stats(),
                     "compiles": self.compile_counts(),
                     "dynamic_symbols": list(low.sym_names),
-                    "dispatch_cost": self.cost_report()}
+                    "dispatch_cost": self.cost_report(),
+                    "graphs": self.graph_report()}
         templates = low.plan.template_counts()
         covered = sum(n for t, n in templates.items()
                       if t in self.backend.cluster_kernels)
@@ -409,6 +444,7 @@ class Compiled:
             "cluster_templates": templates,
             "backend_covered_clusters": covered,
             "dispatch_cost": self.cost_report(),
+            "graphs": self.graph_report(),
         }
 
     # ------------------------------------------------- device compilation --
@@ -416,38 +452,62 @@ class Compiled:
         low = self.lowered
         padded = {s.uid: int(k) for s, k in zip(low.syms, key)}
         self._bucket_compiles += 1
-        return self.backend.build_bucket(low.graph, low.plan, low.syms,
-                                         padded, self.device)
+        run = self.backend.build_bucket(low.graph, low.plan, low.syms,
+                                        padded, self.device)
+        # the entry takes (lens, *args): lens and the padded staging
+        # buffers are copied into the graph's buffers, the arguments the
+        # dispatch passes unpadded (static shapes) are read in place
+        return self._dhlo_entry(run, "bucket", 1)
 
     def _compile_exact(self):
         # a fresh executor per escalated signature (each cache entry is
         # hit by exactly one exact shape)
         self._exact_compiles += 1
-        return self.backend.build_exact(self.lowered.graph,
-                                        self.lowered.plan, self.device)
+        run = self.backend.build_exact(self.lowered.graph,
+                                       self.lowered.plan, self.device)
+        return self._dhlo_entry(run, "exact", 0)
 
-    # ----------------------------------------------------- jit pipeline --
-    def _jit_entry(self, kind: str) -> GraphEntry:
-        """An entry of the jit pipeline: a CUDA graph of the function
-        captured at its first call on the card.  A capture that fails
-        takes the entry out of the cache and out of the compile count."""
+    def _dhlo_entry(self, run: Callable, kind: str, first_arg: int):
+        """``run`` as the backend's entry: a CUDA graph on the card, or
+        the executor itself (a host entry) where the backend captures
+        nothing or the graph holds ``d.while`` / ``d.cond``."""
+        if not self.backend.graphs or self.host_control_flow:
+            self.entries["host"] += 1
+            return run
+        return self._graph_entry(
+            run, kind, [first_arg + i for i in self._static_args])
+
+    def _graph_entry(self, fn: Callable, kind: str,
+                     held: List[int]) -> GraphEntry:
+        """An entry that is a CUDA graph of ``fn`` captured at its first
+        call on the card, ``held`` the positions of the arguments read in
+        place (every other tensor leaf is copied into the graph's own
+        buffers).  A capture that fails takes the entry out of the cache
+        and out of the compile count."""
         ref = weakref.ref(self)
 
         def dropped(entry):
             compiled = ref()
             if compiled is not None:
                 compiled.cache.discard(entry)
+                compiled.entries["graphed"] -= 1
                 if kind == "bucket":
                     compiled._bucket_compiles -= 1
                 else:
                     compiled._exact_compiles -= 1
 
-        # the pass-through (None-spec) arguments, the parameter and cache
-        # trees, are read in place; the graph copies every other leaf
+        self.entries["graphed"] += 1
+        return GraphEntry(fn, f"{self.options.name!r} {kind} entry",
+                          self.graph_stats, self.cache.graph_pool, dropped,
+                          held)
+
+    # ----------------------------------------------------- jit pipeline --
+    def _jit_entry(self, kind: str) -> GraphEntry:
+        """An entry of the jit pipeline: a CUDA graph of the function.
+        The pass-through (None-spec) arguments, the parameter and cache
+        trees, are read in place; the graph copies every other leaf."""
         held = [i for i, s in enumerate(self.lowered.specs) if s is None]
-        return GraphEntry(self.lowered.fn, f"{self.options.name!r} {kind} "
-                          f"entry", self.graph_stats, self.cache.graph_pool,
-                          dropped, held)
+        return self._graph_entry(self.lowered.fn, kind, held)
 
     def _compile_jit_bucket(self, key: Tuple[int, ...]):
         """One entry per bucket signature: the dispatch pads dynamic args

@@ -4,11 +4,16 @@ Two executors are generated from one graph:
 
 * :func:`build_exact_executor` — runs the graph at the call's exact
   concrete shapes.  Used by the static-fallback path (§4.4) and as the
-  correctness oracle.
+  correctness oracle.  Its lengths are host ints: its shapes are exact.
 * :func:`build_padded_executor` — the dynamic-shape artifact: built once
   per *bucket signature*, it executes at padded shapes while taking the
-  **actual lengths as runtime host ints** (``lens``).  Masking makes it
-  exact for every shape ≤ bucket:
+  **actual lengths as an integer tensor on the artifact's device**
+  (``lens``), as the JAX package's executable takes them as a device
+  ``int32`` vector.  It reads nothing of ``lens`` back to the host: every
+  length it derives (a product, a sum, an affine or quotient expression
+  of the input symbols) is a 0-d tensor computed on the device, so one
+  CUDA graph of the executor serves every length in its bucket.  Masking
+  makes it exact for every shape ≤ bucket:
 
   - inputs are zero-padded by the generated dispatch, so padded regions
     start clean;
@@ -16,17 +21,21 @@ Two executors are generated from one graph:
     sort, arg-reduce) masks dynamic axes with the op's padding identity
     (``propagation.OP_TABLE.pad_identity``) right before mixing;
   - masks are canonical per symbolic dim: prefix masks ``iota < len`` for
-    input symbols, Kronecker products for reshape-merged dims (matching the
-    row-major garbage pattern of reshaped padded data), prefix masks for
-    concat-sum / slice-affine dims;
-  - ``concatenate`` along a dynamic axis is re-emitted as writes at the
-    *actual* offsets, keeping valid data prefix-contiguous.
+    input symbols (compared on the device), Kronecker products for
+    reshape-merged dims (matching the row-major garbage pattern of
+    reshaped padded data), prefix masks for concat-sum / slice-affine
+    dims;
+  - ``concatenate`` along a dynamic axis is re-emitted as a gather by
+    computed index: output position ``p`` takes input ``j`` at
+    ``p - offset_j`` where ``offset_j <= p < offset_j + actual_j``, and 0
+    past the total, keeping valid data prefix-contiguous.
 
-Each bucket's executor runs eagerly on the card: per-op torch for the
-ops outside fused clusters, and one hand-written kernel launch per fused
-cluster.  The lengths stay host ints and reach the kernels as runtime
-arguments, so a new length inside a bucket launches the same compiled
-kernels (the paper's "shape-adaptive" codegen).
+Each bucket's executor runs on the card: per-op torch for the ops outside
+fused clusters, and one hand-written kernel launch per fused cluster.
+The kernels plan from the padded extents and read their valid lengths
+from device memory (kInput its column count, kDot its (M, N, K)), so a
+new length inside a bucket launches the same compiled kernels with the
+same launch configuration (the paper's "shape-adaptive" codegen).
 
 Fused-cluster execution is organized around the :class:`ClusterKernel`
 protocol: the fusion plan marks each cluster with the codegen *template*
@@ -38,21 +47,25 @@ it implements.  The Hopper set (:func:`hopper_cluster_kernels`) covers:
   writing every live-out of the cluster (multi-output clusters do not
   split);
 * **kInput** — elementwise producers recomputed inside a masked
-  single-axis reduce, any axis, f32 accumulation;
+  single-axis reduce, any axis, f32 accumulation, its valid column count
+  read on the device;
 * **kDot**   — one CUDA C++ GEMM launch per plain 2-D dot, with the
   cluster's elementwise epilogue generated into it, M/N/K tails masked
-  from the runtime lengths (``kernels/matmul``).
+  from the valid extents it reads on the device (``kernels/matmul``).
 
 Clusters whose template a backend does not register run per op.  A
 registered kernel that fails to build or launch raises; the cluster never
 moves to the per-op path in its place.
 
-Region ops (``d.while`` / ``d.scan`` / ``d.cond``) run on the host
-(:func:`emit_region_op`): their bodies run op by op, never through
-cluster kernels, as the JAX package's executor runs them.  A ``d.while``
-reads its predicate once an iteration and a ``d.cond`` its index once
-(:data:`WHILE_SYNCS` and :data:`COND_SYNCS` count those reads); a ``d.scan`` takes its trip
-count from the host lengths and reads nothing back.
+Region ops (``d.while`` / ``d.scan`` / ``d.cond``) run through
+:func:`emit_region_op`: their bodies run op by op, never through cluster
+kernels, as the JAX package's executor runs them.  A ``d.scan`` runs at
+the padded trip count, its carry kept on padded-tail iterations by a
+device guard, so it reads nothing back.  A ``d.while`` reads its
+predicate on the host once an iteration and a ``d.cond`` its index once
+(:data:`WHILE_SYNCS` and :data:`COND_SYNCS` count those reads), so an
+executor whose graph holds either (:func:`host_control_flow`) is not
+captured into a CUDA graph.
 
 Values are dropped by their last use **in the order the executor runs
 them** (a fused cluster runs all its ops at once, in fusion-plan order),
@@ -65,11 +78,12 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from ..kernels.lengths import device_ints
 from ..kernels.program import Program, Step
 from ..kernels.triton_build import LaunchCounter
 from .dhlo import DGraph, DOp, DValue
 from .dtypes import as_torch, is_integer
-from .emit import emit_op
+from .emit import emit_op, scalar_tensor
 from .fusion import REDUCE_ROOT_KINDS, Cluster, cluster_live_outs
 from .propagation import op_info
 from .symshape import SymDim
@@ -82,6 +96,7 @@ __all__ = [
     "hopper_cluster_kernels",
     "kdot_jobs",
     "emit_region_op",
+    "host_control_flow",
     "REGION_OPS",
     "WHILE_SYNCS",
     "COND_SYNCS",
@@ -111,7 +126,9 @@ def dyn_symbols(graph: DGraph) -> List[SymDim]:
 
 
 class _ShapeEnv:
-    """Evaluates symbolic dims for one call (padded ints + actual ints)."""
+    """Evaluates symbolic dims for one call: padded sizes as host ints,
+    actual sizes as host ints (exact executor) or 0-d device tensors
+    (padded executor), never read back."""
 
     def __init__(self, graph: DGraph, padded: Dict[int, int],
                  actual: Dict[int, Any], device,
@@ -123,9 +140,10 @@ class _ShapeEnv:
         self.store = graph.store
         self.exprs = getattr(graph, "dim_exprs", {})
         self.padded = dict(padded)   # canonical uid -> python int
-        self.actual = dict(actual)   # canonical uid -> python int
+        self.actual = dict(actual)   # canonical uid -> int or 0-d tensor
         self.device = device
         self._masks: Dict[Tuple[int, int], Any] = {}
+        self._lengths: Dict[Any, torch.Tensor] = {}
 
     def _canon(self, d):
         return self.store.canon_dim(d)
@@ -162,7 +180,10 @@ class _ShapeEnv:
             if cap is not None:
                 return int(cap)  # conservative: full padded extent valid
             raise KeyError(f"unbound dim {d!r}")
-        return self._eval(expr, self.actual)
+        # a derived length: computed once a call (on the device where the
+        # lengths are device tensors) and shared by every op reading it
+        val = self.actual[c.uid] = self._eval(expr, self.actual)
+        return val
 
     def _eval(self, expr, env):
         tag = expr[0]
@@ -197,15 +218,29 @@ class _ShapeEnv:
             raise KeyError(f"unbound dim {d!r}")
         return self._eval(expr, env)
 
-    def prefix_length(self, d) -> Optional[int]:
-        """The actual length of dynamic dim ``d`` when its valid entries
-        are a prefix (the canonical mask of :meth:`mask_for_dim`), or None
-        for a reshape-merged dim, whose mask is a Kronecker product."""
-        c = self._canon(d)
-        expr = self.exprs.get(c.uid)
-        if expr is not None and expr[0] == "mul":
-            return None
-        return self.actual_dim(c)
+    def is_prefix(self, d) -> bool:
+        """Whether dynamic dim ``d``'s valid entries are a prefix (the
+        canonical mask of :meth:`mask_for_dim`); not so for a
+        reshape-merged dim, whose mask is a Kronecker product."""
+        expr = self.exprs.get(self._canon(d).uid)
+        return expr is None or expr[0] != "mul"
+
+    def lengths_on_card(self, dims: Sequence[Any]) -> torch.Tensor:
+        """The lengths ``dims`` as one int32 tensor on the device, made
+        once a call: per entry an int (a static or padded extent) or a
+        dim, whose actual length is taken.  What a kernel that reads its
+        lengths in device memory is given."""
+        key = []
+        for d in dims:
+            c = d if isinstance(d, int) else self._canon(d)
+            key.append(c if isinstance(c, int) else ("dim", c.uid))
+        key = tuple(key)
+        hit = self._lengths.get(key)
+        if hit is None:
+            hit = self._lengths[key] = device_ints(
+                [d if isinstance(d, int) else self.actual_dim(d)
+                 for d in dims], self.device)
+        return hit
 
     def is_dynamic(self, d) -> bool:
         if isinstance(d, int):
@@ -246,6 +281,7 @@ class _ShapeEnv:
                 m = fm if m is None else (m[:, None] & fm[None, :]).reshape(-1)
             mask = m
         else:
+            # compared on the device: the actual length is a 0-d tensor
             actual = self.actual_dim(c)
             mask = torch.arange(psize, device=self.device) < actual
         self._masks[key] = mask
@@ -256,7 +292,7 @@ class _ShapeEnv:
         if is_integer(x.dtype) and math.isinf(fill):
             info = torch.iinfo(x.dtype)
             fill = info.min if fill < 0 else info.max
-        fill_t = torch.tensor(fill, dtype=x.dtype, device=x.device)
+        fill_t = scalar_tensor(fill, x.dtype, x.device)
         for ax in axes:
             m = self.mask_for_dim(shape[ax])
             if m is None:
@@ -313,18 +349,8 @@ def _emit_masked(op: DOp, inputs, out_shapes, env: _ShapeEnv):
         axis = op.attrs["dimension"]
         out_v = op.outputs[0]
         if env.is_dynamic(out_v.shape[axis]) and len(op.inputs) > 1:
-            # dynamic-axis concat: writes at actual offsets keep valid
-            # data prefix-contiguous (canonical for the sum-derived dim)
-            out = torch.zeros(out_shapes[0], dtype=as_torch(out_v.dtype),
-                              device=dev)
-            total = out.shape[axis]
-            offset = 0
-            for v, x in zip(op.inputs, inputs):
-                n = x.shape[axis]
-                start = min(offset, total - n)  # clamped, as in lax DUS
-                out.narrow(axis, start, n).copy_(x)
-                offset += env.actual_dim(v.shape[axis])
-            return [out]
+            return [_concat_at_actual_offsets(op, inputs, out_shapes[0],
+                                              axis, env)]
         return emit_op(op, inputs, out_shapes, dev)
 
     if code == "pad":
@@ -338,6 +364,34 @@ def _emit_masked(op: DOp, inputs, out_shapes, env: _ShapeEnv):
         return emit_op(op, inputs, out_shapes, dev)
 
     return emit_op(op, inputs, out_shapes, dev)
+
+
+def _concat_at_actual_offsets(op: DOp, inputs, out_shape, axis: int,
+                              env: _ShapeEnv) -> torch.Tensor:
+    """A dynamic-axis concat as a gather by computed index: output
+    position ``p`` takes input ``j`` at ``p - offset_j`` where
+    ``offset_j <= p < offset_j + actual_j`` (the offsets summed from the
+    actual lengths on the device), and 0 past the total.  Valid data
+    stays prefix-contiguous, canonical for the sum-derived dim."""
+    total = out_shape[axis]
+    pos = torch.arange(total, device=env.device)
+    idx = torch.zeros_like(pos)
+    inside = torch.zeros(total, dtype=torch.bool, device=env.device)
+    offset: Any = 0   # where input j's valid rows start in the output
+    base = 0          # where input j's padded rows start in the stack
+    for v, x in zip(op.inputs, inputs):
+        n = env.actual_dim(v.shape[axis])
+        here = (pos >= offset) & (pos < offset + n)
+        idx = torch.where(here, pos - offset + base, idx)
+        inside = inside | here
+        offset = offset + n
+        base += x.shape[axis]
+    stacked = torch.cat(list(inputs), dim=axis)
+    out = torch.index_select(stacked, axis, idx)
+    view = [1] * out.dim()
+    view[axis] = total
+    zero = scalar_tensor(0, out.dtype, out.device)
+    return torch.where(inside.reshape(view), out, zero)
 
 
 # ------------------------------------------------------- region ops --
@@ -360,7 +414,7 @@ def _as_carry(vals, like: Sequence[DValue], device) -> List[torch.Tensor]:
     out = []
     for x, v in zip(vals, like):
         if not isinstance(x, torch.Tensor):
-            x = torch.tensor(x, dtype=as_torch(v.dtype), device=device)
+            x = scalar_tensor(x, as_torch(v.dtype), device)
         out.append(x)
     return out
 
@@ -378,9 +432,12 @@ def emit_region_op(op: DOp, ins: Sequence[Any], env: _ShapeEnv,
 
     * ``d.while`` — a host loop; each iteration reads its predicate once
       (one sync, counted in ``WHILE_SYNCS``).
-    * ``d.scan``  — runs the *actual* trip count, taken from the host
-      lengths (no sync), in reverse order when ``reverse`` is set; the
-      stacked ys are allocated zero, so their padded tail rows stay
+    * ``d.scan``  — runs the *padded* trip count, in reverse order when
+      ``reverse`` is set, as the reference does: over a dynamic length
+      the row index travels with the row and a device guard
+      ``idx < actual`` keeps the carry on the padded-tail iterations (and
+      zeroes their ys rows once the loop is done), so nothing is read
+      back, reverse scans stay exact, and the stacked ys' padded rows stay
       exactly 0.
     * ``d.cond``  — reads the index once (counted in ``COND_SYNCS``),
       clamps it into range and runs that branch alone.
@@ -409,18 +466,29 @@ def emit_region_op(op: DOp, ins: Sequence[Any], env: _ShapeEnv,
         consts = list(ins[:nc])
         carry = _as_carry(ins[nc:nc + ncar], op.outputs, dev)
         xs = list(ins[nc + ncar:])
-        n = env.actual_dim(length_dim) if masked and \
-            env.is_dynamic(length_dim) else env.padded_dim(length_dim)
+        n = env.padded_dim(length_dim)
+        keep = None   # per row: is it inside the actual length (device)
+        if masked and env.is_dynamic(length_dim):
+            actual = env.actual_dim(length_dim)
+            if isinstance(actual, int):   # a capped dim: a static length
+                n = min(n, actual)
+            else:
+                keep = torch.arange(n, device=dev) < actual
         ys = [torch.zeros(env.padded_shape(v.shape), dtype=as_torch(v.dtype),
                           device=dev) for v in op.outputs[ncar:]]
-        steps = range(int(n) - 1, -1, -1) if attrs["reverse"] \
-            else range(int(n))
+        steps = range(n - 1, -1, -1) if attrs["reverse"] else range(n)
         for i in steps:
             outs = _run_body(body_g, consts + carry + [x[i] for x in xs],
                              env, masked)
-            carry = _as_carry(outs[:ncar], op.outputs, dev)
+            new = _as_carry(outs[:ncar], op.outputs, dev)
+            # a padded-tail iteration keeps the carry
+            carry = new if keep is None else \
+                [torch.where(keep[i], a, b) for a, b in zip(new, carry)]
             for y, val in zip(ys, outs[ncar:]):
                 y[i] = val
+        if keep is not None:   # and its ys row stays 0
+            ys = [torch.where(keep.reshape((-1,) + (1,) * (y.dim() - 1)),
+                              y, scalar_tensor(0, y.dtype, dev)) for y in ys]
         return carry + ys
 
     if code == "d.cond":
@@ -535,7 +603,17 @@ class ClusterKernel:
     template: str = ""
 
     def __init__(self) -> None:
-        self.runs = 0
+        # a launch counter, so that a CUDA graph's replay counts the
+        # cluster runs its capture counted
+        self._runs = LaunchCounter()
+
+    @property
+    def runs(self) -> int:
+        return self._runs.launches
+
+    @runs.setter
+    def runs(self, n: int) -> None:
+        self._runs.launches = n
 
     def run(self, graph: DGraph, cluster: Cluster, read, env: "_ShapeEnv",
             masked: bool) -> Dict[int, Any]:
@@ -610,10 +688,10 @@ class HopperInputKernel(ClusterKernel):
                                body[:-1], tensor_ids, in_dtypes, scalars,
                                [src_vid]))
         red_dim = src.shape[axis]
-        if masked and env.is_dynamic(red_dim):
-            n_cols = env.actual_dim(red_dim)
-        else:
-            n_cols = env.padded_dim(red_dim)
+        # the valid column count, read by the kernel in device memory
+        n_cols = env.lengths_on_card(
+            [red_dim if masked and env.is_dynamic(red_dim)
+             else env.padded_dim(red_dim)])
         out_v = root.outputs[0]
         out = fused_reduce(program, tensors, n_cols,
                            REDUCE_ROOT_KINDS[root.opcode], axis=axis,
@@ -680,9 +758,10 @@ def kdot_jobs(graph: DGraph, plan) -> List[Tuple[Program, torch.dtype]]:
 
 class HopperDotKernel(ClusterKernel):
     """kDot: one GEMM launch with the elementwise epilogue fused into its
-    store, M/N/K tails masked from the runtime lengths
-    (``kernels/matmul``).  Prologue ops are emitted outside the kernel;
-    epilogue operands are passed as (M, N) views, never copies."""
+    store, M/N/K tails masked from the valid extents the kernel reads in
+    device memory (``kernels/matmul``).  Prologue ops are emitted outside
+    the kernel; epilogue operands are passed as (M, N) views, never
+    copies."""
 
     template = "kDot"
 
@@ -709,25 +788,24 @@ class HopperDotKernel(ClusterKernel):
         n_d = rhs_v.shape[1]
 
         def valid(d):
-            if masked and env.is_dynamic(d):
-                return env.prefix_length(d)
+            """``d`` where its valid entries are a prefix (the kernel
+            reads its actual length), else its padded extent: a merged M
+            or N keeps its padded garbage, as the per-op dot does
+            (consumers mask it with the dim's own canonical mask)."""
+            if masked and env.is_dynamic(d) and env.is_prefix(d):
+                return d
             return env.padded_dim(d)
 
-        vm, vn, vk = valid(m_d), valid(n_d), valid(k_d)
-        if vk is None:
+        if masked and env.is_dynamic(k_d) and not env.is_prefix(k_d):
             # a reshape-merged K: its valid entries are no prefix, so the
             # operands are masked here and the kernel contracts all of K
             lhs = env.mask_axes(lhs, lhs_v.shape, [1], 0.0)
             rhs = env.mask_axes(rhs, rhs_v.shape, [0], 0.0)
-            vk = env.padded_dim(k_d)
-        # a merged M or N keeps its padded garbage, as the per-op dot
-        # does: consumers mask it with the dim's own canonical mask
-        vm = env.padded_dim(m_d) if vm is None else vm
-        vn = env.padded_dim(n_d) if vn is None else vn
         extras = _to_blocks([rd(v) for v in parts.extras],
                             env.padded_shape(parts.dot.outputs[0].shape))
         outs = matmul_fused(lhs, rhs, extras, parts.program,
-                            valid_mnk=(vm, vn, vk),
+                            valid_mnk=env.lengths_on_card(
+                                [valid(m_d), valid(n_d), valid(k_d)]),
                             out_dtypes=parts.program.out_dtypes)
         result = {v.vid: vals[v.vid] for v in parts.live
                   if v.vid not in parts.dep}
@@ -869,6 +947,22 @@ def build_exact_executor(graph: DGraph, plan=None,
     return run
 
 
+def host_control_flow(graph: DGraph) -> List[str]:
+    """The region ops of ``graph``, at any depth of nesting, that read a
+    device value on the host (``d.while``'s predicate, ``d.cond``'s
+    index): an executor running them cannot be captured into a CUDA
+    graph.  Decided from the graph, before any call."""
+    found: List[str] = []
+    for op in graph.ops:
+        if op.opcode in ("d.while", "d.cond"):
+            found.append(op.opcode)
+        for av in op.attrs.values():
+            for body in av if isinstance(av, (tuple, list)) else (av,):
+                if isinstance(body, DGraph):
+                    found += host_control_flow(body)
+    return found
+
+
 def build_padded_executor(graph: DGraph, padded_bindings: Dict[int, int],
                           sym_order: Sequence[SymDim], plan=None,
                           kernels: Optional[Mapping[str, ClusterKernel]] = None,
@@ -876,19 +970,25 @@ def build_padded_executor(graph: DGraph, padded_bindings: Dict[int, int],
     """Executor for one bucket signature: ``run(lens, *padded_arrays)``.
 
     ``padded_bindings`` maps canonical symbol uid -> padded size (static for
-    this executor); ``lens`` carries the actual sizes as host ints in
-    ``sym_order`` — the executor is exact for any actuals ≤ the bucket.
-    ``kernels`` maps fusion-plan templates to :class:`ClusterKernel`
-    implementations (the backend's registration): clusters whose template
-    is covered execute through the fused kernels (§4.3 codegen), the rest
-    op by op.
+    this executor); ``lens`` carries the actual sizes in ``sym_order`` as
+    an integer tensor on ``device`` (a sequence of ints is made into one),
+    which the executor reads on the device only, never back on the host —
+    it is exact for any actuals ≤ the bucket, and one CUDA graph of it
+    serves them all.  ``kernels`` maps fusion-plan templates to
+    :class:`ClusterKernel` implementations (the backend's registration):
+    clusters whose template is covered execute through the fused kernels
+    (§4.3 codegen), the rest op by op.
     """
     uids = [s.uid for s in sym_order]
     schedule = _Schedule(graph, plan, kernels)
     literals = _Literals(torch.device(device))
 
     def run(lens, *arrays):
-        actual = {uid: int(lens[i]) for i, uid in enumerate(uids)}
+        if not isinstance(lens, torch.Tensor):
+            lens = torch.tensor(list(lens), dtype=torch.int32,
+                                device=literals.device)
+        lens = lens.to(torch.int64)  # products of lengths stay exact
+        actual = {uid: lens[i] for i, uid in enumerate(uids)}
         env = _ShapeEnv(graph, padded=padded_bindings, actual=actual,
                         device=literals.device, static=schedule.static)
         return _run_graph(graph, arrays, env, True, schedule, literals,

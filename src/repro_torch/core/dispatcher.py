@@ -17,9 +17,11 @@ recovery:
 
 * :func:`dhlo_lens` views a DHLO graph (``pipeline="dhlo"``): symbols are
   canonicalized through the constraint store, the true lengths are
-  threaded to the masked executor as host ints (no device round-trip),
+  threaded to the masked executor as an ``int32`` tensor on the
+  artifact's device (one small host-to-device copy from pinned memory a
+  call, no synchronisation; the executor reads it on the device only),
   and outputs are sliced back to their true (possibly derived, §4.2.1)
-  shapes.
+  shapes on the host, from the host's own lengths.
 * :func:`jit_lens` views a spec signature over a plain PyTorch function
   (``pipeline="jit"``): declared dynamic args are bucket-padded, ``None``
   args pass through untouched, ``TreeSpec`` pytrees are leaf-padded, and
@@ -217,9 +219,9 @@ class DispatchLens:
       callable ``exact -> int`` evaluating a derived dim (§4.2.1 host
       shape calculation).  ``outputs=None`` disables recovery entirely:
       the entry's result is returned as-is.
-    * ``pass_lens`` — prepend the tuple of true lengths to the entry call
-      (DHLO masked executors take it; jit-pipeline functions carry
-      lengths as ordinary arguments).
+    * ``pass_lens`` — prepend the true lengths to the entry call, as an
+      ``int32`` tensor (DHLO masked executors take it; jit-pipeline
+      functions carry lengths as ordinary arguments).
     * ``regions``   — one-line summaries of the artifact's region ops
       (``d.while`` / ``d.scan`` / ``d.cond``), a header of the generated
       dispatch source.
@@ -368,6 +370,23 @@ def _cap_error(name: str, value: int, cap: int):
     raise ValueError(f"dim {name}={value} exceeds its declared max={cap}")
 
 
+def _lens_maker(device) -> Callable[[List[int]], torch.Tensor]:
+    """The true lengths of a call as an ``int32`` tensor on ``device``:
+    on a card staged in pinned memory and copied without synchronising
+    (the caching host allocator keeps the staging block until the copy
+    is done)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return lambda vals: torch.tensor(vals, dtype=torch.int32,
+                                         device=device)
+
+    def make(vals):
+        return torch.tensor(vals, dtype=torch.int32, pin_memory=True).to(
+            device, non_blocking=True)
+
+    return make
+
+
 def _tree_padder(tree_axes: Tuple[Tuple[int, int], ...]) -> Callable:
     """Bucket-pad every tensor leaf of a pytree argument (``TreeSpec``):
     a zero tensor of the bucket shape on the leaf's own device, with the
@@ -408,6 +427,7 @@ def generate_dispatch(
     escalation_threshold: Optional[int] = None,
     on_tie_break: Optional[Callable[[Sequence[Any]], Any]] = None,
     memory_plan: Optional[Any] = None,
+    lens_device: Any = "cpu",
 ) -> Tuple[Callable, str]:
     """Generate the per-call host flow for one artifact, seen through
     ``lens``.
@@ -430,6 +450,11 @@ def generate_dispatch(
     memory-plan block, and the per-call staging accounting
     (``dispatch._mstats``, a :class:`DispatchMemStats`) is recorded
     against the plan's worst-case cap bytes.
+
+    ``lens_device`` is where the entry reads the true lengths
+    (``lens.pass_lens``): an ``int32`` tensor made there each call,
+    through pinned memory and a copy that does not synchronise on a
+    card.
     """
     fingerprint = fingerprint or cache.fingerprint
     if escalation_threshold is None:
@@ -579,7 +604,9 @@ def generate_dispatch(
     w("    if entry is None:")
     w("        entry = _compile(key)")
     if lens.pass_lens:
-        w("    lens = (" + "".join(f"s_{i}, " for i in range(n_syms)) + ")")
+        w("    lens = _lens([" + ", ".join(f"s_{i}" for i in range(n_syms))
+          + "])")
+        ns["_lens"] = _lens_maker(lens_device)
 
     # --- padding plan: unrolled per argument (device-side zero-fill) ---
     call_args: List[str] = []

@@ -13,6 +13,13 @@ scalar unrounded, and passing the number keeps that (a 0-dim tensor of the
 value's weak dtype would round it first).  Every rule's result is cast to
 the DHLO output dtype, so integer sums or scalar promotions never leak a
 dtype the graph did not declare.
+
+No rule reads a device value on the host or copies a host value to the
+device, so a padded executor built from these rules can be captured into
+a CUDA graph: a scalar operand becomes a tensor by a fill
+(:func:`scalar_tensor`), and a tensor start index of ``dslice`` /
+``dynamic_update_slice`` or a tensor padding value of ``pad`` is used on
+the device where it lies.
 """
 from __future__ import annotations
 
@@ -25,7 +32,17 @@ from .dhlo import DOp
 from .dtypes import as_torch, is_floating
 from .primitives import einsum_dot
 
-__all__ = ["emit_op", "HAS_RULE", "UNARY", "BINARY"]
+__all__ = ["emit_op", "scalar_tensor", "HAS_RULE", "UNARY", "BINARY"]
+
+
+def scalar_tensor(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 0-d tensor of ``value`` made on ``device`` by a fill: never a
+    copy from host memory, which a CUDA graph capture refuses."""
+    try:
+        return torch.full((), value, dtype=dtype, device=device)
+    except RuntimeError:  # out of range: rounded on the host, as
+        value = torch.tensor(value, dtype=dtype).item()  # torch.tensor does
+        return torch.full((), value, dtype=dtype, device=device)
 
 
 def _not(x):
@@ -109,8 +126,7 @@ def _tensor_operands(op: DOp, inputs: Sequence[Any], device) -> List[Any]:
     are all literals gets its first one as a 0-dim tensor on ``device``."""
     if any(isinstance(x, torch.Tensor) for x in inputs) or not inputs:
         return list(inputs)
-    first = torch.tensor(inputs[0], dtype=as_torch(op.inputs[0].dtype),
-                         device=device)
+    first = scalar_tensor(inputs[0], as_torch(op.inputs[0].dtype), device)
     return [first] + list(inputs[1:])
 
 
@@ -122,6 +138,11 @@ def _broadcast_in_dim(x, shape, bdims):
 
 
 def _pad(x, value, cfg):
+    if isinstance(value, torch.Tensor):
+        # a padding value on the device: pad with zeros, then fill the
+        # padding through a mask padded the same way
+        inside = _pad(torch.ones_like(x, dtype=torch.bool), False, cfg)
+        return torch.where(inside, _pad(x, 0, cfg), value.to(x.dtype))
     if all(interior == 0 for _, _, interior in cfg):
         widths: List[int] = []
         for lo, hi, _ in reversed(cfg):
@@ -152,8 +173,44 @@ def _cumulative(code, x, axis, reverse):
     return torch.flip(y, (axis,)) if reverse else y
 
 
-def _starts(idx) -> List[int]:
-    return [int(i) for i in idx]
+def _start(start, dim: int, n: int) -> int:
+    """A host start index as ``lax`` takes it: a negative one counts from
+    the end, then it is clamped so that the window fits."""
+    s = int(start)
+    s = s + dim if s < 0 else s
+    return min(max(s, 0), dim - n)
+
+
+def _window(x: torch.Tensor, ax: int, start, n: int) -> torch.Tensor:
+    """The ``n`` indices from ``start`` along ``ax`` of ``x``, the start
+    taken as ``lax`` takes it (:func:`_start`): a host int directly, a
+    tensor start on the device, where the window is then gathered."""
+    dim = x.shape[ax]
+    if not isinstance(start, torch.Tensor):
+        s = _start(start, dim, n)
+        return torch.arange(s, s + n, device=x.device)
+    s = start.reshape(()).to(torch.int64)
+    s = torch.where(s < 0, s + dim, s).clamp(0, dim - n)
+    return s + torch.arange(n, device=x.device)
+
+
+def _dslice(x, starts, sizes):
+    for ax, (s, n) in enumerate(zip(starts, sizes)):
+        if isinstance(s, torch.Tensor):
+            x = torch.index_select(x, ax, _window(x, ax, s, n))
+        else:
+            x = x.narrow(ax, _start(s, x.shape[ax], n), n)
+    return x
+
+
+def _dynamic_update_slice(x, upd, starts):
+    # index_put over the broadcast grid of the clamped windows
+    grids = []
+    for ax, s in enumerate(starts):
+        view = [1] * x.dim()
+        view[ax] = upd.shape[ax]
+        grids.append(_window(x, ax, s, upd.shape[ax]).reshape(view))
+    return x.index_put(tuple(grids), upd.to(x.dtype))
 
 
 def _emit(op: DOp, inputs: Sequence[Any], out_shapes, device) -> List[Any]:
@@ -185,14 +242,13 @@ def _emit(op: DOp, inputs: Sequence[Any], out_shapes, device) -> List[Any]:
         x = inputs[0]
         dt = as_torch(op.attrs["new_dtype"])
         if not isinstance(x, torch.Tensor):
-            return [torch.tensor(x, dtype=dt, device=device)]
+            return [scalar_tensor(x, dt, device)]
         return [x.to(dt)]
     if code == "broadcast_in_dim":
         bdims = op.attrs["broadcast_dimensions"]
         x = inputs[0]
         if not isinstance(x, torch.Tensor):
-            x = torch.tensor(x, dtype=as_torch(op.outputs[0].dtype),
-                             device=device)
+            x = scalar_tensor(x, as_torch(op.outputs[0].dtype), device)
         return [_broadcast_in_dim(x, out_shapes[0], bdims)]
     if code == "reshape":
         return [torch.reshape(inputs[0], tuple(out_shapes[0]))]
@@ -213,22 +269,9 @@ def _emit(op: DOp, inputs: Sequence[Any], out_shapes, device) -> List[Any]:
         return [einsum_dot(inputs[0], inputs[1],
                            op.attrs["dimension_numbers"])]
     if code == "dslice":
-        x = inputs[0]
-        starts = _starts(inputs[1:])
-        idx = []
-        for ax, (s, n) in enumerate(zip(starts, out_shapes[0])):
-            s = min(max(s, 0), x.shape[ax] - n)  # lax clamps start indices
-            idx.append(slice(s, s + n))
-        return [x[tuple(idx)]]
+        return [_dslice(inputs[0], inputs[1:], out_shapes[0])]
     if code == "dynamic_update_slice":
-        x, upd = inputs[0], inputs[1]
-        out = x.clone()
-        idx = []
-        for ax, s in enumerate(_starts(inputs[2:])):
-            s = min(max(s, 0), x.shape[ax] - upd.shape[ax])
-            idx.append(slice(s, s + upd.shape[ax]))
-        out[tuple(idx)] = upd
-        return [out]
+        return [_dynamic_update_slice(inputs[0], inputs[1], inputs[2:])]
     if code == "slice":
         starts = op.attrs["start_indices"]
         strides = op.attrs.get("strides") or (1,) * len(starts)
@@ -238,11 +281,7 @@ def _emit(op: DOp, inputs: Sequence[Any], out_shapes, device) -> List[Any]:
     if code == "concatenate":
         return [torch.cat(list(inputs), dim=op.attrs["dimension"])]
     if code == "pad":
-        cfg = op.attrs["padding_config"]
-        value = inputs[1]
-        if isinstance(value, torch.Tensor):
-            value = value.item()
-        return [_pad(inputs[0], value, cfg)]
+        return [_pad(inputs[0], inputs[1], op.attrs["padding_config"])]
     if code == "iota":
         dt = as_torch(op.outputs[0].dtype)
         shape = tuple(out_shapes[0])

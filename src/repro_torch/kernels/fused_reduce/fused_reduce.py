@@ -28,8 +28,12 @@ recomputed inside a masked single-axis ``sum``/``max``/``min``/``prod``.
   in split order) and sets the ticket back to 0, so the tickets need no
   clearing launch.
   No float atomics, so the same inputs give the same bits every run.
-* ``n_cols`` is the *valid* column count, a runtime argument: only that
-  far is read, and a tile's last, partial chunk is the only masked one.
+* ``n_cols`` is the *valid* column count, read by the program from an
+  ``int32`` in device memory and clamped there to ``[0, n_red]``: only
+  that far is read, and a tile's last, partial chunk is the only masked
+  one.  The plan comes from the padded shape, so one launch
+  configuration serves every count, and a CUDA graph that captured the
+  launch replays it at the count the tensor holds then.
   In the aligned class (a compile-time constant) offsets carry
   ``tl.multiple_of``, so Triton proves 16-byte loads though every size
   and stride is a runtime argument in ``do_not_specialize``.  Each
@@ -43,6 +47,7 @@ from typing import Dict, List, Sequence, Set, Tuple
 import torch
 
 from ..cluster_plan import ReducePlan, layouts, reduce_plan
+from ..lengths import device_ints
 from ..program import Program, triton_dtype, triton_lines
 from ..triton_build import CLUSTER_OPTIONS, load_kernel, term_source
 from .ops import UNALIGNED_LAUNCHES
@@ -172,8 +177,9 @@ def _source(program: Program, plan: ReducePlan, kind: str, out_dtype) -> str:
     n_in = len(program.in_dtypes)
     cols = plan.mode == "cols"
     args = [f"in_{i}" for i in range(n_in)] + ["out", "ws", "tickets",
-                                                "n_rows", "n_lanes",
-                                                "n_cols", "n_split", "span"]
+                                                "n_cols_ptr", "n_rows",
+                                                "n_lanes", "n_red",
+                                                "n_split", "span"]
     for i, op in enumerate(plan.operands):
         for k in range(len(op.terms)):
             args += [f"r{i}_{k}_inner", f"r{i}_{k}_size", f"r{i}_{k}_stride"]
@@ -182,13 +188,16 @@ def _source(program: Program, plan: ReducePlan, kind: str, out_dtype) -> str:
         if not cols and op.red_stride:
             args.append(f"k{i}_stride")
     runtime = [a for a in args if a not in
-               ("out", "ws", "tickets") and not a.startswith("in_")]
+               ("out", "ws", "tickets", "n_cols_ptr")
+               and not a.startswith("in_")]
     ident = _IDENTITY[kind]
     A, B = ("BR", "BC") if cols else ("BK", "BL")
     lines = [_HEADER, "",
              f"@triton.jit(do_not_specialize={runtime!r})",
              f"def kinput({', '.join(args)}, {A}: tl.constexpr, "
              f"{B}: tl.constexpr, ALIGNED: tl.constexpr):",
+             "    n_cols = tl.minimum(tl.maximum(tl.load(n_cols_ptr), 0), "
+             "n_red)",
              "    pid = tl.program_id(0)",
              "    tile = pid // n_split",
              "    s = pid - tile * n_split",
@@ -278,7 +287,7 @@ def module_name(program: Program, plan: ReducePlan, kind: str,
                 out_dtype) -> str:
     """One generated module per (program, kind, out dtype, operand
     structure, unroll), whatever the lengths."""
-    return (f"kinput2_{program.key}_{kind}_"
+    return (f"kinput3_{program.key}_{kind}_"
             f"{str(out_dtype).split('.')[-1]}_{plan.structure}_u{plan.unroll}")
 
 
@@ -297,10 +306,12 @@ def _tickets(dev: torch.device, n: int) -> torch.Tensor:
     return t
 
 
-def launch(program: Program, inputs: Sequence[torch.Tensor], n_cols: int,
-           kind: str, out: torch.Tensor, plan: ReducePlan) -> torch.Tensor:
+def launch(program: Program, inputs: Sequence[torch.Tensor],
+           n_cols: torch.Tensor, kind: str, out: torch.Tensor,
+           plan: ReducePlan) -> torch.Tensor:
     """Launch the kInput kernel of ``program`` with ``plan`` into ``out``
-    (CUDA)."""
+    (CUDA); ``n_cols`` is the valid column count, an ``int32`` on the
+    card that the kernel reads."""
     name = module_name(program, plan, kind, out.dtype)
     mod = load_kernel(name, lambda: _source(program, plan, kind, out.dtype))
     INSTANCES.setdefault(program.key, set()).add(
@@ -317,9 +328,8 @@ def launch(program: Program, inputs: Sequence[torch.Tensor], n_cols: int,
                      dtype=torch.float32, device=dev)
     blocks = ({"BR": plan.block_a, "BC": plan.block_b} if plan.mode == "cols"
               else {"BK": plan.block_a, "BL": plan.block_b})
-    n_cols = min(max(int(n_cols), 0), plan.n_red)
     mod.kinput[(plan.grid,)](*inputs, out, ws, _tickets(dev, plan.tiles),
-                             plan.n_rows, plan.n_lanes, n_cols,
+                             n_cols, plan.n_rows, plan.n_lanes, plan.n_red,
                              plan.n_split, plan.span, *plan.args(),
                              **blocks, ALIGNED=plan.aligned,
                              num_warps=plan.num_warps, **CLUSTER_OPTIONS)
@@ -327,9 +337,19 @@ def launch(program: Program, inputs: Sequence[torch.Tensor], n_cols: int,
 
 
 def fused_reduce_kernel(program: Program, inputs: Sequence[torch.Tensor],
-                        n_valid_cols: int, kind: str, axis: int,
+                        n_valid_cols, kind: str, axis: int,
                         shape: Sequence[int], out_dtype) -> torch.Tensor:
-    """Launch the kInput kernel (CUDA); returns the kept axes in order."""
+    """Launch the kInput kernel (CUDA); ``n_valid_cols`` is an ``int32``
+    tensor of one element on the card, which the kernel reads, or an int
+    (put there first).  Returns the kept axes in order."""
+    dev = inputs[0].device
+    n_cols = n_valid_cols if isinstance(n_valid_cols, torch.Tensor) \
+        else device_ints([n_valid_cols], dev)
+    if n_cols.dtype != torch.int32 or n_cols.numel() != 1 or \
+            n_cols.device != dev:
+        raise ValueError(f"kInput: n_valid_cols must be one int32 on {dev},"
+                         f" got {n_cols.dtype} {tuple(n_cols.shape)} on "
+                         f"{n_cols.device}")
     shape = tuple(int(d) for d in shape)
     rank = len(shape)
     axis = axis % rank
@@ -342,4 +362,4 @@ def fused_reduce_kernel(program: Program, inputs: Sequence[torch.Tensor],
     plan = reduce_plan(shape, axis, layouts(inputs, shape))
     out = torch.empty([shape[a] for a in range(rank) if a != axis],
                       dtype=out_dtype, device=inputs[0].device)
-    return launch(program, inputs, n_valid_cols, kind, out, plan)
+    return launch(program, inputs, n_cols, kind, out, plan)

@@ -24,11 +24,13 @@ UNALIGNED_LAUNCHES = LaunchCounter()
 
 
 def fused_reduce(program: Program, inputs: Sequence[torch.Tensor],
-                 n_valid_cols: int, kind: str = "sum", *, axis: int = -1,
+                 n_valid_cols, kind: str = "sum", *, axis: int = -1,
                  shape: Sequence[int], out_dtype=None) -> torch.Tensor:
     """Reduce ``program(*inputs)`` over ``axis`` with a dynamic valid
-    length; ``inputs`` broadcast to ``shape``.  Returns the kept axes in
-    their original order."""
+    length; ``inputs`` broadcast to ``shape``.  ``n_valid_cols`` is an
+    int or an integer tensor of one element on the inputs' device, which
+    the kernel reads there (so a captured launch replays at the count it
+    holds then).  Returns the kept axes in their original order."""
     out_dtype = out_dtype or program.out_dtypes[0]
     dev = inputs[0].device
     if dev.type == "cpu":

@@ -78,16 +78,24 @@
 // 16-bit operands up to the order of the f32 sums.  The epilogue functor
 // is called on every accumulator element with its (m, n).
 //
-// Lengths are runtime ints, never template constants: M, N, K, the valid
-// extents vm <= M, vn <= N, vk <= K, the strides and the split.  Nothing
-// beyond the valid extents enters the contraction: the wgmma body's
-// tensor maps are encoded on every call over the VALID (vk, vm) of A and
-// (vn, vk) of B, with the padded row strides, so TMA fills the K tail of
-// both operands and the M / N edge with zeros; the FFMA body masks the
-// loads of its edge blocks and K tail.  Blocks entirely outside (vm, vn)
-// skip the K loop.  Outputs at m >= vm or n >= vn are stored as exact
-// zeros.  vm, vn or vk = 0 (no tensor map may have an extent of 0) runs
-// the epilogue alone over a zero accumulator.  Both bodies read A with
+// Lengths are runtime values, never template constants: M, N, K, the
+// valid extents vm <= M, vn <= N, vk <= K, the strides and the split.
+// The valid extents come either from the host (g.vm, g.vn, g.vk) or,
+// where g.valid is set, from an int32[3] in device memory that every
+// kernel reads at its start (resolve_valid, clamped into the padded
+// extents): the launch is then planned from the padded extents alone, so
+// a CUDA graph that captured it replays it at whatever lengths the array
+// holds.  Nothing beyond the valid extents enters the contraction: the
+// wgmma body's tensor maps are encoded over the PADDED (K, M) of A and
+// (N, K) of B, and the consumers zero the K tail of the step that holds
+// vk in shared memory (both operands, under a proxy fence) before its
+// wgmma; rows past vm and columns past vn reach only accumulators whose
+// outputs are masked.  The FFMA body masks the loads of its edge blocks
+// and K tail.  Blocks entirely outside (vm, vn) skip the K loop.  Outputs
+// at m >= vm or n >= vn are stored as exact zeros.  Host extents of 0 (no
+// tensor map may have an extent of 0) run the epilogue alone over a zero
+// accumulator; device extents of 0 leave every block's K loop empty,
+// with the same result.  Both bodies read A with
 // unit stride along K and B with unit stride along N, 16-byte aligned
 // with row strides that are multiples of 16 bytes, where the wrapper
 // lets them: it copies other 16-bit layouts first, and runs other f32
@@ -107,11 +115,26 @@ namespace disc {
 
 struct GemmArgs {
   int M, N, K;      // padded sizes (array extents)
-  int vm, vn, vk;   // valid sizes, runtime
+  int vm, vn, vk;   // valid sizes, runtime (host), unless `valid` is set
   long long sam, sak, sbk, sbn;  // element strides of A (M, K), B (K, N)
   int splits;       // K ranges (split-K); 1: the epilogue runs in the GEMM
   int kchunk;       // K elements per range, a multiple of the body's BK
+  const int* valid; // device int32 {vm, vn, vk}, or nullptr
 };
+
+__device__ __forceinline__ int clamp_len(int v, int hi) {
+  return v < 0 ? 0 : (v > hi ? hi : v);
+}
+
+// The valid extents a kernel works to: from device memory where the
+// wrapper put them there, clamped into the padded extents.
+__device__ __forceinline__ void resolve_valid(GemmArgs& g) {
+  if (g.valid != nullptr) {
+    g.vm = clamp_len(__ldg(g.valid), g.M);
+    g.vn = clamp_len(__ldg(g.valid + 1), g.N);
+    g.vk = clamp_len(__ldg(g.valid + 2), g.K);
+  }
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -146,6 +169,7 @@ template <typename Epi>
 __global__ void __launch_bounds__(256)
 gemm_finish_kernel(const float* __restrict__ ws, GemmArgs g, int splits,
                    Epi epi) {
+  resolve_valid(g);
   const long long total = static_cast<long long>(g.M) * g.N;
   const long long plane = total;
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
@@ -269,6 +293,7 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
             GemmArgs g, Epi epi, float* __restrict__ ws) {
   using Cfg = Tile<BM, BN, BK, TM, TN, STAGES, MINB>;
   constexpr int THREADS = Cfg::THREADS, WTX = Cfg::WTX, WTY = Cfg::WTY;
+  resolve_valid(g);
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   float* const As = smem;                       // STAGES x BK x BM, k-major
@@ -560,6 +585,37 @@ template <> struct TmaType<__half> {
   static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 };
 
+// Zeros, in one stage of the ring, the K entries at kv and past it (0 <
+// kv < BK: the step that holds the valid K's end) of the A tile (BM rows
+// of BK, 128 bytes a row, 128-byte swizzle: logical 16-byte chunk q of
+// row r lies at chunk q ^ (r % 8)) and of the B tile (BN / 64 boxes of
+// BK rows of 128 bytes; whole rows), by the T threads of which this is
+// thread t.  The caller fences the generic proxy's writes against the
+// async proxy's reads (wgmma) and synchronises its threads.
+template <int BM, int BN, int BK, int T>
+__device__ __forceinline__ void zero_k_tail(unsigned char* a,
+                                            unsigned char* b, int kv,
+                                            int t) {
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int e = t; e < BM * 8; e += T) {
+    const int r = e / 8, q = e % 8;
+    if (8 * q + 8 <= kv) continue;
+    unsigned char* chunk = a + r * 128 + ((q ^ (r % 8)) << 4);
+    if (8 * q >= kv) {
+      *reinterpret_cast<uint4*>(chunk) = zero;
+    } else {
+      for (int k = kv; k < 8 * q + 8; ++k)
+        *reinterpret_cast<unsigned short*>(chunk + (k % 8) * 2) = 0;
+    }
+  }
+  for (int e = t; e < (BN / 64) * BK * 8; e += T) {
+    const int box = e / (BK * 8), k = (e / 8) % BK, q = e % 8;
+    if (k >= kv)
+      *reinterpret_cast<uint4*>(b + box * BK * 128 + k * 128 + q * 16) =
+          zero;
+  }
+}
+
 template <int BM, int BN, int STAGES, typename T, typename Epi>
 __global__ void __launch_bounds__(WgTile<BM, BN, STAGES>::THREADS, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
@@ -567,6 +623,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
                   Epi epi, float* __restrict__ ws) {
   using Cfg = WgTile<BM, BN, STAGES>;
   constexpr int BK = Cfg::BK, CT = Cfg::CONSUMERS * 128;
+  resolve_valid(g);
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
   // TMA's 128-byte swizzle repeats every 1024 bytes: align the ring so
@@ -623,6 +680,16 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
     for (int it = 0; it < nk; ++it) {
       const int s = it % STAGES;
       mbar_wait(&full[s], (it / STAGES) & 1);
+      // the step holding the valid K's end: the tensor maps span the
+      // padded K, so its tail is zeroed here (uniform over the consumers)
+      const int kv = g.vk - (kt0 + it) * BK;
+      if (kv < BK) {
+        zero_k_tail<BM, BN, BK, CT>(sa + s * Cfg::A_BYTES,
+                                    sb + s * Cfg::B_BYTES, kv,
+                                    threadIdx.x - 128);
+        fence_proxy_async();
+        named_barrier_sync<2, CT>();
+      }
       const unsigned char* a = sa + s * Cfg::A_BYTES + c * 64 * 128;
       const unsigned char* b = sb + s * Cfg::B_BYTES;
       wgmma_fence();
@@ -708,9 +775,9 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 2-D map of a row-major operand whose valid part is (rows, cols) with
-// rows row_bytes apart, read in boxes of (box_rows, 64) with the 128-byte
-// swizzle; everything outside (rows, cols) reads as zero.
+// A 2-D map of a row-major operand of (rows, cols) with rows row_bytes
+// apart, read in boxes of (box_rows, 64) with the 128-byte swizzle;
+// everything outside (rows, cols) reads as zero.
 template <typename T>
 bool encode_operand(CUtensorMap* map, const T* base, int rows, int cols,
                     long long row_bytes, int box_rows) {
@@ -737,9 +804,11 @@ cudaError_t launch_gemm_wgmma(const T* A, const T* B, const GemmArgs& g,
   if (g.splits < 1 || g.kchunk % Cfg::BK || (g.splits > 1 && ws == nullptr)
       || g.sak != 1 || g.sbn != 1)
     return cudaErrorInvalidValue;
+  // over the padded extents: a captured launch keeps its maps, so they
+  // hold for every valid extent the kernel may read
   CUtensorMap ta, tb;
-  if (!encode_operand(&ta, A, g.vm, g.vk, g.sam * 2, BM) ||
-      !encode_operand(&tb, B, g.vk, g.vn, g.sbk * 2, Cfg::BK))
+  if (!encode_operand(&ta, A, g.M, g.K, g.sam * 2, BM) ||
+      !encode_operand(&tb, B, g.K, g.N, g.sbk * 2, Cfg::BK))
     return cudaErrorInvalidValue;
   auto kernel = gemm_wgmma_kernel<BM, BN, STAGES, T, Epi>;
   const cudaError_t attr = cudaFuncSetAttribute(

@@ -19,20 +19,25 @@ with ``nvcc`` (``kernels/cuda_build.py``) and launches it through
   layer share one library, named by the program's fingerprint.
 * **Extras** are read in place through their strides: a broadcast view
   (a bias row, stride 0 along M) is never materialised.
-* **Lengths are runtime ints** (M, N, K, the valid ``valid_mnk``, every
-  stride, the split): a new length inside a bucket, or a new bucket,
-  launches the library already built.  Nothing past the valid extents
-  enters the contraction, the M/N tails are exact zeros, and the padded
-  operands are read as they are (the reference pads to block multiples
-  on the host).
+* **Lengths are runtime values** (M, N, K, the valid ``valid_mnk``,
+  every stride, the split): a new length inside a bucket, or a new
+  bucket, launches the library already built.  ``valid_mnk`` is either
+  three host ints or an ``int32[3]`` tensor on the card that the kernel
+  reads at its start; either way the launch (body, tile, split, tensor
+  maps) is planned from the padded (M, N, K), so a CUDA graph that
+  captured it replays it at the lengths the tensor holds then.  Nothing
+  past the valid extents enters the contraction, the M/N tails are exact
+  zeros, and the padded operands are read as they are (the reference
+  pads to block multiples on the host).
 * **What bounds it on an H100: operations.**  At the path's shapes
   (T × 2048 × 5632 and T × 5632 × 2048) the GEMM does some 700 flops
   per byte it must move, above the card's balance point.  bf16 / f16
   operands run on ``wgmma`` fed by a TMA ring (:data:`WGMMA_TILES`:
   128 × BN tiles, K steps of 64, a producer thread and two consumer
   warpgroups), toward the 989 TFLOP/s dense tensor-core rate.  Their
-  tensor maps are encoded on every call over the valid extents, so TMA
-  fills every tail with zeros; A must be K-contiguous and B
+  tensor maps are encoded over the padded extents, and the step that
+  holds the valid K's end zeroes its K tail in shared memory before its
+  ``wgmma``; A must be K-contiguous and B
   N-contiguous, 16-byte aligned with row strides of a multiple of 16
   bytes (:func:`tma_ready`), and other layouts are copied once first
   (counted in ``ops.OPERAND_COPIES``).  f32 operands run in IEEE f32 FFMA
@@ -162,10 +167,11 @@ class GemmPlan(NamedTuple):
 
 def gemm_plan(dtype: torch.dtype, tile: str, vm: int, vn: int, vk: int,
               sms: int = SMS) -> GemmPlan:
-    """The body, tile and split of a launch at ``tile`` over valid extents
-    (vm, vn, vk): only blocks inside (vm, vn) do work, so they are the
-    tiles that must fill the SMs (one wgmma block an SM, the FFMA tile's
-    MINB)."""
+    """The body, tile and split of a launch at ``tile`` over extents
+    (vm, vn, vk): the wrapper gives the padded ones, so that one plan
+    serves every valid length the kernel may read; only blocks inside
+    the extents do work, so they are the tiles that must fill the SMs
+    (one wgmma block an SM, the FFMA tile's MINB)."""
     if dtype in _WGMMA_DTYPES:
         body, shape, bk, slots = "wgmma", WGMMA_TILES[tile], WGMMA_BK, sms
     else:
@@ -301,8 +307,9 @@ def kernel_source(program: Program, dtype: torch.dtype,
           'extern "C" int disc_gemm(const void* a, const void* b, '
           "const void* const* extras, const long long* xstrides, "
           "void* const* outs, const long long* dims, int tile, "
-          "float* ws, void* stream) {",
+          "float* ws, const int* valid, void* stream) {",
           "  disc::GemmArgs g;",
+          "  g.valid = valid;",
           "  g.M = (int)dims[0]; g.N = (int)dims[1]; g.K = (int)dims[2];",
           "  g.vm = (int)dims[3]; g.vn = (int)dims[4]; g.vk = (int)dims[5];",
           "  g.sam = dims[6]; g.sak = dims[7]; g.sbk = dims[8]; "
@@ -343,7 +350,7 @@ def kernel_source(program: Program, dtype: torch.dtype,
 def _bind(lib: ctypes.CDLL):
     fn = lib.disc_gemm
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p,
-                                           ctypes.c_void_p]
+                                           ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = lib.disc_cuda_error_string
     err.argtypes = [ctypes.c_int]
@@ -387,9 +394,10 @@ def matmul_epilogue_kernel(a: torch.Tensor, b: torch.Tensor,
     """Launch ``a (M, K) @ b (K, N)`` with ``program`` as epilogue (CUDA).
 
     ``extras`` are tensors broadcastable to (M, N), read through their
-    strides; ``valid_mnk`` the actual sizes.  Returns one dense (M, N)
-    tensor per ``out_dtypes`` entry, zero where m >= valid M or
-    n >= valid N.
+    strides; ``valid_mnk`` the actual sizes: three host ints, or an
+    ``int32[3]`` tensor on the card that the kernel reads (clamped into
+    the padded extents there).  Returns one dense (M, N) tensor per
+    ``out_dtypes`` entry, zero where m >= valid M or n >= valid N.
     """
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"GEMM operands {tuple(a.shape)} @ "
@@ -402,9 +410,18 @@ def matmul_epilogue_kernel(a: torch.Tensor, b: torch.Tensor,
         raise ValueError("GEMM kernel: every operand on one CUDA device")
     m, k = a.shape
     n = b.shape[1]
-    vm, vn, vk = (int(v) for v in valid_mnk)
-    if not (0 <= vm <= m and 0 <= vn <= n and 0 <= vk <= k):
-        raise ValueError(f"valid {valid_mnk} outside ({m}, {n}, {k})")
+    on_card = isinstance(valid_mnk, torch.Tensor)
+    if on_card:
+        if valid_mnk.dtype != torch.int32 or \
+                tuple(valid_mnk.shape) != (3,) or valid_mnk.device != dev:
+            raise ValueError(f"valid_mnk must be int32[3] on {dev}, got "
+                             f"{valid_mnk.dtype} {tuple(valid_mnk.shape)} "
+                             f"on {valid_mnk.device}")
+        vm, vn, vk = m, n, k   # the kernel reads the valid ones
+    else:
+        vm, vn, vk = (int(v) for v in valid_mnk)
+        if not (0 <= vm <= m and 0 <= vn <= n and 0 <= vk <= k):
+            raise ValueError(f"valid {valid_mnk} outside ({m}, {n}, {k})")
     if max(m, n, k) >= 2 ** 31:
         raise ValueError(f"GEMM extent ({m}, {n}, {k}) exceeds int32")
     if len(program.in_dtypes) != 1 + len(extras):
@@ -423,7 +440,7 @@ def matmul_epilogue_kernel(a: torch.Tensor, b: torch.Tensor,
         return outs
     tiles, index = _tiles_for(tile)
     fn, err = _function(program, a.dtype, tiles)
-    plan = gemm_plan(a.dtype, tile, vm, vn, vk, _sms(dev))
+    plan = gemm_plan(a.dtype, tile, m, n, k, _sms(dev))
     scalar = False  # the FFMA body's element-by-element instance
     if plan.body == "wgmma":
         a_strides, b_strides = a.stride(), b.stride()
@@ -448,7 +465,8 @@ def matmul_epilogue_kernel(a: torch.Tensor, b: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(a.data_ptr(), b.data_ptr(), ptrs, strides, out_ptrs, dims,
-                index, None if ws is None else ws.data_ptr(), stream)
+                index, None if ws is None else ws.data_ptr(),
+                valid_mnk.data_ptr() if on_card else None, stream)
     if rc != 0:
         raise RuntimeError(f"GEMM kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")

@@ -108,7 +108,10 @@ def matmul_fused(a: torch.Tensor, b: torch.Tensor,
     """(M, K) @ (K, N) with ``program`` as fused elementwise epilogue
     (kDot).  ``extras`` are epilogue operands broadcastable to (M, N);
     ``valid_mnk`` the runtime actual sizes masking the padded M/N/K
-    tails.  Returns one (M, N) tensor per ``out_dtypes`` entry."""
+    tails: three ints, or an ``int32[3]`` tensor on the operands' device,
+    which the kernel reads there (so a captured launch replays at the
+    sizes it holds then).  Returns one (M, N) tensor per ``out_dtypes``
+    entry."""
     if _device(a, "matmul_fused") == "cpu":
         return matmul_fused_ref(a, b, extras, program, valid_mnk,
                                 out_dtypes)

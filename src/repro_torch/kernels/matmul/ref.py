@@ -27,10 +27,15 @@ def matmul_fused_ref(a: torch.Tensor, b: torch.Tensor,
     """``a (M, K) @ b (K, N)`` with the K tail (k >= valid K) masked to zero
     on both operands, contracted in f32, cast to the accumulator's dtype
     (``program.in_dtypes[0]``), then ``program`` over it and the (M, N)
-    ``extras``; every output is zero where m >= valid M or n >= valid N."""
+    ``extras``; every output is zero where m >= valid M or n >= valid N.
+    ``valid_mnk`` is three ints or an integer tensor of three, compared
+    on its device, never read on the host."""
     m, k = a.shape
     n = b.shape[1]
-    vm, vn, vk = (int(v) for v in valid_mnk)
+    if isinstance(valid_mnk, torch.Tensor):
+        vm, vn, vk = valid_mnk.reshape(3).unbind()
+    else:
+        vm, vn, vk = (int(v) for v in valid_mnk)
     keep_k = torch.arange(k, device=a.device) < vk
     af = torch.where(keep_k[None, :], a.float(), 0.0)
     bf = torch.where(keep_k[:, None], b.float(), 0.0)

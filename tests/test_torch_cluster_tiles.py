@@ -380,10 +380,15 @@ def test_kinput_source_takes_every_length_at_run_time(shape, axis, kinds,
     plan = cp.reduce_plan(shape, axis, cp.layouts(xs, shape))
     src = fr_k._source(SQUARE, plan, kind, F32)
     plain, listed, const = _jit_args(src, "kinput")
-    runtime = [a for a in plain if a not in ("out", "ws", "tickets")
+    # the valid column count is no argument's value: the program loads
+    # it from device memory and clamps it into the padded extent
+    runtime = [a for a in plain if a not in ("out", "ws", "tickets",
+                                             "n_cols_ptr")
                and not a.startswith("in_")]
+    assert "n_cols_ptr" in plain and "n_cols" not in plain
+    assert "tl.minimum(tl.maximum(tl.load(n_cols_ptr), 0), n_red)" in src
     assert sorted(listed) == sorted(runtime)
-    assert {"n_rows", "n_lanes", "n_cols", "n_split", "span"} <= set(listed)
+    assert {"n_rows", "n_lanes", "n_red", "n_split", "span"} <= set(listed)
     assert const[-1] == "ALIGNED" and len(const) == 3
     assert len(runtime) == 5 + len(plan.args())
 

@@ -7,9 +7,11 @@ same functions written with ``lax`` on the same numpy inputs (run eagerly,
 and compiled by the JAX package where compile counts are compared):
 
 * the ``"dhlo"`` pipeline lowers them to the region ops ``d.while`` /
-  ``d.scan`` / ``d.cond`` and runs them on the host around their bodies:
-  a scan runs the actual trip count, so a padded bucket never corrupts an
-  iteration-count sensitive carry (forward and reverse);
+  ``d.scan`` / ``d.cond`` and runs them around their bodies: a scan over
+  a dynamic length runs the padded trip count, as the reference does,
+  with a device guard keeping the carry on padded-tail iterations, so a
+  padded bucket never corrupts an iteration-count sensitive carry
+  (forward and reverse) and nothing is read back on the host;
 * compile counts equal the reference's: trip counts and branches taken
   are never bucket keys;
 * nested regions, carry widening on the port's constraint store, the
@@ -217,7 +219,7 @@ def j_reverse_fn(x):
 
 def test_scan_carry_exact_under_padding_dhlo():
     """S = 13 in a bucket of 16: three padded trips would scale the carry
-    by 2**3; the scan runs the actual trip count."""
+    by 2**3; the guard keeps the carry on those trips."""
     cf = _compile(scan_carry_fn)
     for s in (5, 13, 16, 21, 37):
         _check(cf, j_scan_carry_fn, _x(s), "dhlo")
@@ -277,6 +279,29 @@ def test_reverse_scan_ys_padded_rows_are_zero():
     want_c, want_ys = j_reverse_fn(jnp.asarray(x))
     np.testing.assert_allclose(ys[:13].numpy(), np.asarray(want_ys), **TOL)
     np.testing.assert_allclose(float(c), float(want_c), **TOL)
+
+
+@pytest.mark.parametrize("fn,jfn", [(scan_carry_fn, j_scan_carry_fn),
+                                    (reverse_fn, j_reverse_fn)],
+                         ids=["forward", "reverse"])
+def test_dynamic_scan_runs_the_padded_trip_count(monkeypatch, fn, jfn):
+    """S = 13 in a bucket of 16 runs the body 16 times, as the
+    reference's ``lax.scan`` at the padded length does, and equals it:
+    the padded-tail trips keep the carry (the doubling carry would show
+    any of them), forward and reverse."""
+    from repro_torch.core import codegen
+
+    trips = []
+    run_body = codegen._run_body
+
+    def counted(body, args, env, masked):
+        trips.append(1)
+        return run_body(body, args, env, masked)
+
+    monkeypatch.setattr(codegen, "_run_body", counted)
+    cf = _compile(fn)
+    _check(cf, jfn, _x(13), "dhlo")
+    assert len(trips) == 16
 
 
 def test_scan_compile_count_is_O_buckets():

@@ -156,6 +156,26 @@ def test_fused_reduce_plain_matches_reference(kind, shape, axis, n_cols):
     assert red_ops.LAUNCHES.launches == 0
 
 
+@pytest.mark.parametrize("kind", sorted(RED_EXPR))
+def test_fused_reduce_plain_takes_the_count_from_a_tensor(kind):
+    """The valid column count as the bucket executor hands it over, an
+    int32 tensor written in place between calls: equal to the reference
+    at each count, the padded shape fixed."""
+    program, expr = RED_EXPR[kind]
+    jnp, _, jax_red = _jax()
+    shape, axis = (24, 300), 1
+    xs = _inputs(shape, 2, seed=9)
+    n_cols = torch.zeros(1, dtype=torch.int32)
+    for n in (250, 300, 1, 0, 17):
+        n_cols.fill_(n)
+        want = jax_red(expr, [jnp.asarray(x) for x in xs], n, kind,
+                       axis=axis)
+        got = red_ops.fused_reduce(program, [torch.from_numpy(x)
+                                             for x in xs], n_cols, kind,
+                                   axis=axis, shape=shape, out_dtype=F32)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 # ------------------------------------------------------------ on card --
 
 @pytest.fixture
@@ -201,3 +221,38 @@ def test_kinput_kernel_matches_plain_on_card(cuda, kind):
     torch.cuda.synchronize()
     # f32 sums and products of 2000 terms in another order: a few 1e-5
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", sorted(RED_EXPR))
+@pytest.mark.parametrize("shape,axis", [((5, 2048, 96), 1),
+                                        ((64, 2048), 1), ((1, 1 << 18), 1)])
+def test_captured_kinput_replays_new_counts_on_card(cuda, kind, shape,
+                                                    axis):
+    """One CUDA graph of the kernel, captured at the padded shape and
+    replayed after the count it reads was written anew: each replay
+    equals the plain version at that count (the split shape's partials
+    combined by the last program, whose ticket it clears itself)."""
+    from repro_torch.kernels.fused_reduce.fused_reduce import \
+        fused_reduce_kernel
+
+    program, _ = RED_EXPR[kind]
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    xs = [torch.randn(shape, generator=gen, device=cuda) for _ in range(2)]
+    n_cols = torch.full((1,), shape[axis], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # builds the kernel, outside a capture
+        fused_reduce_kernel(program, xs, n_cols, kind, axis, shape, F32)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fused_reduce_kernel(program, xs, n_cols, kind, axis, shape,
+                                  F32)
+    for n in (shape[axis] - 48, 1, 0, shape[axis], 77):
+        n_cols.fill_(n)
+        graph.replay()
+        want = fused_reduce_ref(program, xs, n, kind, axis, shape, F32)
+        torch.cuda.synchronize()
+        # f32 sums and products of up to 262144 terms in another order
+        torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-3)

@@ -162,6 +162,37 @@ def test_k_tail_masks_both_operands():
     torch.testing.assert_close(got, want, **TOL)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fused_plain_takes_valid_extents_from_a_tensor(dtype):
+    """``valid_mnk`` as the bucket executor hands it over, an int32[3]
+    written in place between calls at one padded shape: equal to the
+    reference at each (M, N, K), tails zero."""
+    jax, jnp, ref_ops = _jax()
+    dt = F32 if dtype == "f32" else BF16
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    program, closure, extra_shapes = _programs(dt)["silu_h"]
+    m, k, n = 40, 70, 24
+    a, b, extras = _operands(m, k, n, extra_shapes, seed=11)
+    valid_t = torch.zeros(3, dtype=torch.int32)
+    for valid in ((33, 19, 61), (40, 24, 70), (1, 24, 5), (40, 3, 0)):
+        valid_t.copy_(torch.tensor(valid, dtype=torch.int32))
+        want = ref_ops.matmul_fused(
+            jnp.asarray(a, jdt), jnp.asarray(b, jdt),
+            [jnp.asarray(x, jdt) for x in extras], closure,
+            valid_mnk=valid, out_dtypes=[jdt], acc_dtype=jdt)
+        (got,) = ops.matmul_fused(
+            torch.from_numpy(a).to(dt), torch.from_numpy(b).to(dt),
+            [torch.from_numpy(x).to(dt) for x in extras], program,
+            valid_mnk=valid_t, out_dtypes=program.out_dtypes)
+        g32, w32 = got.float().numpy(), np.asarray(want[0], np.float32)
+        if dtype == "f32":
+            np.testing.assert_allclose(g32, w32, **TOL)
+        else:
+            assert np.abs(g32 - w32).max() <= \
+                BF16_REL * max(np.abs(w32).max(), 1e-30)
+        assert not g32[valid[0]:].any() and not g32[:, valid[1]:].any()
+
+
 VERSION_SHAPES = {"square_big": (256, 128, 256), "balanced": (128, 128, 128),
                   "skinny_m": (8, 128, 128), "skinny_n": (128, 128, 8),
                   "deep_k": (128, 512, 128)}
@@ -741,3 +772,51 @@ def test_ffma_layouts_and_edges_on_card(cuda, kind, tile):
     vm, vn, vk = valid
     torch.testing.assert_close(
         got[:vm, :vn], matmul_ref(a[:vm, :vk], b[:vk, :vn]), **TOL)
+
+
+# (M, K, N) padded; the valid (M, N, K) each replay reads: ragged K inside
+# one 64-step, across steps, below one step, at 0; a split-K shape
+CAPTURE_CASES = {
+    "tiles": ((256, 640, 384), ((256, 384, 640), (200, 300, 500),
+                                (37, 384, 63), (129, 257, 65), (1, 1, 1),
+                                (0, 384, 640), (256, 384, 0))),
+    "split_k": ((64, 2048, 1024), ((37, 1024, 2048), (64, 1000, 1999),
+                                   (5, 999, 130), (64, 1024, 0))),
+}
+
+
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
+@pytest.mark.parametrize("case", sorted(CAPTURE_CASES))
+def test_captured_kdot_replays_new_extents_on_card(cuda, case, dtype):
+    """One CUDA graph of the kDot kernel, captured at the padded extents
+    and replayed after the valid (M, N, K) it reads were written anew,
+    the operands' padded tails random (not zero): each replay equals the
+    plain version there, a dynamic K included, its tails exactly zero."""
+    from repro_torch.kernels.matmul.matmul import matmul_epilogue_kernel
+
+    program = _programs(dtype)["silu_h"][0]
+    (m, k, n), extents = CAPTURE_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    b = (torch.randn((k, n), generator=gen, device=cuda) / 32).to(dtype)
+    h = torch.randn((m, n), generator=gen, device=cuda).to(dtype)
+    valid = torch.tensor([m, n, k], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # builds the library, outside a capture
+        matmul_epilogue_kernel(a, b, [h], program, valid, [dtype])
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        (out,) = matmul_epilogue_kernel(a, b, [h], program, valid, [dtype])
+    for v in extents:
+        valid.copy_(torch.tensor(v, dtype=torch.int32))
+        graph.replay()
+        (want,) = matmul_fused_ref(a, b, [h], program, v, [dtype])
+        torch.cuda.synchronize()
+        if want.any():
+            assert _rel(out, want) <= _tol(dtype), v
+        else:
+            assert not out.any(), v
+        assert not out[v[0]:].any() and not out[:, v[1]:].any(), v

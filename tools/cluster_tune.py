@@ -24,10 +24,13 @@ same bytes (``floor_fn``).  The port's plan, the parent and the
 library call are also timed with the L2 emptied by a read (no dirty
 lines to write back: ``clean_ms``) and back to back (``warm_ms``).
 
-``--parent-src``: a parent checkout's ``src``; its kLoop / kInput kernel
-modules are imported from that tree (as the package
+``--parent-src``: a parent checkout's ``src`` (or any other tree's, such
+as a variant of a kernel to set beside the port's); its kLoop / kInput
+kernel modules are imported from that tree (as the package
 ``parent_repro_torch``) and launched through their own
-``fused_elementwise_kernel`` / ``fused_reduce_kernel`` in the same turns.
+``fused_elementwise_kernel`` / ``fused_reduce_kernel`` in the same turns
+(a kInput that reads its count on the card is handed the same ``int32``
+tensor as the port's, made once a case).
 ``--ptx DIR``: each kernel's PTX written there, and a ``[ptx]`` line with
 its global loads and stores by width (``v4``: 16 bytes of 32-bit words).
 ``--host``: the host µs a call of the port's wrapper (``ops.py``) and the
@@ -61,6 +64,7 @@ from repro_torch.kernels.fused_elementwise import fused_elementwise as fe
 from repro_torch.kernels.fused_elementwise.ref import fused_elementwise_ref
 from repro_torch.kernels.fused_reduce import fused_reduce as fr
 from repro_torch.kernels.fused_reduce.ref import fused_reduce_ref
+from repro_torch.kernels.lengths import device_ints
 from repro_torch.kernels.matmul.tune import cuda_ms
 from repro_torch.kernels.program import Program, Step
 
@@ -194,6 +198,17 @@ def candidates(plan) -> List[object]:
     return out
 
 
+def n_red_on_card(case) -> torch.Tensor:
+    """The case's reduced length as kInput reads it, an ``int32`` on the
+    card made once a case, so that no fill or copy is timed with the
+    kernel."""
+    if "n_red_on_card" not in case:
+        shape = case["shape"]
+        case["n_red_on_card"] = device_ints(
+            [shape[case["axis"] % len(shape)]], "cuda")
+    return case["n_red_on_card"]
+
+
 def run_plan(case, plan):
     if case["loop"]:
         return fe.launch(case["program"], case["inputs"], _total(case),
@@ -201,8 +216,8 @@ def run_plan(case, plan):
     shape, axis = case["shape"], case["axis"] % len(case["shape"])
     out = torch.empty([d for i, d in enumerate(shape) if i != axis],
                       dtype=case["out_dtype"], device="cuda")
-    return fr.launch(case["program"], case["inputs"], shape[axis], "sum",
-                     out, plan)
+    return fr.launch(case["program"], case["inputs"], n_red_on_card(case),
+                     "sum", out, plan)
 
 
 def _total(case) -> int:
@@ -257,8 +272,12 @@ def parent_run(parent, case):
             case["program"], case["inputs"], _total(case), case["shape"])[0]
     shape = case["shape"]
     axis = case["axis"] % len(shape)
+    # a tree whose kInput reads its count on the card (it imports
+    # ``device_ints``) takes the case's tensor, as the port's plan does
+    n = n_red_on_card(case) if hasattr(parent["reduce"], "device_ints") \
+        else shape[axis]
     return parent["reduce"].fused_reduce_kernel(
-        case["program"], case["inputs"], shape[axis], "sum", axis, shape,
+        case["program"], case["inputs"], n, "sum", axis, shape,
         case["out_dtype"])
 
 
