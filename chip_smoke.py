@@ -314,14 +314,75 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     device µs a call are printed.  Its
     instances' registers and local memory are printed from
     ``cuobjdump`` (no local memory).
-16. Prints the run's seconds in all, the kernels line, the card line,
+16. **Path 8 (encoder-decoder).**  whisper-tiny at all 4 + 4 layers
+    and full width (d_model 384, 6 heads of hd 64, d_ff 1536, vocab
+    51865, GELU, LayerNorm; random bf16 weights from a seeded
+    ``torch.Generator``, upcast for the f32 run, which goes first), as
+    the reference's single-artifact call: ``encode`` over random frames
+    (B, 1500, 384) and ``model.greedy_decode`` (``max_new`` 64, EOS -1,
+    a 448-row cache), each compiled with ``disc_torch.compile(...,
+    pipeline="jit")`` over batches 3, 4 and 2 (buckets 4, 4, 2 of
+    granule 2): one CUDA graph per batch bucket, the whole 64-step
+    decode in one graph (``models/common.py`` ``greedy_decode`` gates
+    every step by a device flag and reads nothing on the host).  Checks:
+    captures == compiles == 2 each, the rest replays; launches per
+    encode call flash attention 4 and LayerNorm 9, per decode step 8 and
+    13; every call's encoder output, tokens, ``n`` and cache bit-equal
+    to the same call under ``eager_entries()``; f32 tokens and ``n``
+    equal to the plain versions' and the first step's logits within
+    1e-3; bf16 the accuracy rule against the f32 run; then an exact
+    batch of 2 whose EOS is the first token of row 0's stream that row 1
+    emits too: the loop exits early (``n`` < 64, equal to a host loop's
+    step count, the same tokens) and its graph replay equals
+    ``eager_entries()`` bit for bit, cache included.  Prints encode ms,
+    decode ms a step graphed and under ``eager_entries()``, and one
+    traced graphed call's wall and device-busy ms, whose flash-attention
+    and LayerNorm kernels must equal the count.  Then flash attention at
+    whisper's shapes (the encoder's non-causal 1500 x 1500 at B = 4, a
+    448-row cross-attention over 1500 frames, a decode step's cross
+    attention over 1500 keys with ``lens=None``), with a zero-padded
+    batch row that must give 0, and LayerNorm at 384, against their
+    plain versions, timed as in phase 9.
+17. **Path 9 ("serve", MQA).**  granite-20b at full width (d_model 6144,
+    48 heads over one KV head of hd 128, d_ff 24576 GELU, LayerNorm,
+    vocab 49152) served by the same engine: bf16 at all 52 layers (40.6
+    GB), unchunked and chunked, each graphed and under
+    ``eager_entries()``, then 4 layers in f32 and bf16 against the plain
+    versions, with path 6's checks (flash attention L, LayerNorm 2L + 1
+    a step; the cache check on layers 0-1).  Flash attention's decode at
+    a group of 48 and LayerNorm at 6144, as phase 9.
+18. **Path 10 ("serve", dense).**  minitron-4b (d_model 3072, 24 / 8
+    heads, RMSNorm, vocab 256000) and codeqwen1.5-7b (d_model 4096, 32 /
+    32 heads, vocab 92416), each at its 32 layers in bf16, unchunked,
+    graphed and under ``eager_entries()``, then at 2 layers in f32,
+    whose streams must equal the plain versions' (flash attention L,
+    RMSNorm 2L + 1 a step).  Decode at groups 3 and 1 and RMSNorm at
+    3072 and 4096, as phase 9.
+19. **Path 11 (vision-language).**  llava-next-34b's language model at
+    full width (d_model 7168, 56 / 8 heads of hd 128, d_ff 20480,
+    RMSNorm, vocab 64000) as ``model.forward(params, {"tokens",
+    "image_embeds"})`` on the jit pipeline: random image-token
+    embeddings of 576, 1152 and 2880 rows (anyres 1, 2 and 5 tiles; that
+    dim exact) before texts of 37 and 731 tokens (bucketed: the padding
+    comes last, hidden by the causal mask), B = 1, then two calls in
+    captured buckets.  16 layers in bf16 (19.7 GB), then 4 in f32 and
+    bf16 against the plain versions: captures == compiles == the
+    distinct (image count, text bucket) pairs, the rest replays; flash
+    attention L and RMSNorm 2L + 1 a call; each call bit-equal to
+    ``eager_entries()``; f32 valid logits within 1e-3 of the plain
+    versions', bf16 the text logits under the accuracy rule.  Decode at
+    a group of 7 and RMSNorm at 7168, as phase 9.  After each of paths
+    8-11 the card's allocated memory must be back within 1 GB.
+20. Prints the run's seconds in all, the kernels line, the card line,
     and the result line last.
 
 Run it from a checkout: it builds the kernels from ``src/`` into
 ``build/torch_kernels/`` and refuses to run without the repository or
 without a CUDA device.  ``--layers`` cuts the depth of paths 1, 2 and 7;
 paths 3 and 4 always run all their layers (22 and 32), path 5 all 81 in
-bf16 and 15 in both dtypes, path 6 8 in bf16 and 4 in both dtypes.
+bf16 and 15 in both dtypes, path 6 8 in bf16 and 4 in both dtypes, path
+8 all 4 + 4, path 9 all 52 in bf16 and 4 in both, path 10 all 32 in
+bf16 and 2 in f32, path 11 16 in bf16 and 4 in both.
 """
 from __future__ import annotations
 
@@ -496,6 +557,23 @@ SERVE_PATHS = {
         True,
         held={"bf16": {"k": (1, 8e-3), "v": (1, 8e-3)}},
         bf16_chunked_parts=True, router=True),
+    # granite-20b: MQA (one KV head for 48 query heads: a group of 48 in
+    # the decode form), a GELU MLP and LayerNorm; per layer one attention
+    # and two norms, then ln_f.  At its 52 layers in bf16 the chunked and
+    # unchunked runs are two equally exact evaluations of a deep random
+    # model, as path 5's are
+    "path9": ServePath(
+        "granite_20b",
+        lambda n: {"flash_attention": n, "layernorm": 2 * n + 1}, True,
+        bf16_chunked_parts=True),
+    # minitron-4b (24 / 8 heads, RMSNorm at 3072) and codeqwen1.5-7b
+    # (32 / 32 heads, RMSNorm at 4096): dense, as path 3
+    "path10 minitron": ServePath(
+        "minitron_4b",
+        lambda n: {"flash_attention": n, "rmsnorm": 2 * n + 1}, True),
+    "path10 codeqwen": ServePath(
+        "codeqwen15_7b",
+        lambda n: {"flash_attention": n, "rmsnorm": 2 * n + 1}, True),
 }
 # path 5's depth in f32 (and its bf16 twin): at 81 layers the f32 weights
 # alone are 51 GB beside the bf16 set; 15 layers keep the remainder rule
@@ -507,6 +585,24 @@ PATH5_CUT_LAYERS = 15
 # the valid tokens, so no token drops and chunked and unchunked runs
 # route alike; the 4-layer runs keep the config's 1.25, where tokens drop
 PATH6_LAYERS, PATH6_CUT_LAYERS, PATH6_DROP_FREE_CF = 8, 4, 4.0
+# path 9's depths: granite-20b at its 52 layers in bf16 (40.6 GB of
+# weights), then 4 layers in f32 and bf16 against the plain versions;
+# path 10's: each config at its 32 layers in bf16, then 2 layers in f32
+PATH9_CUT_LAYERS, PATH10_CUT_LAYERS = 4, 2
+# path 8: whisper-tiny's batches (buckets 4, 4 and 2 of granule 2), new
+# tokens a greedy decode and the decoder's cache extent (its 448-token
+# context)
+WHISPER_BATCHES = (3, 4, 2)
+WHISPER_MAX_NEW = 64
+WHISPER_CACHE = 448
+# path 11: llava-next-34b at 16 of its 60 layers in bf16 (19.7 GB of
+# weights; all 60 would need ~69 GB beside the other phases), then 4 in
+# f32 and bf16; image tokens of anyres 1, 2 and 5 tiles, text lengths, and
+# two calls more in buckets already captured (replays)
+LLAVA_LAYERS, LLAVA_CUT_LAYERS = 16, 4
+LLAVA_IMAGES = (576, 1152, 2880)
+LLAVA_TEXTS = (37, 731)
+LLAVA_REPLAYS = ((576, 45), (2880, 731))
 # card memory a phase may leave allocated after its objects are deleted,
 # before any gc pass (an engine's entries hold it only weakly)
 MEM_SLACK_BYTES = 1 << 30
@@ -525,6 +621,7 @@ PROFILED_PATHS = ("path3", "path5")
 TRACE_KERNELS = {
     "flash_attention": r"\b(prefill_kernel|prefill_tc_kernel|decode_kernel)\b",
     "rmsnorm": r"\bnorm_(rows|loop)\b",
+    "layernorm": r"\bnorm_(rows|loop)\b",
     "mamba2": r"\bssd_(chunked|decode)\b",
     "kloop": r"^kloop(_\w+)?$",
     "kinput": r"^kinput(_\w+)?$",
@@ -631,6 +728,20 @@ def cuda_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def median_ms(fn, reps: int = 3) -> float:
+    """Median host ms of ``fn()`` over ``reps`` synchronised calls."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return sorted(times)[len(times) // 2]
 
 
 def device_events(prof) -> list:
@@ -1127,8 +1238,6 @@ def request_times(tag: str, f, inputs: dict, path_launches: dict) -> None:
     capture's counts; GEMMs beyond the kDots, the §4.5 library's, add to
     both), and the kLoop, kInput and kDot counts must be the path's own
     a request: ``path_launches`` over its ``REQUESTS``."""
-    import torch
-
     from repro_torch.core.graphs import eager_entries
     from repro_torch.kernels.fused_elementwise import ops as fe
     from repro_torch.kernels.fused_reduce import ops as fr
@@ -1152,16 +1261,9 @@ def request_times(tag: str, f, inputs: dict, path_launches: dict) -> None:
                                 for k, n in count().items()})
 
             with ctx():
-                times = []
-                for _ in range(PROFILE_ROUNDS):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    f(inputs[s])
-                    torch.cuda.synchronize()
-                    times.append(time.perf_counter() - t0)
+                med = median_ms(lambda: f(inputs[s]), PROFILE_ROUNDS)
                 wall, busy, top, seen = profile_ms(traced,
                                                    lambda: f(inputs[s]))
-            med = 1e3 * sorted(times)[len(times) // 2]
             print(f"{tag} S={s} {mode}: ms a request {med:.3f} (median of "
                   f"{PROFILE_ROUNDS}); under torch.profiler wall "
                   f"{wall:.3f} ms, device busy "
@@ -2915,22 +3017,18 @@ def gemm_resources(jobs: list) -> str:
 
 
 def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list,
-                       path: str = "path3"):
-    """Flash attention (at ``cfg``'s heads) and RMSNorm (at its width) at
-    the serve path's shapes, each against its plain version on the same
-    card inputs, timed against the plain version and a PyTorch library
-    call."""
+                       path: str = "path3",
+                       forms=("prefill", "chunk", "decode")):
+    """Flash attention (at ``cfg``'s heads, the cases of ``forms``) and the
+    config's norm (RMSNorm or LayerNorm, at its width) at the serve path's
+    shapes, each against its plain version on the same card inputs, timed
+    against the plain version and a PyTorch library call."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.select import plain_versions
-
     dt = torch.float32 if dname == "f32" else torch.bfloat16
-    elt = torch.empty((), dtype=dt).element_size()
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     gen = torch.Generator(device="cuda").manual_seed(17)
-    tol = TOL_SERVE_KERNEL[dname]
     launches = path_launches(report, path, dname)
 
     def rnd(*shape):
@@ -2952,12 +3050,14 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list,
     causal_mask = torch.ones(s_max, s_max, dtype=torch.bool,
                              device="cuda").tril()
     cases.append(dict(
+        form="prefill",
         label=f"prefill S={s_max} q_offset=0", q=q[:1], k=k[:1], v=v[:1],
         args=dict(lens=None, causal=True, q_offset=0), kv_rows=s_max,
         pairs=s_max * (s_max + 1) // 2,
         lib=lambda q=q[:1], k=k[:1], v=v[:1]: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True),
-        zero_check=(q, k, v, dict(lens=None, causal=True, q_offset=0), 1)))
+        zero_check=(q, k, v, dict(lens=None, causal=True, q_offset=0),
+                    [1])))
     # a 512-row chunk at q_offset 1024 against the 2048-row cache; a
     # second row with lens 0 is fully masked and must give 0
     off = s_max // 2
@@ -2968,6 +3068,7 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list,
     chunk_mask = keys <= (off + torch.arange(SERVE_CHUNK, device="cuda"))[
         :, None]
     cases.append(dict(
+        form="chunk",
         label=f"prefill chunk S={SERVE_CHUNK} q_offset={off}", q=q[:1],
         k=k[:1], v=v[:1], args=dict(lens=None, causal=True, q_offset=qo[:1]),
         kv_rows=off + SERVE_CHUNK,
@@ -2976,7 +3077,7 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list,
             q, k, v, attn_mask=chunk_mask, enable_gqa=True),
         zero_check=(q, k, v, dict(lens=torch.tensor(
             [s_max, 0], dtype=torch.int32, device="cuda"), causal=True,
-            q_offset=qo), 1)))
+            q_offset=qo), [1])))
     # decode B=4 at the requests' fills (+1: the token being written)
     lens = torch.tensor([f + 1 for f in fills], dtype=torch.int32,
                         device="cuda")
@@ -2984,14 +3085,37 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list,
     k, v = (rnd(SERVE_BATCH, hkv, s_max, hd) for _ in range(2))
     dec_mask = (keys < lens[:, None])[:, None, None, :]
     cases.append(dict(
+        form="decode",
         label=f"decode B={SERVE_BATCH} lens={lens.tolist()}", q=q, k=k, v=v,
         args=dict(lens=lens), decode=True, kv_rows=int(lens.sum()),
         pairs=int(lens.sum()),
         lib=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
             q, k, v, attn_mask=dec_mask, enable_gqa=True),
         zero_check=(q, k, v, dict(lens=torch.tensor(
-            [5, 0, 9, 0], dtype=torch.int32, device="cuda")), None)))
+            [5, 0, 9, 0], dtype=torch.int32, device="cuda")), [1, 3])))
+    flash_rows([c for c in cases if c["form"] in forms], dname, hkv,
+               launches["flash_attention"], rows)
+    # the norm over the rows of a 2048-token prefill and of a decode step
+    # at B = 4, at the model's width
+    norm_kernel_rows(cfg.norm, cfg.d_model, dname, gen, launches[cfg.norm],
+                     rows)
 
+
+def flash_rows(cases: list, dname: str, hkv: int, launches: int,
+               rows: list) -> None:
+    """Each flash-attention case (q, k, v, the wrapper's arguments, the
+    K / V rows and (query, key) pairs its bound counts, its library call)
+    against its plain version on the same card inputs; the rows of
+    ``zero_check``'s call (padded with zeros, or with ``lens`` 0) must be
+    exactly 0.  Timed against the plain version and the library call."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.select import plain_versions
+
+    dt = torch.float32 if dname == "f32" else torch.bfloat16
+    elt = torch.empty((), dtype=dt).element_size()
+    tol = TOL_SERVE_KERNEL[dname]
     for c in cases:
         if c.get("decode"):
             def run(c=c):
@@ -3017,16 +3141,13 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list,
         err = (got.float() - want.float()).abs().max().item()
         scale = want.float().abs().max().item()
         rel = err / scale
-        zq, zk, zv, zargs, zrow = c["zero_check"]
+        zq, zk, zv, zargs, zrows = c["zero_check"]
         if c.get("decode"):
             zo = fa.flash_decode(zq, zk, zv, zargs["lens"])
-            zeros = [i for i, n in enumerate(zargs["lens"].tolist())
-                     if n == 0]
-            zero_ok = all(not zo[i].any() for i in zeros)
         else:
             zo = fa.flash_attention(zq, zk, zv, **zargs)
-            zero_ok = not zo[zrow].any()
-        zero_ok = zero_ok and bool(torch.isfinite(zo).all())
+        zero_ok = all(not zo[i].any() for i in zrows) \
+            and bool(torch.isfinite(zo).all())
         ms = cuda_ms(run)
         plain_ms = cuda_ms(plain)
         lib_ms = cuda_ms(c["lib"])
@@ -3034,14 +3155,15 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list,
         bound_ms, bound_by, nbytes, flops = attention_bound(
             tuple(c["q"].shape), c["kv_rows"], hkv, c["pairs"], elt, dname)
         row = dict(name="flash_attention", **KERNELS["flash_attention"],
-                   launches=launches["flash_attention"], max_abs_err=err,
+                   launches=launches, max_abs_err=err,
                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=lib_ms)
-        detail = dict(dtype=dname, case=f"{c['label']} hd={hd}",
+        detail = dict(dtype=dname,
+                      case=f"{c['label']} hd={c['q'].shape[-1]}",
                       max_ref=scale, max_rel=rel, bytes=nbytes,
                       flops=flops, tflops=flops / ms / 1e9,
                       library_ratio=ms / lib_ms,
-                      path_launches_of_program=launches["flash_attention"],
+                      path_launches_of_program=launches,
                       library_call="F.scaled_dot_product_attention",
                       library_max_rel=lib_err, zero_rows_ok=zero_ok)
         if c.get("decode"):   # the split-key grid's plan for this cache
@@ -3054,11 +3176,6 @@ def serve_kernel_phase(cfg, dname: str, fills, report: dict, rows: list,
         check(zero_ok, f"flash_attention {dname} {c['label']}: padded or "
                        f"fully masked rows not 0")
         rows.append((row, detail))
-
-    # RMSNorm over the rows of a 2048-token prefill and of a decode step
-    # at B = 4, at the model's width
-    norm_kernel_rows("rmsnorm", cfg.d_model, dname, gen,
-                     launches["rmsnorm"], rows)
 
 
 def norm_kernel_rows(kind: str, d: int, dname: str, gen, launches: int,
@@ -3539,6 +3656,488 @@ def softmax_kernel_phase(report: dict, rows: list):
         rows.append((row, detail))
 
 
+# ------------------------------------------------- path 8: whisper-tiny --
+
+def whisper_artifacts(cfg, model, eos_id: int):
+    """Whisper's encoder and its whole greedy decode, each compiled on the
+    jit pipeline with one entry (one CUDA graph) per batch bucket of 2:
+    ``tests/test_system.py``'s single-artifact specs, ``enc_out`` in the
+    model's dtype."""
+    import torch
+
+    import disc_torch
+    from disc_torch import ArgSpec, BucketPolicy, Dim, TreeSpec
+    from repro_torch.models import whisper
+    from repro_torch.models.common import dtype_of
+
+    dt = dtype_of(cfg)
+    dim_b = Dim("B", max=8)
+    policy = BucketPolicy(kind="multiple", granule=2)
+    frames = ArgSpec((dim_b, cfg.encoder_len, cfg.d_model), dt)
+    enc = disc_torch.compile(
+        lambda params, frames: whisper.encode(cfg, params, frames),
+        specs=[None, frames], pipeline="jit", name=f"{cfg.name}_encode",
+        policy=policy)
+
+    def step(params, cache, toks, lens, enc_out):
+        return model.greedy_decode(params, cache, toks, lens,
+                                   enc_out=enc_out, max_new=WHISPER_MAX_NEW,
+                                   eos_id=eos_id)
+
+    dec = disc_torch.compile(
+        step, specs=[None, TreeSpec({1: "B"}),
+                     ArgSpec((dim_b, 1), torch.int32, name="tokens"),
+                     ArgSpec((dim_b,), torch.int32, name="lens"), frames],
+        pipeline="jit", name=f"{cfg.name}_greedy_eos{eos_id}", policy=policy)
+    return enc, dec
+
+
+def host_greedy(model, params, cache, toks, lens, enc_out, max_new: int,
+                eos_id: int):
+    """The reference's early-exit loop on the host: decode steps, the
+    kernels launched one by one, until every row has emitted ``eos_id``
+    (one read of the done mask a step).  Returns (tokens, steps, cache)."""
+    import torch
+
+    b = toks.shape[0]
+    buf = torch.full((b, max_new), eos_id, dtype=torch.int32, device="cuda")
+    done = torch.zeros((b,), dtype=torch.bool, device="cuda")
+    cur, n = toks, 0
+    while n < max_new and not bool(done.all()):
+        logits, cache = model.decode_step(params, cache, cur, lens,
+                                          enc_out=enc_out)
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)
+        nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+        buf[:, n] = nxt
+        done = done | (nxt == eos_id)
+        cur, lens, n = nxt[:, None], lens + 1, n + 1
+    return buf, n, cache
+
+
+def trees_equal(a, b) -> bool:
+    """Every tensor leaf of two trees equal bit for bit."""
+    from torch.utils import _pytree
+
+    la, lb = _pytree.tree_leaves(a), _pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and bool((x == y).all()) for x, y in zip(la, lb))
+
+
+def whisper_phase(dname: str, weights: dict, seed: int, report: dict,
+                  accuracy_ref=None):
+    """Path 8 in one dtype: whisper-tiny (all 4 + 4 layers, full width) as
+    the reference's single-artifact call.  ``encode`` over frames
+    (B, 1500, 384) and ``model.greedy_decode`` (``max_new`` 64, EOS -1)
+    compiled on the jit pipeline, batches 3, 4 and 2 (buckets 4, 4, 2):
+    captures == compiles == 2 each, the rest replays, launches per encode
+    call flash attention n_enc and LayerNorm 2 n_enc + 1, per decode step
+    2 n_dec and 3 n_dec + 1; every call's outputs bit-equal to the same
+    call under ``eager_entries()``; in f32 tokens and ``n`` equal to the
+    plain versions' and the first step's logits within ``TOL_PATH_F32``
+    of them, in bf16 the accuracy rule against the f32 run over the same
+    weights (``accuracy_ref``).  Then an exact batch of 2 whose EOS is the
+    first token of row 0's stream that row 1 emits too, so that the loop
+    exits early: ``n`` below ``max_new`` and equal to the host loop's
+    step count, the tokens equal to it, and the tokens, ``n`` and cache
+    of its graph replay bit-equal to ``eager_entries()``.  Prints encode
+    ms, decode ms a step graphed and under ``eager_entries()``, and one
+    traced graphed call's wall and device-busy ms (its kernels held to the
+    launch counts).  Returns the first-step logits."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.graphs import eager_entries
+    from repro_torch.kernels.select import plain_versions
+    from repro_torch.models import whisper
+    from repro_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config("whisper_tiny"), dtype=dname)
+    model = get_model(cfg)
+    params = weights if dname == "bf16" else to_f32(weights)
+    dt = torch.float32 if dname == "f32" else torch.bfloat16
+    tag = f"[path8 {dname}]"
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    inputs = []  # per batch: frames (bf16-valued in both dtypes), tokens
+    for b in WHISPER_BATCHES:
+        frames = torch.randn((b, cfg.encoder_len, cfg.d_model),
+                             generator=gen, device="cuda")
+        toks = torch.randint(0, cfg.vocab, (b, 1), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        inputs.append((frames.to(torch.bfloat16).to(dt), toks))
+
+    def fresh(b):   # a zero cache and lens 1 (one token in the prompt)
+        return (model.init_cache(b, WHISPER_CACHE, "cuda"),
+                torch.ones((b,), dtype=torch.int32, device="cuda"))
+
+    enc_c, dec_c = whisper_artifacts(cfg, model, -1)
+
+    def run_all():
+        out = []
+        for frames, toks in inputs:
+            b = toks.shape[0]
+            enc = enc_c(params, frames)[:b]   # the bucket's rows beyond b
+            cache, lens = fresh(b)
+            out.append((enc, dec_c(params, cache, toks, lens, enc)))
+        return out
+
+    counters = serve_counters()
+    for c in counters.values():
+        c.reset()
+    graphed = run_all()
+    torch.cuda.synchronize()
+    counted = {k: c.launches for k, c in counters.items()}
+    n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
+    per_call = {"flash_attention": n_enc + 2 * n_dec * WHISPER_MAX_NEW,
+                "layernorm": 2 * n_enc + 1
+                + (3 * n_dec + 1) * WHISPER_MAX_NEW}
+    want = dict.fromkeys(counted, 0)
+    want.update({k: n * len(inputs) for k, n in per_call.items()})
+    check(counted == want, f"{tag} launches {counted}, the path predicts "
+                           f"{want}")
+    report[("path8", dname, n_dec)] = dict(launches=counted)
+    for name, art in (("encode", enc_c), ("greedy_decode", dec_c)):
+        st = art.graph_stats
+        check(st.captures == art.n_compiles == 2
+              and st.replays == len(inputs) - st.captures,
+              f"{tag} {name}: captures {st.captures}, compiles "
+              f"{art.n_compiles}, replays {st.replays} for {len(inputs)} "
+              f"calls in 2 buckets")
+        print(f"{tag} {name}: graphs: captures {st.captures} (== compiles "
+              f"{art.n_compiles}), replays {st.replays}; bytes copied in "
+              f"{st.bytes_in} out {st.bytes_out}; capture s "
+              f"{[round(x, 3) for x in st.capture_seconds]}", flush=True)
+    with eager_entries():
+        eager = run_all()
+    for (_, toks), g, e in zip(inputs, graphed, eager):
+        check(trees_equal(g, e), f"{tag} B={toks.shape[0]}: graphed encode "
+                                 f"/ decode not bit-equal to "
+                                 f"eager_entries()")
+    for (_, toks), (_, (buf, n, _)) in zip(inputs, graphed):
+        b = toks.shape[0]
+        check(int(n) == WHISPER_MAX_NEW
+              and 0 <= int(buf[:b].min()) and int(buf[:b].max()) < cfg.vocab,
+              f"{tag} B={b}: n {int(n)}, tokens out of range")
+    print(f"{tag} graphed == eager_entries() bit for bit at B "
+          f"{list(WHISPER_BATCHES)}; launches {counted} (the path's "
+          f"count)", flush=True)
+    del eager
+    # the plain versions: tokens and n in f32; the first step's logits
+    before = {k: c.launches for k, c in counters.items()}
+    with plain_versions():
+        plain = run_all()
+    check({k: c.launches for k, c in counters.items()} == before,
+          f"{tag} plain run launched kernels")
+    if dname == "f32":
+        for (_, toks), (_, (buf, n, _)), (_, (buf_p, n_p, _)) in zip(
+                inputs, graphed, plain):
+            b = toks.shape[0]
+            check(int(n) == int(n_p) and torch.equal(buf[:b], buf_p[:b]),
+                  f"{tag} B={b}: tokens differ from the plain versions' "
+                  f"at {(buf[:b] != buf_p[:b]).nonzero()[:3].tolist()}")
+        print(f"{tag} tokens and n equal to the plain versions' at B "
+              f"{list(WHISPER_BATCHES)}", flush=True)
+    frames, toks = inputs[0]
+    b = toks.shape[0]
+    cache, lens = fresh(b)
+    first, _ = model.decode_step(params, cache, toks, lens,
+                                 enc_out=graphed[0][0])
+    first = first[:, 0].float()
+    with plain_versions():
+        enc_p = whisper.encode(cfg, params, frames)
+        first_p, _ = model.decode_step(params, cache, toks, lens,
+                                       enc_out=enc_p)
+    first_p = first_p[:, 0].float()
+    e = rel_err(first, first_p)
+    if accuracy_ref is None:
+        print(f"{tag} first-step logits vs plain max|d|/max|ref| {e:.3e}",
+              flush=True)
+        check(e <= TOL_PATH_F32, f"{tag} first-step logits {e:.3e} > "
+                                 f"{TOL_PATH_F32}")
+    else:
+        e_k, e_p = rel_err(first, accuracy_ref), rel_err(first_p,
+                                                        accuracy_ref)
+        print(f"{tag} first-step logits vs f32 max|d|/max|ref| kernels "
+              f"{e_k:.3e} plain {e_p:.3e} (kernels vs plain {e:.3e}; ratio "
+              f"{e_k / e_p:.3f})", flush=True)
+        check(e_k <= ACCURACY_RATIO * e_p,
+              f"{tag} first-step logits from f32 {e_k:.3e} > "
+              f"{ACCURACY_RATIO} x the plain versions' {e_p:.3e}")
+    del plain
+    # the early exit: batch 2 (bucket 2, no padded row)
+    frames, toks = inputs[-1]
+    enc = graphed[-1][0]
+    s0, s1 = (graphed[-1][1][0][r].tolist() for r in (0, 1))
+    eos = next((t for t in s0 if t in s1), s0[0])
+    cache, lens = fresh(2)
+    buf_h, n_h, cache_h = host_greedy(model, params, cache, toks, lens, enc,
+                                      WHISPER_MAX_NEW, eos)
+    _, dec_eos = whisper_artifacts(cfg, model, eos)
+    for _ in range(2):   # its capture, then a replay
+        cache, lens = fresh(2)
+        out = dec_eos(params, cache, toks, lens, enc)
+    with eager_entries():
+        cache, lens = fresh(2)
+        out_e = dec_eos(params, cache, toks, lens, enc)
+    buf, n, cache = out
+    st = dec_eos.graph_stats
+    check(st.captures == 1 and st.replays == 1,
+          f"{tag} early exit: captures {st.captures} replays {st.replays}")
+    check(int(n) == n_h < WHISPER_MAX_NEW and torch.equal(buf, buf_h),
+          f"{tag} early exit at EOS {eos}: n {int(n)}, the host loop's "
+          f"{n_h} steps (of {WHISPER_MAX_NEW})")
+    check(trees_equal(out, out_e), f"{tag} early exit: the graph's tokens, "
+                                   f"n or cache not bit-equal to "
+                                   f"eager_entries()")
+    print(f"{tag} early exit at EOS {eos}: n {int(n)} == the host loop's "
+          f"steps, tokens equal; replay == eager_entries() bit for bit "
+          f"(cache too); the host loop's cache "
+          f"{'bit-equal' if trees_equal(cache, cache_h) else 'differs'}",
+          flush=True)
+    del out, out_e, cache, cache_h, dec_eos
+    # times at B = 4 (a replay of bucket 4's graphs)
+    frames, toks = inputs[1]
+    enc = graphed[1][0]
+    enc_ms = median_ms(lambda: enc_c(params, frames))
+
+    def decode_call():
+        cache, lens = fresh(4)
+        return dec_c(params, cache, toks, lens, enc)
+
+    dec_ms = median_ms(decode_call)
+    with eager_entries():
+        eager_ms = median_ms(decode_call, reps=1)
+    wall, busy, top, seen = profile_ms(decode_call, decode_call)
+    traced = {k: seen[k] for k in ("flash_attention", "layernorm")}
+    step = {"flash_attention": 2 * n_dec * WHISPER_MAX_NEW,
+            "layernorm": (3 * n_dec + 1) * WHISPER_MAX_NEW}
+    if busy is not None:
+        check(traced == step, f"{tag} the traced greedy decode ran "
+                              f"{traced}, the path predicts {step}")
+    print(f"{tag} B=4: encode {enc_ms:.3f} ms graphed; greedy decode of "
+          f"{WHISPER_MAX_NEW} steps {dec_ms:.3f} ms graphed "
+          f"({dec_ms / WHISPER_MAX_NEW:.4f} ms a step), {eager_ms:.3f} ms "
+          f"under eager_entries() ({eager_ms / WHISPER_MAX_NEW:.4f} ms a "
+          f"step); one traced graphed call: wall {wall:.3f} ms, device busy "
+          f"{'not measured' if busy is None else f'{busy:.3f}'} ms "
+          f"({'' if busy is None else f'{busy / WHISPER_MAX_NEW:.4f} '}ms "
+          f"a step), kernels {traced}; most device time (kernel, ms, "
+          f"launches): {top}", flush=True)
+    del graphed, enc_c, dec_c, enc, inputs, params
+    mem = torch.cuda.memory_allocated()
+    print(f"{tag} card memory allocated: {mem0} B before the phase, {mem} "
+          f"B after its objects were deleted; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    check(mem <= mem0 + MEM_SLACK_BYTES,
+          f"{tag} {mem - mem0} B still allocated after the phase")
+    torch.cuda.empty_cache()
+    return first
+
+
+def whisper_kernel_phase(dname: str, report: dict, rows: list) -> None:
+    """Flash attention at whisper's new shapes (hd 64, 6 heads, 1500
+    frames): the encoder's non-causal self-attention at 1500 x 1500 (B =
+    4), the decoder's cross-attention of a 448-token forward over 1500
+    frames, and a decode step's cross-attention over 1500 keys with
+    ``lens=None`` (B = 4); and LayerNorm at width 384; each against its
+    plain version, timed against it and the library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper_tiny")
+    dt = torch.float32 if dname == "f32" else torch.bfloat16
+    h, hd, frames = cfg.n_heads, cfg.hd, cfg.encoder_len
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    launches = path_launches(report, "path8", dname)
+
+    def rnd(b, s, heads):   # a (B, heads, S, hd) view of a token-major x
+        return torch.randn((b, s, heads, hd), generator=gen,
+                           device="cuda").to(dt).transpose(1, 2)
+
+    def padded(b, sq):
+        """q (B, H, Sq, hd) and K / V of 1500 frames, with one more batch
+        row of zeros (a padded bucket row: its output must be 0)."""
+        q, k, v = rnd(b + 1, sq, h), rnd(b + 1, frames, h), \
+            rnd(b + 1, frames, h)
+        for t in (q, k, v):
+            t[b].zero_()
+        return q, k, v
+
+    cases = []
+    for label, b, sq in (("encoder self non-causal", 4, frames),
+                         ("cross S=448", 1, 448)):
+        q, k, v = padded(b, sq)
+        cases.append(dict(
+            label=f"{label} {sq}x{frames} B={b}", q=q[:b], k=k[:b], v=v[:b],
+            args=dict(lens=None, causal=False), kv_rows=b * frames,
+            pairs=b * sq * frames,
+            lib=lambda q=q[:b], k=k[:b], v=v[:b]:
+                F.scaled_dot_product_attention(q, k, v),
+            zero_check=(q, k, v, dict(lens=None, causal=False), [b])))
+    q, k, v = padded(4, 1)
+    cases.append(dict(
+        label=f"decode cross lens=None B=4 over {frames}", q=q[:4], k=k[:4],
+        v=v[:4], args=dict(lens=None), decode=True, kv_rows=4 * frames,
+        pairs=4 * frames,
+        lib=lambda q=q[:4], k=k[:4], v=v[:4]:
+            F.scaled_dot_product_attention(q, k, v),
+        zero_check=(q, k, v, dict(lens=None), [4])))
+    flash_rows(cases, dname, h, launches["flash_attention"], rows)
+    norm_kernel_rows("layernorm", cfg.d_model, dname, gen,
+                     launches["layernorm"], rows)
+
+
+# ------------------------------------------ path 11: llava-next-34b --
+
+def llava_artifact(cfg, model):
+    """``model.forward(params, {"tokens", "image_embeds"})`` on the jit
+    pipeline: the text dim bucketed (its padding comes last, where the
+    causal mask hides it), the image-token dim exact (a zero-padded image
+    row would sit before the text and be attended to)."""
+    import torch
+
+    import disc_torch
+    from disc_torch import ArgSpec, Dim
+    from repro_torch.models.common import dtype_of
+
+    def fwd(params, tokens, image_embeds):
+        return model.forward(params, {"tokens": tokens,
+                                      "image_embeds": image_embeds})
+
+    return disc_torch.compile(
+        fwd, specs=[None,
+                    ArgSpec((1, Dim("T", max=1024)), torch.int64,
+                            name="tokens"),
+                    ArgSpec((1, Dim("I", max=cfg.max_image_tokens,
+                                    bucket="exact"), cfg.d_model),
+                            dtype_of(cfg), name="image_embeds")],
+        pipeline="jit", name=f"{cfg.name}_forward")
+
+
+def llava_phase(dname: str, layers: int, weights: dict, seed: int,
+                report: dict, plain: bool = True, accuracy_ref=None):
+    """Path 11 in one dtype at ``layers``: llava-next-34b's forward with
+    image-token prefixes (576, 1152 and 2880: anyres 1, 2 and 5 tiles)
+    and texts of 37 and 731 tokens at B = 1, then (576, 45) and (2880,
+    731) again (replays).  Checks captures == compiles == the distinct
+    (image count, text bucket) pairs, the rest replays; flash attention n
+    and RMSNorm 2n + 1 launches a call; every call's logits bit-equal to
+    the same call under ``eager_entries()``; with ``plain``, the valid
+    logits in f32 within ``TOL_PATH_F32`` of the plain versions', in bf16
+    each call's text logits under the accuracy rule against
+    ``accuracy_ref`` (the f32 run's over the same weights).  Returns the
+    text rows' logits of each call, in order, from an f32 run with
+    ``plain`` (the bf16 run's accuracy reference), else nothing."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.graphs import eager_entries
+    from repro_torch.kernels.select import plain_versions
+    from repro_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config("llava_next_34b"), dtype=dname,
+                              n_layers=layers)
+    model = get_model(cfg)
+    params = weights if dname == "bf16" else to_f32(weights)
+    dt = torch.float32 if dname == "f32" else torch.bfloat16
+    tag = f"[path11 {dname} {layers}L]"
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    pairs = [(i, t) for i in LLAVA_IMAGES for t in LLAVA_TEXTS] + \
+        list(LLAVA_REPLAYS)
+    art = llava_artifact(cfg, model)
+    counters = serve_counters()
+    launched = dict.fromkeys(counters, 0)
+    text_logits, errs, times, buckets = [], {}, {}, set()
+    for i, (n_img, n_txt) in enumerate(pairs):
+        img = torch.randn((1, n_img, cfg.d_model), generator=gen,
+                          device="cuda").to(torch.bfloat16).to(dt)
+        toks = torch.randint(0, cfg.vocab, (1, n_txt), generator=gen,
+                             device="cuda")
+        before = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = art(params, toks, img)
+        torch.cuda.synchronize()
+        times.setdefault((n_img, n_txt), []).append(
+            round(1e3 * (time.perf_counter() - t), 3))
+        for k, c in counters.items():
+            launched[k] += c.launches - before[k]
+        valid = n_img + n_txt
+        # the jit pipeline returns the bucket's padded rows too
+        check(got.shape[0] == 1 and got.shape[1] >= valid
+              and bool(torch.isfinite(got[:, :valid]).all()),
+              f"{tag} ({n_img}, {n_txt}): logits {tuple(got.shape)} or "
+              f"non-finite")
+        buckets.add((n_img, got.shape[1] - n_img))
+        with eager_entries():
+            check(torch.equal(got, art(params, toks, img)),
+                  f"{tag} ({n_img}, {n_txt}): graphed logits not bit-equal "
+                  f"to eager_entries()")
+        text = got[0, n_img:valid].to(torch.float32, copy=True)
+        if dname == "f32" and plain:
+            text_logits.append(text)
+        if plain:
+            with plain_versions():
+                want = art(params, toks, img)[:, :valid].float()
+            e = rel_err(got[:, :valid].float(), want)
+            if accuracy_ref is None:
+                check(e <= TOL_PATH_F32, f"{tag} ({n_img}, {n_txt}): "
+                                         f"logits vs plain {e:.3e} > "
+                                         f"{TOL_PATH_F32}")
+                errs[(n_img, n_txt)] = float(f"{e:.3e}")
+            else:
+                ref = accuracy_ref[i]
+                e_k, e_p = rel_err(text, ref), rel_err(
+                    want[0, n_img:], ref)
+                errs[(n_img, n_txt)] = (float(f"{e_k:.3e}"),
+                                        float(f"{e_p:.3e}"))
+                check(e_k <= ACCURACY_RATIO * e_p,
+                      f"{tag} ({n_img}, {n_txt}): text logits from f32 "
+                      f"{e_k:.3e} > {ACCURACY_RATIO} x the plain versions' "
+                      f"{e_p:.3e}")
+            del want
+        del got, text
+    calls = len(pairs)
+    want = dict.fromkeys(launched, 0)
+    want.update({"flash_attention": layers * calls,
+                 "rmsnorm": (2 * layers + 1) * calls})
+    check(launched == want, f"{tag} launches {launched}, the path predicts "
+                            f"{want}")
+    report[("path11", dname, layers)] = dict(launches=launched)
+    st = art.graph_stats
+    check(st.captures == art.n_compiles == len(buckets)
+          and st.replays == calls - st.captures,
+          f"{tag} captures {st.captures}, compiles {art.n_compiles}, "
+          f"replays {st.replays} for {calls} calls in {len(buckets)} "
+          f"(image count, text bucket) pairs")
+    print(f"{tag} graphs: captures {st.captures} (== compiles == "
+          f"{len(buckets)} pairs), replays {st.replays}; every call "
+          f"bit-equal to eager_entries(); launches {launched}; ms a call "
+          f"(first: the eager run and capture) {times}; "
+          f"{'vs plain max|d|/max|ref| ' + str(errs) if accuracy_ref is None and plain else ''}"
+          f"{'text logits vs f32 (kernels, plain) ' + str(errs) if accuracy_ref is not None else ''}",
+          flush=True)
+    del art, params
+    mem = torch.cuda.memory_allocated() - sum(
+        t.numel() * t.element_size() for t in text_logits)
+    print(f"{tag} card memory allocated: {mem0} B before the phase, {mem} "
+          f"B after its objects were deleted (the kept text logits not "
+          f"counted); {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(mem <= mem0 + MEM_SLACK_BYTES,
+          f"{tag} {mem - mem0} B still allocated after the phase")
+    torch.cuda.empty_cache()
+    return text_logits
+
+
 def summary(rows: list, report: dict) -> list:
     """One entry per kernel: its most-launched f32 program at the path's
     shapes stands for it; ``launches`` sums every path's counted runs."""
@@ -3729,6 +4328,7 @@ def main(argv=None) -> int:
         softmax_kernel_phase(report, rows)
         print(f"[phase softmax] {time.perf_counter() - t0:.1f} s",
               flush=True)
+        new_paths(args.seed, report, rows)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3738,6 +4338,95 @@ def main(argv=None) -> int:
     print(f"[run] {time.perf_counter() - t_run:.1f} s in all, the CUDA "
           f"builds included", flush=True)
     return finish(rows, report, card, kind)
+
+
+def new_paths(seed: int, report: dict, rows: list) -> None:
+    """Paths 8-11 and their kernel rows, each phase's seconds printed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        print(f"[phase {name}] {time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        return out
+
+    fills = [n + SERVE_NEW_TOKENS // 2 for n in SERVE_PROMPTS[:SERVE_BATCH]]
+    # path 8: whisper-tiny's weights drawn in bf16 (its dtype), upcast for
+    # the f32 run, which goes first: the bf16 run's accuracy reference
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    weights = get_model(get_config("whisper_tiny")).init(gen, "cuda")
+    first = None
+    for dname in ("f32", "bf16"):
+        def path8(dname=dname, ref=first):
+            out = whisper_phase(dname, weights, seed, report,
+                                accuracy_ref=ref)
+            whisper_kernel_phase(dname, report, rows)
+            return out
+        first = phase(f"path8 {dname}", path8)
+    del weights, first
+    # path 9: granite-20b at all 52 layers in bf16, unchunked and chunked;
+    # then the cut depth in both dtypes against the plain versions
+    phase("path9 bf16 52L", lambda: serve_phase(
+        "path9", "bf16", seed, report,
+        layers=get_config("granite_20b").n_layers,
+        labels=("kernels", "chunked", "eager", "eager chunked")))
+    first = None
+    for dname in ("f32", "bf16"):
+        def path9(dname=dname, ref=first):
+            cfg, _, out = serve_phase(
+                "path9", dname, seed, report, accuracy_ref=ref,
+                layers=PATH9_CUT_LAYERS, labels=("kernels", "plain", "eager"))
+            serve_kernel_phase(cfg, dname, fills, report, rows, path="path9",
+                               forms=("decode",))
+            return out
+        first = phase(f"path9 {dname} {PATH9_CUT_LAYERS}L", path9)
+    del first
+    # path 10: minitron-4b and codeqwen1.5-7b at their 32 layers in bf16,
+    # graphed and under eager_entries(); then 2 layers in f32 against the
+    # plain versions
+    for path in ("path10 minitron", "path10 codeqwen"):
+        def full(path=path):
+            cfg, _, _ = serve_phase(path, "bf16", seed, report,
+                                    labels=("kernels", "eager"))
+            serve_kernel_phase(cfg, "bf16", fills, report, rows, path=path,
+                               forms=("decode",))
+        phase(f"{path} bf16", full)
+
+        def cut(path=path):
+            cfg, _, _ = serve_phase(path, "f32", seed, report,
+                                    layers=PATH10_CUT_LAYERS,
+                                    labels=("kernels", "plain"))
+            serve_kernel_phase(cfg, "f32", fills, report, rows, path=path,
+                               forms=("decode",))
+        phase(f"{path} f32 {PATH10_CUT_LAYERS}L", cut)
+    # path 11: llava-next-34b's forward with image prefixes, 16 layers in
+    # bf16, then 4 in f32 and bf16 against the plain versions (the f32 run
+    # first: the bf16 run's accuracy reference)
+    base = get_config("llava_next_34b")
+    for layers in (LLAVA_LAYERS, LLAVA_CUT_LAYERS):
+        cfg = dataclasses.replace(base, n_layers=layers)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        weights = get_model(cfg).init(gen, "cuda")
+        if layers == LLAVA_LAYERS:
+            phase(f"path11 bf16 {layers}L", lambda: llava_phase(
+                "bf16", layers, weights, seed, report, plain=False))
+            del weights
+            continue
+        ref = phase(f"path11 f32 {layers}L", lambda: llava_phase(
+            "f32", layers, weights, seed, report))
+        phase(f"path11 bf16 {layers}L", lambda: llava_phase(
+            "bf16", layers, weights, seed, report, accuracy_ref=ref))
+        del ref, weights
+        for dname in ("f32", "bf16"):
+            phase(f"path11 kernels {dname}", lambda: serve_kernel_phase(
+                dataclasses.replace(cfg, dtype=dname), dname, fills, report,
+                rows, path="path11", forms=("decode",)))
 
 
 def print_resources() -> None:

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.utils import _pytree
 
 __all__ = ["ArchConfig", "param_init", "DTYPES", "dtype_of",
            "greedy_decode"]
@@ -175,15 +176,23 @@ def param_init(generator: torch.Generator, shape: Tuple[int, ...], dtype,
 def greedy_decode(step_fn: Callable, cache, first_tokens: torch.Tensor,
                   lens: torch.Tensor, *, max_new: int, eos_id: int):
     """Greedy autoregressive decode: the reference's ``lax.while_loop``
-    (``models/common.py`` ``greedy_decode``) as a Python loop.
+    (``models/common.py`` ``greedy_decode``) as a bounded loop of
+    ``max_new`` steps that reads nothing on the host, so that one CUDA
+    graph can hold it whole.
 
     ``step_fn(cache, tokens, lens) -> (logits, cache)`` is a decode step
-    already closed over params.  The loop exits early once every row has
-    emitted ``eos_id`` (one host read of the done mask per step).  Rows
-    that finish keep emitting ``eos_id`` (their buffer stays frozen); the
-    cache still advances for every row, as in the reference.
+    already closed over params.  The loop state stays on the device:
+    ``active`` (0-d bool, not every row done yet), ``n`` (0-d int32),
+    ``lens``, the token buffer, the current tokens and the done mask.
+    Every step runs the decode step and gates the cache, ``lens`` and
+    ``n`` by ``active`` (a row that is done writes ``eos_id``, which its
+    buffer already holds), so once every row has emitted ``eos_id`` the
+    remaining steps change nothing: the result is the reference's early
+    exit's, the same tokens, the same ``n`` and the same cache.  Rows
+    that finish keep emitting ``eos_id``; the cache still advances for
+    every row while any is active, as in the reference.
 
-    Returns ``(tokens (B, max_new) int32, n_steps, cache)``.
+    Returns ``(tokens (B, max_new) int32, n_steps 0-d int32, cache)``.
     """
     b = first_tokens.shape[0]
     dev = first_tokens.device
@@ -191,14 +200,20 @@ def greedy_decode(step_fn: Callable, cache, first_tokens: torch.Tensor,
     cur = first_tokens.to(torch.int32).reshape(b, 1)
     lens = lens.to(torch.int32)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    n = 0
-    while n < max_new and not bool(done.all()):
-        logits, cache = step_fn(cache, cur, lens)
+    n = torch.zeros((), dtype=torch.int32, device=dev)
+    eos = torch.full((b,), eos_id, dtype=torch.int32, device=dev)
+    for i in range(max_new):
+        active = ~done.all()
+        logits, new_cache = step_fn(cache, cur, lens)
+        cache = _pytree.tree_map(
+            lambda new, old: torch.where(active, new.to(old.dtype), old),
+            new_cache, cache)
         nxt = logits[:, -1, :].argmax(-1).to(torch.int32)
-        nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
-        buf[:, n] = nxt
+        nxt = torch.where(done, eos, nxt)
+        buf[:, i] = nxt
         done = done | (nxt == eos_id)
         cur = nxt[:, None]
-        lens = lens + 1
-        n += 1
+        step = active.to(torch.int32)
+        lens = lens + step
+        n = n + step
     return buf, n, cache

@@ -1,9 +1,9 @@
 """Carry a parameter tree from the JAX package into the port.
 
 The JAX package initialises a model as a nested dict of arrays whose
-``blocks`` leaves are stacked over layers (``(L, ...)``, for its
-``lax.scan``); the port keeps one dict per layer, leaf for leaf and in
-the JAX dtypes (a MoE block's ``ffn`` carries its f32 ``router`` (D, E),
+``blocks`` leaves (whisper's: ``encoder`` and ``decoder``) are stacked
+over layers (``(L, ...)``, for its ``lax.scan``); the port keeps one
+dict per layer, leaf for leaf and in the JAX dtypes (a MoE block's ``ffn`` carries its f32 ``router`` (D, E),
 the expert stacks ``w_in``/``w_gate`` (E, D, F) and ``w_out`` (E, F, D)
 and, where the config has them, the ``shared`` experts).  Every other subtree
 (Zamba2's ``shared_attn``, ``shared_ln`` and its ``lora`` factors,
@@ -60,9 +60,11 @@ def params_from_numpy(np_tree: Dict[str, Any], cfg: ArchConfig,
     ``device``."""
     device = resolve_device(device)
     out: Dict[str, Any] = {}
+    stacks = {"blocks": cfg.n_layers, "decoder": cfg.n_layers,
+              "encoder": cfg.n_encoder_layers}
     for k, v in np_tree.items():
-        if k == "blocks":
-            out[k] = [_tree(v, device, i) for i in range(cfg.n_layers)]
+        if k in stacks:
+            out[k] = [_tree(v, device, i) for i in range(stacks[k])]
         else:
             out[k] = _tree(v, device)
     return out

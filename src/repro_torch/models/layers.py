@@ -1,9 +1,10 @@
 """Model-zoo layers on the compiled path (PyTorch, single device).
 
 The counterparts of the JAX package's ``models/layers.py`` functions that
-a dense transformer, DBRX's MoE, RWKV-6 and Zamba2 run: RMS/LayerNorm,
-RoPE, grouped-query attention (full, batched prefill against a KV cache,
-and decode), the (Swi)GLU MLP, the routed MoE, the RWKV-6 time mix and
+a dense transformer, DBRX's MoE, RWKV-6, Zamba2 and whisper run:
+RMS/LayerNorm, RoPE, grouped-query attention (full, batched prefill
+against a KV cache, decode, and whisper's cross-attention), the
+(Swi)GLU or GELU MLP, the routed MoE, the RWKV-6 time mix and
 the Mamba-2 block.  Each is a plain function of tensors with the
 reference's name and argument order.
 
@@ -117,6 +118,7 @@ def _sdpa(q, k, v, *, causal: bool, lens: Optional[torch.Tensor],
 def attn_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                positions: torch.Tensor, lens: Optional[torch.Tensor] = None,
                cache: Optional[Params] = None, causal: bool = True,
+               kv_source: Optional[torch.Tensor] = None,
                offsets: Optional[torch.Tensor] = None):
     """Full attention; ``cache`` switches to decode mode (x is (B,1,D)).
 
@@ -125,15 +127,21 @@ def attn_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     true tokens destined for absolute cache positions
     ``[offsets[r], offsets[r] + lens[r])``; the chunk's K/V are scattered
     into the cache in one pass and queries attend causally against the
-    whole cache at absolute positions."""
+    whole cache at absolute positions.
+
+    ``kv_source`` (B, Sk, D) makes it cross-attention (whisper's
+    decoder): K and V are projected from it, with no RoPE and no causal
+    mask; every key is valid."""
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    src = x if kv_source is None else kv_source
     q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
-    cos, sin = rope_tables(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    k = (src @ p["wk"]).reshape(b, src.shape[1], hkv, hd)
+    v = (src @ p["wv"]).reshape(b, src.shape[1], hkv, hd)
+    if kv_source is None:   # self-attention: RoPE
+        cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     q = q.transpose(1, 2)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
@@ -164,7 +172,8 @@ def attn_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
         o = _sdpa(q, kc.to(q.dtype), vc.to(q.dtype), causal=False,
                   lens=lens + 1)
     else:
-        o = _sdpa(q, k, v, causal=causal, lens=lens, q_offset=0)
+        o = _sdpa(q, k, v, causal=causal and kv_source is None, lens=lens,
+                  q_offset=0)
     o = o.transpose(1, 2).reshape(b, s, h * hd)
     return o @ p["wo"], new_cache
 

@@ -1,16 +1,19 @@
 """Model registry: family -> (init / forward / cache / prefill / decode)
 bundle, the counterpart of the JAX package's ``models/registry.py`` for
 the dense, MoE (``"moe"``, DBRX: the transformer with routed experts),
-recurrent (``"ssm"``, RWKV-6) and hybrid (``"hybrid"``, Zamba2)
-families.
+vision-language (``"vlm"``, llava: the transformer with image-token
+prefixes), recurrent (``"ssm"``, RWKV-6), hybrid (``"hybrid"``, Zamba2)
+and encoder-decoder (``"encdec"``, whisper) families.
 
 Cache trees may nest (RWKV's ``{"tmix": {"s", "x_prev"}, "cmix_x"}``,
 Zamba2's ``{"mamba": {"h"}, "attn": {"k", "v"}}``): every per-row
 operation on a cache maps over its tensor leaves (:func:`tree_map`),
 whose batch axis is 1.
 
-The encoder-decoder family arrives with its slice of the port;
-``verify``, the paged-KV entry points and the training loss wait for the
+The encoder-decoder bundle's decode step takes ``enc_out`` as a
+keyword, which the serve engine (LM-only, as the reference's) never
+passes: its path is ``encode`` and ``greedy_decode``.  ``verify``, the
+paged-KV entry points and the training loss wait for the
 paged/speculative and training slices.
 """
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch.utils import _pytree
 
-from . import rwkv, transformer, zamba
+from . import rwkv, transformer, whisper, zamba
 from .common import ArchConfig
 
 Params = Dict[str, Any]
@@ -124,8 +127,11 @@ def replay_prefill(decode_step: Callable) -> Callable:
 
 def _lm_bundle(mod, cfg: ArchConfig) -> Model:
     def fwd(params, batch):
+        # llava's image-token prefix; the other families take none
+        extra = {} if batch.get("image_embeds") is None else \
+            {"extra_embeds": batch["image_embeds"]}
         return mod.forward(cfg, params, batch["tokens"],
-                           lens=batch.get("lens"))
+                           lens=batch.get("lens"), **extra)
 
     def decode(params, cache, tokens, lens):
         return mod.decode_step(cfg, params, cache, tokens, lens)
@@ -150,11 +156,37 @@ def _lm_bundle(mod, cfg: ArchConfig) -> Model:
     )
 
 
+def _whisper_bundle(cfg: ArchConfig) -> Model:
+    def fwd(params, batch):
+        return whisper.forward(cfg, params, batch["tokens"],
+                               frames=batch["frames"],
+                               lens=batch.get("lens"))
+
+    def decode(params, cache, tokens, lens, **kw):
+        return whisper.decode_step(cfg, params, cache, tokens, lens, **kw)
+
+    return Model(
+        cfg=cfg,
+        init=lambda generator, device: whisper.init(cfg, generator, device),
+        forward=fwd,
+        init_cache=lambda b, s, device: whisper.init_cache(cfg, b, s,
+                                                           device),
+        decode_step=decode,
+        # decoder-side replay only; a caller threads enc_out through
+        # decode_step's keywords itself (the serve engine is LM-only)
+        prefill=replay_prefill(decode),
+        greedy_decode=lambda params, cache, tokens, lens, **kw:
+            whisper.greedy_decode(cfg, params, cache, tokens, lens, **kw),
+    )
+
+
 MODEL_FAMILIES = {
     "dense": lambda cfg: _lm_bundle(transformer, cfg),
     "moe": lambda cfg: _lm_bundle(transformer, cfg),
+    "vlm": lambda cfg: _lm_bundle(transformer, cfg),
     "ssm": lambda cfg: _lm_bundle(rwkv, cfg),
     "hybrid": lambda cfg: _lm_bundle(zamba, cfg),
+    "encdec": _whisper_bundle,
 }
 
 

@@ -165,8 +165,9 @@ def prefill(cfg: ArchConfig, params: Params, cache: Params,
 def greedy_decode(cfg: ArchConfig, params: Params, cache: Params,
                   tokens: torch.Tensor, lens: torch.Tensor, *,
                   max_new: int, eos_id: int = 0):
-    """Greedy generation from ``tokens`` (B, 1), with early exit when
-    every row has emitted ``eos_id`` (:func:`common.greedy_decode`)."""
+    """Greedy generation from ``tokens`` (B, 1): ``max_new`` gated steps
+    that stop changing anything once every row has emitted ``eos_id``
+    (:func:`common.greedy_decode`)."""
     step = lambda c, t, ln: decode_step(cfg, params, c, t, ln)
     return _greedy_decode(step, cache, tokens, lens, max_new=max_new,
                           eos_id=eos_id)

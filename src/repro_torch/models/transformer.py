@@ -1,8 +1,9 @@
-"""Decoder-only transformer LM (PyTorch), dense and MoE.
+"""Decoder-only transformer LM (PyTorch), dense, MoE and vision-language.
 
 The counterpart of the JAX package's ``models/transformer.py`` for the
-dense and MoE families (a block's FFN is the routed MoE where
-``cfg.is_moe``).  The reference stacks its layers and runs them under
+dense, MoE and ``vlm`` families (a block's FFN is the routed MoE where
+``cfg.is_moe``; llava's image tokens are prefix embeddings of
+:func:`forward`).  The reference stacks its layers and runs them under
 ``lax.scan``; the port keeps a Python list of per-layer parameter dicts
 and unrolls the layers, which is what the DHLO bridge traces, so each
 layer's clusters fuse (a body of the bridge's ``d.scan`` runs op by op).
@@ -120,9 +121,16 @@ def _run_blocks(cfg: ArchConfig, blocks, x: torch.Tensor, *, positions,
 
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
-            lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> logits (B, S, V)."""
+            lens: Optional[torch.Tensor] = None,
+            extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward: tokens (B, S) -> logits (B, S, V).
+
+    ``extra_embeds`` (B, S_img, D) are prefix embeddings (llava's image
+    tokens from the anyres-tiling stub) put before the token embeddings:
+    the logits are then (B, S_img + S, V)."""
     x = embed_tokens(cfg, params, tokens)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     x, _ = _run_blocks(cfg, params["blocks"], x, positions=positions,

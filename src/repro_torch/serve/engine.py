@@ -198,6 +198,12 @@ class ServeEngine:
         for name, why in _LATER.items():
             if getattr(scfg, name) is not None:
                 raise NotImplementedError(f"ServeConfig({name}=...): {why}")
+        if model.cfg.family == "encdec":
+            raise ValueError(
+                f"ServeEngine serves language models; {model.cfg.name} is "
+                f"an encoder-decoder whose decode step needs the encoder's "
+                f"output: run encode, then greedy_decode (compile it with "
+                f"disc_torch.compile(..., pipeline='jit'))")
         if scfg.prefill_mode not in ("batched", "replay"):
             raise ValueError(
                 f"unknown prefill_mode {scfg.prefill_mode!r} "
