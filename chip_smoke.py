@@ -373,8 +373,32 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     versions', bf16 the text logits under the accuracy rule.  Decode at
     a group of 7 and RMSNorm at 7168, as phase 9.  After each of paths
     8-11 the card's allocated memory must be back within 1 GB.
-20. Prints the run's seconds in all, the kernels line, the card line,
-    and the result line last.
+20. **Path 12 ("serve", MLA).**  DeepSeek-V2 at full width (d_model
+    5120, 128 heads of hd 128 with a 64-wide rope part, a 512-wide
+    latent KV cache, 160 experts of 1536 top-6 and 2 shared, RMSNorm,
+    vocab 102400) served by the same engine at the config's capacity
+    1.25: 6 of its 60 layers in bf16 (~51 GB), unchunked and chunked,
+    each graphed and under ``eager_entries()``, then 2 layers in f32 and
+    bf16 against the plain versions, with path 6's checks (flash
+    attention L, RMSNorm 2L + 1, masked softmax L a step; of flash
+    attention's launches, its (192, 128) instance L a prefill launch and
+    its absorbed MLA decode form L a decode step, counted apart; the
+    cache check on ``kv_c`` / ``k_pe`` layers 0-1, layer 1 printed in
+    bf16).  Then flash attention's two MLA forms against their plain
+    versions on the same card inputs (max|Δ|/max|ref| ≤ 1e-5 f32, 8e-3
+    bf16), timed beside ``F.scaled_dot_product_attention`` at MLA's
+    scale: the (192, 128) causal prefill at S = 2048 (B = 1, 128 heads)
+    and a 512-row chunk at ``q_offset`` 1024, bound by 2 · 320 flops a
+    visible pair and head over the dtype's peak; the absorbed decode at
+    B = 4 at the path's fills over a 2048-row latent (the library call
+    over the concatenated latent as one kv head), bound by the latent's
+    bytes or 2 H (576 + 512) flops a valid key over the f32 FFMA peak.
+    RMSNorm at 5120 and the router's softmax at 2048 x 160 and 4 x 160,
+    as phase 9.
+21. Prints the run's seconds in all, the kernels line (each kernel, and
+    flash attention's MLA forms as ``flash_attention_mla`` and
+    ``flash_attention_mla_decode``), the card line, and the result line
+    last.
 
 Run it from a checkout: it builds the kernels from ``src/`` into
 ``build/torch_kernels/`` and refuses to run without the repository or
@@ -382,7 +406,9 @@ without a CUDA device.  ``--layers`` cuts the depth of paths 1, 2 and 7;
 paths 3 and 4 always run all their layers (22 and 32), path 5 all 81 in
 bf16 and 15 in both dtypes, path 6 8 in bf16 and 4 in both dtypes, path
 8 all 4 + 4, path 9 all 52 in bf16 and 4 in both, path 10 all 32 in
-bf16 and 2 in f32, path 11 16 in bf16 and 4 in both.
+bf16 and 2 in f32, path 11 16 in bf16 and 4 in both, path 12 6 of 60 in
+bf16 (~8.1 GB of weights a layer; the 60 would need ~483 GB) and 2 in
+both.
 """
 from __future__ import annotations
 
@@ -511,6 +537,9 @@ class ServePath(NamedTuple):
     # near-tie) with their logits distance printed, not held: two equally
     # exact evaluations of few enough layers stay on one stream
     bf16_streams: bool = False
+    # (L, prefill launches, decode steps) -> launches of flash attention's
+    # MLA forms (MLA_FORM_OF) in a run; every other path launches none
+    forms: Callable[[int, int, int], dict] = lambda n, pre, dec: {}
 
 
 SERVE_PATHS = {
@@ -575,6 +604,35 @@ SERVE_PATHS = {
         "codeqwen15_7b",
         lambda n: {"flash_attention": n, "rmsnorm": 2 * n + 1}, True),
 }
+# DeepSeek-V2: per layer one MLA attention (a prefill launch takes flash
+# attention's (192, 128) instance, a decode step its absorbed MLA decode
+# form), two norms and the router's softmax over 160 experts; ln_f.  As
+# DBRX's, its bf16 chunked and unchunked runs may route a near-tie apart
+# (and at the config's capacity 1.25 they drop other tokens: a launch's
+# capacity counts its own tokens); layer 1's latent, which reads layer
+# 0's MoE, is printed in bf16 and layer 0's held
+SERVE_PATHS["path12"] = ServePath(
+    "deepseek_v2_236b",
+    lambda n: {"flash_attention": n, "rmsnorm": 2 * n + 1,
+               "masked_softmax": n},
+    True,
+    held={"bf16": {"kv_c": (1, 8e-3), "k_pe": (1, 8e-3)}},
+    bf16_chunked_parts=True, router=True,
+    forms=lambda n, pre, dec: {"flash_attention_mla": n * pre,
+                               "flash_attention_mla_decode": n * dec})
+#: flash attention's MLA forms in the kernels line (route, source and
+#: TPU kernel flash attention's), each by the counter of
+#: ``ops.FORM_LAUNCHES`` that counts it
+MLA_FORM_OF = {"flash_attention_mla": "mla",
+               "flash_attention_mla_decode": "mla_decode"}
+# path 12's depths (full width; ~8.1 GB of bf16 weights per layer: the
+# 160 experts 7.55 GB, MLA 0.46 GB, the shared experts 0.09 GB; 2.1 GB in
+# the embedding and the head): 6 of its 60 layers in bf16 (~51 GB), then 2
+# in f32 and bf16 (~37 / 18 GB, one dtype's set at a time); the 60 layers
+# would need ~483 GB.  Both at the config's capacity factor 1.25 (a
+# drop-free one would need (160, T, 5120) expert buffers, ~13 GB at T =
+# 8192)
+PATH12_LAYERS, PATH12_CUT_LAYERS = 6, 2
 # path 5's depth in f32 (and its bf16 twin): at 81 layers the f32 weights
 # alone are 51 GB beside the bf16 set; 15 layers keep the remainder rule
 PATH5_CUT_LAYERS = 15
@@ -2481,7 +2539,10 @@ def serve_counters() -> dict:
 
     return {"flash_attention": fa.LAUNCHES, "rmsnorm": rms.LAUNCHES,
             "layernorm": ln.LAUNCHES, "rwkv6": wkv.LAUNCHES,
-            "mamba2": ssd.LAUNCHES, "masked_softmax": sm.LAUNCHES}
+            "mamba2": ssd.LAUNCHES, "masked_softmax": sm.LAUNCHES,
+            # of flash attention's launches, the MLA forms'
+            **{name: fa.FORM_LAUNCHES[form]
+               for name, form in MLA_FORM_OF.items()}}
 
 
 def path_launches(report: dict, path: str, dname: str) -> dict:
@@ -2751,6 +2812,8 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
         want = dict.fromkeys(counted, 0)
         want.update({k: n * steps
                      for k, n in sp.per_step(cfg.n_layers).items()})
+        want.update(sp.forms(cfg.n_layers, st["prefill_calls"],
+                             st["decode_steps"]))
         check(counted == want, f"{tag} {label}: launches {counted}, the "
                                f"path predicts {want}")
         if not eager:   # the main path's launches: its graph replays
@@ -3178,6 +3241,140 @@ def flash_rows(cases: list, dname: str, hkv: int, launches: int,
         rows.append((row, detail))
 
 
+def mla_kernel_phase(cfg, dname: str, fills, report: dict, rows: list):
+    """Flash attention's MLA forms at DeepSeek-V2's widths (128 heads, q/k
+    192, v 128; the latent 512 + 64), each against its plain version on
+    the same card inputs and timed (L2 flushed) beside it and
+    ``F.scaled_dot_product_attention`` at the same scale: the (192, 128)
+    instance's causal prefill at S = 2048 (B = 1) and a 512-row chunk at
+    ``q_offset`` 1024 against the 2048-row cache, then the absorbed
+    decode at B = 4 at the path's decode fills over a 2048-row latent
+    (the library call over the concatenated latent as one kv head).
+    Bounds: prefill ``2 (192 + 128) H`` flops a visible (query, key) pair
+    over the dtype's tensor-core peak, or q, o, K and V once over the HBM
+    rate; the decode the latent's valid rows (and q, o) once over the HBM
+    rate, or ``2 H (576 + 512)`` flops a valid key over the card's peak
+    for the inputs' type (f32 FFMA; bf16 tensor cores), whatever unit the
+    body runs on."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.select import plain_versions
+
+    dt = torch.float32 if dname == "f32" else torch.bfloat16
+    elt = torch.empty((), dtype=dt).element_size()
+    h, hd, rdim, lat = cfg.n_heads, cfg.hd, cfg.mla_rope_dim, cfg.mla_kv_lora
+    dqk = hd + rdim
+    scale = 1.0 / math.sqrt(dqk)
+    tol = TOL_SERVE_KERNEL[dname]
+    launches = path_launches(report, "path12", dname)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    s_max, off = SERVE_SEQ, SERVE_SEQ // 2
+    cases = []
+    # the model's layouts: q_eff, k_eff and v token-major, (B, H, S, d)
+    # views
+    q = rnd(1, s_max, h, dqk).transpose(1, 2)
+    k = rnd(1, s_max, h, dqk).transpose(1, 2)
+    v = rnd(1, s_max, h, hd).transpose(1, 2)
+    pairs = s_max * (s_max + 1) // 2
+    cases.append(dict(
+        name="flash_attention_mla", label=f"mla prefill S={s_max} q_offset=0",
+        run=lambda: fa.flash_attention(q, k, v, None, causal=True,
+                                       scale=scale),
+        lib=lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   scale=scale),
+        nbytes=(2 * s_max * h * dqk + 2 * s_max * h * hd) * elt,
+        flops=2 * (dqk + hd) * h * pairs,
+        peak=F32_FLOPS if dname == "f32" else BF16_FLOPS))
+    qc = rnd(1, SERVE_CHUNK, h, dqk).transpose(1, 2)
+    qo = torch.tensor([off], dtype=torch.int32, device="cuda")
+    keys = torch.arange(s_max, device="cuda")[None, :]
+    chunk_mask = keys <= (off + torch.arange(SERVE_CHUNK, device="cuda"))[
+        :, None]
+    pairs = sum(off + i + 1 for i in range(SERVE_CHUNK))
+    cases.append(dict(
+        name="flash_attention_mla",
+        label=f"mla prefill chunk S={SERVE_CHUNK} q_offset={off}",
+        run=lambda: fa.flash_attention(qc, k, v, None, causal=True,
+                                       q_offset=qo, scale=scale),
+        lib=lambda: F.scaled_dot_product_attention(
+            qc, k, v, attn_mask=chunk_mask, scale=scale),
+        nbytes=(SERVE_CHUNK * h * (dqk + hd)
+                + (off + SERVE_CHUNK) * h * (dqk + hd)) * elt,
+        flops=2 * (dqk + hd) * h * pairs,
+        peak=F32_FLOPS if dname == "f32" else BF16_FLOPS))
+    # the absorbed decode: q_abs, q_pe (B, 1, H, .) and the cache's leaves
+    # as layer slices of a stacked cache
+    lens = torch.tensor([f + 1 for f in fills], dtype=torch.int32,
+                        device="cuda")
+    q_abs, q_pe = rnd(SERVE_BATCH, 1, h, lat), rnd(SERVE_BATCH, 1, h, rdim)
+    kv_c = rnd(2, SERVE_BATCH, s_max, lat)[1]
+    k_pe = rnd(2, SERVE_BATCH, s_max, rdim)[1]
+    q_cat = torch.cat([q_abs, q_pe], -1).transpose(1, 2)    # (B, H, 1, 576)
+    k_cat = torch.cat([kv_c, k_pe], -1)[:, None]            # (B, 1, S, 576)
+    dec_mask = (keys < lens[:, None])[:, None, None, :]
+    n_keys = int(lens.sum())
+    cases.append(dict(
+        name="flash_attention_mla_decode",
+        label=f"mla decode B={SERVE_BATCH} lens={lens.tolist()}",
+        run=lambda: fa.mla_decode(q_abs, q_pe, kv_c, k_pe, lens, scale),
+        lib=lambda: F.scaled_dot_product_attention(
+            q_cat, k_cat, kv_c[:, None], attn_mask=dec_mask, scale=scale,
+            enable_gqa=True).transpose(1, 2),
+        nbytes=(n_keys * (lat + rdim)
+                + SERVE_BATCH * h * (2 * lat + rdim)) * elt,
+        flops=2 * h * (lat + rdim + lat) * n_keys,
+        peak=F32_FLOPS if dname == "f32" else BF16_FLOPS,
+        split=fa.decode_splits(
+            s_max, SERVE_BATCH, 1,
+            torch.cuda.get_device_properties(0).multi_processor_count)[0]))
+    for c in cases:
+        def plain(c=c):
+            with plain_versions():
+                return c["run"]()
+
+        before = fa.FORM_LAUNCHES[MLA_FORM_OF[c["name"]]].launches
+        got = c["run"]()
+        check(fa.FORM_LAUNCHES[MLA_FORM_OF[c["name"]]].launches
+              == before + 1, f"{c['name']}: the wrapper launched no kernel")
+        want = plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              f"{c['name']} {dname} {c['label']}: non-finite output")
+        err = (got.float() - want.float()).abs().max().item()
+        scale_ref = want.float().abs().max().item()
+        rel = err / scale_ref
+        ms, plain_ms, lib_ms = cuda_ms(c["run"]), cuda_ms(plain), \
+            cuda_ms(c["lib"])
+        lib_err = rel_err(c["lib"]().float(), want.float())
+        bytes_ms = c["nbytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = c["flops"] / c["peak"] * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        row = dict(name=c["name"], **KERNELS["flash_attention"],
+                   launches=launches[c["name"]], max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=lib_ms)
+        detail = dict(dtype=dname, case=c["label"], max_ref=scale_ref,
+                      max_rel=rel, bytes=c["nbytes"], flops=c["flops"],
+                      tflops=c["flops"] / ms / 1e9,
+                      library_ratio=ms / lib_ms,
+                      path_launches_of_program=launches[c["name"]],
+                      library_call="F.scaled_dot_product_attention",
+                      library_max_rel=lib_err)
+        if "split" in c:
+            detail["n_split"] = c["split"]
+        print(f"[kernels] {json.dumps(dict(row, **detail))}", flush=True)
+        check(rel <= tol, f"{c['name']} {dname} {c['label']}: "
+                          f"max|d|/max|ref| {rel:.3e} > {tol}")
+        rows.append((row, detail))
+
+
 def norm_kernel_rows(kind: str, d: int, dname: str, gen, launches: int,
                      rows: list):
     """RMSNorm (``kind`` "rmsnorm", eps 1e-6) or LayerNorm ("layernorm",
@@ -3571,15 +3768,16 @@ def ssd_kernel_phase(cfg, dname: str, report: dict, rows: list):
         rows.append((row, detail))
 
 
-def softmax_kernel_phase(report: dict, rows: list):
-    """The masked softmax kernel at path 6's router shapes (the f32 logits
-    of a (1, 2048) prefill bucket, 2048 x 16, and of a decode step, 4 x
-    16, at ``n_valid = E = 16``), at 4096 x 2048 in f32 and bf16 with
-    ``n_valid`` 1500 and 2048, and once at ``n_valid = 0`` (every row 0),
-    each against its plain version on the same card inputs, padded
-    columns exactly 0; timed against the plain version and
-    ``torch.softmax`` over the valid columns, a yardstick the port never
-    calls."""
+def softmax_kernel_phase(report: dict, rows: list, path: str = "path6",
+                         wide: bool = True):
+    """The masked softmax kernel at ``path``'s router shapes (the f32
+    logits of a (1, 2048) prefill bucket, 2048 x E, and of a decode step,
+    4 x E, at ``n_valid = E``: 16 on path 6, 160 on path 12), with
+    ``wide`` at 4096 x 2048 in f32 and bf16 with ``n_valid`` 1500 and
+    2048, and once at ``n_valid = 0`` (every row 0), each against its
+    plain version on the same card inputs, padded columns exactly 0;
+    timed against the plain version and ``torch.softmax`` over the valid
+    columns, a yardstick the port never calls."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3588,13 +3786,14 @@ def softmax_kernel_phase(report: dict, rows: list):
     from repro_torch.kernels.softmax.softmax import softmax_plan
 
     gen = torch.Generator(device="cuda").manual_seed(23)
-    e = get_config("dbrx_132b").n_experts
-    launches = {d: path_launches(report, "path6", d)["masked_softmax"]
+    e = get_config(SERVE_PATHS[path].arch).n_experts
+    launches = {d: path_launches(report, path, d)["masked_softmax"]
                 for d in ("f32", "bf16")}
     cases = [((SERVE_SEQ, e), "f32", e), ((SERVE_BATCH, e), "f32", e)]
-    cases += [((4096, 2048), d, n) for d in ("f32", "bf16")
-              for n in (1500, 2048)]
-    cases.append(((4096, 2048), "f32", 0))
+    if wide:
+        cases += [((4096, 2048), d, n) for d in ("f32", "bf16")
+                  for n in (1500, 2048)]
+        cases.append(((4096, 2048), "f32", 0))
     for (r, c), dname, n in cases:
         dt = torch.float32 if dname == "f32" else torch.bfloat16
         elt = torch.empty((), dtype=dt).element_size()
@@ -3638,7 +3837,7 @@ def softmax_kernel_phase(report: dict, rows: list):
             extra = dict(kernel_launch=launch_times(run),
                          library_launch=launch_times(lib))
         detail = dict(dtype=dname, case=f"{r}x{c} n_valid={n}"
-                      + (" (path 6 router)" if on_path else ""),
+                      + (f" ({path[4:]} router)" if on_path else ""),
                       plan=softmax_plan(r, c, elt)._asdict(), **extra,
                       max_ref=scale, max_rel=rel, bytes=nbytes, flops=flops,
                       path_launches_of_program=launches[dname] if on_path
@@ -4142,7 +4341,7 @@ def summary(rows: list, report: dict) -> list:
     """One entry per kernel: its most-launched f32 program at the path's
     shapes stands for it; ``launches`` sums every path's counted runs."""
     out = []
-    for name in KERNELS:
+    for name in [*KERNELS, *MLA_FORM_OF]:
         mine = [(r, d) for r, d in rows if r["name"] == name]
         if not mine:
             continue
@@ -4341,7 +4540,7 @@ def main(argv=None) -> int:
 
 
 def new_paths(seed: int, report: dict, rows: list) -> None:
-    """Paths 8-11 and their kernel rows, each phase's seconds printed."""
+    """Paths 8-12 and their kernel rows, each phase's seconds printed."""
     import dataclasses
 
     import torch
@@ -4427,6 +4626,30 @@ def new_paths(seed: int, report: dict, rows: list) -> None:
             phase(f"path11 kernels {dname}", lambda: serve_kernel_phase(
                 dataclasses.replace(cfg, dtype=dname), dname, fills, report,
                 rows, path="path11", forms=("decode",)))
+    # path 12: DeepSeek-V2 at 6 layers in bf16, unchunked and chunked,
+    # graphed and under eager_entries(); then 2 layers in f32 and bf16
+    # against the plain versions (the f32 run first: the bf16 run's
+    # accuracy reference); then its MLA kernel rows and RMSNorm at 5120
+    phase(f"path12 bf16 {PATH12_LAYERS}L", lambda: serve_phase(
+        "path12", "bf16", seed, report, layers=PATH12_LAYERS,
+        labels=("kernels", "chunked", "eager", "eager chunked")))
+    first = None
+    for dname in ("f32", "bf16"):
+        def path12(dname=dname, ref=first):
+            cfg, _, out = serve_phase(
+                "path12", dname, seed, report, accuracy_ref=ref,
+                layers=PATH12_CUT_LAYERS,
+                labels=("kernels", "plain", "eager"))
+            mla_kernel_phase(cfg, dname, fills, report, rows)
+            norm_kernel_rows(cfg.norm, cfg.d_model, dname,
+                             torch.Generator(device="cuda").manual_seed(12),
+                             path_launches(report, "path12",
+                                           dname)[cfg.norm], rows)
+            return out
+        first = phase(f"path12 {dname} {PATH12_CUT_LAYERS}L", path12)
+    del first
+    phase("path12 softmax", lambda: softmax_kernel_phase(
+        report, rows, path="path12", wide=False))
 
 
 def print_resources() -> None:

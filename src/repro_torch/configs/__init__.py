@@ -1,21 +1,19 @@
-"""Architecture configs ported so far (exact public-literature dimensions).
+"""Architecture configs of the port (exact public-literature dimensions).
 
 ``get_config(arch_id)`` returns the config of every architecture of the
-JAX package's ``repro.configs`` but ``deepseek_v2_236b``, whose MLA
-attention (q/k dim 192, v dim 128; the absorbed decode at 576 / 512)
-the flash-attention kernel does not take yet: it raises, naming that
-slice.
+JAX package's ``repro.configs``, by its id or its dashed alias; an id the
+port lacks raises.  ``NOT_PORTED`` names the architectures still waiting
+for a slice of their own, and the slice each waits for: none now.
 """
 from importlib import import_module
 
 ARCH_IDS = ["dbrx_132b", "minitron_4b", "codeqwen15_7b", "tinyllama_11b",
             "granite_20b", "rwkv6_3b", "whisper_tiny", "zamba2_7b",
-            "llava_next_34b"]
+            "llava_next_34b", "deepseek_v2_236b"]
 
 #: architectures of the JAX package not ported yet, and the slice each
 #: waits for
-NOT_PORTED = {"deepseek_v2_236b": "its MLA attention (ROADMAP Queue 1 "
-                                  "item 6)"}
+NOT_PORTED: dict = {}
 
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS + list(NOT_PORTED)}
 

@@ -4,18 +4,23 @@
 // (kernels/flash_attention/flash_attention.py:94) and its decode use
 // (ops.py:54 flash_decode).  It computes the serve path's _sdpa:
 //
-//   o[b, h, i] = softmax_k(q[b, h, i] . k[b, h / group, k] / sqrt(hd)) v
+//   o[b, h, i] = softmax_k(q[b, h, i] . k[b, h / group, k] * scale) v
 //
 // over keys k < lens[b] (when lens is given) and, when causal, k <=
-// q_offset[b] + i.  Softmax is online, in f32; a row with no valid key
-// gives 0 (the TPU kernel's l == 0 rule).  q (B, H, Sq, hd) and k, v
-// (B, Hkv, Sk, hd) are read through their strides (unit stride along hd,
-// 16-byte aligned rows); every size, stride, lens and q_offset is a
-// runtime argument, so a new length inside a bucket launches the library
-// already built, and nothing syncs with the host.  The head dim is a
-// template constant: 16 (the reduced configs), 64, 112 and 128 are
-// instantiated.  Each instance sets its dynamic shared memory on its
-// first launch.
+// q_offset[b] + i; scale is 1 / sqrt(hd) unless the caller gives another
+// (MLA: 1 / sqrt(192)).  Softmax is online, in f32; a row with no valid
+// key gives 0 (the TPU kernel's l == 0 rule).  q (B, H, Sq, hd), k (B,
+// Hkv, Sk, hd) and v (B, Hkv, Sk, dv) are read through their strides
+// (unit stride along the head dim, 16-byte aligned rows); every size,
+// stride, lens and q_offset is a runtime argument, so a new length inside
+// a bucket launches the library already built, and nothing syncs with
+// the host.  The (hd, dv) head dims are template constants: (16, 16) (the
+// reduced configs), (64, 64), (112, 112), (128, 128) and DeepSeek-V2's
+// MLA prefill / expanded decode (192, 128) (reduced: (24, 16)) are
+// instantiated.  A fourth
+// form, mla_decode_kernel (below), is MLA's absorbed decode over the
+// 576-wide latent cache.  Each instance sets its dynamic shared memory on
+// its first launch.
 //
 // What bounds it on an H100.  Prefill at S = 2048 does 4 hd flops per
 // visible (q, k) pair and head, ~64 per byte it must move: operations,
@@ -24,7 +29,7 @@
 // bytes (3.35 TB/s), at B = 4 a few MB a step, so it is also bound by
 // how many SMs its grid keeps busy.
 //
-// Three forms:
+// Three forms (and the MLA absorbed decode, described at its kernel):
 //
 // * prefill_tc_kernel (bf16 / f16, prefill and chunks): FlashAttention-2
 //   on mma.sync.m16n8k16 with f32 accumulators.  A block is 64 query
@@ -266,15 +271,15 @@ __device__ __forceinline__ float group_sum(float x) {
 
 // ------------------------------------------------------ f32 prefill
 
-template <typename T, int HD>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(NT) prefill_kernel(Args a) {
-  constexpr int DC = HD / 16;  // output columns per thread
+  constexpr int DC = DV / 16;  // output columns per thread
   constexpr int PS = BK + 4;   // padded row stride of P
   extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;            // [HD][BQ]  q block, transposed, scaled
-  float* Kt = Qt + HD * BQ;    // [HD][BK]  k block, transposed
-  float* Vs = Kt + HD * BK;    // [BK][HD]
-  float* Ps = Vs + BK * HD;    // [BQ][PS]  probabilities
+  float* Qt = smem;            // [DQK][BQ]  q block, transposed, scaled
+  float* Kt = Qt + DQK * BQ;   // [DQK][BK]  k block, transposed
+  float* Vs = Kt + DQK * BK;   // [BK][DV]
+  float* Ps = Vs + BK * DV;    // [BQ][PS]  probabilities
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
@@ -289,7 +294,7 @@ __global__ void __launch_bounds__(NT) prefill_kernel(Args a) {
   const T* K = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const T* V = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
   {
-    Tile<T, BQ, HD> t;
+    Tile<T, BQ, DQK> t;
     t.template load<true>(Q + (long long)q0 * a.q_ss, a.q_ss, a.Sq - q0);
     t.store_t(Qt, a.scale);
   }
@@ -306,12 +311,12 @@ __global__ void __launch_bounds__(NT) prefill_kernel(Args a) {
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous step is done with Kt, Vs
     {
-      Tile<T, BK, HD> t;
+      Tile<T, BK, DQK> t;
       t.template load<true>(K + (long long)k0 * a.k_ss, a.k_ss, kv_len - k0);
       t.store_t(Kt, 1.f);
     }
     {
-      Tile<T, BK, HD> t;
+      Tile<T, BK, DV> t;
       t.template load<false>(V + (long long)k0 * a.v_ss, a.v_ss,
                              kv_len - k0);
       t.store_rm(Vs);
@@ -324,7 +329,7 @@ __global__ void __launch_bounds__(NT) prefill_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 16  // at 8, ptxas spilled 4 bytes at hd 112
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       const float4 qv = *reinterpret_cast<const float4*>(Qt + d * BQ + tr * 4);
       const float4 kv = *reinterpret_cast<const float4*>(Kt + d * BK + tc * 4);
       const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
@@ -379,7 +384,7 @@ __global__ void __launch_bounds__(NT) prefill_kernel(Args a) {
 #pragma unroll
           for (int c = 0; c < DC; c += 4) {
             const float4 v4 = *reinterpret_cast<const float4*>(
-                Vs + (kk + jj) * HD + tc * DC + c);
+                Vs + (kk + jj) * DV + tc * DC + c);
             vv[c] = v4.x;
             vv[c + 1] = v4.y;
             vv[c + 2] = v4.z;
@@ -387,7 +392,7 @@ __global__ void __launch_bounds__(NT) prefill_kernel(Args a) {
           }
         } else {  // hd 16 and 112: 1 and 7 columns, not 16-byte aligned
 #pragma unroll
-          for (int c = 0; c < DC; ++c) vv[c] = Vs[(kk + jj) * HD + tc * DC + c];
+          for (int c = 0; c < DC; ++c) vv[c] = Vs[(kk + jj) * DV + tc * DC + c];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -454,26 +459,38 @@ __device__ __forceinline__ void split_p(float x, float y, unsigned& hi,
   lo = pack2<T>(x - h.x, y - h.y);
 }
 
-template <typename T, int HD>
+// Q and K rows are DQK wide, V and output rows DV (MLA: 192 and 128).
+// A DQK that is not a multiple of the mma's k step of 16 (the reduced
+// MLA's 24) is zero-filled to DQKP in shared memory.
+template <typename T, int DQK, int DV>
 struct TcShape {
-  static constexpr int LD = HD + 8;      // padded row, in elements
-  static constexpr int CH = HD / 8;      // 16-byte chunks per row
-  static constexpr int TILE = BK * LD;   // elements of one K or V tile
+  static constexpr int DQKP = (DQK + 15) / 16 * 16;  // Q / K row, padded
+  static constexpr int LD = DQKP + 8;    // padded Q / K row, in elements
+  static constexpr int LDV = DV + 8;     // padded V row
+  static constexpr int CH = DQKP / 8;    // 16-byte chunks per Q / K row
+  static constexpr int CHV = DV / 8;     // ... per V / output row
+  static constexpr int TILE = BK * LD;   // elements of one K tile
+  static constexpr int TILE_V = BK * LDV;
   // Q tile (the output tile at the end), then the K and V rings
-  static constexpr size_t SMEM = (size_t)(BQ * LD + 4 * TILE) * sizeof(T);
+  static constexpr size_t SMEM =
+      (size_t)(BQ * LD + 2 * TILE + 2 * TILE_V) * sizeof(T);
 };
 
-template <typename T, int HD>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(TC_NT, 2) prefill_tc_kernel(Args a) {
-  using Sh = TcShape<T, HD>;
-  constexpr int LD = Sh::LD, CH = Sh::CH;
-  constexpr int KS = HD / 16;  // k steps of Q K^T
-  constexpr int NO = HD / 8;   // 8-column tiles of the output
-  static_assert(HD % 16 == 0, "head dim: a multiple of 16");
+  using Sh = TcShape<T, DQK, DV>;
+  constexpr int LD = Sh::LD, LDV = Sh::LDV, CH = Sh::CH, CHV = Sh::CHV;
+  constexpr int KS = Sh::DQKP / 16;  // k steps of Q K^T
+  constexpr int NO = DV / 8;         // 8-column tiles of the output
+  static_assert(DQK % 8 == 0 && DV % 16 == 0 && DV <= DQK,
+                "head dims: 16-byte q / k rows, v a multiple of 16, the "
+                "output within the Q tile");
+  static_assert(DQK == DV ? Sh::DQKP == DQK : true,
+                "K and V share a row layout only unpadded");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
   T* Ks = Qs + BQ * LD;                    // [2][BK][LD]
-  T* Vs = Ks + 2 * Sh::TILE;               // [2][BK][LD]
+  T* Vs = Ks + 2 * Sh::TILE;               // [2][BK][LDV]
 
   const int h = blockIdx.x, b = blockIdx.z;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest first
@@ -489,9 +506,10 @@ __global__ void __launch_bounds__(TC_NT, 2) prefill_tc_kernel(Args a) {
   const T* K = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const T* V = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
 
+  // columns at or past DQK (padding) are zero-filled
   for (int i = tid; i < BQ * CH; i += TC_NT) {
     const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = q0 + r < a.Sq;
+    const bool ok = q0 + r < a.Sq && (Sh::DQKP == DQK || c < DQK);
     cp_async16(Qs + r * LD + c, ok ? Q + (long long)(q0 + r) * a.q_ss + c : Q,
                ok);
   }
@@ -500,14 +518,29 @@ __global__ void __launch_bounds__(TC_NT, 2) prefill_tc_kernel(Args a) {
   auto load_kv = [&](int t) {
     const int k0 = t * BK;
     T* ks = Ks + (t & 1) * Sh::TILE;
-    T* vs = Vs + (t & 1) * Sh::TILE;
-    for (int i = tid; i < BK * CH; i += TC_NT) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool ok = k0 + r < kv_len;
-      cp_async16(ks + r * LD + c,
-                 ok ? K + (long long)(k0 + r) * a.k_ss + c : K, ok);
-      cp_async16(vs + r * LD + c,
-                 ok ? V + (long long)(k0 + r) * a.v_ss + c : V, ok);
+    T* vs = Vs + (t & 1) * Sh::TILE_V;
+    if constexpr (DQK == DV) {
+      for (int i = tid; i < BK * CH; i += TC_NT) {
+        const int r = i / CH, c = (i % CH) * 8;
+        const bool ok = k0 + r < kv_len;
+        cp_async16(ks + r * LD + c,
+                   ok ? K + (long long)(k0 + r) * a.k_ss + c : K, ok);
+        cp_async16(vs + r * LD + c,
+                   ok ? V + (long long)(k0 + r) * a.v_ss + c : V, ok);
+      }
+    } else {
+      for (int i = tid; i < BK * CH; i += TC_NT) {
+        const int r = i / CH, c = (i % CH) * 8;
+        const bool ok = k0 + r < kv_len && (Sh::DQKP == DQK || c < DQK);
+        cp_async16(ks + r * LD + c,
+                   ok ? K + (long long)(k0 + r) * a.k_ss + c : K, ok);
+      }
+      for (int i = tid; i < BK * CHV; i += TC_NT) {
+        const int r = i / CHV, c = (i % CHV) * 8;
+        const bool ok = k0 + r < kv_len;
+        cp_async16(vs + r * LDV + c,
+                   ok ? V + (long long)(k0 + r) * a.v_ss + c : V, ok);
+      }
     }
   };
   if (n_tiles > 0) load_kv(0);
@@ -538,7 +571,7 @@ __global__ void __launch_bounds__(TC_NT, 2) prefill_tc_kernel(Args a) {
     cp_async_wait<1>();
     __syncthreads();  // tile t has landed for every thread
     const T* ks = Ks + (t & 1) * Sh::TILE;
-    const T* vs = Vs + (t & 1) * Sh::TILE;
+    const T* vs = Vs + (t & 1) * Sh::TILE_V;
     const int k0 = t * BK;
 
     float s[BK / 8][4];
@@ -611,7 +644,7 @@ __global__ void __launch_bounds__(TC_NT, 2) prefill_tc_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < NO; j += 2) {
         unsigned r[4];  // keys kk*16 .. kk*16 + 15, columns j*8 .. j*8 + 15
-        ldsm_x4_t(r, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+        ldsm_x4_t(r, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
                          (j + (lane >> 4)) * 8);
         mma16816<T>(o[j], ph, r[0], r[1]);
         mma16816<T>(o[j + 1], ph, r[2], r[3]);
@@ -639,8 +672,8 @@ __global__ void __launch_bounds__(TC_NT, 2) prefill_tc_kernel(Args a) {
   }
   __syncwarp();
   T* O = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = (i % CH) * 8;
+  for (int i = lane; i < 16 * CHV; i += 32) {
+    const int r = i / CHV, c = (i % CHV) * 8;
     const int qi = q0 + warp * 16 + r;
     if (qi < a.Sq)
       *reinterpret_cast<uint4*>(O + (long long)qi * a.o_ss + c) =
@@ -687,16 +720,19 @@ __device__ __forceinline__ void load_f32(const T* p, float (&out)[N]) {
 // widened as they are read.
 constexpr int DG = 8;
 
-template <typename T, int HD>
+template <typename T, int DQK, int DV>
 struct DecShape {
   static constexpr int VEC = Elt<T>::VEC;     // elements per 16 bytes
-  static constexpr int LD = HD + VEC;         // padded row, in elements
-  static constexpr int CH = HD / VEC;         // 16-byte chunks per row
+  static constexpr int LD = DQK + VEC;        // padded K row, in elements
+  static constexpr int LDV = DV + VEC;        // padded V row
+  static constexpr int CH = DQK / VEC;        // 16-byte chunks per K row
+  static constexpr int CHV = DV / VEC;        // ... per V row
   static constexpr int TILE = BK * LD;
-  static constexpr int QLD = HD + 4;          // padded f32 q row
-  static constexpr int DPL = (HD + 31) / 32;  // output columns per lane
-  static constexpr size_t RING = 4 * (size_t)TILE * sizeof(T);
-  static constexpr size_t MERGE = (size_t)DEC_WARPS * DG * HD * sizeof(float);
+  static constexpr int TILE_V = BK * LDV;
+  static constexpr int QLD = DQK + 4;         // padded f32 q row
+  static constexpr int DPL = (DV + 31) / 32;  // output columns per lane
+  static constexpr size_t RING = 2 * (size_t)(TILE + TILE_V) * sizeof(T);
+  static constexpr size_t MERGE = (size_t)DEC_WARPS * DG * DV * sizeof(float);
   static constexpr size_t BASE = RING > MERGE ? RING : MERGE;
   // the ring (the warps' accumulators after the key loop), q rows, P,
   // each warp's alpha, m and l per head
@@ -707,15 +743,15 @@ struct DecShape {
 
 // (__launch_bounds__ lets ptxas plan 128 registers a thread: without the
 // minimum of 4 blocks it took 96 and spilled 12 bytes at hd 128)
-template <typename T, int HD>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(DEC_NT, 4) decode_kernel(Args a) {
-  using Sh = DecShape<T, HD>;
-  constexpr int VEC = Sh::VEC, LD = Sh::LD, CH = Sh::CH, QLD = Sh::QLD,
-                DPL = Sh::DPL;
+  using Sh = DecShape<T, DQK, DV>;
+  constexpr int VEC = Sh::VEC, LD = Sh::LD, LDV = Sh::LDV, CH = Sh::CH,
+                CHV = Sh::CHV, QLD = Sh::QLD, DPL = Sh::DPL;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);           // [2][BK][LD]
-  T* Vs = Ks + 2 * Sh::TILE;                        // [2][BK][LD]
-  float* Acc = reinterpret_cast<float*>(smem_raw);  // [warp][DG][HD], after
+  T* Vs = Ks + 2 * Sh::TILE;                        // [2][BK][LDV]
+  float* Acc = reinterpret_cast<float*>(smem_raw);  // [warp][DG][DV], after
   float* Qs = reinterpret_cast<float*>(smem_raw + Sh::BASE);  // [DG][QLD]
   float* Ps = Qs + DG * QLD;                        // [warp][DG][16]
   float* Al = Ps + DEC_WARPS * DG * 16;             // [warp][DG]
@@ -740,14 +776,29 @@ __global__ void __launch_bounds__(DEC_NT, 4) decode_kernel(Args a) {
   auto load_kv = [&](int t) {
     const int k0 = lo + t * BK;
     T* ks = Ks + (t & 1) * Sh::TILE;
-    T* vs = Vs + (t & 1) * Sh::TILE;
-    for (int i = tid; i < BK * CH; i += DEC_NT) {
-      const int r = i / CH, c = (i % CH) * VEC;
-      const bool ok = k0 + r < hi;
-      cp_async16(ks + r * LD + c,
-                 ok ? K + (long long)(k0 + r) * a.k_ss + c : K, ok);
-      cp_async16(vs + r * LD + c,
-                 ok ? V + (long long)(k0 + r) * a.v_ss + c : V, ok);
+    T* vs = Vs + (t & 1) * Sh::TILE_V;
+    if constexpr (DQK == DV) {
+      for (int i = tid; i < BK * CH; i += DEC_NT) {
+        const int r = i / CH, c = (i % CH) * VEC;
+        const bool ok = k0 + r < hi;
+        cp_async16(ks + r * LD + c,
+                   ok ? K + (long long)(k0 + r) * a.k_ss + c : K, ok);
+        cp_async16(vs + r * LD + c,
+                   ok ? V + (long long)(k0 + r) * a.v_ss + c : V, ok);
+      }
+    } else {
+      for (int i = tid; i < BK * CH; i += DEC_NT) {
+        const int r = i / CH, c = (i % CH) * VEC;
+        const bool ok = k0 + r < hi;
+        cp_async16(ks + r * LD + c,
+                   ok ? K + (long long)(k0 + r) * a.k_ss + c : K, ok);
+      }
+      for (int i = tid; i < BK * CHV; i += DEC_NT) {
+        const int r = i / CHV, c = (i % CHV) * VEC;
+        const bool ok = k0 + r < hi;
+        cp_async16(vs + r * LDV + c,
+                   ok ? V + (long long)(k0 + r) * a.v_ss + c : V, ok);
+      }
     }
   };
 
@@ -756,8 +807,8 @@ __global__ void __launch_bounds__(DEC_NT, 4) decode_kernel(Args a) {
     __syncthreads();  // the previous pass is done with the shared memory
     if (n_tiles > 0) load_kv(0);
     cp_async_commit();
-    for (int i = tid; i < DG * HD; i += DEC_NT) {
-      const int r = i / HD, d = i % HD;
+    for (int i = tid; i < DG * DQK; i += DEC_NT) {
+      const int r = i / DQK, d = i % DQK;
       Qs[r * QLD + d] =
           r < gn ? Elt<T>::one(Q + (long long)(hk * group + g0 + r) * a.q_sh +
                                d)
@@ -781,7 +832,7 @@ __global__ void __launch_bounds__(DEC_NT, 4) decode_kernel(Args a) {
       cp_async_wait<1>();
       __syncthreads();  // tile t (and the q rows) visible to every thread
       const T* ks = Ks + (t & 1) * Sh::TILE;
-      const T* vs = Vs + (t & 1) * Sh::TILE;
+      const T* vs = Vs + (t & 1) * Sh::TILE_V;
       const int kw = warp * 16;  // the warp's keys within the tile
       const bool valid = lo + t * BK + kw + kl < hi;
 
@@ -836,7 +887,7 @@ __global__ void __launch_bounds__(DEC_NT, 4) decode_kernel(Args a) {
       }
       __syncwarp();
 
-      if (col < HD) {
+      if (col < DV) {
 #pragma unroll
         for (int g = 0; g < DG; ++g)
           if (g < gn) {
@@ -847,7 +898,7 @@ __global__ void __launch_bounds__(DEC_NT, 4) decode_kernel(Args a) {
 #pragma unroll 4
         for (int kk = 0; kk < 16; ++kk) {
           float vf[DPL];
-          load_f32<T, DPL>(vs + (kw + kk) * LD + col, vf);
+          load_f32<T, DPL>(vs + (kw + kk) * LDV + col, vf);
 #pragma unroll
           for (int g = 0; g < DG; ++g)
             if (g < gn) {
@@ -870,19 +921,19 @@ __global__ void __launch_bounds__(DEC_NT, 4) decode_kernel(Args a) {
         Lw[warp * DG + hh + 2 * i] = ls[i];
       }
     }
-    if (col < HD) {
+    if (col < DV) {
 #pragma unroll
       for (int g = 0; g < DG; ++g)
         if (g < gn) {
 #pragma unroll
           for (int d = 0; d < DPL; ++d)
-            Acc[(warp * DG + g) * HD + col + d] = acc[g][d];
+            Acc[(warp * DG + g) * DV + col + d] = acc[g][d];
         }
     }
     __syncthreads();
     // the warps' (m, l, acc) merged into this split's partial per head
-    for (int i = tid; i < gn * HD; i += DEC_NT) {
-      const int g = i / HD, d = i % HD;
+    for (int i = tid; i < gn * DV; i += DEC_NT) {
+      const int g = i / DV, d = i % DV;
       float M = -INFINITY;
 #pragma unroll
       for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, Mw[w * DG + g]);
@@ -892,10 +943,10 @@ __global__ void __launch_bounds__(DEC_NT, 4) decode_kernel(Args a) {
       for (int w = 0; w < DEC_WARPS; ++w) {
         const float f = expf(Mw[w * DG + g] - base);
         L += f * Lw[w * DG + g];
-        A += f * Acc[(w * DG + g) * HD + d];
+        A += f * Acc[(w * DG + g) * DV + d];
       }
       float* P = a.part + (((long long)b * a.H + hk * group + g0 + g) *
-                               a.n_split + split) * (HD + 2);
+                               a.n_split + split) * (DV + 2);
       if (d == 0) {
         P[0] = M;
         P[1] = L;
@@ -907,17 +958,19 @@ __global__ void __launch_bounds__(DEC_NT, 4) decode_kernel(Args a) {
 
 // merges the n_split partials of each (b, h) into o, in q's dtype; one
 // block of DEC_NT threads per (b, h), n_split floats of dynamic shared
-// memory for the splits' weights
-template <typename T, int HD>
-__global__ void __launch_bounds__(DEC_NT) decode_combine_kernel(Args a) {
+// memory for the splits' weights.  SPARSE: a split with no valid key
+// wrote only its m = -inf and l = 0, so its accumulators (never written)
+// are skipped
+template <typename T, int DV, bool SPARSE = false, typename A = Args>
+__global__ void __launch_bounds__(DEC_NT) decode_combine_kernel(A a) {
   extern __shared__ float wts[];  // [n_split]
   __shared__ float red[DEC_WARPS];
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* P = a.part + (long long)bh * a.n_split * (HD + 2);
+  const float* P = a.part + (long long)bh * a.n_split * (DV + 2);
   float mx = -INFINITY;
   for (int s = tid; s < a.n_split; s += DEC_NT)
-    mx = fmaxf(mx, P[s * (HD + 2)]);
+    mx = fmaxf(mx, P[s * (DV + 2)]);
 #pragma unroll
   for (int sh = 16; sh > 0; sh >>= 1)
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
@@ -930,9 +983,9 @@ __global__ void __launch_bounds__(DEC_NT) decode_combine_kernel(Args a) {
   __syncthreads();  // red is reused for the row sum
   float lsum = 0.f;
   for (int s = tid; s < a.n_split; s += DEC_NT) {
-    const float w = expf(P[s * (HD + 2)] - base);
+    const float w = expf(P[s * (DV + 2)] - base);
     wts[s] = w;
-    lsum += w * P[s * (HD + 2) + 1];
+    lsum += w * P[s * (DV + 2) + 1];
   }
 #pragma unroll
   for (int sh = 16; sh > 0; sh >>= 1)
@@ -943,11 +996,294 @@ __global__ void __launch_bounds__(DEC_NT) decode_combine_kernel(Args a) {
 #pragma unroll
   for (int w = 0; w < DEC_WARPS; ++w) L += red[w];
   T* O = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
-  for (int d = tid; d < HD; d += DEC_NT) {
-    float A = 0.f;
+  for (int d = tid; d < DV; d += DEC_NT) {
+    float acc = 0.f;
+    if constexpr (SPARSE) {
+      for (int s = 0; s < a.n_split; ++s)
+        if (wts[s] != 0.f) acc += wts[s] * P[s * (DV + 2) + 2 + d];
+    } else {
 #pragma unroll 4
-    for (int s = 0; s < a.n_split; ++s) A += wts[s] * P[s * (HD + 2) + 2 + d];
-    O[d] = Elt<T>::out(L == 0.f ? 0.f : A / L);
+      for (int s = 0; s < a.n_split; ++s)
+        acc += wts[s] * P[s * (DV + 2) + 2 + d];
+    }
+    O[d] = Elt<T>::out(L == 0.f ? 0.f : acc / L);
+  }
+}
+
+// --------------------------------------------- MLA absorbed decode
+//
+// DeepSeek-V2's absorbed decode step (the JAX package's models/layers.py
+// mla_apply, MLA_ABSORBED_DECODE): every query head h scores the latent
+// cache directly,
+//
+//   s[b, h, k] = (q_abs[b, h] . kv_c[b, k] + q_pe[b, h] . k_pe[b, k]) * scale
+//   o[b, h]    = softmax_k(s) kv_c          (keys k < lens[b])
+//
+// with q / k rows of L + R = 512 + 64 = 576 and v rows of L = 512: one kv
+// head (the latent) shared by all H = 128 query heads.  kv_c (B, S, L) and
+// k_pe (B, S, R) are read in place through their own pointers and row
+// strides; the cache is never concatenated.  Grid (ceil(H / MLA_HG), B,
+// n_split), the key splits from ops.decode_splits(S, B, 1, SMs) as for
+// the decode form above; each block takes MLA_HG heads (where H is not a
+// multiple of MLA_HG, the TAIL instance: the last block's heads past H
+// score zero rows and write nothing) and its split in
+// tiles of MLA_KT keys, one [kv_c | k_pe] tile in shared memory (a
+// 2-stage cp.async ring in the cache's type) serving as K for the scores
+// and, its first L columns, as V.  Scores: the 8 warps split the 576 dims
+// in runs of 16-byte chunks, a lane holding a 4 heads x 4 keys register
+// tile, the partial sums added in shared memory; softmax: a warp takes 2
+// heads, a lane a key, online in f32; P V: a warp takes 64 output
+// columns, a lane 4 heads x 8 columns.  (L, R) = (512, 64) and the
+// reduced configs' (32, 8) are instantiated; at L = 32 one warp does the
+// P V.  Everything is FFMA in f32 on the inputs' values, as the plain
+// version computes.  Each block writes its heads' f32 partials (m, l,
+// acc[L]); a split with no valid key writes m = -inf, l = 0 only, and
+// decode_combine_kernel<..., SPARSE> merges the splits.  Bound: at B = 4
+// and a few thousand valid keys the FFMA work (2 H (L + R + L) flops a
+// key) outweighs the latent's bytes, and every head group re-reads its
+// tile (from L2, mostly): 8 passes over the latent for 128 heads.
+constexpr int MLA_HG = 16;               // query heads a block
+constexpr int MLA_KT = 32;               // keys a tile
+constexpr int MLA_WARPS = 8;
+constexpr int MLA_NT = 32 * MLA_WARPS;
+
+struct MlaArgs {
+  const void* q;    // q_abs (B, H, L), strides q_sb, q_sh
+  const void* qr;   // q_pe (B, H, R), strides qr_sb, qr_sh
+  const void* c;    // kv_c (B, S, L), strides c_sb, c_ss
+  const void* r;    // k_pe (B, S, R), strides r_sb, r_ss
+  void* o;          // (B, H, L), strides o_sb, o_sh
+  const int* lens;  // (B,) valid keys per row, or null (all Sk)
+  float* part;      // (B, H, n_split, L + 2) f32 partials
+  long long q_sb, q_sh, qr_sb, qr_sh, c_sb, c_ss, r_sb, r_ss, o_sb, o_sh;
+  int B, H, Sk, n_split, kps;
+  float scale;
+};
+
+template <typename T, int L, int R>
+struct MlaShape {
+  static constexpr int VEC = Elt<T>::VEC;
+  static constexpr int D = L + R;             // q / k row
+  static constexpr int LDK = D + VEC;         // padded tile row (576:
+                                              // an odd number of chunks)
+  static constexpr int CHL = L / VEC, CH = D / VEC;
+  static constexpr int TILE = MLA_KT * LDK;
+  static constexpr int QLD = D + 4;           // padded f32 q row
+  // 16-byte chunks of a warp's run of the scores' dims
+  static constexpr int CPW = (CH + MLA_WARPS - 1) / MLA_WARPS;
+  static constexpr size_t RING = 2 * (size_t)TILE * sizeof(T);
+  // the ring, q rows, the warps' partial scores, P, alpha per head
+  static constexpr size_t SMEM =
+      RING + (size_t)(MLA_HG * QLD + MLA_WARPS * MLA_HG * MLA_KT +
+                      MLA_KT * MLA_HG + MLA_HG) * sizeof(float);
+  static_assert(L % VEC == 0 && R % VEC == 0,
+                "latent and rope widths: whole 16-byte chunks");
+  static_assert(L % 32 == 0 && L <= MLA_WARPS * 64,
+                "P V: up to 64 output columns a warp, in runs of 32");
+  static_assert(MLA_HG == 16 && MLA_KT == 32, "4 x 4 score tiles a lane");
+};
+
+template <typename T, int L, int R, bool TAIL>
+__global__ void __launch_bounds__(MLA_NT, 1) mla_decode_kernel(MlaArgs a) {
+  using Sh = MlaShape<T, L, R>;
+  constexpr int VEC = Sh::VEC, D = Sh::D, LDK = Sh::LDK, CHL = Sh::CHL,
+                CH = Sh::CH, QLD = Sh::QLD, CPW = Sh::CPW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);                     // [2][KT][LDK]
+  float* Qs = reinterpret_cast<float*>(smem_raw + Sh::RING);  // [HG][QLD]
+  float* Sp = Qs + MLA_HG * QLD;             // [warp][HG][KT] partial scores
+  float* Ps = Sp + MLA_WARPS * MLA_HG * MLA_KT;               // [KT][HG]
+  float* Al = Ps + MLA_KT * MLA_HG;                           // [HG]
+
+  const int h0 = blockIdx.x * MLA_HG, b = blockIdx.y, split = blockIdx.z;
+  // this block's heads (a constant without TAIL: a head count held across
+  // the key loop cost the bf16 (512, 64) instance ~25 % on an H100)
+  const int nh = TAIL ? min(MLA_HG, a.H - h0) : MLA_HG;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kv_len = a.lens ? max(0, min(a.lens[b], a.Sk)) : a.Sk;
+  const int lo = split * a.kps;
+  const int hi = min(kv_len, split == a.n_split - 1 ? a.Sk : lo + a.kps);
+  const int n_tiles = hi > lo ? (hi - lo + MLA_KT - 1) / MLA_KT : 0;
+  // this block's partial of head h0 + i: part + i * head_stride
+  const long long head_stride = (long long)a.n_split * (L + 2);
+  float* part = a.part + ((long long)b * a.H + h0) * head_stride +
+                (long long)split * (L + 2);
+  if (n_tiles == 0) {  // no valid key: m = -inf, l = 0, no accumulators
+    if (tid < nh) {
+      part[tid * head_stride] = -INFINITY;
+      part[tid * head_stride + 1] = 0.f;
+    }
+    return;
+  }
+  const T* C = static_cast<const T*>(a.c) + b * a.c_sb;
+  const T* Rp = static_cast<const T*>(a.r) + b * a.r_sb;
+
+  // rows at or past hi are zero-filled (never read from the cache)
+  auto load_k = [&](int t) {
+    const int k0 = lo + t * MLA_KT;
+    T* ks = Ks + (t & 1) * Sh::TILE;
+    for (int i = tid; i < MLA_KT * CH; i += MLA_NT) {
+      const int r = i / CH, c = i % CH;
+      const bool ok = k0 + r < hi;
+      const T* src = c < CHL
+                         ? C + (long long)(k0 + r) * a.c_ss + c * VEC
+                         : Rp + (long long)(k0 + r) * a.r_ss + (c - CHL) * VEC;
+      cp_async16(ks + r * LDK + c * VEC, ok ? src : C, ok);
+    }
+  };
+  load_k(0);
+  cp_async_commit();
+  {  // this block's q rows [q_abs | q_pe], widened to f32
+    const T* Qa = static_cast<const T*>(a.q) + b * a.q_sb;
+    const T* Qr = static_cast<const T*>(a.qr) + b * a.qr_sb;
+    for (int i = tid; i < MLA_HG * D; i += MLA_NT) {
+      const int r = i / D, d = i % D;
+      Qs[r * QLD + d] =
+          r >= nh ? 0.f
+          : d < L ? Elt<T>::one(Qa + (long long)(h0 + r) * a.q_sh + d)
+                  : Elt<T>::one(Qr + (long long)(h0 + r) * a.qr_sh + d - L);
+    }
+  }
+
+  // scores: lane -> keys kr + 8j, heads g + 4i (j, i < 4) over the warp's
+  // dims; P V: lane -> heads 4 hg .. 4 hg + 3, columns warp * 64 + 32 u +
+  // 4 cg .. + 3 (u < 2)
+  const int kr = lane & 7, g = lane >> 3;
+  const int cg = lane & 7, hg = lane >> 3;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) load_k(t + 1);  // in flight while t is scored
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile t (and the q rows) visible to every thread
+    const T* ks = Ks + (t & 1) * Sh::TILE;
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    // a warp's run of CPW chunks, cut at CH where the warps do not split
+    // the chunks evenly (at 576 they do: the run is [warp, warp + 1) WD)
+    constexpr int WD = CPW * VEC;
+    const int d_end = CH % MLA_WARPS == 0 ? (warp + 1) * WD
+                                          : min(D, (warp + 1) * WD);
+#pragma unroll 2
+    for (int d0 = warp * WD; d0 < d_end; d0 += VEC) {
+      float kf[4][VEC];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint4 chunk =
+            *reinterpret_cast<const uint4*>(ks + (kr + 8 * j) * LDK + d0);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) kf[j][e] = Elt<T>::get(chunk, e);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* qr = Qs + (g + 4 * i) * QLD + d0;
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          const float4 q4 = *reinterpret_cast<const float4*>(qr + e);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(q4.x, kf[j][e], s[i][j]);
+            s[i][j] = fmaf(q4.y, kf[j][e + 1], s[i][j]);
+            s[i][j] = fmaf(q4.z, kf[j][e + 2], s[i][j]);
+            s[i][j] = fmaf(q4.w, kf[j][e + 3], s[i][j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        Sp[(warp * MLA_HG + g + 4 * i) * MLA_KT + kr + 8 * j] = s[i][j];
+    __syncthreads();
+
+    // the warps' partial scores summed, masked, online softmax per head
+    const bool valid = lo + t * MLA_KT + lane < hi;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int h = 2 * warp + u;
+      float x = 0.f;
+#pragma unroll
+      for (int w = 0; w < MLA_WARPS; ++w)
+        x += Sp[(w * MLA_HG + h) * MLA_KT + lane];
+      x = valid ? x * a.scale : -INFINITY;
+      const float mn = fmaxf(m[u], group_max<32>(x));
+      const float base = mn == -INFINITY ? 0.f : mn;
+      const float p = expf(x - base);
+      const float alpha = expf(m[u] - base);
+      l[u] = alpha * l[u] + group_sum<32>(p);
+      m[u] = mn;
+      Ps[lane * MLA_HG + h] = p;
+      if (lane == 0) Al[h] = alpha;
+    }
+    __syncthreads();
+
+    // O += P V over the tile's first L columns (the warps past L idle)
+    if (L == MLA_WARPS * 64 || warp * 64 < L) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float al = Al[4 * hg + i];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] *= al;
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < MLA_KT; ++kk) {
+        const float4 p4 =
+            *reinterpret_cast<const float4*>(Ps + kk * MLA_HG + 4 * hg);
+        const float pa[4] = {p4.x, p4.y, p4.z, p4.w};
+        float vf[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          if (L % 64 == 0 || warp * 64 + u * 32 < L)
+            load_f32<T, 4>(ks + kk * LDK + warp * 64 + u * 32 + cg * 4,
+                           vf[u]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            if (L % 64 == 0 || warp * 64 + u * 32 < L)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[i][u * 4 + e] = fmaf(pa[i], vf[u][e], acc[i][u * 4 + e]);
+      }
+    }
+    __syncthreads();  // stage t & 1, the partial scores, P, alpha free
+  }
+
+  // this split's partials of the block's heads below H: m, l of the
+  // warp's softmax heads; acc of the lane's heads and columns (8-byte
+  // stores: a record is L + 2 floats)
+  if (lane == 0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (2 * warp + u < nh) {
+        part[(2 * warp + u) * head_stride] = m[u];
+        part[(2 * warp + u) * head_stride + 1] = l[u];
+      }
+  }
+  if (L < MLA_WARPS * 64 && warp * 64 >= L) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (4 * hg + i >= nh) continue;
+    float* row = part + (4 * hg + i) * head_stride + 2 + warp * 64 + cg * 4;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (L % 64 == 0 || warp * 64 + u * 32 < L) {
+        *reinterpret_cast<float2*>(row + u * 32) =
+            make_float2(acc[i][u * 4], acc[i][u * 4 + 1]);
+        *reinterpret_cast<float2*>(row + u * 32 + 2) =
+            make_float2(acc[i][u * 4 + 2], acc[i][u * 4 + 3]);
+      }
   }
 }
 
@@ -963,79 +1299,125 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
       (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <typename T, int HD>
+template <typename T, int DQK, int DV>
 cudaError_t launch_decode(const Args& a, cudaStream_t stream) {
   if (a.part == nullptr || a.n_split < 1 || a.kps < 1 || a.B > 65535 ||
       a.n_split > 65535)
     return cudaErrorInvalidValue;
-  constexpr size_t smem = DecShape<T, HD>::SMEM;
+  constexpr size_t smem = DecShape<T, DQK, DV>::SMEM;
   static bool sized = false;
   if (!sized) {
-    cudaError_t e = allow_smem(decode_kernel<T, HD>, smem);
+    cudaError_t e = allow_smem(decode_kernel<T, DQK, DV>, smem);
     if (e != cudaSuccess) return e;
     sized = true;
   }
-  decode_kernel<T, HD>
+  decode_kernel<T, DQK, DV>
       <<<dim3(a.Hkv, a.B, a.n_split), DEC_NT, smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  decode_combine_kernel<T, HD><<<a.B * a.H, DEC_NT,
+  decode_combine_kernel<T, DV><<<a.B * a.H, DEC_NT,
                                  a.n_split * sizeof(float), stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int DQK, int DV>
 cudaError_t launch_prefill(const Args& a, cudaStream_t stream) {
   if (a.B > 65535) return cudaErrorInvalidConfiguration;
   if constexpr (sizeof(T) == 4) {  // f32: the FFMA body
     constexpr size_t smem =
-        (HD * BQ + 2 * HD * BK + BQ * (BK + 4)) * sizeof(float);
+        (DQK * BQ + DQK * BK + DV * BK + BQ * (BK + 4)) * sizeof(float);
     static bool sized = false;
     if (!sized) {
-      cudaError_t e = allow_smem(prefill_kernel<T, HD>, smem);
+      cudaError_t e = allow_smem(prefill_kernel<T, DQK, DV>, smem);
       if (e != cudaSuccess) return e;
       sized = true;
     }
-    prefill_kernel<T, HD>
+    prefill_kernel<T, DQK, DV>
         <<<dim3((a.Sq + BQ - 1) / BQ, a.H, a.B), NT, smem, stream>>>(a);
   } else {
     const dim3 grid(a.H, (a.Sq + BQ - 1) / BQ, a.B);
     if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-    constexpr size_t smem = TcShape<T, HD>::SMEM;
+    constexpr size_t smem = TcShape<T, DQK, DV>::SMEM;
     static bool sized = false;
     if (!sized) {
-      cudaError_t e = allow_smem(prefill_tc_kernel<T, HD>, smem);
+      cudaError_t e = allow_smem(prefill_tc_kernel<T, DQK, DV>, smem);
       if (e != cudaSuccess) return e;
       sized = true;
     }
-    prefill_tc_kernel<T, HD><<<grid, TC_NT, smem, stream>>>(a);
+    prefill_tc_kernel<T, DQK, DV><<<grid, TC_NT, smem, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const Args& a, int decode, cudaStream_t s) {
-  return decode ? launch_decode<T, HD>(a, s) : launch_prefill<T, HD>(a, s);
+  return decode ? launch_decode<T, DQK, DV>(a, s)
+                : launch_prefill<T, DQK, DV>(a, s);
 }
 
+// the (q / k, v) head dims the library is instantiated for
 template <typename T>
-cudaError_t launch_hd(const Args& a, int hd, int decode, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<T, 16>(a, decode, s);
-    case 64: return launch<T, 64>(a, decode, s);
-    case 112: return launch<T, 112>(a, decode, s);
-    case 128: return launch<T, 128>(a, decode, s);
+cudaError_t launch_hd(const Args& a, int hd, int dv, int decode,
+                      cudaStream_t s) {
+  if (hd == dv) {
+    switch (hd) {
+      case 16: return launch<T, 16, 16>(a, decode, s);
+      case 64: return launch<T, 64, 64>(a, decode, s);
+      case 112: return launch<T, 112, 112>(a, decode, s);
+      case 128: return launch<T, 128, 128>(a, decode, s);
+    }
+  } else if (hd == 192 && dv == 128) {  // MLA: [q_nope | q_pe], v
+    return launch<T, 192, 128>(a, decode, s);
+  } else if (hd == 24 && dv == 16) {  // the reduced configs' MLA
+    return launch<T, 24, 16>(a, decode, s);
   }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int L, int R, bool TAIL>
+cudaError_t launch_mla(const MlaArgs& a, cudaStream_t s) {
+  if (a.part == nullptr || a.n_split < 1 || a.kps < 1 || a.B > 65535 ||
+      a.n_split > 65535)
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = MlaShape<T, L, R>::SMEM;
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t e = allow_smem(mla_decode_kernel<T, L, R, TAIL>, smem);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  mla_decode_kernel<T, L, R, TAIL><<<dim3((a.H + MLA_HG - 1) / MLA_HG, a.B,
+                                          a.n_split), MLA_NT, smem, s>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  decode_combine_kernel<T, L, true, MlaArgs>
+      <<<a.B * a.H, DEC_NT, a.n_split * sizeof(float), s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int L, int R>
+cudaError_t launch_mla_heads(const MlaArgs& a, cudaStream_t s) {
+  return a.H % MLA_HG == 0 ? launch_mla<T, L, R, false>(a, s)
+                           : launch_mla<T, L, R, true>(a, s);
+}
+
+// the (latent, rope) widths the MLA decode is instantiated for
+template <typename T>
+cudaError_t launch_mla_dims(const MlaArgs& a, int l, int r, cudaStream_t s) {
+  if (l == 512 && r == 64)  // DeepSeek-V2
+    return launch_mla_heads<T, 512, 64>(a, s);
+  if (l == 32 && r == 8)  // the reduced configs
+    return launch_mla_heads<T, 32, 8>(a, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dims: B H Hkv Sq Sk hd causal, the (batch, head, position) strides of
-// q, k, v and o in elements, then n_split and keys per split (decode).
-// dtype: 0 f32, 1 bf16, 2 f16.  part: the decode form's f32 scratch,
-// B * H * n_split * (hd + 2) floats (null for prefill).  Returns the
-// launch's cudaError_t (0 on success).
+// dims: B H Hkv Sq Sk hd dv causal, the (batch, head, position) strides of
+// q, k, v and o in elements, then n_split and keys per split (decode); hd
+// is q's and k's head dim, dv v's and o's.  dtype: 0 f32, 1 bf16, 2 f16.
+// part: the decode form's f32 scratch, B * H * n_split * (dv + 2) floats
+// (null for prefill).  Returns the launch's cudaError_t (0 on success).
 extern "C" int disc_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, const int* lens,
                                     const int* q_offset,
@@ -1056,29 +1438,75 @@ extern "C" int disc_flash_attention(const void* q, const void* k,
   a.Sq = (int)dims[3];
   a.Sk = (int)dims[4];
   const int hd = (int)dims[5];
-  a.causal = (int)dims[6];
-  a.q_sb = dims[7];
-  a.q_sh = dims[8];
-  a.q_ss = dims[9];
-  a.k_sb = dims[10];
-  a.k_sh = dims[11];
-  a.k_ss = dims[12];
-  a.v_sb = dims[13];
-  a.v_sh = dims[14];
-  a.v_ss = dims[15];
-  a.o_sb = dims[16];
-  a.o_sh = dims[17];
-  a.o_ss = dims[18];
-  a.n_split = (int)dims[19];
-  a.kps = (int)dims[20];
+  const int dv = (int)dims[6];
+  a.causal = (int)dims[7];
+  a.q_sb = dims[8];
+  a.q_sh = dims[9];
+  a.q_ss = dims[10];
+  a.k_sb = dims[11];
+  a.k_sh = dims[12];
+  a.k_ss = dims[13];
+  a.v_sb = dims[14];
+  a.v_sh = dims[15];
+  a.v_ss = dims[16];
+  a.o_sb = dims[17];
+  a.o_sh = dims[18];
+  a.o_ss = dims[19];
+  a.n_split = (int)dims[20];
+  a.kps = (int)dims[21];
   a.scale = scale;
   if (a.B == 0 || a.Sq == 0 || a.H == 0) return 0;
   if (a.Hkv <= 0 || a.H % a.Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_hd<float>(a, hd, decode, s);
-    case 1: return (int)launch_hd<__nv_bfloat16>(a, hd, decode, s);
-    case 2: return (int)launch_hd<__half>(a, hd, decode, s);
+    case 0: return (int)launch_hd<float>(a, hd, dv, decode, s);
+    case 1: return (int)launch_hd<__nv_bfloat16>(a, hd, dv, decode, s);
+    case 2: return (int)launch_hd<__half>(a, hd, dv, decode, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The MLA absorbed decode.  dims: B H Sk L R, the (batch, head) strides of
+// q_abs, q_pe and o and the (batch, position) strides of kv_c and k_pe in
+// elements, then n_split and keys per split.  dtype: 0 f32, 1 bf16, 2
+// f16 (every input and o).  part: B * H * n_split * (L + 2) floats.
+extern "C" int disc_mla_decode(const void* q_abs, const void* q_pe,
+                               const void* kv_c, const void* k_pe, void* o,
+                               const int* lens, const long long* dims,
+                               float scale, int dtype, void* part,
+                               void* stream) {
+  MlaArgs a;
+  a.q = q_abs;
+  a.qr = q_pe;
+  a.c = kv_c;
+  a.r = k_pe;
+  a.o = o;
+  a.lens = lens;
+  a.part = static_cast<float*>(part);
+  a.B = (int)dims[0];
+  a.H = (int)dims[1];
+  a.Sk = (int)dims[2];
+  const int l = (int)dims[3];
+  const int r = (int)dims[4];
+  a.q_sb = dims[5];
+  a.q_sh = dims[6];
+  a.qr_sb = dims[7];
+  a.qr_sh = dims[8];
+  a.c_sb = dims[9];
+  a.c_ss = dims[10];
+  a.r_sb = dims[11];
+  a.r_ss = dims[12];
+  a.o_sb = dims[13];
+  a.o_sh = dims[14];
+  a.n_split = (int)dims[15];
+  a.kps = (int)dims[16];
+  a.scale = scale;
+  if (a.B == 0 || a.H == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return (int)launch_mla_dims<float>(a, l, r, s);
+    case 1: return (int)launch_mla_dims<__nv_bfloat16>(a, l, r, s);
+    case 2: return (int)launch_mla_dims<__half>(a, l, r, s);
   }
   return (int)cudaErrorInvalidValue;
 }

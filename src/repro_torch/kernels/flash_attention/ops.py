@@ -8,6 +8,12 @@ inside :func:`~repro_torch.kernels.select.plain_versions`, runs the plain
 version (``ref.sdpa_ref``: the reference ``_sdpa``'s dense form, or its
 online-softmax chunked form for long queries).  There is no fallback: a
 kernel that fails to build or launch raises.
+
+:func:`flash_attention` also takes v wider or narrower than q / k and an
+explicit ``scale`` (MLA's prefill: q/k 192, v 128, ``1 / sqrt(192)``);
+:func:`mla_decode` is MLA's absorbed decode against the latent cache
+(plain version ``ref.mla_decode_ref``).  Every launch of either counts
+in :data:`LAUNCHES`; :data:`FORM_LAUNCHES` counts the MLA forms apart.
 """
 from __future__ import annotations
 
@@ -18,12 +24,17 @@ import torch
 from ..select import use_kernel
 from ..triton_build import LaunchCounter
 from .flash_attention import BLOCK_K, BLOCK_Q
-from .ref import sdpa_ref
+from .ref import mla_decode_ref, sdpa_ref
 
-__all__ = ["flash_attention", "flash_decode", "decode_splits", "LAUNCHES"]
+__all__ = ["flash_attention", "flash_decode", "mla_decode", "decode_splits",
+           "LAUNCHES", "FORM_LAUNCHES"]
 
-#: launches of the flash-attention kernel (both forms) on the card
+#: launches of the flash-attention kernel (every form) on the card
 LAUNCHES = LaunchCounter()
+#: of those, the MLA forms': ``"mla"`` the instances with v narrower than
+#: q / k, (192, 128) and the reduced (24, 16) (prefill, chunks, expanded
+#: decode), ``"mla_decode"`` the absorbed decode
+FORM_LAUNCHES = {"mla": LaunchCounter(), "mla_decode": LaunchCounter()}
 
 
 def _pick_blocks(sq: int, sk: int, causal: bool) -> Tuple[int, int]:
@@ -66,18 +77,40 @@ def decode_splits(sk: int, b: int, hkv: int, n_sm: int) -> Tuple[int, int]:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lens: Optional[torch.Tensor] = None, *,
                     causal: bool = True,
-                    q_offset: Union[int, torch.Tensor] = 0) -> torch.Tensor:
-    """q (B,H,Sq,D) x kv (B,Hkv,Sk,D), per-row valid kv ``lens`` and, when
-    ``causal``, per-row query offsets: key ``k`` is visible to query ``i``
-    of row ``b`` when ``k <= q_offset[b] + i``."""
+                    q_offset: Union[int, torch.Tensor] = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,H,Sq,D) x k (B,Hkv,Sk,D), v (B,Hkv,Sk,Dv), per-row valid kv
+    ``lens`` and, when ``causal``, per-row query offsets: key ``k`` is
+    visible to query ``i`` of row ``b`` when ``k <= q_offset[b] + i``.
+    ``scale`` defaults to ``1 / sqrt(D)``."""
     if not use_kernel(q, "flash_attention"):
-        return sdpa_ref(q, k, v, causal=causal, lens=lens, q_offset=q_offset)
+        return sdpa_ref(q, k, v, causal=causal, lens=lens, q_offset=q_offset,
+                        scale=scale)
     from .flash_attention import flash_attention_kernel
 
     block_q, _ = _pick_blocks(q.shape[2], k.shape[2], causal)
     out = flash_attention_kernel(q, k, v, lens, q_offset, causal=causal,
-                                 decode=block_q == 1)
+                                 decode=block_q == 1, scale=scale)
     LAUNCHES.launches += 1
+    if q.shape[-1] != v.shape[-1]:
+        FORM_LAUNCHES["mla"].launches += 1
+    return out
+
+
+def mla_decode(q_abs: torch.Tensor, q_pe: torch.Tensor, kv_c: torch.Tensor,
+               k_pe: torch.Tensor, lens: Optional[torch.Tensor],
+               scale: float) -> torch.Tensor:
+    """MLA's absorbed decode step: q_abs (B,1,H,L) and q_pe (B,1,H,R)
+    against the latent cache kv_c (B,S,L) and k_pe (B,S,R), keys ``<
+    lens[b]`` valid -> (B,1,H,L).  On the card one launch of the kernel's
+    MLA decode form, which reads both cache leaves in place."""
+    if not use_kernel(q_abs, "mla_decode"):
+        return mla_decode_ref(q_abs, q_pe, kv_c, k_pe, lens, scale)
+    from .flash_attention import mla_decode_kernel
+
+    out = mla_decode_kernel(q_abs, q_pe, kv_c, k_pe, lens, scale)
+    LAUNCHES.launches += 1
+    FORM_LAUNCHES["mla_decode"].launches += 1
     return out
 
 

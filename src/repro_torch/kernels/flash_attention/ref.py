@@ -11,6 +11,11 @@ flash_attention.py:86-90``); on the serve path no row is (key 0 is always
 valid there), so this agrees with the reference's ``_sdpa`` wherever it
 runs.  The dense form is written with ``dot_general`` so that the DHLO
 bridge traces it into the reference's plan.
+
+v's head dim may differ from q's and k's (MLA's prefill: q/k 192, v
+128), and ``scale`` (default ``1 / sqrt(q's head dim)``) may be given.
+:func:`mla_decode_ref` is MLA's absorbed decode (the reference's
+``mla_apply`` with ``MLA_ABSORBED_DECODE``) against the latent cache.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import torch
 from ...core.primitives import dot_general
 
 __all__ = ["CHUNK_THRESHOLD", "pick_chunk", "q_positions", "sdpa_dense_ref",
-           "sdpa_chunked_ref", "sdpa_ref"]
+           "sdpa_chunked_ref", "sdpa_ref", "mla_decode_ref"]
 
 CHUNK_THRESHOLD = 2048  # beyond this, scores are never materialized
 _NEG = -1e30
@@ -51,13 +56,13 @@ def _zero_empty_rows(o: torch.Tensor, lens: Optional[torch.Tensor]):
 
 
 def sdpa_dense_ref(q, k, v, *, causal: bool, lens: Optional[torch.Tensor],
-                   q_offset=0) -> torch.Tensor:
-    """q (B,H,Sq,hd) x k,v (B,Hkv,Sk,hd) -> (B,H,Sq,hd); f32 softmax over
-    the whole (Sq, Sk) score matrix."""
+                   q_offset=0, scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,H,Sq,hd) x k (B,Hkv,Sk,hd), v (B,Hkv,Sk,dv) -> (B,H,Sq,dv); f32
+    softmax over the whole (Sq, Sk) score matrix."""
     b, h, sq, hd = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = h // hkv
-    qf = q.float() / math.sqrt(hd)
+    qf = q.float() / math.sqrt(hd) if scale is None else q.float() * scale
     # grouped contraction without materializing repeated K/V
     qg = qf.reshape(b, hkv, group, sq, hd)
     s = dot_general(qg, k.float(), (((4,), (3,)), ((0, 1), (0, 1))))
@@ -79,7 +84,7 @@ def sdpa_chunked_ref(q, k, v, *, causal: bool, lens, q_offset,
                      scale: Optional[float] = None) -> torch.Tensor:
     """FlashAttention-style online softmax over (query chunk, key chunk)
     pairs, for shapes whose full (Sq, Sk) score matrix must never exist.
-    q (B,H,Sq,hd) x k,v (B,Hkv,Sk,hd) -> (B,H,Sq,dv)."""
+    q (B,H,Sq,hd) x k (B,Hkv,Sk,hd), v (B,Hkv,Sk,dv) -> (B,H,Sq,dv)."""
     b, h, sq, hd = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -122,12 +127,36 @@ def sdpa_chunked_ref(q, k, v, *, causal: bool, lens, q_offset,
 
 
 def sdpa_ref(q, k, v, *, causal: bool, lens: Optional[torch.Tensor],
-             q_offset=0) -> torch.Tensor:
+             q_offset=0, scale: Optional[float] = None) -> torch.Tensor:
     """The reference's ``_sdpa``: the dense form, or the chunked one for
-    long queries or very long caches."""
+    long queries or very long caches (the switch of its ``mla_apply``
+    too)."""
     sq, sk = q.shape[2], k.shape[2]
     if sq >= CHUNK_THRESHOLD or sk > 4 * CHUNK_THRESHOLD:
         return sdpa_chunked_ref(q, k, v, causal=causal, lens=lens,
-                                q_offset=q_offset)
+                                q_offset=q_offset, scale=scale)
     return sdpa_dense_ref(q, k, v, causal=causal, lens=lens,
-                          q_offset=q_offset)
+                          q_offset=q_offset, scale=scale)
+
+
+def mla_decode_ref(q_abs, q_pe, kv_c, k_pe, lens: Optional[torch.Tensor],
+                   scale: float) -> torch.Tensor:
+    """MLA's absorbed decode (the reference's ``mla_apply`` at
+    ``MLA_ABSORBED_DECODE``, ``models/layers.py:402-421``) in f32: q_abs
+    (B,1,H,L) and q_pe (B,1,H,R) against the latent cache kv_c (B,S,L)
+    and its rope keys k_pe (B,S,R): scores ``(q_abs . kv_c + q_pe . k_pe)
+    * scale``, keys ``>= lens[b]`` masked, softmax, ``P kv_c`` ->
+    (B,1,H,L) in q_abs's dtype.  A row with no valid key gives 0."""
+    s = torch.einsum("bqhl,bsl->bhqs", q_abs.float(), kv_c.float()) \
+        + torch.einsum("bqhd,bsd->bhqs", q_pe.float(), k_pe.float())
+    s = s * scale
+    if lens is not None:
+        k_idx = torch.arange(kv_c.shape[1], device=kv_c.device)
+        s = torch.where(k_idx[None, None, None, :]
+                        < lens[:, None, None, None], s, _NEG)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    o = torch.einsum("bhqs,bsl->bqhl", p, kv_c.float())
+    if lens is not None:
+        o = torch.where((lens > 0)[:, None, None, None], o, 0.0)
+    return o.to(q_abs.dtype)

@@ -11,14 +11,16 @@
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b \\
         --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek_v2_236b --reduced
 
 Weights are random, drawn from a seeded ``torch.Generator``; requests
 come from :class:`~repro_torch.data.pipeline.VarLenRequestStream`.  The
-model, its cache (KV rows, recurrent state, or both for the hybrid) and
-every kernel run on the card unless ``--device cpu`` is given.  A model
-whose weights do not fit the card (DBRX at its 40 layers: 263 GB in bf16)
-is refused before anything is allocated; it waits for the multi-GPU
-slice.
+model, its cache (KV rows, recurrent state, MLA's latent, or both for the
+hybrid) and every kernel run on the card unless ``--device cpu`` is
+given.  A model whose weights do not fit the card (DBRX at its 40
+layers: 263 GB in bf16; DeepSeek-V2 at its 60: 483 GB) is refused before
+anything is allocated; it waits for the multi-GPU slice.
 """
 import argparse
 import dataclasses

@@ -13,9 +13,10 @@ on the JAX side — the port never imports JAX) and returns the port's tree
 on ``device``, leaf for leaf, so both packages compute the same function.
 :func:`cache_from_numpy` does the same for a cache, whose leaves both
 packages keep layer-stacked: the dense KV cache ``{"k", "v"}`` of
-(L, B, Hkv, S, hd) leaves, RWKV's nested state ``{"tmix": {"s",
-"x_prev"}, "cmix_x"}``, or Zamba2's ``{"mamba": {"h"}, "attn": {"k",
-"v"}}``.
+(L, B, Hkv, S, hd) leaves, MLA's latent cache ``{"kv_c", "k_pe"}`` of
+(L, B, S, kv_lora) and (L, B, S, rope) leaves, RWKV's nested state
+``{"tmix": {"s", "x_prev"}, "cmix_x"}``, or Zamba2's ``{"mamba": {"h"},
+"attn": {"k", "v"}}``.
 
 Like ``disc_torch.compile``, both functions put their tensors on the card
 unless the caller passes ``device="cpu"``, and raise

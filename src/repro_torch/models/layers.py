@@ -1,12 +1,13 @@
 """Model-zoo layers on the compiled path (PyTorch, single device).
 
 The counterparts of the JAX package's ``models/layers.py`` functions that
-a dense transformer, DBRX's MoE, RWKV-6, Zamba2 and whisper run:
-RMS/LayerNorm, RoPE, grouped-query attention (full, batched prefill
-against a KV cache, decode, and whisper's cross-attention), the
-(Swi)GLU or GELU MLP, the routed MoE, the RWKV-6 time mix and
-the Mamba-2 block.  Each is a plain function of tensors with the
-reference's name and argument order.
+a dense transformer, DBRX's and DeepSeek-V2's MoE, RWKV-6, Zamba2 and
+whisper run: RMS/LayerNorm, RoPE, grouped-query attention (full, batched
+prefill against a KV cache, decode, and whisper's cross-attention),
+DeepSeek-V2's multi-head latent attention (MLA; the same modes, its
+decode absorbed into the latent cache), the (Swi)GLU or GELU MLP, the
+routed MoE, the RWKV-6 time mix and the Mamba-2 block.  Each is a plain
+function of tensors with the reference's name and argument order.
 
 Attention, both norms, the MoE router's softmax, the WKV recurrence and
 the SSD scan go through their kernels' wrappers
@@ -23,6 +24,7 @@ contractions, ``mean`` + ``rsqrt`` norms, explicit softmax).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -41,7 +43,8 @@ from .common import ArchConfig, dtype_of, param_init
 Params = Dict[str, Any]
 
 __all__ = ["norm_init", "norm_apply", "rope_tables", "apply_rope",
-           "attn_init", "attn_apply", "attn_cache_init", "mlp_init",
+           "attn_init", "attn_apply", "attn_cache_init", "MLA_ABSORBED_DECODE",
+           "mla_init", "mla_apply", "mla_cache_init", "mlp_init",
            "mlp_apply", "moe_init", "moe_apply", "rwkv6_init",
            "rwkv6_apply", "rwkv6_cache_init",
            "mamba2_init", "mamba2_apply", "mamba2_cache_init",
@@ -186,6 +189,123 @@ def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int,
                              device=device),
             "v": torch.zeros((batch, hkv, max_len, hd), dtype=dt,
                              device=device)}
+
+
+# ------------------------------------------------------ MLA (deepseek) --
+#: the decode step's attention against the latent cache (``True``), or the
+#: expansion path's, as a prefill takes (the reference's switch)
+MLA_ABSORBED_DECODE = True
+
+
+def mla_init(generator: torch.Generator, cfg: ArchConfig, device) -> Params:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    lora, rdim = cfg.mla_kv_lora, cfg.mla_rope_dim
+    dt = dtype_of(cfg)
+    return {
+        "wq": param_init(generator, (d, h * (hd + rdim)), dt, device),
+        "w_dkv": param_init(generator, (d, lora), dt, device),
+        "w_kpe": param_init(generator, (d, rdim), dt, device),
+        "w_uk": param_init(generator, (lora, h * hd), dt, device),
+        "w_uv": param_init(generator, (lora, h * hd), dt, device),
+        "wo": param_init(generator, (h * hd, d), dt, device),
+    }
+
+
+def mla_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
+              positions: torch.Tensor, lens=None, cache=None,
+              offsets: Optional[torch.Tensor] = None):
+    """Multi-head latent attention: the cache holds the compressed kv
+    ``{"kv_c": (B, S, lora), "k_pe": (B, S, rope)}``.
+
+    The modes of :func:`attn_apply`: no cache (causal, keys ``< lens``);
+    ``cache`` + ``offsets``, batched prefill (the chunk's compressed K/V
+    scattered to absolute positions, then causal attention against the
+    whole cache at absolute positions through the expansion path); and
+    ``cache`` alone, a decode step (x (B, 1, D), written at ``lens``).
+    The expansion path builds per-head keys ``[k_nope | k_pe]`` (192
+    wide) and values (128) from the latent and runs the flash-attention
+    kernel at scale ``1 / sqrt(hd + rope)``.  A decode step with
+    :data:`MLA_ABSORBED_DECODE` folds ``W_uk`` into the query and ``W_uv``
+    into the output, so its attention (``ops.mla_decode``: one kernel
+    launch) reads the latent cache in place, in f32 in an f32 model (the
+    reference rounds ``q_abs`` and the latent to bf16 there; ROADMAP Queue
+    3); without the flag it takes the expansion path."""
+    b, s, d = x.shape
+    h, hd, rdim = cfg.n_heads, cfg.hd, cfg.mla_rope_dim
+    q = (x @ p["wq"]).reshape(b, s, h, hd + rdim)
+    q_nope, q_pe = q[..., :hd], q[..., hd:]
+    kv_c = x @ p["w_dkv"]                         # (B, S, lora)
+    k_pe = (x @ p["w_kpe"]).reshape(b, s, 1, rdim)
+    cos, sin = rope_tables(positions, rdim, cfg.rope_theta)
+    q_pe = apply_rope(q_pe, cos, sin)
+    k_pe = apply_rope(k_pe, cos, sin)[..., 0, :]  # (B, S, rope)
+    new_cache = None
+    if cache is not None and offsets is not None:
+        # batched prefill: scatter the chunk's compressed K/V to absolute
+        # positions [offset, offset+len) per row (padded positions are
+        # never written), then attend causally at absolute positions
+        lc = cache["kv_c"].shape[1]
+        j = torch.arange(lc, device=x.device)[None, :] - offsets[:, None]
+        written = ((j >= 0) & (j < lens[:, None]))[:, :, None]
+        jc = j.clamp(0, s - 1)[:, :, None]
+        kv_al = torch.gather(kv_c, 1, jc.expand(b, lc, kv_c.shape[-1]))
+        kpe_al = torch.gather(k_pe, 1, jc.expand(b, lc, rdim))
+        kv_all = torch.where(written, kv_al.to(cache["kv_c"].dtype),
+                             cache["kv_c"])
+        kpe_all = torch.where(written, kpe_al.to(cache["k_pe"].dtype),
+                              cache["k_pe"])
+        new_cache = {"kv_c": kv_all, "k_pe": kpe_all}
+        eff_lens, causal = None, True
+    elif cache is not None:
+        pos = torch.arange(cache["kv_c"].shape[1], device=x.device)
+        write = (pos[None, :] == lens[:, None])[:, :, None]
+        kv_all = torch.where(write, kv_c.to(cache["kv_c"].dtype),
+                             cache["kv_c"])
+        kpe_all = torch.where(write, k_pe.to(cache["k_pe"].dtype),
+                              cache["k_pe"])
+        new_cache = {"kv_c": kv_all, "k_pe": kpe_all}
+        eff_lens, causal = lens + 1, False
+    else:
+        kv_all, kpe_all = kv_c, k_pe
+        eff_lens, causal = lens, True
+    scale = 1.0 / math.sqrt(hd + rdim)
+    if cache is not None and offsets is None and s == 1 \
+            and MLA_ABSORBED_DECODE:
+        lora = cfg.mla_kv_lora
+        w_uk = p["w_uk"].reshape(lora, h, hd)
+        w_uv = p["w_uv"].reshape(lora, h, hd)
+        q_abs = torch.einsum("bqhd,lhd->bqhl", q_nope.float(),
+                             w_uk.float())           # (B, 1, H, lora)
+        dt = kv_all.dtype
+        o_lat = fa_ops.mla_decode(q_abs.to(dt), q_pe.to(dt), kv_all,
+                                  kpe_all, eff_lens, scale)
+        o = torch.einsum("bqhl,lhd->bqhd", o_lat.float(), w_uv.float())
+        return o.reshape(b, s, h * hd).to(x.dtype) @ p["wo"], new_cache
+
+    # prefill / train / expanded decode: per-head keys and values from the
+    # latent, the rope part folded into the head dim: scores =
+    # [q_nope | q_pe] . [k_nope | k_pe]
+    sk = kv_all.shape[1]
+    k_nope = (kv_all @ p["w_uk"]).reshape(b, sk, h, hd)
+    v = (kv_all @ p["w_uv"]).reshape(b, sk, h, hd)
+    q_eff = torch.cat([q_nope, q_pe], dim=-1)      # (B, S, H, hd + rope)
+    k_eff = torch.cat([k_nope, kpe_all[:, :, None, :].expand(
+        b, sk, h, rdim).to(k_nope.dtype)], dim=-1)
+    o = fa_ops.flash_attention(
+        q_eff.transpose(1, 2), k_eff.transpose(1, 2), v.transpose(1, 2),
+        eff_lens, causal=causal, q_offset=0 if offsets is None else offsets,
+        scale=scale)
+    o = o.transpose(1, 2).reshape(b, s, h * hd).to(x.dtype)
+    return o @ p["wo"], new_cache
+
+
+def mla_cache_init(cfg: ArchConfig, batch: int, max_len: int,
+                   device) -> Params:
+    dt = dtype_of(cfg)
+    return {"kv_c": torch.zeros((batch, max_len, cfg.mla_kv_lora), dtype=dt,
+                                device=device),
+            "k_pe": torch.zeros((batch, max_len, cfg.mla_rope_dim),
+                                dtype=dt, device=device)}
 
 
 # ------------------------------------------------------------------ mlp --

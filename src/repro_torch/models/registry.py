@@ -1,6 +1,7 @@
 """Model registry: family -> (init / forward / cache / prefill / decode)
 bundle, the counterpart of the JAX package's ``models/registry.py`` for
-the dense, MoE (``"moe"``, DBRX: the transformer with routed experts),
+the dense, MoE (``"moe"``, DBRX and DeepSeek-V2: the transformer with
+routed experts, DeepSeek-V2's attention MLA over a latent cache),
 vision-language (``"vlm"``, llava: the transformer with image-token
 prefixes), recurrent (``"ssm"``, RWKV-6), hybrid (``"hybrid"``, Zamba2)
 and encoder-decoder (``"encdec"``, whisper) families.

@@ -14,8 +14,10 @@ and the compiled function starts from hidden states
 (:func:`decoder_logits`).  The serve path (:func:`prefill`,
 :func:`decode_step`) runs whole, on the jit pipeline.
 
-The KV cache keeps the reference's layout: a dict of layer-stacked leaves
-``{"k", "v"}`` of shape (L, B, Hkv, S, hd) (:func:`init_cache`).
+The KV cache keeps the reference's layouts (:func:`init_cache`): a dict
+of layer-stacked leaves ``{"k", "v"}`` of shape (L, B, Hkv, S, hd), or,
+where the config has MLA (``cfg.mla_kv_lora``: DeepSeek-V2), the latent
+cache ``{"kv_c": (L, B, S, kv_lora), "k_pe": (L, B, S, rope)}``.
 """
 from __future__ import annotations
 
@@ -36,8 +38,9 @@ __all__ = ["block_init", "block_apply", "init", "embed_tokens",
 # ----------------------------------------------------------------- block --
 def block_init(generator: torch.Generator, cfg: ArchConfig,
                device) -> Params:
+    attn = L.mla_init if cfg.mla_kv_lora else L.attn_init
     return {"ln1": L.norm_init(cfg, device), "ln2": L.norm_init(cfg, device),
-            "attn": L.attn_init(generator, cfg, device),
+            "attn": attn(generator, cfg, device),
             "ffn": L.moe_init(generator, cfg, device) if cfg.is_moe
             else L.mlp_init(generator, cfg, device)}
 
@@ -46,8 +49,9 @@ def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *, positions,
                 lens: Optional[torch.Tensor] = None,
                 cache: Optional[Params] = None, offsets=None):
     h = L.norm_apply(cfg, p["ln1"], x)
-    a, new_cache = L.attn_apply(cfg, p["attn"], h, positions=positions,
-                                lens=lens, cache=cache, offsets=offsets)
+    attn = L.mla_apply if cfg.mla_kv_lora else L.attn_apply
+    a, new_cache = attn(cfg, p["attn"], h, positions=positions, lens=lens,
+                        cache=cache, offsets=offsets)
     x = x + a
     h = L.norm_apply(cfg, p["ln2"], x)
     if cfg.is_moe:
@@ -175,8 +179,10 @@ def prefill(cfg: ArchConfig, params: Params, cache: Params,
 # --------------------------------------------------------------- decode --
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device) -> Params:
-    """Zeroed KV cache: layer-stacked leaves (L, B, Hkv, max_len, hd)."""
-    one = L.attn_cache_init(cfg, batch, max_len, device)
+    """Zeroed KV cache: layer-stacked leaves (L, B, Hkv, max_len, hd), or
+    MLA's (L, B, max_len, kv_lora) and (L, B, max_len, rope)."""
+    cache_init = L.mla_cache_init if cfg.mla_kv_lora else L.attn_cache_init
+    one = cache_init(cfg, batch, max_len, device)
     return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
             for k, v in one.items()}
 
