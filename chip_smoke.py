@@ -395,7 +395,36 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     bytes or 2 H (576 + 512) flops a valid key over the f32 FFMA peak.
     RMSNorm at 5120 and the router's softmax at 2048 x 160 and 4 x 160,
     as phase 9.
-21. Prints the run's seconds in all, the kernels line (each kernel, and
+21. **Path 13 (obs / ft).**  The observability and fault-tolerance
+    planes on TinyLlama-1.1B at full width in f32 (22 layers, random
+    weights from a seeded generator).  (a) Path 1's stack through
+    ``disc_torch.compile(..., backend="hopper")``, every output held
+    bit-equal to an untraced, fault-free artifact's: traced, the miss's
+    ``dispatch`` span parents one ``compile.bucket`` and, inside it, one
+    ``kernel.cluster`` span a cluster of the first call (the kLoop /
+    kInput runs it made, the plan's count), the hit's (a replay) none; a
+    transient ``compile.bucket`` fault is retried; a permanent
+    ``kernel.cluster`` fault raises a permanent ``CompileError`` after
+    one site check with no cluster run and no entry kept, and the next
+    call compiles and runs the kernels.  Traced replays at S = 37 read
+    nothing back from the card (no ``synchronize``, ``item`` or
+    ``tolist``).  (b) Path 3's engine at 2 replicas of 2 slots with
+    heartbeats (``heartbeat_deadline_s``), EOS off, the six prompts of
+    16 new tokens: untraced (its streams the reference and its launches
+    the path's main-path count), traced (every request's async pair, a
+    ``serve.prefill`` / ``serve.decode`` span a launch, streams and
+    launches identical, the Chrome export written under ``build/`` and
+    read back), transient ``serve.launch`` faults (retries 3, streams
+    identical), a permanent decode fault (exactly that launch's group
+    fails, the rest identical), and replica 1's beats dropped at the
+    ``ft.heartbeat`` site past a fake clock's deadline (drained once, its
+    requests resumed on replica 0, every stream identical, and
+    ``report()["health"]`` with the JAX package's keys).  Card memory
+    back within 1 GB after the phase's ``del``.  (c) Printed, not held:
+    host µs a ``dispatch`` span at S = 37 and an untraced call, decode
+    ms/step with no hook, a tracer and an injector that never fires (in
+    turns), and the phase's seconds.
+22. Prints the run's seconds in all, the kernels line (each kernel, and
     flash attention's MLA forms as ``flash_attention_mla`` and
     ``flash_attention_mla_decode``), the card line, and the result line
     last.
@@ -408,7 +437,7 @@ bf16 and 15 in both dtypes, path 6 8 in bf16 and 4 in both dtypes, path
 8 all 4 + 4, path 9 all 52 in bf16 and 4 in both, path 10 all 32 in
 bf16 and 2 in f32, path 11 16 in bf16 and 4 in both, path 12 6 of 60 in
 bf16 (~8.1 GB of weights a layer; the 60 would need ~483 GB) and 2 in
-both.
+both, and path 13 all 22 in f32.
 """
 from __future__ import annotations
 
@@ -731,6 +760,18 @@ TOL_SSD = 1e-5
 # order of the row sum differs; a bf16 output by one rounding (2^-8)
 # where the f32 results differ
 TOL_SOFTMAX = {"f32": 1e-6, "bf16": 8e-3}
+
+# path 13 (obs / ft): the engine's heartbeat deadline (the drain run
+# drives a fake clock past it), the decode steps timed a mode in each of
+# OBS_ROUNDS rounds for (c), the S = 37 dispatches timed for (c), and the
+# keys of report()["health"] and of its counters, as the JAX package
+# gives them
+OBS_DEADLINE_S = 30.0
+OBS_STEPS, OBS_ROUNDS, OBS_DISPATCHES = 8, 3, 50
+HEALTH_KEYS = {"alive_replicas", "replicas", "failed", "counters",
+               "compile", "kernel_demotions"}
+HEALTH_COUNTERS = {"failed_requests", "retries", "kernel_demotions",
+                   "deadline_expirations", "replica_drains"}
 
 # §4.5 library phase: a shape from TinyLlama's widths per entry, and the
 # entry the reference's selection rules give it
@@ -4528,6 +4569,9 @@ def main(argv=None) -> int:
         print(f"[phase softmax] {time.perf_counter() - t0:.1f} s",
               flush=True)
         new_paths(args.seed, report, rows)
+        t0 = time.perf_counter()
+        obs_phase(args.seed, report)
+        print(f"[phase path13] {time.perf_counter() - t0:.1f} s", flush=True)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4650,6 +4694,444 @@ def new_paths(seed: int, report: dict, rows: list) -> None:
     del first
     phase("path12 softmax", lambda: softmax_kernel_phase(
         report, rows, path="path12", wide=False))
+
+
+# ------------------------------------------------------ path 13: obs / ft --
+
+@contextlib.contextmanager
+def counting_reads(counts: dict):
+    """Count every ``torch.cuda.synchronize``, ``Tensor.item`` and
+    ``Tensor.tolist`` call in the block (each reads the card back)."""
+    import torch
+
+    saved = [(torch.cuda, "synchronize"), (torch.Tensor, "item"),
+             (torch.Tensor, "tolist")]
+    old = [getattr(o, n) for o, n in saved]
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    for (o, n), fn in zip(saved, old):
+        setattr(o, n, counted(n, fn))
+    try:
+        yield counts
+    finally:
+        for (o, n), fn in zip(saved, old):
+            setattr(o, n, fn)
+
+
+def ancestors(tr, e) -> list:
+    """The names of the spans that enclose the event ``e``, innermost
+    first."""
+    out = []
+    while e["parent"] != -1:
+        e = tr.events[e["parent"]]
+        out.append(e)
+    return out
+
+
+def obs_phase(seed: int, report: dict) -> None:
+    """Path 13: the observability and fault-tolerance planes on path 1's
+    compiled stack and path 3's engine, TinyLlama-1.1B at full width in
+    f32 (random weights from a seeded generator).  (a) spans and faults
+    of ``disc_torch.compile``, (b) the engine's spans, faults and a
+    replica drain, (c) the hooks' cost, printed.  After (b) the card's
+    allocated memory must be back within 1 GB of its value before the
+    engine, with no gc pass."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("tinyllama_11b"), dtype="f32")
+    mem = torch.cuda.memory_allocated
+    mem_a = mem()
+    launches = obs_compile(cfg, seed)
+    # (a)'s lowering (the FX trace of the bridge) leaves reference cycles
+    # that hold the weights it closed over until a gc pass: printed, and
+    # collected before (b), whose engine is held to the rule
+    left = mem() - mem_a
+    gc.collect()
+    mem0 = mem()
+    launches.update(obs_serve(cfg, seed))
+    report[("path13", "f32")] = dict(launches=launches)
+    mem1 = mem()
+    print(f"[path13 f32] card memory allocated: (a) left {left} B until a "
+          f"gc pass, {mem0 - mem_a} B after it (printed, not held); (b) "
+          f"{mem0} B before the engine, {mem1} B after its objects were "
+          f"deleted", flush=True)
+    check(mem1 <= mem0 + MEM_SLACK_BYTES,
+          f"[path13 f32] {mem1 - mem0} B still allocated after (b)")
+
+
+def obs_compile(cfg, seed: int) -> dict:
+    """Path 13 (a): path 1's stack through ``disc_torch.compile`` (a CUDA
+    graph a bucket) under a tracer and injected faults, every output held
+    bit-equal to an untraced, fault-free artifact's.  Returns the kLoop /
+    kInput / kDot launches of the traced miss and hit."""
+    import torch
+
+    import disc_torch
+    from repro_torch.errors import CompileError, DiscError
+    from repro_torch.ft import faults
+    from repro_torch.kernels.fused_elementwise import ops as fe
+    from repro_torch.kernels.fused_reduce import ops as fr
+    from repro_torch.kernels.matmul import ops as mm
+    from repro_torch.obs import trace as obs_trace
+
+    from repro_torch.models import transformer as T
+
+    tag = "[path13 f32 compile]"
+    sync = torch.cuda.synchronize
+    params = T.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                    "cuda")
+
+    def fn(x):
+        return T.decoder_logits(cfg, params, x)
+
+    specs = [((1, disc_torch.Dim("S", max=2048), cfg.d_model),
+              torch.float32)]
+    ref_f = disc_torch.compile(fn, specs, backend="hopper")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    xs = {s: torch.randn((1, s, cfg.d_model), generator=gen, device="cuda")
+          for s in (37, 200, 731)}
+    ref = {s: ref_f(x) for s, x in xs.items()}   # untraced, fault-free
+    f = disc_torch.compile(fn, specs, backend="hopper")
+    templates = f.lower().plan.template_counts()
+    kern = f.backend.cluster_kernels
+    counters = {"fused_elementwise": fe.LAUNCHES,
+                "fused_reduce": fr.LAUNCHES,
+                "matmul_epilogue": mm.EPILOGUE_LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    runs0 = sum(k.runs for k in kern.values())
+    with obs_trace.tracing() as tr:
+        y_miss = f(xs[37])          # miss: compile, first call, capture
+        first = sum(k.runs for k in kern.values()) - runs0
+        y_hit = f(xs[37])           # hit: a replay
+    launches = {k: c.launches for k, c in counters.items()}
+    sync()
+    disp = tr.spans("dispatch")
+    comp = tr.spans("compile.bucket")
+    clus = tr.spans("kernel.cluster")
+    check([d["args"]["cache_hit"] for d in disp] == [False, True],
+          f"{tag} dispatch spans {[d['args'] for d in disp]}")
+    miss, hit = (tr.events.index(d) for d in disp)
+    check(len(comp) == 1 and comp[0]["parent"] == miss,
+          f"{tag} {len(comp)} compile.bucket spans, not one under the miss")
+    check(not [e for e in tr.events if e["parent"] == hit],
+          f"{tag} the hit's dispatch span encloses events")
+    check(all(tr.events[miss] in ancestors(tr, c) for c in clus),
+          f"{tag} a kernel.cluster span outside the miss")
+    clustered = sum(n for t, n in templates.items() if t in kern)
+    check(len(clus) == first == clustered,
+          f"{tag} {len(clus)} kernel.cluster spans, the first call ran "
+          f"{first} clusters, the plan has {clustered}")
+    check(all(
+        launches[n] for t, n in (("kLoop", "fused_elementwise"),
+                                 ("kInput", "fused_reduce"),
+                                 ("kDot", "matmul_epilogue"))
+        if templates.get(t)), f"{tag} launches {launches}")
+    check(torch.equal(y_miss, ref[37]) and torch.equal(y_hit, ref[37]),
+          f"{tag} traced S = 37 not bit-equal to the untraced run")
+    print(f"{tag} traced miss + hit at S = 37: dispatch spans "
+          f"{len(disp)}, compile.bucket {len(comp)} (under the miss), "
+          f"kernel.cluster {len(clus)} (under the miss; the first call's "
+          f"cluster runs {first}, the plan's {templates}), none under the "
+          f"hit; launches {launches}; bit-equal to the untraced run",
+          flush=True)
+
+    # (c) host µs a dispatch span at S = 37 (replays), traced and not,
+    # with an injector that never fires; no hook reads the card back
+    reads: dict = {}
+    with obs_trace.tracing() as tr, faults.inject(
+            faults.FaultSpec("kernel.cluster", match="never")), \
+            counting_reads(reads):
+        for _ in range(OBS_DISPATCHES):
+            f(xs[37])
+    sync()
+    spans = tr.spans("dispatch")
+    span_us = sorted(1e6 * d["dur"] for d in spans)
+    entry_us = sorted(1e6 * d["args"]["entry_seconds"] for d in spans)
+    t0 = time.perf_counter()
+    for _ in range(OBS_DISPATCHES):
+        f(xs[37])
+    plain_us = 1e6 * (time.perf_counter() - t0) / OBS_DISPATCHES
+    sync()
+    check(len(spans) == OBS_DISPATCHES and not reads,
+          f"{tag} {len(spans)} dispatch spans for {OBS_DISPATCHES} calls; "
+          f"reads of the card in traced replays {reads}")
+    print(f"{tag} (c) host µs a dispatch span at S = 37 (replays, traced, "
+          f"an injector that never fires): median {span_us[len(span_us) // 2]:.1f}, "
+          f"min {span_us[0]:.1f}; entry_seconds median "
+          f"{entry_us[len(entry_us) // 2]:.1f} µs; untraced host µs a call "
+          f"{plain_us:.1f}; card reads in the traced replays: none",
+          flush=True)
+
+    # a transient compile.bucket fault on a miss: retried invisibly
+    with faults.inject(faults.FaultSpec("compile.bucket", times=1,
+                                        transient=True)) as inj:
+        y = f(xs[200])
+    check(inj.fired["compile.bucket"] == 1
+          and f.cache_stats()["retries"] == 1
+          and torch.equal(y, ref[200]),
+          f"{tag} transient compile.bucket: fired {inj.fired}, "
+          f"{f.cache_stats()}, bit-equal {torch.equal(y, ref[200])}")
+    # a permanent kernel.cluster fault on a miss: a classified error, no
+    # cluster run (through the kernel or per op), no entry kept; the next
+    # call compiles and runs the kernels
+    runs0 = sum(k.runs for k in kern.values())
+    compiles = f.compile_counts()["total"]
+    err = None   # the error's class and transience (not the error: its
+    with faults.inject(faults.FaultSpec("kernel.cluster")) as inj:
+        try:     # traceback would hold this frame's tensors)
+            f(xs[731])
+        except DiscError as e:
+            err = (type(e).__name__, e.transient, isinstance(e, CompileError))
+    check(err is not None and err[2] and not err[1],
+          f"{tag} permanent kernel.cluster fault raised {err}")
+    check(inj.calls["kernel.cluster"] == 1
+          and sum(k.runs for k in kern.values()) == runs0
+          and f.compile_counts()["total"] == compiles,
+          f"{tag} after the kernel fault: site calls {inj.calls}, runs "
+          f"{sum(k.runs for k in kern.values()) - runs0}, compiles "
+          f"{f.compile_counts()}")
+    y = f(xs[731])
+    check(torch.equal(y, ref[731]),
+          f"{tag} S = 731 after the kernel fault not bit-equal")
+    print(f"{tag} transient compile.bucket fault at S = 200: retried "
+          f"(retries {f.cache_stats()['retries']}), bit-equal; permanent "
+          f"kernel.cluster fault at S = 731: {err[0]} "
+          f"(transient={err[1]}), one site check, no cluster run, "
+          f"no entry kept; the next call bit-equal", flush=True)
+    del params, fn, ref_f, f, ref, xs, y, y_miss, y_hit
+    return launches
+
+
+def obs_serve(cfg, seed: int) -> dict:
+    """Path 13 (b) and (c): path 3's engine at 2 replicas of 2 slots with
+    heartbeats, untraced and traced, under launch faults and a replica
+    drain; every surviving stream identical to the untraced, fault-free
+    run's.  Returns that run's serve-kernel launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import Request
+    from repro_torch.ft import faults
+    from repro_torch.models.registry import get_model
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    tag = "[path13 f32 serve]"
+    sync = torch.cuda.synchronize
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(gen, "cuda")
+    rs = np.random.RandomState(seed)
+    prompts = [rs.randint(0, cfg.vocab, size=n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+    # no EOS: every stream runs its 16 new tokens, and (c)'s batch stays
+    eng = ServeEngine(model, params, ServeConfig(
+        max_batch=2, replicas=2, max_seq=SERVE_SEQ, eos_id=-1,
+        heartbeat_deadline_s=OBS_DEADLINE_S))
+    counters = serve_counters()
+
+    def run(rid0, beat=None):
+        """Serve the prompts as rids rid0.. with both replicas beating
+        before each step (``beat(step)`` instead where given); returns
+        the streams by prompt index and the serve launches."""
+        for c in counters.values():
+            c.reset()
+        eng.reset_stats()
+        eng.submit([Request(rid=rid0 + i, tokens=p,
+                            max_new_tokens=SERVE_NEW_TOKENS)
+                    for i, p in enumerate(prompts)])
+        step = 0
+        while eng.queue or any(s is not None for s in eng.slots):
+            if beat is None:
+                eng.heartbeat(0)
+                eng.heartbeat(1)
+            else:
+                beat(step)
+            eng.step()
+            step += 1
+        sync()
+        return ({rid - rid0: t for rid, t in eng.done.items()
+                 if rid0 <= rid < rid0 + len(prompts)},
+                {k: c.launches for k, c in counters.items()})
+
+    t0 = time.perf_counter()
+    base, launches = run(0)
+    st = dict(eng.stats)
+    check(len(base) == len(prompts) and not eng.failed
+          and all(len(t) == SERVE_NEW_TOKENS + 1 for t in base.values()),
+          f"{tag} fault-free run: {len(base)} done, failed {eng.failed}")
+    steps = st["prefill_calls"] + st["decode_steps"]
+    check(launches["flash_attention"] == cfg.n_layers * steps
+          and launches["rmsnorm"] == (2 * cfg.n_layers + 1) * steps,
+          f"{tag} launches {launches} for {st['prefill_calls']} prefill "
+          f"launches and {st['decode_steps']} decode steps")
+    print(f"{tag} untraced fault-free: prefill_calls "
+          f"{st['prefill_calls']} decode_steps {st['decode_steps']} "
+          f"launches {launches} ({time.perf_counter() - t0:.1f} s, "
+          f"captures included)", flush=True)
+
+    # a traced run: the same streams and launches, each request's async
+    # pair, a serve span a launch; the Chrome export read back
+    with obs_trace.tracing() as tr:
+        got, counted = run(100)
+    reqs = tr.find("request")
+    rids = {str(100 + i) for i in range(len(prompts))}
+    pre, dec = tr.spans("serve.prefill"), tr.spans("serve.decode")
+    check(got == base and counted == launches,
+          f"{tag} traced run: streams equal {got == base}, launches "
+          f"{counted} vs {launches}")
+    check({e["id"] for e in reqs if e["ph"] == "b"} == rids
+          == {e["id"] for e in reqs if e["ph"] == "e"},
+          f"{tag} request async pairs {[(e['ph'], e['id']) for e in reqs]}")
+    check(len(pre) == eng.stats["prefill_calls"]
+          and len(dec) == eng.stats["decode_steps"]
+          and all(s["args"] == {"attempts": 1, "error": False}
+                  for s in pre + dec),
+          f"{tag} {len(pre)} / {len(dec)} serve spans for "
+          f"{eng.stats['prefill_calls']} / {eng.stats['decode_steps']}")
+    out = ROOT / "build" / "path13_trace.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tr.export_chrome_trace(out)
+    doc = json.loads(out.read_text())
+    check(len(doc["traceEvents"]) == len(tr.events)
+          and doc["otherData"]["dropped"] == 0,
+          f"{tag} the Chrome export holds {len(doc['traceEvents'])} of "
+          f"{len(tr.events)} events")
+    print(f"{tag} traced: streams and launches identical; {len(rids)} "
+          f"request pairs, serve.prefill {len(pre)}, serve.decode "
+          f"{len(dec)}, {len(tr.events)} events exported to {out} and "
+          f"read back", flush=True)
+
+    # transient launch faults: retried, the streams unchanged
+    with faults.inject(
+            faults.FaultSpec("serve.launch", match="decode", at=[0, 3],
+                             transient=True),
+            faults.FaultSpec("serve.launch", match="prefill", at=[1],
+                             transient=True)) as inj:
+        got, _ = run(200)
+    check(got == base and eng.stats["retries"] == 3 and not eng.failed,
+          f"{tag} transient launch faults: streams equal {got == base}, "
+          f"retries {eng.stats['retries']}, failed {eng.failed}")
+    print(f"{tag} transient serve.launch faults (decode at 0, 3; prefill "
+          f"at 1): fired {inj.fired['serve.launch']}, retries "
+          f"{eng.stats['retries']}, streams identical", flush=True)
+
+    # a permanent decode fault: only that launch's group fails
+    groups = []
+    decode = eng._decode
+
+    def recording_decode():
+        groups.append({eng.slots[i].rid for i, s in enumerate(eng.slots)
+                       if s is not None and s.state == "decode"})
+        decode()
+
+    eng._decode = recording_decode
+    with faults.inject(faults.FaultSpec("serve.launch", match="decode",
+                                        at=[2])):
+        got, _ = run(300)
+    del eng._decode
+    failed = set(eng.failed)
+    check(failed == groups[2] and failed and all(
+        "LaunchError(decode)" in eng.failed[r] for r in failed)
+        and len(got) + len(failed) == len(prompts)
+        and all(got[i] == base[i] for i in got),
+        f"{tag} permanent decode fault: failed {sorted(failed)}, the "
+        f"launch group {sorted(groups[2])}, {len(got)} done")
+    print(f"{tag} permanent decode fault (the third decode launch): "
+          f"failed {sorted(failed)} == its group; the other "
+          f"{len(got)} streams identical", flush=True)
+
+    # (c) decode ms/step: no tracer, a tracer, an injector that never
+    # fires, in turns over one full batch
+    eng.reset_stats()
+    eng.submit([Request(rid=400 + i, tokens=prompts[i % 2],
+                        max_new_tokens=3 * OBS_STEPS * OBS_ROUNDS + 8)
+                for i in range(4)])
+    while eng.queue or any(s is None or s.state != "decode"
+                           for s in eng.slots):
+        eng.heartbeat(0)
+        eng.heartbeat(1)
+        eng.step()
+    modes = {"none": contextlib.nullcontext,
+             "tracer": obs_trace.tracing,
+             "injector": lambda: faults.inject(faults.FaultSpec(
+                 "serve.launch", match="never"))}
+    times = {m: [] for m in modes}
+    for _ in range(OBS_ROUNDS):
+        for m, ctx in modes.items():
+            with ctx():
+                for _ in range(OBS_STEPS):
+                    eng.heartbeat(0)
+                    eng.heartbeat(1)
+                    sync()
+                    t = time.perf_counter()
+                    eng.step()
+                    times[m].append(1e3 * (time.perf_counter() - t))
+    check(all(s is not None and s.state == "decode" for s in eng.slots),
+          f"{tag} (c) a request left the timed batch")
+    print(f"{tag} (c) decode ms/step, 4 rows graphed, median / min of "
+          f"{OBS_STEPS * OBS_ROUNDS}: " + "; ".join(
+              f"{m} {sorted(v)[len(v) // 2]:.3f} / {min(v):.3f}"
+              for m, v in times.items()), flush=True)
+    while eng.queue or any(s is not None for s in eng.slots):
+        eng.heartbeat(0)
+        eng.heartbeat(1)
+        eng.step()
+
+    # replica 1 stops beating (its beats dropped at the ft.heartbeat
+    # site): it drains, its requests resume on replica 0 through a
+    # prefill of prompt + generated tokens, the streams identical in f32
+    now = [0.0]
+    eng._clock = lambda: now[0]
+    drained = {}
+
+    def beat(step):
+        now[0] += 1.0
+        if not drained and any(
+                s is not None and len(s.generated) >= 2
+                for s in eng.slots[2:]):
+            drained.update({s.rid: len(s.generated)
+                            for s in eng.slots[2:] if s is not None})
+            faults.install(faults.FaultInjector(
+                [faults.FaultSpec("ft.heartbeat", match="replica1")]))
+            now[0] += OBS_DEADLINE_S + 1.0
+        eng.heartbeat(0)
+        eng.heartbeat(1)
+
+    try:
+        got, _ = run(500, beat=beat)
+    finally:
+        faults.clear()
+    health = eng.report()["health"]
+    check(eng.stats["replica_drains"] == 1
+          and eng._replica_alive == [True, False]
+          and not [r for r in eng.failed if r >= 500] and got == base
+          and max(drained.values(), default=0) >= 2,
+          f"{tag} drain: drains {eng.stats['replica_drains']}, alive "
+          f"{eng._replica_alive}, failed {eng.failed}, streams equal "
+          f"{got == base}, drained {drained}")
+    check(set(health) == HEALTH_KEYS
+          and set(health["counters"]) == HEALTH_COUNTERS
+          and health["kernel_demotions"] == []
+          and health["alive_replicas"] == 1,
+          f"{tag} report()['health'] {health}")
+    print(f"{tag} replica 1 silent past {OBS_DEADLINE_S} s: drained, its "
+          f"requests {drained} (rid: tokens generated) resumed on replica "
+          f"0, every stream identical; health keys {sorted(health)}",
+          flush=True)
+    del eng, params, model
+    return launches
 
 
 def print_resources() -> None:

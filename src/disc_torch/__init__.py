@@ -18,25 +18,33 @@ from repro_torch.api import (  # noqa: F401
     CompileCache,
     CompileError,
     CompileOptions,
+    DeadlineExceeded,
     Dim,
     DiscError,
     EXACT,
+    FaultInjector,
+    FaultSpec,
     LaunchError,
     Lowered,
     NimbleVM,
     NoDeviceError,
+    Observe,
     POW2,
+    PoolExhausted,
     RetryPolicy,
     ServeConfig,
     ServeEngine,
+    Tracer,
     TreeSpec,
     UnknownBackendError,
     bridge,
     compile,
     dot_general,
+    faults,
     get_backend,
     infer_specs,
     list_backends,
+    observe,
     pow2_bucket,
     register_backend,
 )

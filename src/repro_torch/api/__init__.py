@@ -17,7 +17,10 @@ pass pytrees through, :class:`TreeSpec` pads their leaves);
 :class:`ServeEngine` serves a model on it with continuous batching.  Backends (``eager``, ``hopper``,
 ``nimble_vm``, or your own via :func:`register_backend`) are selected by name through
 ``CompileOptions.backend``; ``nimble_vm`` and :class:`NimbleVM` are the
-interpreted per-op baseline of the paper's §5.2.
+interpreted per-op baseline of the paper's §5.2.  :data:`observe` is the
+observability plane (spans, counters, collectors; host time only) and
+:mod:`faults` / :class:`FaultSpec` the seeded fault injection, as in the
+JAX package's ``disc``.
 """
 from ..core.bucketing import BucketPolicy, EXACT, POW2, pow2_bucket  # noqa: F401
 from ..core.cache import CompileCache, CacheStats  # noqa: F401
@@ -25,12 +28,17 @@ from ..core.primitives import dot_general  # noqa: F401
 from ..core.vm import NimbleVM  # noqa: F401
 from ..errors import (  # noqa: F401
     CompileError,
+    DeadlineExceeded,
     DiscError,
     LaunchError,
     NoDeviceError,
+    PoolExhausted,
     RetryPolicy,
 )
 from ..frontends.fx_frontend import ArgSpec, bridge  # noqa: F401
+from ..ft import faults  # noqa: F401
+from ..ft.faults import FaultInjector, FaultSpec  # noqa: F401
+from ..obs import Observe, Tracer, observe  # noqa: F401
 from .backends import (  # noqa: F401
     Backend,
     UnknownBackendError,
@@ -54,9 +62,12 @@ __all__ = [
     # bucketing / caching
     "BucketPolicy", "POW2", "EXACT", "pow2_bucket", "CompileCache",
     "CacheStats",
-    # error taxonomy
+    # error taxonomy + fault injection (robustness plane)
     "DiscError", "CompileError", "LaunchError", "NoDeviceError",
-    "RetryPolicy",
+    "PoolExhausted", "DeadlineExceeded", "RetryPolicy", "faults",
+    "FaultSpec", "FaultInjector",
+    # observability plane
+    "observe", "Observe", "Tracer",
     # frontend + lax-level primitives, the interpreted baseline
     "bridge", "dot_general", "NimbleVM",
 ]

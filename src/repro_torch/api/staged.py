@@ -62,6 +62,8 @@ from ..core.graphs import GraphEntry, GraphStats
 from ..core.symshape import SymDim
 from ..errors import CONTROL_EXCEPTIONS, CompileError, classify_transient
 from ..frontends.fx_frontend import ArgSpec, TreeSpec, bridge
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from .backends import get_backend
 from .options import CompileOptions, Dim, normalize_specs, resolve_device
 
@@ -251,6 +253,19 @@ class Lowered:
 
 def _lower(fn: Callable, specs: Sequence[ArgSpec], dims: Sequence[Dim],
            options: CompileOptions) -> Lowered:
+    sp = (obs_trace.ACTIVE.begin("lower", cat="compile",
+                                 artifact=options.name,
+                                 pipeline=options.pipeline)
+          if obs_trace.ACTIVE is not None else None)
+    try:
+        return _lower_impl(fn, specs, dims, options)
+    finally:
+        if sp is not None:
+            sp.end()
+
+
+def _lower_impl(fn: Callable, specs: Sequence[ArgSpec], dims: Sequence[Dim],
+                options: CompileOptions) -> Lowered:
     from ..core.buffers import plan_buffers
     from ..core.fusion import plan_fusion
     from ..core.placer import place
@@ -347,8 +362,24 @@ class Compiled:
             weak_method(compile_exact), fingerprint=self._fingerprint,
             escalation_threshold=options.escalation_threshold,
             on_tie_break=on_tie_break, memory_plan=lowered.buffer_plan,
-            lens_device=self.device)
+            lens_device=self.device,
+            first_call_compiles=lowered.pipeline == "dhlo")
         self._mstats = self._dispatch._mstats
+        obs_metrics.register_collector("dispatch", self._obs_dispatch,
+                                       name=options.name)
+        obs_metrics.register_collector("memory", self._obs_memory,
+                                       name=options.name)
+
+    def _obs_dispatch(self) -> Dict[str, Any]:
+        """Pull collector: ``disc_torch.observe()["dispatch"][name]``."""
+        return self._mstats.cost_dict()
+
+    def _obs_memory(self) -> Dict[str, Any]:
+        """Pull collector: ``disc_torch.observe()["memory"][name]`` (the
+        staging view of ``cost_report()``'s artifact)."""
+        return dict(self._mstats.as_dict(),
+                    planning=bool(self.options.memory_planning
+                                  and self.lowered.pipeline == "dhlo"))
 
     # ------------------------------------------------------------ public --
     def __call__(self, *arrays):
@@ -448,34 +479,53 @@ class Compiled:
         }
 
     # ------------------------------------------------- device compilation --
-    def _compile_bucket(self, key: Tuple[int, ...]):
+    def _compile_bucket(self, key: Tuple[int, ...], args: tuple):
         low = self.lowered
         padded = {s.uid: int(k) for s, k in zip(low.syms, key)}
-        self._bucket_compiles += 1
         run = self.backend.build_bucket(low.graph, low.plan, low.syms,
                                         padded, self.device)
         # the entry takes (lens, *args): lens and the padded staging
         # buffers are copied into the graph's buffers, the arguments the
         # dispatch passes unpadded (static shapes) are read in place
-        return self._dhlo_entry(run, "bucket", 1)
+        return self._first_call(self._dhlo_entry(run, "bucket", 1),
+                                "bucket", args)
 
-    def _compile_exact(self):
+    def _compile_exact(self, args: tuple):
         # a fresh executor per escalated signature (each cache entry is
         # hit by exactly one exact shape)
-        self._exact_compiles += 1
         run = self.backend.build_exact(self.lowered.graph,
                                        self.lowered.plan, self.device)
-        return self._dhlo_entry(run, "exact", 0)
+        return self._first_call(self._dhlo_entry(run, "exact", 0),
+                                "exact", args)
+
+    def _first_call(self, entry: Callable, kind: str, args: tuple):
+        """A dhlo entry and the outputs of its first call on ``args``,
+        which the dispatch makes part of its compile (the port's trace:
+        the cluster kernels' first launches and the graph's capture).
+        The entry counts once that call has succeeded: one that failed
+        never reached the cache."""
+        outs = entry(*args)
+        self._count(kind, "graphed" if isinstance(entry, GraphEntry)
+                    else "host")
+        return entry, outs
 
     def _dhlo_entry(self, run: Callable, kind: str, first_arg: int):
         """``run`` as the backend's entry: a CUDA graph on the card, or
         the executor itself (a host entry) where the backend captures
         nothing or the graph holds ``d.while`` / ``d.cond``."""
         if not self.backend.graphs or self.host_control_flow:
-            self.entries["host"] += 1
             return run
         return self._graph_entry(
             run, kind, [first_arg + i for i in self._static_args])
+
+    def _count(self, kind: str, where: str, n: int = 1) -> None:
+        """``n`` more entries of ``kind`` ("bucket" / "exact") in the
+        compile count, made ``where`` ("graphed" / "host")."""
+        self.entries[where] += n
+        if kind == "bucket":
+            self._bucket_compiles += n
+        else:
+            self._exact_compiles += n
 
     def _graph_entry(self, fn: Callable, kind: str,
                      held: List[int]) -> GraphEntry:
@@ -483,20 +533,14 @@ class Compiled:
         call on the card, ``held`` the positions of the arguments read in
         place (every other tensor leaf is copied into the graph's own
         buffers).  A capture that fails takes the entry out of the cache
-        and out of the compile count."""
+        and, where the cache held it, out of the compile count."""
         ref = weakref.ref(self)
 
         def dropped(entry):
             compiled = ref()
-            if compiled is not None:
-                compiled.cache.discard(entry)
-                compiled.entries["graphed"] -= 1
-                if kind == "bucket":
-                    compiled._bucket_compiles -= 1
-                else:
-                    compiled._exact_compiles -= 1
+            if compiled is not None and compiled.cache.discard(entry):
+                compiled._count(kind, "graphed", -1)
 
-        self.entries["graphed"] += 1
         return GraphEntry(fn, f"{self.options.name!r} {kind} entry",
                           self.graph_stats, self.cache.graph_pool, dropped,
                           held)
@@ -512,14 +556,14 @@ class Compiled:
     def _compile_jit_bucket(self, key: Tuple[int, ...]):
         """One entry per bucket signature: the dispatch pads dynamic args
         to the bucket, and the entry's graph is captured on them."""
-        self._bucket_compiles += 1
+        self._count("bucket", "graphed")
         return self._jit_entry("bucket")
 
     def _compile_jit_exact(self):
         """§4.4 for the jit pipeline: the escalated path calls the
         function at *unpadded* shapes.  One fresh entry per escalated
         signature, so the cache's LRU budget bounds them one by one."""
-        self._exact_compiles += 1
+        self._count("exact", "graphed")
         return self._jit_entry("exact")
 
 
@@ -670,6 +714,9 @@ class CompiledFunction:
                 f"({type(e).__name__}: {e})",
                 transient=classify_transient(e)) from e
         prev.cache.stats.promotions += 1
+        obs_metrics.record_event(
+            "promote", artifact=self.options.name,
+            symbols=list(compiled.lowered.sym_names))
         # the superseded artifact's entries are unreachable — free the
         # executors they pin
         prev.cache.drop_fingerprint(prev._fingerprint)

@@ -19,6 +19,9 @@ from typing import Any, Callable, Dict, Optional, Set, Tuple
 
 from ..errors import (CONTROL_EXCEPTIONS, DEFAULT_RETRY, RetryPolicy,
                       wrap_compile_error)
+from ..ft import faults
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from .graphs import GraphPool
 
 __all__ = ["CompileCache", "CacheStats"]
@@ -76,17 +79,26 @@ class CompileCache:
         # the card memory pool that the CUDA graphs of this cache's jit
         # entries share (core/graphs.py)
         self.graph_pool = GraphPool()
+        obs_metrics.register_collector("compile", self._obs_collect,
+                                       name=fingerprint)
+
+    def _obs_collect(self) -> Dict[str, Any]:
+        """Pull collector for ``disc_torch.observe()["compile"]``."""
+        return dict(self.stats.as_dict(), entries=len(self._entries))
 
     def _compile_with_retry(self, compile_fn: Callable[[], Any],
                             what: str, site: str) -> Any:
         """Run ``compile_fn`` under the taxonomy: raw errors are wrapped
         into :class:`~repro_torch.errors.CompileError` (classified transient
-        or permanent) and transient failures retry with capped exponential
-        backoff.  ``site`` names the compile site for the fault-injection
-        hooks, which arrive with the port's ``ft/`` plane."""
+        or permanent), transient failures retry with capped exponential
+        backoff, and the named fault site fires first in each attempt when
+        an injector is installed (an injected transient is retried exactly
+        as a real one)."""
         attempt = 0
         while True:
             try:
+                if faults.ACTIVE is not None:
+                    faults.ACTIVE.check(site, key=what)
                 return compile_fn()
             except CONTROL_EXCEPTIONS:
                 raise
@@ -94,7 +106,17 @@ class CompileCache:
                 err = wrap_compile_error(e, what)
                 if not err.transient \
                         or attempt >= self.retry_policy.max_retries:
-                    raise err from e
+                    # wrap_compile_error chains a new error to ``e``; an
+                    # error that is ``e`` itself raises as it is (``from
+                    # e`` would make it its own cause: a cycle).  No
+                    # local names it past the raise either: the traceback
+                    # holds this frame, whose locals (the compile callback,
+                    # a first call's arguments) then need no gc pass
+                    try:
+                        raise err
+                    finally:
+                        del err
+                del err     # nor a retried attempt's error
                 self.stats.retries += 1
                 time.sleep(self.retry_policy.delay(attempt))
                 attempt += 1
@@ -117,12 +139,24 @@ class CompileCache:
             return entry
         self.stats.misses += 1
         fp = fingerprint or self.fingerprint
+        sp = (obs_trace.ACTIVE.begin("compile.bucket", cat="compile",
+                                     key=str(bucket_sig), artifact=fp[:40],
+                                     cache_hit=False)
+              if obs_trace.ACTIVE is not None else None)
         t0 = time.perf_counter()
         try:
+            # the fault-site key carries the artifact fingerprint so an
+            # injector can target one artifact (match="prefill") of a
+            # shared cache
             entry = self._compile_with_retry(
                 compile_fn, f"{fp} bucket {bucket_sig}", "compile.bucket")
         finally:
-            self.stats.compile_seconds += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.stats.compile_seconds += dt
+            if sp is not None:
+                sp.end()
+        obs_metrics.record_event("compile.bucket", key=str(bucket_sig),
+                                 artifact=fp[:40], seconds=round(dt, 4))
         self._entries[key] = entry
         self._evict()
         return entry
@@ -149,6 +183,9 @@ class CompileCache:
         answers False for it from now on)."""
         self._failed_exact.add((fingerprint or self.fingerprint, exact_sig))
         self.stats.escalation_failures += 1
+        obs_metrics.record_event(
+            "escalate.fail", key=str(exact_sig),
+            artifact=(fingerprint or self.fingerprint)[:40])
 
     def get_or_compile_exact(self, exact_sig: Tuple,
                              compile_fn: Callable[[], Any],
@@ -162,12 +199,21 @@ class CompileCache:
         self.stats.misses += 1
         self.stats.escalations += 1
         fp = fingerprint or self.fingerprint
+        sp = (obs_trace.ACTIVE.begin("compile.exact", cat="compile",
+                                     key=str(exact_sig), artifact=fp[:40],
+                                     cache_hit=False)
+              if obs_trace.ACTIVE is not None else None)
         t0 = time.perf_counter()
         try:
             entry = self._compile_with_retry(
                 compile_fn, f"{fp} exact {exact_sig}", "compile.exact")
         finally:
-            self.stats.compile_seconds += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.stats.compile_seconds += dt
+            if sp is not None:
+                sp.end()
+        obs_metrics.record_event("escalate", key=str(exact_sig),
+                                 artifact=fp[:40], seconds=round(dt, 4))
         self._entries[key] = entry
         self._evict()
         return entry
@@ -191,11 +237,14 @@ class CompileCache:
                               if k[0] != fingerprint}
         return len(dead)
 
-    def discard(self, entry: Any) -> None:
-        """Take ``entry`` out of the cache (a jit entry whose CUDA graph
-        capture failed): the next call of its signature compiles anew."""
-        for key in [k for k, v in self._entries.items() if v is entry]:
+    def discard(self, entry: Any) -> bool:
+        """Take ``entry`` out of the cache (an entry whose CUDA graph
+        capture failed): the next call of its signature compiles anew.
+        Returns whether the cache held it."""
+        keys = [k for k, v in self._entries.items() if v is entry]
+        for key in keys:
             del self._entries[key]
+        return bool(keys)
 
     def _evict(self) -> None:
         while len(self._entries) > self.max_entries:

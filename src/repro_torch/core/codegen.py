@@ -78,9 +78,11 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from ..ft import faults
 from ..kernels.lengths import device_ints
 from ..kernels.program import Program, Step
 from ..kernels.triton_build import LaunchCounter
+from ..obs import trace as obs_trace
 from .dhlo import DGraph, DOp, DValue
 from .dtypes import as_torch, is_integer
 from .emit import emit_op, scalar_tensor
@@ -912,8 +914,27 @@ def _run_graph(graph: DGraph, arrays, env: _ShapeEnv, masked: bool,
         if cluster is not None and cluster.template and kernels:
             kern = kernels.get(cluster.template)
         if kern is not None:
-            vals.update(kern.run(graph, cluster, read, env, masked))
+            # the span and the fault site are host code around the launch;
+            # a CUDA graph's capture pass silences both and a replay runs
+            # no Python, so they fire once per entry, in its first call
+            sp = (obs_trace.ACTIVE.begin(
+                      "kernel.cluster", cat="backend",
+                      template=cluster.template,
+                      kernel=type(kern).__name__, ops=len(cluster.ops))
+                  if obs_trace.ACTIVE is not None else None)
+            try:
+                if faults.ACTIVE is not None:
+                    faults.ACTIVE.check("kernel.cluster",
+                                        key=cluster.template)
+                vals.update(kern.run(graph, cluster, read, env, masked))
+            except BaseException:
+                # no per-op fallback: the cluster's failure is the call's
+                if sp is not None:
+                    sp.end(error=True)
+                raise
             kern.runs += 1
+            if sp is not None:
+                sp.end(runs=kern.runs)
         else:
             for op in ops:
                 run_op(op)

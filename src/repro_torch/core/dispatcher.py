@@ -43,10 +43,22 @@ This module is pure mechanism: *what* gets compiled per bucket is
 supplied by the caller via ``compile_bucket`` / ``compile_exact``
 callbacks — the public API layer (``repro_torch.api``) wires those to the
 backend registry.
+
+Every call opens a ``dispatch`` span (cat ``dispatch``; args
+``artifact``, ``bucket``, ``pad_bytes``, ``cache_hit``, and at its end
+``entry_seconds`` or ``error``) when a tracer is installed.  The hook is
+emitted unconditionally, so the generated source is the same with and
+without a tracer; with none it costs one attribute load and an ``is
+None`` test.  ``entry_seconds`` is host time from the entry call to its
+return: on the card that is the time to queue the launches (or to
+replay the entry's CUDA graph), not the card's execution time.  A
+miss's compile counts in the host time before it (``host_seconds``),
+as in the JAX package; on the dhlo pipeline that compile includes the
+entry's first call (``first_call_compiles``), whose entry window is
+then empty.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
@@ -55,6 +67,8 @@ import torch
 
 from ..errors import CompileError
 from ..frontends.fx_frontend import TreeSpec, eval_dim
+from ..obs import trace as obs_trace
+from ..obs.clock import CLOCK as _obs_clock
 from .bucketing import BucketPolicy
 from .cache import CompileCache
 from .dhlo import DGraph
@@ -428,6 +442,7 @@ def generate_dispatch(
     on_tie_break: Optional[Callable[[Sequence[Any]], Any]] = None,
     memory_plan: Optional[Any] = None,
     lens_device: Any = "cpu",
+    first_call_compiles: bool = False,
 ) -> Tuple[Callable, str]:
     """Generate the per-call host flow for one artifact, seen through
     ``lens``.
@@ -455,6 +470,19 @@ def generate_dispatch(
     (``lens.pass_lens``): an ``int32`` tensor made there each call,
     through pinned memory and a copy that does not synchronise on a
     card.
+
+    ``first_call_compiles`` makes a new entry's first call part of its
+    compile, inside the compile cache's retry ladder: ``compile_bucket``
+    then takes ``(key, args)`` and ``compile_exact`` ``(args)``, and each
+    returns the entry with the outputs of its first call on ``args``.
+    The dhlo pipeline asks for it: that call is the port's trace, as the
+    JAX package's ``jit(...).lower(...).compile()`` is (it runs the
+    cluster kernels for the first time, the ``kernel.cluster`` site, and
+    captures the CUDA graph), and writes none of its arguments, so a
+    transient failure there is retried as a failed compile is.  The jit
+    pipeline's functions may write their pass-through arguments in
+    place (a KV cache), so their first call stays outside the ladder,
+    in the entry window, where the JAX package's lazy ``jax.jit`` traces.
     """
     fingerprint = fingerprint or cache.fingerprint
     if escalation_threshold is None:
@@ -522,7 +550,9 @@ def generate_dispatch(
         "_fp": fingerprint,
         "_esc": escalation_threshold,
         "_cache": cache,
-        "_clk": time.perf_counter,
+        "_clk": _obs_clock,
+        "_trace": obs_trace,
+        "_name": lens.name,
     }
 
     # dispatch-overhead timer (always on): host flow vs entry call
@@ -582,18 +612,18 @@ def generate_dispatch(
         # ones may escalate again on a later call
         w("    if _cache.should_escalate(exact, _fp, _esc):")
         w("        try:")
-        w("            fn = _cache.get_or_compile_exact("
-          "exact, _compile_exact, _fp)")
+        w("            fn, outs = _exact(exact, arrays)")
         w("        except _CompileError as _ce:")
         w("            fn = None")
         w("            if not _ce.transient:")
         w("                _cache.note_escalation_failure(exact, _fp)")
         w("        if fn is not None:")
+        w("            if outs is None:")
+        w("                outs = fn(*arrays)")
         if lens.outputs is None:
-            w("            return fn(*arrays)")
+            w("            return outs")
         else:
-            w("            return list(fn(*arrays))")
-        ns["_compile_exact"] = compile_exact
+            w("            return list(outs)")
         ns["_CompileError"] = CompileError
 
     w(f"    _pb = {bytes_expr}")
@@ -601,8 +631,13 @@ def generate_dispatch(
     w("    _mstats.note_call(key, _pb, _tb)")
     ns["_mstats"] = mstats
     w("    entry = _get(('bucket', _fp, key))")
-    w("    if entry is None:")
-    w("        entry = _compile(key)")
+    # the span hook is emitted unconditionally (the source is identical
+    # whether tracing is on or off): one attribute load and an `is None`
+    # test when it is off
+    w("    _tr = _trace.ACTIVE")
+    w("    _sp = _tr.begin('dispatch', cat='dispatch', artifact=_name, "
+      "bucket=key, pad_bytes=_pb - _tb, cache_hit=entry is not None) "
+      "if _tr is not None else None")
     if lens.pass_lens:
         w("    lens = _lens([" + ", ".join(f"s_{i}" for i in range(n_syms))
           + "])")
@@ -637,12 +672,30 @@ def generate_dispatch(
         ns[f"_dt{ai}"] = as_torch(ap.dtype)
         call_args.append(var)
 
-    entry_args = (["lens"] if lens.pass_lens else []) + call_args
-    call = f"entry({', '.join(entry_args)})"
+    entry_args = ", ".join((["lens"] if lens.pass_lens else []) + call_args)
+    args_tuple = f"({entry_args},)" if entry_args else "()"
+    # a miss compiles in the host window, as the JAX package's does; on
+    # the dhlo pipeline its compile includes the entry's first call
+    w("    outs = None")
+    w("    if entry is None:")
+    w("        try:")
+    w(f"            entry, outs = _compile(key, {args_tuple})")
+    w("        except BaseException:")
+    w("            if _sp is not None:")
+    w("                _sp.end(error=True)")
+    w("            raise")
     w("    _t1 = _clk()")
-    w(f"    outs = {call}")
+    w("    try:")
+    w("        if outs is None:")
+    w(f"            outs = entry({entry_args})")
+    w("    except BaseException:")
+    w("        if _sp is not None:")
+    w("            _sp.end(error=True)")
+    w("        raise")
     w("    _t2 = _clk()")
     w("    _mstats.note_times(key, _t1 - _t0, _t2 - _t1)")
+    w("    if _sp is not None:")
+    w("        _sp.end(entry_seconds=_t2 - _t1)")
     # staging buffers: drop each reference right after the entry call —
     # the plan's free discipline applied to the host flow
     for var in call_args:
@@ -687,12 +740,41 @@ def generate_dispatch(
             _move_to_end(key)  # keep hot buckets at the LRU tail
         return e
 
-    def _compile(key):
-        return cache.get_or_compile(key, lambda: compile_bucket(key),
-                                    fingerprint=fingerprint)
+    def _ladder(get: Callable[[Callable[[], Any]], Any],
+                build: Callable[[], Tuple[Any, Any]]):
+        """``get(compile_fn)``'s entry where ``build`` returns an entry with
+        its first call's outputs, and those outputs (``None`` where the
+        entry came out of the cache)."""
+        out: List[Any] = []
+
+        def compile_fn():
+            entry, outs = build()
+            out.append(outs)
+            return entry
+
+        return get(compile_fn), (out[-1] if out else None)
+
+    if first_call_compiles:
+        def _compile(key, args):
+            return _ladder(lambda f: cache.get_or_compile(
+                key, f, fingerprint=fingerprint),
+                lambda: compile_bucket(key, args))
+
+        def _exact(sig, arrays):
+            return _ladder(lambda f: cache.get_or_compile_exact(
+                sig, f, fingerprint), lambda: compile_exact(arrays))
+    else:
+        def _compile(key, args):
+            return cache.get_or_compile(key, lambda: compile_bucket(key),
+                                        fingerprint=fingerprint), None
+
+        def _exact(sig, arrays):
+            return cache.get_or_compile_exact(sig, compile_exact,
+                                              fingerprint), None
 
     ns["_get"] = _get
     ns["_compile"] = _compile
+    ns["_exact"] = _exact
 
     exec(compile(src, f"<disc-dispatch:{lens.name}>", "exec"), ns)
     # out of its own globals: a function in the namespace it reads is a

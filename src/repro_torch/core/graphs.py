@@ -13,7 +13,7 @@ per escalated exact) signature.  On the card it is one captured
   is the call's result.  Then the function is captured
   (``capture_error_mode="thread_local"``; a capture executes nothing, so
   the first call's in-place writes happen once), and every later call
-  replays the graph.  A capture that fails raises a
+  replays the graph.  A first call or capture that fails raises a
   :class:`~repro_torch.errors.CompileError` naming the entry and torch's
   error, and the entry leaves its cache: a function that synchronises in
   its body (``.item()``) fails so, as ``jax.jit`` refuses to concretise
@@ -40,6 +40,12 @@ per escalated exact) signature.  On the card it is one captured
   LaunchCounter`) keep counting the launches the card executed: the
   first call counts its eager launches, the capture pass nothing, and
   every replay adds what the capture pass counted.
+* **Spans and fault sites** (:mod:`repro_torch.obs`,
+  :mod:`repro_torch.ft`) fire in the first call, the port's trace: the
+  capture pass runs with no tracer and no injector installed, so it
+  records nothing and no injected fault fires mid-capture, and a replay
+  runs no Python.  An entry's ``kernel.cluster`` spans and sites come
+  once per entry, as the JAX package's come once per ``jax.jit`` trace.
 
 Inside :func:`~repro_torch.kernels.select.plain_versions` and
 :func:`eager_entries`, and for arguments with no CUDA tensor (the CPU),
@@ -59,8 +65,10 @@ from typing import Any, Callable, Dict, Iterator, List, Sequence, Set
 import torch
 
 from ..errors import CONTROL_EXCEPTIONS, CompileError, wrap_compile_error
+from ..ft import faults
 from ..kernels.select import in_plain_versions
 from ..kernels.triton_build import launch_counts
+from ..obs import trace as obs_trace
 
 __all__ = ["GraphEntry", "GraphPool", "GraphStats", "CudaGraphs",
            "CUDA_GRAPHS", "eager_entries"]
@@ -79,6 +87,19 @@ def eager_entries() -> Iterator[None]:
         yield
     finally:
         _EAGER.reset(token)
+
+
+@contextlib.contextmanager
+def _unobserved() -> Iterator[None]:
+    """No tracer and no fault injector for the block: a capture pass
+    re-runs the entry's Python, and its spans and sites fired in the
+    first call already."""
+    tracer, injector = obs_trace.ACTIVE, faults.ACTIVE
+    obs_trace.ACTIVE = faults.ACTIVE = None
+    try:
+        yield
+    finally:
+        obs_trace.ACTIVE, faults.ACTIVE = tracer, injector
 
 
 @dataclass
@@ -275,6 +296,10 @@ class GraphEntry:
 
     def _fail(self, e: Exception, before: Dict[Any, int], what: str,
               transient: bool = True) -> CompileError:
+        """The entry leaves its cache; returns ``e`` classified (a new
+        error is chained to ``e`` by ``wrap_compile_error``, so the caller
+        raises it without ``from e``, which would make a ``CompileError``
+        ``e`` its own cause)."""
         _set_counts(before)
         self._dropped(self)
         err = wrap_compile_error(e, f"{what} of {self.name}")
@@ -293,19 +318,27 @@ class GraphEntry:
         versions = [x._version if isinstance(x, torch.Tensor) else None
                     for x in ins]
         before = launch_counts()
+
+        def written() -> List[int]:
+            return [i for i, v in enumerate(versions)
+                    if v is not None and ins[i]._version != v]
+
         try:
             out = CUDA_GRAPHS.warm_up(self.fn, run_args)
         except CONTROL_EXCEPTIONS:
             _set_counts(before)
             raise
         except Exception as e:  # noqa: BLE001 — wrapped and re-raised
-            raise self._fail(e, before, "first call") from e
-        written = [i for i, v in enumerate(versions)
-                   if v is not None and ins[i]._version != v]
+            # a retry would apply writes into arguments read in place
+            # twice
+            raise self._fail(e, before, "first call",
+                             transient=all(copy[i] for i in written()))
+        wrote = written()
         ran = launch_counts()
         try:
-            graph, captured = CUDA_GRAPHS.capture(self.fn, run_args,
-                                                  self.pool)
+            with _unobserved():
+                graph, captured = CUDA_GRAPHS.capture(self.fn, run_args,
+                                                      self.pool)
         except CONTROL_EXCEPTIONS:
             _set_counts(before)
             raise
@@ -313,13 +346,13 @@ class GraphEntry:
             # the first call's writes into arguments read in place are
             # done: a retry would apply them twice
             raise self._fail(e, before, "CUDA graph capture",
-                             transient=all(copy[i] for i in written)) from e
+                             transient=all(copy[i] for i in wrote))
         after = launch_counts()
         _set_counts(ran)
         self._launches = {c: n - ran.get(c, 0) for c, n in after.items()
                           if n != ran.get(c, 0)}
         self._spec, self._in, self._copy = spec, ins, copy
-        self._written = [i for i in written if copy[i]]
+        self._written = [i for i in wrote if copy[i]]
         outs: List[Any] = []
         self._out_spec = _flatten(out, outs)
         self._alias = [next((i for i, x in enumerate(ins) if _is(o, x)),

@@ -14,6 +14,10 @@ that
   dropped where the plan frees them, and the byte trail (planned peak vs
   the no-liveness baseline) lands in :class:`VMStats`.
 
+Each call is one ``vm.interp`` span (cat ``vm``, ``op_dispatches`` at its
+end) when a tracer is installed, and the latest VM's :class:`VMStats` are
+``disc_torch.observe()["vm"]``.
+
 Region ops run through the executor's own :func:`emit_region_op` at the
 call's exact shapes.  DISC's generated dispatcher does none of this per
 call; the difference between the two is the paper's "CPU time" claim.
@@ -26,6 +30,8 @@ from typing import Any, Dict
 
 import torch
 
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from .buffers import plan_buffers
 from .codegen import REGION_OPS, _Literals, _ShapeEnv, emit_region_op
 from .dhlo import DGraph, DValue
@@ -76,8 +82,27 @@ class NimbleVM:
         self._reuse_lines = sum(self.buffer_plan.reuse_counts.values())
         # the constants stay resident on the device across calls
         self._literals = _Literals(self.device)
+        obs_metrics.register_collector("vm", self._obs_collect)
+
+    def _obs_collect(self) -> Dict[str, Any]:
+        """Pull collector for ``disc_torch.observe()["vm"]``."""
+        s = self.stats
+        return {"calls": s.calls, "op_dispatches": s.op_dispatches,
+                "interp_seconds": round(s.interp_seconds, 6),
+                "planned_peak_bytes": s.planned_peak_bytes,
+                "naive_peak_bytes": s.naive_peak_bytes, "reuses": s.reuses}
 
     def __call__(self, *arrays):
+        sp = (obs_trace.ACTIVE.begin("vm.interp", cat="vm",
+                                     graph=self.graph.name)
+              if obs_trace.ACTIVE is not None else None)
+        try:
+            return self._interp(arrays)
+        finally:
+            if sp is not None:
+                sp.end(op_dispatches=self.stats.op_dispatches)
+
+    def _interp(self, arrays):
         t0 = time.perf_counter()
         g = self.graph
         arrays = [torch.as_tensor(a, device=self.device) for a in arrays]

@@ -24,7 +24,6 @@ anything is allocated; it waits for the multi-GPU slice.
 """
 import argparse
 import dataclasses
-import time
 
 import torch
 
@@ -34,6 +33,7 @@ from ..configs import ARCH_IDS, get_config
 from ..data.pipeline import VarLenRequestStream
 from ..models.common import dtype_of
 from ..models.registry import get_model
+from ..obs.clock import CLOCK as _clock
 
 
 def main(argv=None):
@@ -77,12 +77,12 @@ def main(argv=None):
     stream = VarLenRequestStream(vocab=cfg.vocab, min_len=4,
                                  max_len=args.max_seq // 2, seed=args.seed)
     reqs = stream.sample(args.requests)
-    t0 = time.perf_counter()
+    t0 = _clock()
     engine.submit(reqs)
     done = engine.run_until_done()
     if device.type == "cuda":
         torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    dt = _clock() - t0
     print(f"{len(done)}/{args.requests} requests in {dt:.1f}s; "
           f"{engine.stats['tokens_generated']} tokens; "
           f"prefill compiles {engine.stats['prefill_compiles']}")

@@ -49,10 +49,25 @@ tree of layer-stacked leaves with the batch on axis 1 (the dense KV
 cache, RWKV's nested recurrent state): row gathers, scatters, zeroing
 and gating map over its leaves.
 
+The fault plane is the JAX package's: a launch runs under the
+taxonomy's retry ladder (the ``serve.launch`` fault site fires first in
+each attempt), a permanent failure fails only its launch group, and
+``Request.deadline_s`` retires late requests.  With
+``ServeConfig(heartbeat_deadline_s=...)`` each replica must beat
+(:meth:`ServeEngine.heartbeat`) within the deadline: a silent replica is
+drained, its requests requeued with prompt + generated tokens (greedy
+decoding resumes them exactly, through a prefill of those tokens), and
+admission routes around it until it beats again.  Each request is one
+``request`` async span and each launch one ``serve.prefill`` /
+``serve.decode`` span when a tracer is installed (host time: a span
+closes when the launch is queued, or when its CUDA graph replay is);
+:meth:`ServeEngine.report` and ``disc_torch.observe()["serve"]`` /
+``["health"]`` give the counters.  The port has no per-op fallback, so
+``kernel_demotions`` stays 0.
+
 Not ported yet, each raising ``NotImplementedError`` naming its slice:
-paged KV (``kv_block_size``), speculative decoding (``speculative``),
-SPMD placement (``mesh``) and replica heartbeats
-(``heartbeat_deadline_s``).  Every ``stats`` key is documented in
+paged KV (``kv_block_size``), speculative decoding (``speculative``)
+and SPMD placement (``mesh``).  Every ``stats`` key is documented in
 :data:`STATS_KEYS`.
 """
 from __future__ import annotations
@@ -70,11 +85,16 @@ from ..api.staged import compile as disc_compile, weak_method
 from ..core.bucketing import BucketPolicy, POW2
 from ..core.cache import CompileCache
 from ..data.pipeline import Request
-from ..errors import (CONTROL_EXCEPTIONS, DEFAULT_RETRY, DiscError,
-                      wrap_launch_error)
+from ..errors import (CONTROL_EXCEPTIONS, DEFAULT_RETRY, CompileError,
+                      DiscError, wrap_launch_error)
 from ..frontends.fx_frontend import ArgSpec
+from ..ft import faults
+from ..ft.supervisor import HeartbeatMonitor
 from ..models.registry import (Model, gate_rows, replay_prefill,
                                row_keep_mask, tree_map)
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+from ..obs.clock import CLOCK
 from .policies import get_admission_policy
 
 __all__ = ["ServeConfig", "ServeEngine", "STATS_KEYS", "BATCH_POW2"]
@@ -122,23 +142,29 @@ STATS_KEYS: Dict[str, str] = {
     "failed_requests": "requests retired FAILED (permanent launch "
                        "failure, deadline expiry) — reasons in "
                        "``engine.failed[rid]``",
-    "retries": "transient launch retries (capped exponential backoff)",
+    "retries": "transient launch retries (capped exponential backoff); "
+               "transient *compile* retries live in the compile cache's "
+               "stats",
+    "kernel_demotions": "cluster-kernel / backend demotions during this "
+                        "engine's run: always 0, the port has no per-op "
+                        "fallback (a failed kernel raises)",
     "deadline_expirations": "requests failed because Request.deadline_s "
                             "passed (checked at admission and between "
                             "steps)",
+    "replica_drains": "replicas drained after missing the heartbeat "
+                      "deadline (slots preempted back to the queue, "
+                      "traffic continues on survivors)",
 }
 
 # options of the reference engine whose slices are not ported yet
 _LATER = {
-    "kv_block_size": "paged KV arrives with the port's paged/speculative "
-                     "slice",
-    "speculative": "speculative decoding arrives with the port's "
-                   "paged/speculative slice",
+    "kv_block_size": "paged KV arrives with the port's paged-KV and "
+                     "speculative-decoding slice",
+    "speculative": "speculative decoding arrives with the port's paged-KV "
+                   "and speculative-decoding slice",
     "mesh": "SPMD placement arrives with the port's multi-GPU slice",
     "sharding_profile": "SPMD placement arrives with the port's multi-GPU "
                         "slice",
-    "heartbeat_deadline_s": "replica health monitoring arrives with the "
-                            "port's observability / fault-tolerance slice",
 }
 
 
@@ -171,12 +197,16 @@ class ServeConfig:
     # where the model, the KV cache and both artifacts live: the card
     # unless "cpu" is asked for (the kernels' plain versions)
     device: str = "cuda"
+    # replica health: a replica whose last heartbeat (engine.heartbeat(r))
+    # is older than this is drained — its slots preempt back to the queue
+    # and admission routes around it until a beat restores it.  None
+    # disables monitoring (no drain, no heartbeats required)
+    heartbeat_deadline_s: Optional[float] = None
     # not ported yet: each raises NotImplementedError when set
     kv_block_size: Optional[int] = None
     speculative: Optional[Any] = None
     mesh: Optional[Any] = None
     sharding_profile: Optional[Any] = None
-    heartbeat_deadline_s: Optional[float] = None
 
 
 @dataclass
@@ -191,6 +221,10 @@ class _Slot:
     pos: int = 0                  # prompt tokens prefilled so far
     state: str = "prefill"        # "prefill" | "decode"
     generated: List[int] = field(default_factory=list)
+    # re-admitted after a replica drain: the prompt replays previously
+    # generated tokens, so the prefill-completion token is NOT the free
+    # first token — it consumes max_new budget
+    resumed: bool = False
 
 
 class ServeEngine:
@@ -231,9 +265,19 @@ class ServeEngine:
         # launch error, DeadlineExceeded)
         self.failed: Dict[int, str] = {}
         self._deadlines: Dict[int, float] = {}  # rid -> absolute deadline
-        self._clock = time.monotonic            # injectable (tests)
-        self._wall = time.perf_counter  # busy_s and decode gaps only
+        self._carry: Dict[int, List[int]] = {}  # rid -> generated-so-far
+        self._clock = CLOCK     # deadlines and heartbeats; injectable
+        self._wall = CLOCK      # perf timing (busy_s, decode gaps) only
         self._retry = DEFAULT_RETRY
+        self._replica_alive = [True] * scfg.replicas
+        self.monitor: Optional[HeartbeatMonitor] = None
+        if scfg.heartbeat_deadline_s is not None:
+            self.monitor = HeartbeatMonitor(
+                [f"replica{r}" for r in range(scfg.replicas)],
+                deadline_s=scfg.heartbeat_deadline_s)
+            now = self._clock()
+            for r in range(scfg.replicas):
+                self.monitor.beat(f"replica{r}", t=now)
         self._admit_order = get_admission_policy(scfg.admission)
         self._prefill_impl = (model.prefill if scfg.prefill_mode == "batched"
                               else replay_prefill(model.decode_step))
@@ -283,6 +327,12 @@ class ServeEngine:
                                    cache=self.compile_cache))
         self.stats: Dict[str, Any] = self._zero_stats()
         self._refresh_stats()
+        # weakly held: the registry never keeps the engine (its cache and
+        # graph pool on the card) alive
+        obs_metrics.register_collector("serve", self._obs_stats,
+                                       name="engine")
+        obs_metrics.register_collector("health", self._obs_health,
+                                       name="engine")
 
     # ------------------------------------------------------------ device --
     def _prefill_call(self, params, rows, tokens, lens, offsets):
@@ -353,12 +403,14 @@ class ServeEngine:
 
     def _admit(self) -> None:
         """Claim free slots for waiting requests in policy order; each
-        request goes to the least-loaded replica with a free slot (ties
-        to the lowest index).  Admitted requests enter the prefill
+        request goes to the least-loaded live replica with a free slot
+        (ties to the lowest index).  Admitted requests enter the prefill
         state."""
         mb = self.scfg.max_batch
+        # a drained replica offers no slots until a heartbeat restores it
         free_by_rep = [[i for i in range(r * mb, (r + 1) * mb)
                         if self.slots[i] is None]
+                       if self._replica_alive[r] else []
                        for r in range(self.scfg.replicas)]
         n_free = sum(len(f) for f in free_by_rep)
         if not n_free or not self.queue:
@@ -373,18 +425,37 @@ class ServeEngine:
                       key=lambda r: (mb - len(free_by_rep[r]), r))
             i = free_by_rep[rep].pop(0)
             toks = np.asarray(req.tokens, np.int32)
+            carried = self._carry.pop(req.rid, None)
             self.slots[i] = _Slot(rid=req.rid, tokens=toks,
                                   plen=int(toks.shape[0]),
-                                  remaining=req.max_new_tokens)
+                                  remaining=req.max_new_tokens,
+                                  generated=list(carried or ()),
+                                  resumed=bool(carried))
             self.lens[i] = 0
             self._rep_counters[rep]["admitted"] += 1
+            if obs_trace.ACTIVE is not None:
+                obs_trace.ACTIVE.async_begin(
+                    "request", id=req.rid, replica=rep, slot=i,
+                    prompt_len=int(toks.shape[0]),
+                    resumed=bool(carried))
         self.queue = [r for r in self.queue if r.rid not in taken]
 
     # -------------------------------------------------------- fault plane --
+    def _forget(self, rid: int) -> None:
+        """Drop a retired rid's scheduler bookkeeping."""
+        self._carry.pop(rid, None)
+        self._deadlines.pop(rid, None)
+
     def _fail_request(self, rid: int, reason: str) -> None:
+        """Retire ``rid`` FAILED: recorded with its reason, counted, and
+        every bookkeeping entry dropped — the rest of the engine keeps
+        serving."""
         self.failed[rid] = reason
         self.stats["failed_requests"] += 1
-        self._deadlines.pop(rid, None)
+        self._forget(rid)
+        if obs_trace.ACTIVE is not None:
+            obs_trace.ACTIVE.async_end("request", id=rid, failed=True,
+                                       reason=reason)
 
     def _fail_slot(self, i: int, reason: str) -> None:
         """Fail the request occupying slot ``i`` and free the slot."""
@@ -395,25 +466,111 @@ class ServeEngine:
 
     def _launch(self, kind: str, fn: Callable, *args):
         """Run one artifact launch under the taxonomy: transient failures
-        (allocator pressure) retry with capped exponential backoff; a
-        permanent failure raises a classified
+        (allocator pressure, injected transients) retry with capped
+        exponential backoff; a permanent failure raises a classified
         :class:`~repro_torch.errors.DiscError` for the caller to fail
-        exactly the requests in the launch group."""
+        exactly the requests in the launch group.
+
+        The ``serve.launch`` fault site fires before the artifact is
+        called, so a retried injected fault re-runs a launch that never
+        started.  The decode step writes the KV cache where it lies (in
+        its CUDA graph too), so an error the decode step raised while it
+        ran is permanent: a retry would apply a partial write twice.  A
+        :class:`~repro_torch.errors.CompileError` out of its dispatch
+        keeps its own class: a failed compile ran nothing, and
+        :mod:`repro_torch.core.graphs` makes a failed first call or
+        capture transient only where it wrote nothing in place."""
+        sp = (obs_trace.ACTIVE.begin(f"serve.{kind}", cat="serve")
+              if obs_trace.ACTIVE is not None else None)
         attempt = 0
-        while True:
-            try:
-                return fn(*args)
-            except CONTROL_EXCEPTIONS:
-                raise
-            except DiscError as e:   # already classified (e.g. a
-                err = e              # CompileError out of dispatch)
-            except Exception as e:  # noqa: BLE001 — classified below
-                err = wrap_launch_error(e, kind)
-            if not err.transient or attempt >= self._retry.max_retries:
-                raise err
-            self.stats["retries"] += 1
-            time.sleep(self._retry.delay(attempt))
-            attempt += 1
+        ok = False
+        try:
+            while True:
+                started = False
+                try:
+                    if faults.ACTIVE is not None:
+                        faults.ACTIVE.check("serve.launch", key=kind)
+                    started = True
+                    out = fn(*args)
+                    ok = True
+                    return out
+                except CONTROL_EXCEPTIONS:
+                    raise
+                except DiscError as e:   # already classified (e.g. a
+                    err = e              # CompileError out of dispatch)
+                except Exception as e:  # noqa: BLE001 — classified below
+                    err = wrap_launch_error(e, kind)
+                if started and kind == "decode" \
+                        and not isinstance(err, CompileError):
+                    err.transient = False
+                if not err.transient or attempt >= self._retry.max_retries:
+                    try:
+                        raise err
+                    finally:
+                        # no cycle through this frame (the traceback holds
+                        # it, it would hold the error): the engine, its
+                        # cache and parameters stay freeable without gc
+                        del err
+                del err     # nor through a retried attempt's error
+                self.stats["retries"] += 1
+                obs_metrics.record_event("serve.retry", kind=kind,
+                                         attempt=attempt + 1)
+                time.sleep(self._retry.delay(attempt))
+                attempt += 1
+        finally:
+            if sp is not None:
+                sp.end(attempts=attempt + 1, error=not ok)
+
+    def heartbeat(self, replica: int, *, t: Optional[float] = None) -> None:
+        """Record a liveness beat for ``replica`` (requires
+        ``ServeConfig(heartbeat_deadline_s=...)``).  A beat from a
+        drained replica restores it at the next step."""
+        if self.monitor is None:
+            raise ValueError(
+                "ServeEngine.heartbeat() needs replica health monitoring: "
+                "set ServeConfig(heartbeat_deadline_s=...)")
+        self.monitor.beat(f"replica{replica}",
+                          t=self._clock() if t is None else t)
+
+    def _check_replicas(self) -> None:
+        """Drain replicas silent past the heartbeat deadline — their
+        slots preempt back to the queue and admission routes around
+        them — and restore drained replicas that have beaten again."""
+        dead = set(self.monitor.dead_hosts(now=self._clock()))
+        mb = self.scfg.max_batch
+        for r in range(self.scfg.replicas):
+            is_dead = f"replica{r}" in dead
+            if is_dead and self._replica_alive[r]:
+                self._replica_alive[r] = False
+                self.stats["replica_drains"] += 1
+                obs_metrics.record_event("replica.drain", replica=r)
+                for i in range(r * mb, (r + 1) * mb):
+                    if self.slots[i] is not None:
+                        self._preempt(i, drain=True)
+            elif not is_dead and not self._replica_alive[r]:
+                self._replica_alive[r] = True   # restored on recovery
+                obs_metrics.record_event("replica.restore", replica=r)
+
+    def _preempt(self, i: int, *, drain: bool = True) -> None:
+        """Evict slot ``i`` (a replica drain) and requeue its request with
+        prompt + generated tokens as the new prompt.  Greedy decoding
+        makes the recompute exact: the resumed request continues with
+        the tokens it would have produced, through a prefill of those
+        tokens where the undisturbed run decoded them one by one.  The
+        slot's cache rows need no clearing: a prefill at offset 0 zeroes
+        its rows first."""
+        slot = self.slots[i]
+        obs_metrics.record_event("preempt", rid=slot.rid, slot=i,
+                                 drain=drain)
+        toks = slot.tokens
+        if slot.generated:
+            toks = np.concatenate(
+                [toks, np.asarray(slot.generated, np.int32)])
+        self._carry[slot.rid] = list(slot.generated)
+        self.queue.append(Request(rid=slot.rid, tokens=toks,
+                                  max_new_tokens=slot.remaining))
+        self.slots[i] = None
+        self.lens[i] = 0
 
     def _check_deadlines(self) -> None:
         """Fail queued and in-slot requests whose deadline passed."""
@@ -426,10 +583,12 @@ class ServeEngine:
         for i, s in enumerate(self.slots):
             if s is not None and s.rid in expired:
                 self.stats["deadline_expirations"] += 1
+                obs_metrics.record_event("deadline.expire", rid=s.rid)
                 self._fail_slot(i, f"DeadlineExceeded: deadline_s passed "
                                    f"after {len(s.generated)} tokens")
         for r in [r for r in self.queue if r.rid in expired]:
             self.stats["deadline_expirations"] += 1
+            obs_metrics.record_event("deadline.expire", rid=r.rid)
             self._fail_request(r.rid, "DeadlineExceeded: deadline_s "
                                       "passed before completion")
         self.queue = [r for r in self.queue if r.rid not in expired]
@@ -501,6 +660,13 @@ class ServeEngine:
             if s.pos >= s.plen:
                 s.state = "decode"
                 s.generated.append(first[r])
+                if s.resumed:
+                    # a resumed prompt replays previously generated
+                    # tokens: its completion token is a fresh one and
+                    # consumes budget (the free first token was already
+                    # granted by the original prefill)
+                    s.remaining -= 1
+                    s.resumed = False
                 self.stats["tokens_generated"] += 1
                 self._rep_counters[self._replica_of(i)][
                     "tokens_generated"] += 1
@@ -555,7 +721,10 @@ class ServeEngine:
                 or self.lens[i] >= self.scfg.max_seq - 1):
             self.done[slot.rid] = slot.generated
             self.stats["requests_completed"] += 1
-            self._deadlines.pop(slot.rid, None)
+            self._forget(slot.rid)
+            if obs_trace.ACTIVE is not None:
+                obs_trace.ACTIVE.async_end("request", id=slot.rid,
+                                           tokens=len(slot.generated))
             self._rep_counters[self._replica_of(i)][
                 "requests_completed"] += 1
             self.slots[i] = None
@@ -566,6 +735,8 @@ class ServeEngine:
         decode step — the ``prefill_interleave`` budget decides which when
         both kinds of work are pending."""
         t0 = self._wall()
+        if self.monitor is not None:
+            self._check_replicas()
         self._check_deadlines()
         self._admit()
         has_p = any(s is not None and s.state == "prefill"
@@ -594,6 +765,52 @@ class ServeEngine:
         return self.done
 
     # ------------------------------------------------------ introspection --
+    def report(self) -> Dict[str, Any]:
+        """Engine health + stats in one structured view.
+
+        ``report()["health"]`` is the fault plane's summary: replica
+        liveness (with last-beat ages under monitoring), FAILED requests
+        with their reasons, the fault counters, compile-cache
+        retry/escalation-failure totals, and the kernel demotions of this
+        engine's run (the JAX package's key; always empty here, as the
+        port has no per-op fallback)."""
+        return {"health": self._obs_health(), "stats": dict(self.stats),
+                "compiles": self.compile_counts()}
+
+    def _obs_health(self) -> Dict[str, Any]:
+        """The ``report()["health"]`` payload — also registered as the
+        pull collector behind ``disc_torch.observe()["health"]["engine"]``."""
+        now = self._clock()
+        replicas = []
+        for r, alive in enumerate(self._replica_alive):
+            entry: Dict[str, Any] = {"replica": r, "alive": bool(alive)}
+            if self.monitor is not None:
+                seen = self.monitor.last_seen[f"replica{r}"]
+                entry["last_beat_age_s"] = round(now - seen, 3)
+            replicas.append(entry)
+        cs = self.compile_cache.stats
+        return {
+            "alive_replicas": int(sum(self._replica_alive)),
+            "replicas": replicas,
+            "failed": {rid: self.failed[rid]
+                       for rid in sorted(self.failed)},
+            "counters": {k: self.stats[k] for k in
+                         ("failed_requests", "retries", "kernel_demotions",
+                          "deadline_expirations", "replica_drains")},
+            "compile": {"retries": cs.retries,
+                        "escalation_failures": cs.escalation_failures},
+            "kernel_demotions": [],
+        }
+
+    def _obs_stats(self) -> Dict[str, Any]:
+        """Pull collector behind ``disc_torch.observe()["serve"]["engine"]``
+        — the same counters as :attr:`stats`, refreshed at snapshot
+        time."""
+        self._refresh_stats()
+        out = dict(self.stats)
+        out["per_replica"] = [dict(c) for c in self.stats["per_replica"]]
+        return out
+
     def compile_counts(self) -> Dict[str, Dict[str, int]]:
         """Per-artifact compile counts (``{"bucket", "exact", "total"}``
         each) — the observable O(#buckets) contract."""

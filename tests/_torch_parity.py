@@ -10,6 +10,7 @@ whose MLP projections are plain 2-D dots, so its plan forms kDot clusters.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -17,12 +18,14 @@ import numpy as np
 import torch
 
 from repro.configs import get_config as ref_config
+from repro.models.registry import get_model as ref_model
 from repro.models import layers as RL
 from repro.models import transformer as RT
 from repro_torch.configs import get_config as port_config
 from repro_torch.models import layers as PL
 from repro_torch.models import transformer as PT
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.registry import get_model as port_model
 
 NARROW = dict(d_model=256, n_heads=8, n_kv_heads=2, d_ff=704, vocab=512)
 
@@ -48,6 +51,26 @@ def ref_stack(cfg, params):
         return RT.logits_from_hidden(cfg, params, x)
 
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def reduced_tinyllama() -> dict:
+    """The JAX package's reduced TinyLlama initialised from seed 0, and
+    the port's model over the same weights carried through numpy: built
+    once a process for the observability and fault twins, which only
+    read it."""
+    rcfg = ref_config("tinyllama_11b").reduced()
+    rmodel = ref_model(rcfg)
+    # one compiled init, not one dispatch an op (a few seconds less)
+    rparams = jax.jit(rmodel.init)(jax.random.PRNGKey(0))
+    pcfg = dataclasses.replace(
+        port_config("tinyllama_11b"),
+        **{f.name: getattr(rcfg, f.name)
+           for f in dataclasses.fields(port_config("tinyllama_11b"))})
+    params = params_from_numpy(jax.tree.map(np.asarray, rparams), pcfg,
+                               device="cpu")
+    return dict(cfg=pcfg, model=port_model(pcfg), params=params,
+                jmodel=rmodel, jparams=rparams)
 
 
 def build_pair(dtype: str = "f32", n_layers: int = 2, seed: int = 0):

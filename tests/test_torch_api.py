@@ -17,6 +17,7 @@ from repro_torch.api import backends
 from repro_torch.api.backends import Backend, register_backend
 from repro_torch.core.bucketing import POW2
 from repro_torch.core.codegen import ClusterKernel
+from repro_torch.errors import CompileError
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -97,7 +98,10 @@ def test_params_from_numpy_defaults_to_the_card():
 def test_failing_cluster_kernel_raises_instead_of_running_per_op(
         monkeypatch):
     """A registered kernel that fails surfaces its error on every call: the
-    cluster never runs per op in its place, and nothing demotes it."""
+    cluster never runs per op in its place, and nothing demotes it.  The
+    failure comes in an entry's first call, which is part of its compile,
+    so it surfaces as a permanent CompileError chained to the kernel's own
+    error, and the entry is not cached."""
     class Broken(ClusterKernel):
         template = "kLoop"
 
@@ -111,10 +115,13 @@ def test_failing_cluster_kernel_raises_instead_of_running_per_op(
     f = disc_torch.compile(lambda x: torch.tanh(x) * 2.0 + 1.0, [("S",)],
                            backend="broken", device="cpu")
     for s in (5, 9, 40):
-        with pytest.raises(RuntimeError, match="failed to launch"):
+        with pytest.raises(CompileError, match="failed to launch") as ei:
             f(torch.ones(s))
+        assert not ei.value.transient
+        assert isinstance(ei.value.__cause__, RuntimeError)
     assert kern.runs == 0
     assert f.backend.name == "broken"
+    assert f.compile_counts()["total"] == 0 and len(f.cache) == 0
 
 
 def test_eager_backend_escalation_and_inference():

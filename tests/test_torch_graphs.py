@@ -308,6 +308,27 @@ def test_failed_capture_after_an_in_place_write_is_permanent(fake):
     torch.testing.assert_close(cache, torch.ones(3))
 
 
+@pytest.mark.parametrize("write", [False, True])
+def test_failed_first_call_is_transient_only_before_an_in_place_write(
+        fake, write):
+    """An out-of-memory error in the first call is transient where the
+    call wrote no argument read in place, and permanent where it did; the
+    entry leaves the cache and the compile count either way."""
+    def f(cache, x):
+        if write:
+            cache.add_(x)
+        raise RuntimeError("CUDA out of memory. Tried to allocate 1 GiB")
+
+    cache = torch.zeros(3)
+    g = _jit(f, specs=[None, disc_torch.ArgSpec((3,), torch.float32)],
+             name="writer")
+    with pytest.raises(CompileError, match="writer") as info:
+        g(cache, torch.ones(3))
+    assert info.value.transient is not write
+    assert len(g.cache) == 0 and g.compile_counts()["total"] == 0
+    torch.testing.assert_close(cache, torch.full((3,), float(write)))
+
+
 def test_out_of_memory_at_capture_takes_the_engines_retry(fake):
     """An out-of-memory error while capturing is transient: the engine's
     launch ladder retries it, the retry compiles and captures anew, and

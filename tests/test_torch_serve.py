@@ -326,9 +326,11 @@ class TestTreeSpec:
 
 def test_later_slices_raise_not_implemented(tiny):
     for kw in (dict(kv_block_size=16), dict(speculative="ngram"),
-               dict(mesh=object()), dict(heartbeat_deadline_s=1.0)):
+               dict(mesh=object()), dict(sharding_profile="dp")):
         with pytest.raises(NotImplementedError, match="slice"):
             _engine(tiny, **kw)
+    # replica heartbeats are ported: the option serves
+    assert _engine(tiny, heartbeat_deadline_s=1.0).monitor is not None
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         disc_torch.CompileOptions(mesh=object())
 
