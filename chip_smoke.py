@@ -394,7 +394,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     over the concatenated latent as one kv head), bound by the latent's
     bytes or 2 H (576 + 512) flops a valid key over the f32 FFMA peak.
     RMSNorm at 5120 and the router's softmax at 2048 x 160 and 4 x 160,
-    as phase 9.
+    as phase 9.  The 2-layer bf16 engine runs once more on a paged pool
+    of 16-token blocks (``kv_block_size=16``, the latent's two leaves
+    gathered and scattered around the same graphs): streams identical to
+    its fixed-row run, the absorbed decode L a step.
 21. **Path 13 (obs / ft).**  The observability and fault-tolerance
     planes on TinyLlama-1.1B at full width in f32 (22 layers, random
     weights from a seeded generator).  (a) Path 1's stack through
@@ -424,7 +427,38 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     host µs a ``dispatch`` span at S = 37 and an untraced call, decode
     ms/step with no hook, a tracer and an injector that never fires (in
     turns), and the phase's seconds.
-22. Prints the run's seconds in all, the kernels line (each kernel, and
+22. **Path 14 (paged KV, speculative decoding).**  Path 3's engine
+    (TinyLlama-1.1B at full width, its bf16-valued weights, the six
+    prompts, 16 new tokens, EOS off), f32 then bf16, every entry a CUDA
+    graph: (a) on a paged pool of 16-token blocks, unconstrained, against
+    fixed rows: streams identical, first-token and first-decode-step
+    logits within 1e-6, no preemption, no block in use after, the
+    allocator consistent; (b) on a pool of 156 blocks (the first four
+    prompts' admission footprint; at 160 their decode growth fits
+    exactly): preemptions, every request done with its 17 tokens, each
+    preempted request's emitted prefix kept, no block in use after, the
+    streams equal to (a)'s printed; (c) ``speculative="ngram"`` (k = 4)
+    on fixed rows and on the pool: f32 streams identical to (a)'s fixed
+    run, bf16 parting only at a top-2 margin below 2e-2, accepted <=
+    drafted, verify launches <= decode steps; (d) two proposer objects
+    passed through ``ServeConfig(speculative=...)``: an oracle drafting
+    the fixed run's own next tokens (every draft accepted, on the pool)
+    and an adversary drafting each of them + 1 (none accepted, on fixed
+    rows), streams as (c); (e) in every run flash attention 22 and
+    RMSNorm 45 a prefill launch, decode step or verify launch, captures
+    == compiles, every later launch a replay, a decode or verify step
+    copying at most 1 KiB plus the block table (2 KiB) into its graph,
+    and one paged decode step and one verify launch traced under
+    ``torch.profiler`` at those counts; (f) flash attention at the verify
+    shape (B = 4 rows of 5 queries at the rows' fills, causal over the
+    2048-row cache) against its plain version, timed beside
+    ``F.scaled_dot_product_attention`` (a printed ``[kernels]`` row; in
+    the kernels line flash attention keeps the S = 2048 prefill row of
+    the earlier paths); (g) the card's allocated memory
+    back within 1 GB after each engine's ``del``.  Prints decode ms a
+    step paged and fixed, ms a verify launch, accept rates and tokens a
+    launch, the gathered bytes a paged step and the graph pools' bytes.
+23. Prints the run's seconds in all, the kernels line (each kernel, and
     flash attention's MLA forms as ``flash_attention_mla`` and
     ``flash_attention_mla_decode``), the card line, and the result line
     last.
@@ -437,7 +471,7 @@ bf16 and 15 in both dtypes, path 6 8 in bf16 and 4 in both dtypes, path
 8 all 4 + 4, path 9 all 52 in bf16 and 4 in both, path 10 all 32 in
 bf16 and 2 in f32, path 11 16 in bf16 and 4 in both, path 12 6 of 60 in
 bf16 (~8.1 GB of weights a layer; the 60 would need ~483 GB) and 2 in
-both, and path 13 all 22 in f32.
+both, and paths 13 and 14 all 22 in f32 (path 14 in bf16 too).
 """
 from __future__ import annotations
 
@@ -772,6 +806,25 @@ HEALTH_KEYS = {"alive_replicas", "replicas", "failed", "counters",
                "compile", "kernel_demotions"}
 HEALTH_COUNTERS = {"failed_requests", "retries", "kernel_demotions",
                    "deadline_expirations", "replica_drains"}
+
+# path 14 (paged KV and speculative decoding on path 3's engine): the
+# block size; the pressure run's pool in blocks, 156 = the admission
+# footprint of the first four prompts (3 + 13 + 46 + 94 blocks of 16), so
+# their decode growth must preempt (at 160 their peak footprint, 4 + 14 +
+# 47 + 95, fits exactly and nothing preempts); the draft tokens a verify
+# launch takes; the bytes a paged decode or verify step may copy into its
+# graph beside DECODE_COPY_BYTES (the (4, 128) int32 block table)
+PATH14_BLOCK = 16
+PATH14_POOL_BLOCKS = 156
+PATH14_K = 4
+TABLE_COPY_BYTES = SERVE_BATCH * (SERVE_SEQ // PATH14_BLOCK) * 4
+# paged vs fixed rows, the same graphs over the same rows: first-token and
+# first-decode-step logits, max|d|/max|ref|, in both dtypes
+TOL_PAGED = 1e-6
+# a speculative bf16 stream may part from the plain decode's only where
+# the plain run's top-2 margin (over its max|logit|) is below this: path
+# 3's stream rule
+TOL_SPEC_MARGIN = 2e-2
 
 # §4.5 library phase: a shape from TinyLlama's widths per entry, and the
 # entry the reference's selection rules give it
@@ -2806,6 +2859,7 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
     # runs' entries are CUDA graphs
     settings = {"kernels": ({}, False, False), "plain": ({}, True, False),
                 "chunked": (chunk, False, False),
+                "paged": ({"kv_block_size": PATH14_BLOCK}, False, False),
                 "eager": ({}, False, True),
                 "eager chunked": (chunk, False, True)}
     for label in labels:
@@ -2834,7 +2888,7 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
         # artifacts compiles an entry again, which runs eagerly there)
         for fn in (eng._prefill_fn, eng._decode_fn):
             eng.compile_cache.drop_fingerprint(fn._fingerprint)
-        eng.cache = None
+        eng.cache = eng.pool = None
         torch.cuda.empty_cache()
         if eng.routes is not None:
             print(f"{tag} {label}: {router_line(eng.routes)}", flush=True)
@@ -2930,6 +2984,15 @@ def serve_phase(path: str, dname: str, seed: int, report: dict,
     if "chunked" in runs:
         compare_streams(f"{tag} chunked vs unchunked", runs["chunked"],
                         runs["kernels"], tol, exact, held=not parts)
+    if "paged" in runs:
+        # the paged pool gathers the same rows into the same graphs
+        check(runs["paged"].done == runs["kernels"].done,
+              f"{tag} paged: streams part from the fixed rows': "
+              f"{runs['paged'].done} vs {runs['kernels'].done}")
+        print(f"{tag} paged vs fixed rows: streams identical; "
+              f"kv_preemptions {runs['paged'].stats['kv_preemptions']}, "
+              f"kv_peak_occupancy "
+              f"{runs['paged'].stats['kv_peak_occupancy']}", flush=True)
     report[(path, dname, cfg.n_layers)] = dict(launches=launches)
     fills = [n + SERVE_NEW_TOKENS // 2 for n in SERVE_PROMPTS[:SERVE_BATCH]]
     first = {rid: runs["kernels"].logits[(rid, 0)]
@@ -2970,7 +3033,9 @@ def graph_line(tag: str, eng, graphed: bool) -> None:
           f"{st['prefill_calls']} prefill launches and "
           f"{st['decode_steps']} decode steps")
     per_step = dec.bytes_in / st["decode_steps"]
-    check(per_step <= DECODE_COPY_BYTES,
+    limit = DECODE_COPY_BYTES + (eng.alloc.table().nbytes if eng.paged
+                                 else 0)
+    check(per_step <= limit,
           f"{tag}: a decode step copies {per_step:.0f} B into its graph")
     print(f"{tag}: graphs: captures prefill {pre.captures} decode "
           f"{dec.captures} (== compiles); replays prefill {pre.replays} "
@@ -4572,6 +4637,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         obs_phase(args.seed, report)
         print(f"[phase path13] {time.perf_counter() - t0:.1f} s", flush=True)
+        paged_phase(args.seed, report)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4679,11 +4745,15 @@ def new_paths(seed: int, report: dict, rows: list) -> None:
         labels=("kernels", "chunked", "eager", "eager chunked")))
     first = None
     for dname in ("f32", "bf16"):
+        # in bf16 the engine runs once more on a paged pool of 16-token
+        # blocks: its latent cache's two leaves gathered and scattered
+        # around the same graphs
         def path12(dname=dname, ref=first):
             cfg, _, out = serve_phase(
                 "path12", dname, seed, report, accuracy_ref=ref,
                 layers=PATH12_CUT_LAYERS,
-                labels=("kernels", "plain", "eager"))
+                labels=("kernels", "plain", "eager")
+                + (("paged",) if dname == "bf16" else ()))
             mla_kernel_phase(cfg, dname, fills, report, rows)
             norm_kernel_rows(cfg.norm, cfg.d_model, dname,
                              torch.Generator(device="cuda").manual_seed(12),
@@ -5132,6 +5202,409 @@ def obs_serve(cfg, seed: int) -> dict:
           flush=True)
     del eng, params, model
     return launches
+
+
+# ------------------------------------- path 14: paged KV, speculative --
+
+def path14_engine_class():
+    """The recording engine of the serve paths, also keeping the emitted
+    prefix of every request it preempts (rid -> one list a preemption)."""
+    Recording = serve_engine_class()
+
+    class Spied(Recording):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.carried = {}
+
+        def _preempt(self, i, *, drain=False):
+            s = self.slots[i]
+            self.carried.setdefault(s.rid, []).append(list(s.generated))
+            return super()._preempt(i, drain=drain)
+
+    return Spied
+
+
+def path14_run(tag: str, model, params, cfg_kw: dict, requests: list,
+               profile: bool = False) -> dict:
+    """One graphed engine of path 3's shape over ``requests``, with no EOS
+    (every stream runs its 16 new tokens, so the pressure run's schedule
+    follows from the prompt lengths alone): its streams,
+    stats, logits, step seconds, launches (counts set to 0 just before),
+    the graphs' checks and the pool's, recorded; then the engine is
+    deleted and the card's allocated memory must be back within
+    ``MEM_SLACK_BYTES`` of its value before the engine, with no gc
+    pass."""
+    import torch
+
+    from repro_torch.serve.engine import ServeConfig
+
+    mem0 = torch.cuda.memory_allocated()
+    eng = path14_engine_class()(model, params, ServeConfig(
+        max_batch=SERVE_BATCH, max_seq=SERVE_SEQ, eos_id=-1, **cfg_kw),
+        profile=profile)
+    counters = serve_counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    eng.t0 = t0
+    eng.submit(requests)
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counted = {k: c.launches for k, c in counters.items()}
+    st, cc = dict(eng.stats), eng.compile_counts()
+    check(len(eng.done) == len(requests) and not eng.failed,
+          f"{tag}: {len(eng.done)} done, failed {eng.failed}")
+    # launches: path 3's count a prefill launch, decode step or verify
+    steps = st["prefill_calls"] + st["decode_steps"]
+    want = {k: 0 for k in counted}
+    want.update({k: n * steps for k, n in
+                 SERVE_PATHS["path3"].per_step(model.cfg.n_layers).items()})
+    check(counted == want, f"{tag}: launches {counted}, the path predicts "
+                           f"{want}")
+    # graphs: captures == compiles, every later launch a replay, and a
+    # decode or verify step copies at most DECODE_COPY_BYTES (+ the block
+    # table when paged) into its graph
+    table = TABLE_COPY_BYTES if eng.paged else 0
+    spec = eng._verify_fn is not None
+    # a speculative engine's decode launches are its verify launches
+    calls = {"prefill": st["prefill_calls"],
+             "decode": 0 if spec else st["decode_steps"],
+             "verify": st["decode_steps"]}
+    # (a comprehension: no local outlives it holding an artifact, whose
+    # compile cache holds the engine's graphs and cache)
+    stats_of = {kind: fn.graph_stats
+                for kind, fn in (("prefill", eng._prefill_fn),
+                                 ("decode", eng._decode_fn),
+                                 ("verify", eng._verify_fn))
+                if fn is not None}
+    graphs = {}
+    for kind, g in stats_of.items():
+        check(g.captures == cc[kind]["total"]
+              and g.replays + g.captures == calls[kind],
+              f"{tag}: {kind} captures {g.captures} replays {g.replays}, "
+              f"compiles {cc[kind]}, calls {calls[kind]}")
+        per = g.bytes_in / max(calls[kind], 1)
+        if kind != "prefill":
+            check(per <= DECODE_COPY_BYTES + table,
+                  f"{tag}: a {kind} step copies {per:.0f} B into its graph")
+        graphs[kind] = dict(captures=g.captures, replays=g.replays,
+                            bytes_in_a_call=round(per, 1))
+    out = dict(done=dict(eng.done), stats=st, compiles=cc,
+               logits=eng.logits, step_s=eng.step_s, launches=counted,
+               profiled=eng.profiled, carried=eng.carried, graphs=graphs,
+               pool_bytes=eng.compile_cache.graph_pool.reserved_bytes,
+               seconds=seconds)
+    if eng.paged:
+        try:
+            eng.alloc.assert_consistent()
+        except AssertionError as e:
+            raise PhaseError(f"{tag}: block allocator inconsistent: {e}")
+        out["used_blocks"] = eng.alloc.used_blocks
+        # the rows a paged step gathers: every slot's max_seq positions of
+        # every pool leaf (read once and written once by the gather)
+        out["gather_bytes"] = sum(
+            leaf.element_size() * leaf.numel() // leaf.shape[1]
+            * SERVE_BATCH * (SERVE_SEQ // PATH14_BLOCK)
+            for leaf in eng.pool.tree.values())
+    dec = eng.step_s["decode"]
+    print(f"{tag}: prefill_calls {st['prefill_calls']} decode_steps "
+          f"{st['decode_steps']} tokens {st['tokens_generated']} compiles "
+          f"{cc} graphs {graphs} launches "
+          f"{ {k: v for k, v in counted.items() if v} }; decode ms/step "
+          f"median {1e3 * sorted(dec)[len(dec) // 2]:.2f} min "
+          f"{1e3 * min(dec):.2f} over {len(dec)} steps; graph pool "
+          f"reserved {out['pool_bytes']} B; {seconds:.1f} s", flush=True)
+    del eng
+    mem = torch.cuda.memory_allocated()
+    check(mem <= mem0 + MEM_SLACK_BYTES,
+          f"{tag}: {mem - mem0} B still allocated after the engine")
+    print(f"{tag}: card memory allocated {mem0} B before the engine, {mem} "
+          f"B after it was deleted", flush=True)
+    return out
+
+
+def spec_streams(tag: str, got: dict, ref: dict, exact: bool) -> bool:
+    """A speculative run's streams against the plain decode's (``ref`` a
+    :func:`path14_run` result): identical where ``exact`` (f32); else a
+    stream may part only at a token where the plain run's top-2 margin is
+    below ``TOL_SPEC_MARGIN`` (path 3's bf16 rule).  Returns whether every
+    stream is identical."""
+    agree = {}
+    for rid, want in ref["done"].items():
+        have = got["done"][rid]
+        n = 0
+        while n < min(len(have), len(want)) and have[n] == want[n]:
+            n += 1
+        agree[rid] = n
+        if have == want:
+            continue
+        check(not exact, f"{tag} request {rid}: streams part at token {n}: "
+                         f"{have[n:n + 3]} vs {want[n:n + 3]}")
+        b = ref["logits"][(rid, n)]
+        top = b.topk(2).values
+        margin = ((top[0] - top[1]) / b.abs().max()).item()
+        check(margin < TOL_SPEC_MARGIN,
+              f"{tag} request {rid} parts at token {n} where the plain "
+              f"run's top-2 margin is {margin:.3e} >= {TOL_SPEC_MARGIN}")
+    same = got["done"] == ref["done"]
+    print(f"{tag} vs plain decode: "
+          f"{'streams identical' if same else f'agreement {agree}'}",
+          flush=True)
+    return same
+
+
+def paged_phase(seed: int, report: dict) -> None:
+    """Path 14: paged KV and speculative decoding on path 3's engine
+    (TinyLlama-1.1B at full width, path 3's bf16-valued weights, its six
+    prompts and 16 new tokens), f32 then bf16, every entry a CUDA graph.
+    (a) paged at an unconstrained pool vs fixed rows, (b) pool pressure,
+    (c) the n-gram proposer on fixed rows and on the pool, (d) an oracle
+    and an adversary proposer, (e) the graphs' checks in every run and
+    one traced paged decode step and verify launch, (f) flash attention
+    at the verify shape vs its plain version, (g) card memory after every
+    run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Request
+    from repro_torch.models.registry import get_model
+
+    base = get_config("tinyllama_11b")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bf16 = get_model(dataclasses.replace(base, dtype="bf16")).init(gen, "cuda")
+    rs = np.random.RandomState(seed)
+    prompts = [rs.randint(0, base.vocab, size=n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+
+    def requests():
+        return [Request(rid=i, tokens=p, max_new_tokens=SERVE_NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+
+    paged = {"kv_block_size": PATH14_BLOCK}
+    fills = [n + SERVE_NEW_TOKENS // 2 for n in SERVE_PROMPTS[:SERVE_BATCH]]
+    for dname in ("f32", "bf16"):
+        t_phase = time.perf_counter()
+        tag = f"[path14 {dname}]"
+        cfg = dataclasses.replace(base, dtype=dname)
+        model = get_model(cfg)
+        params = to_f32(bf16) if dname == "f32" else bf16
+        exact = dname == "f32"
+        runs = {}
+
+        def run(label, kw, profile=False):
+            runs[label] = path14_run(f"{tag} {label}", model, params, kw,
+                                     requests(), profile=profile)
+            return runs[label]
+
+        # (a) paged at an unconstrained pool vs fixed rows
+        fixed = run("fixed", {})
+        pg = run("paged", paged, profile=True)
+        check(pg["done"] == fixed["done"],
+              f"{tag} (a) paged streams part from the fixed rows'")
+        worst = max(rel_err(pg["logits"][key], fixed["logits"][key])
+                    for key in fixed["logits"] if key[1] <= 1)
+        check(worst <= TOL_PAGED, f"{tag} (a) first-token / first-decode "
+                                  f"logits {worst:.3e} > {TOL_PAGED}")
+        check(pg["stats"]["kv_preemptions"] == 0
+              and pg["stats"]["kv_blocks_in_use"] == 0
+              and pg["used_blocks"] == 0,
+              f"{tag} (a) preemptions {pg['stats']['kv_preemptions']}, "
+              f"blocks in use {pg['stats']['kv_blocks_in_use']}")
+        print(f"{tag} (a) paged vs fixed rows: streams identical, "
+              f"first-token and first-decode-step logits max|d|/max|ref| "
+              f"{worst:.3e}; kv_preemptions 0, blocks in use 0 after, "
+              f"allocator consistent; peak occupancy "
+              f"{pg['stats']['kv_peak_occupancy']:.4f}", flush=True)
+
+        # (b) pool pressure
+        pr = run("pressure", dict(paged, kv_pool_blocks=PATH14_POOL_BLOCKS))
+        st = pr["stats"]
+        check(st["kv_preemptions"] > 0, f"{tag} (b) no preemption at "
+                                        f"{PATH14_POOL_BLOCKS} blocks")
+        check(all(len(t) == SERVE_NEW_TOKENS + 1
+                  for t in pr["done"].values()),
+              f"{tag} (b) stream lengths "
+              f"{ {r: len(t) for r, t in pr['done'].items()} }")
+        for rid, prefixes in pr["carried"].items():
+            for pre in prefixes:
+                check(pr["done"][rid][:len(pre)] == pre,
+                      f"{tag} (b) request {rid} lost its emitted prefix "
+                      f"{pre}")
+        check(pr["used_blocks"] == 0, f"{tag} (b) {pr['used_blocks']} "
+                                      f"blocks in use after the run")
+        same = sum(pr["done"][r] == fixed["done"][r] for r in fixed["done"])
+        print(f"{tag} (b) pool of {PATH14_POOL_BLOCKS} blocks: "
+              f"kv_preemptions {st['kv_preemptions']} kv_evictions "
+              f"{st['kv_evictions']} (preempted {sorted(pr['carried'])}, "
+              f"prefixes kept), peak occupancy "
+              f"{st['kv_peak_occupancy']:.4f}, every request done at its "
+              f"length; {same} of {len(fixed['done'])} streams equal (a)'s",
+              flush=True)
+
+        # (c) the n-gram proposer on fixed rows and on the pool
+        spec = {"speculative": "ngram", "speculative_k": PATH14_K}
+        for label, kw in (("ngram fixed", spec),
+                          ("ngram paged", dict(paged, **spec))):
+            r = run(label, kw, profile=label == "ngram paged")
+            s = r["stats"]
+            spec_streams(f"{tag} (c) {label}", r, fixed, exact)
+            check(0 <= s["spec_accepted_tokens"] <= s["spec_drafted_tokens"]
+                  and s["decode_steps"] <= fixed["stats"]["decode_steps"],
+                  f"{tag} (c) {label}: accepted "
+                  f"{s['spec_accepted_tokens']} drafted "
+                  f"{s['spec_drafted_tokens']}, verify launches "
+                  f"{s['decode_steps']} vs decode steps "
+                  f"{fixed['stats']['decode_steps']}")
+
+        # (d) an oracle drafting the plain run's own next tokens, and an
+        # adversary drafting each of them + 1
+        by_prompt = {tuple(p): fixed["done"][i]
+                     for i, p in enumerate(prompts)}
+        vocab = cfg.vocab
+
+        class Oracle:
+            def propose(self, history, k):
+                for prompt, stream in by_prompt.items():
+                    if tuple(history[:len(prompt)]) == prompt:
+                        n = len(history) - len(prompt)
+                        return np.asarray(stream[n:n + k], np.int32)
+                raise PhaseError(f"{tag} (d) a history of no prompt")
+
+        class Adversary(Oracle):
+            def propose(self, history, k):
+                return (super().propose(history, k) + 1) % vocab
+
+        for label, kw in (("oracle paged", dict(paged, speculative=Oracle(),
+                                                speculative_k=PATH14_K)),
+                          ("adversary fixed", dict(speculative=Adversary(),
+                                                   speculative_k=PATH14_K))):
+            r = run(label, kw)
+            s = r["stats"]
+            same = spec_streams(f"{tag} (d) {label}", r, fixed, exact)
+            if label.startswith("oracle"):
+                check(not same or s["spec_accepted_tokens"]
+                      == s["spec_drafted_tokens"] > 0,
+                      f"{tag} (d) oracle: accepted "
+                      f"{s['spec_accepted_tokens']} of "
+                      f"{s['spec_drafted_tokens']} drafted")
+            else:
+                check(s["spec_drafted_tokens"] > 0
+                      and s["spec_accepted_tokens"] == 0,
+                      f"{tag} (d) adversary: accepted "
+                      f"{s['spec_accepted_tokens']} of "
+                      f"{s['spec_drafted_tokens']} drafted")
+            print(f"{tag} (d) {label}: drafted {s['spec_drafted_tokens']} "
+                  f"accepted {s['spec_accepted_tokens']}, verify launches "
+                  f"{s['decode_steps']} (~ceil(16 / (k + 1)) = "
+                  f"{-(-SERVE_NEW_TOKENS // (PATH14_K + 1))} a request "
+                  f"when every draft is right)", flush=True)
+
+        # (e) one traced paged decode step and one traced verify launch,
+        # each at path 3's counts
+        step = SERVE_PATHS["path3"].per_step(cfg.n_layers)
+        for label in ("paged", "ngram paged"):
+            kind = "verify launch" if "ngram" in label else "decode step"
+            check(bool(runs[label]["profiled"]),
+                  f"{tag} (e) {label}: no {kind} was traced")
+            wall, busy, top, seen = runs[label]["profiled"]
+            ran = {k: seen[k] for k in step}
+            if busy is not None:
+                check(ran == step, f"{tag} (e) the traced {kind} ran "
+                                   f"{ran}, the path predicts {step}")
+            print(f"{tag} (e) one traced {label} {kind}: wall {wall:.3f} "
+                  f"ms, device busy "
+                  f"{'not measured' if busy is None else f'{busy:.3f}'} "
+                  f"ms; ran the port's kernels {ran}; most device time "
+                  f"{top}", flush=True)
+
+        # the printed numbers
+        def med(label):
+            d = runs[label]["step_s"]["decode"]
+            return 1e3 * sorted(d)[len(d) // 2]
+
+        acc = {}
+        for label in ("ngram fixed", "ngram paged", "oracle paged",
+                      "adversary fixed"):
+            s = runs[label]["stats"]
+            acc[label] = dict(
+                accept_rate=round(s["spec_accepted_tokens"]
+                                  / max(s["spec_drafted_tokens"], 1), 4),
+                # the tokens after each prompt's first, a verify launch
+                tokens_a_launch=round(
+                    (s["tokens_generated"] - len(prompts))
+                    / max(s["decode_steps"], 1), 4),
+                verify_ms_median=round(med(label), 3))
+        gb = pg["gather_bytes"]
+        print(f"{tag} decode ms/step median: paged {med('paged'):.3f}, "
+              f"fixed {med('fixed'):.3f}; pressure {med('pressure'):.3f}; "
+              f"speculative {acc}; gather bytes a paged step {gb} read + "
+              f"{gb} written ({2 * gb / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+              f"3.35 TB/s); graph pool reserved: fixed "
+              f"{fixed['pool_bytes']} B, paged {pg['pool_bytes']} B, ngram "
+              f"paged {runs['ngram paged']['pool_bytes']} B", flush=True)
+        launches = dict.fromkeys(serve_counters(), 0)
+        for r in runs.values():
+            for k, n in r["launches"].items():
+                launches[k] += n
+        report[("path14", dname)] = dict(launches=launches)
+        # flash attention's launches at the verify shape: a verify launch
+        # runs it once a layer
+        at_verify = cfg.n_layers * sum(
+            runs[label]["stats"]["decode_steps"]
+            for label in ("ngram fixed", "ngram paged", "oracle paged",
+                          "adversary fixed"))
+        del runs, pg, fixed, pr, params
+        torch.cuda.empty_cache()
+
+        # (f) flash attention at the verify shape vs its plain version
+        verify_kernel_rows(cfg, dname, fills, at_verify)
+        print(f"[phase path14 {dname}] {time.perf_counter() - t_phase:.1f} "
+              f"s (target under 90 s)", flush=True)
+    del bf16
+    torch.cuda.empty_cache()
+
+
+def verify_kernel_rows(cfg, dname: str, fills, launches: int) -> None:
+    """Flash attention at a verify launch's shape: B = 4 rows of k + 1 = 5
+    queries at ``q_offset`` = the rows' fills, causal against the
+    2048-row cache (``lens=None``), against its plain version on the same
+    card inputs, timed beside ``F.scaled_dot_product_attention``; rows of
+    ``lens`` 0 must give 0.  ``launches``: the path's launches at this
+    shape."""
+    import torch
+    import torch.nn.functional as F
+
+    dt = torch.float32 if dname == "f32" else torch.bfloat16
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    w = PATH14_K + 1
+    q = rnd(SERVE_BATCH, w, h, hd).transpose(1, 2)
+    k, v = (rnd(SERVE_BATCH, hkv, SERVE_SEQ, hd) for _ in range(2))
+    qo = torch.tensor(fills, dtype=torch.int32, device="cuda")
+    keys = torch.arange(SERVE_SEQ, device="cuda")
+    mask = (keys[None, None, :] <= (qo[:, None] + torch.arange(
+        w, device="cuda")[None, :])[:, :, None])[:, None]
+    case = dict(
+        form="verify", label=f"verify B={SERVE_BATCH} S={w} q_offset={fills}",
+        q=q, k=k, v=v, args=dict(lens=None, causal=True, q_offset=qo),
+        kv_rows=sum(f + w for f in fills),
+        pairs=sum(f + i + 1 for f in fills for i in range(w)),
+        lib=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                   enable_gqa=True),
+        zero_check=(q, k, v, dict(lens=torch.tensor(
+            [SERVE_SEQ, 0, SERVE_SEQ, 0], dtype=torch.int32, device="cuda"),
+            causal=True, q_offset=qo), [1, 3]))
+    # printed, not a candidate for the kernels line, where flash
+    # attention's row stays the prefill at S = 2048 of the earlier paths
+    flash_rows([case], dname, hkv, launches, [])
 
 
 def print_resources() -> None:

@@ -22,9 +22,10 @@ Sites (the string is the contract; tests and ``chip_smoke.py`` key on it):
                        trace: a CUDA graph's capture pass checks no site
                        and a replay runs no Python)
 ``serve.launch``       :class:`repro_torch.serve.engine.ServeEngine`
-                       artifact launches (prefill / decode)
-``pool.alloc``         paged-KV block allocation — not ported yet: a spec
-                       naming it raises ``NotImplementedError``
+                       artifact launches (prefill / decode / verify)
+``pool.alloc``         :meth:`repro_torch.serve.paging.BlockAllocator.
+                       ensure` — a block allocation is denied (injected
+                       pool pressure)
 ``ft.heartbeat``       :meth:`repro_torch.ft.supervisor.HeartbeatMonitor.
                        beat` — the beat is dropped (lost heartbeat)
 =====================  =====================================================
@@ -55,15 +56,8 @@ SITES: Tuple[str, ...] = (
     "pool.alloc", "ft.heartbeat",
 )
 
-#: sites with no hook in the port yet, each with the slice that adds it;
-#: a spec naming one raises rather than inject nothing in silence
-_NOT_PORTED: Dict[str, str] = {
-    "pool.alloc": "the pool.alloc site arrives with the port's paged-KV "
-                  "slice (paged KV blocks, preemption on pool pressure)",
-}
-
-#: the sites the port checks
-LIVE_SITES: Tuple[str, ...] = tuple(s for s in SITES if s not in _NOT_PORTED)
+#: the sites the port checks: every site has its hook
+LIVE_SITES: Tuple[str, ...] = SITES
 
 
 def _default_error(site: str, transient: bool) -> Exception:
@@ -113,9 +107,6 @@ class FaultSpec:
         if self.site not in SITES:
             raise ValueError(
                 f"unknown fault site {self.site!r}; known: {list(SITES)}")
-        if self.site in _NOT_PORTED:
-            raise NotImplementedError(
-                f"FaultSpec({self.site!r}): {_NOT_PORTED[self.site]}")
         if not 0.0 <= self.p <= 1.0:
             raise ValueError(f"FaultSpec(p={self.p}): need 0 <= p <= 1")
 

@@ -6,8 +6,9 @@ whisper run: RMS/LayerNorm, RoPE, grouped-query attention (full, batched
 prefill against a KV cache, decode, and whisper's cross-attention),
 DeepSeek-V2's multi-head latent attention (MLA; the same modes, its
 decode absorbed into the latent cache), the (Swi)GLU or GELU MLP, the
-routed MoE, the RWKV-6 time mix and the Mamba-2 block.  Each is a plain
-function of tensors with the reference's name and argument order.
+routed MoE, the RWKV-6 time mix and the Mamba-2 block, and the paged
+KV cache's block gather and scatter.  Each is a plain function of
+tensors with the reference's name and argument order.
 
 Attention, both norms, the MoE router's softmax, the WKV recurrence and
 the SSD scan go through their kernels' wrappers
@@ -48,7 +49,7 @@ __all__ = ["norm_init", "norm_apply", "rope_tables", "apply_rope",
            "mlp_apply", "moe_init", "moe_apply", "rwkv6_init",
            "rwkv6_apply", "rwkv6_cache_init",
            "mamba2_init", "mamba2_apply", "mamba2_cache_init",
-           "maybe_shard"]
+           "paged_gather", "paged_scatter", "maybe_shard"]
 
 
 def maybe_shard(x: torch.Tensor, spec: Any = None) -> torch.Tensor:
@@ -306,6 +307,60 @@ def mla_cache_init(cfg: ArchConfig, batch: int, max_len: int,
                                 device=device),
             "k_pe": torch.zeros((batch, max_len, cfg.mla_rope_dim),
                                 dtype=dt, device=device)}
+
+
+# ----------------------------------------------------- paged KV blocks --
+def paged_gather(pool: torch.Tensor, tables: torch.Tensor, *,
+                 block_axis: int, seq_axis: int) -> torch.Tensor:
+    """Gather per-row cache rows out of a physical block pool.
+
+    ``pool`` holds the blocks: ``block_axis`` is the block-id axis (size
+    ``n_blocks + 1``, id 0 = the null block), ``seq_axis`` the
+    within-block token axis (size ``block_size``).  ``tables`` (B, M)
+    maps each row's logical block ``j`` to a physical id (null-padded
+    with 0).  The result is a dense, contiguous per-row leaf — block axis
+    replaced by the row axis B, seq axis widened to ``M * block_size`` —
+    the fixed-row layout :func:`attn_apply` / :func:`mla_apply` consume.
+    One indexing pass over the (block, token) grid of the pool, read in
+    place, with static shapes and no host read (a CUDA graph captures
+    it)."""
+    bs = pool.shape[seq_axis]
+    m = tables.shape[1]
+    pos = torch.arange(m * bs, device=pool.device)
+    x = pool.movedim((block_axis, seq_axis), (0, 1))
+    rows = x[tables[:, pos // bs].long(), pos % bs]       # (B, M*bs, ...)
+    return rows.movedim((0, 1), (block_axis, seq_axis)).contiguous()
+
+
+def paged_scatter(pool: torch.Tensor, dense: torch.Tensor,
+                  tables: torch.Tensor, keep: torch.Tensor, *,
+                  block_axis: int, seq_axis: int,
+                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Write dense per-row cache leaves back into the block pool, in
+    place, and return ``pool``.
+
+    The inverse of :func:`paged_gather` restricted to the token positions
+    selected by ``keep``: only freshly written positions persist.
+    ``keep`` (B, W) marks the positions ``positions`` (B, W) of each row
+    (``None``: every position ``0 .. M*block_size - 1``, ``W = M *
+    block_size``, the reference's form).  A caller that knows which few
+    positions a launch wrote passes just those (a decode step its
+    ``lens``, a verify its drafted chunk), so the scatter moves W rows a
+    row instead of ``max_seq``.  Positions with ``keep`` False, and any
+    position whose table entry is null, are routed into the null block,
+    which absorbs them the way masked writes do on the fixed path."""
+    bs = pool.shape[seq_axis]
+    b, m = tables.shape
+    s = m * bs
+    if positions is None:
+        positions = torch.arange(s, device=pool.device).expand(b, s)
+    pos = positions.long().clamp(0, s - 1)
+    blk = torch.where(keep, torch.gather(tables.long(), 1, pos // bs), 0)
+    d = dense.movedim((block_axis, seq_axis), (0, 1))     # (B, S, ...)
+    rows = torch.arange(b, device=pool.device)[:, None]
+    x = pool.movedim((block_axis, seq_axis), (0, 1))
+    x[blk, pos % bs] = d[rows, pos].to(pool.dtype)
+    return pool
 
 
 # ------------------------------------------------------------------ mlp --

@@ -11,11 +11,15 @@ Zamba2's ``{"mamba": {"h"}, "attn": {"k", "v"}}``): every per-row
 operation on a cache maps over its tensor leaves (:func:`tree_map`),
 whose batch axis is 1.
 
-The encoder-decoder bundle's decode step takes ``enc_out`` as a
-keyword, which the serve engine (LM-only, as the reference's) never
-passes: its path is ``encode`` and ``greedy_decode``.  ``verify``, the
-paged-KV entry points and the training loss wait for the
-paged/speculative and training slices.
+``verify`` (all-position logits of a drafted chunk, the speculative
+decode's launch) is the transformer's single pass for the dense, MoE and
+``vlm`` families and :func:`replay_verify` elsewhere.  The paged-KV entry
+points (``init_block_pool``, ``page_axes``) exist for the transformer
+families only, as in the reference: a recurrent state has no sequence
+axis to page.  The encoder-decoder bundle's decode step takes
+``enc_out`` as a keyword, which the serve engine (LM-only, as the
+reference's) never passes: its path is ``encode`` and ``greedy_decode``.
+The training loss waits for the training slice.
 """
 from __future__ import annotations
 
@@ -47,6 +51,11 @@ class Model:
     init_cache: Callable    # (batch, max_len, device) -> cache
     decode_step: Callable   # (params, cache, tokens, lens) -> (logits, cache)
     prefill: Callable       # (params, cache, tokens, lens, offsets) -> (last_logits, cache)
+    verify: Callable        # (params, cache, tokens, lens, offsets) -> (all_logits, cache)
+    # paged-KV entry points; None for families whose cache has no
+    # sequence axis to page (recurrent state)
+    init_block_pool: Optional[Callable] = None  # (n_blocks, block_size, device) -> pool
+    page_axes: Optional[Callable] = None        # () -> per-leaf seq-axis tree
     # (params, cache, tokens, lens, *, max_new, eos_id) -> (tokens, n, cache)
     greedy_decode: Optional[Callable] = None
 
@@ -142,6 +151,12 @@ def _lm_bundle(mod, cfg: ArchConfig) -> Model:
             mod.prefill(cfg, params, cache, tokens, lens, offsets)
     else:
         pf = replay_prefill(decode)
+    if hasattr(mod, "verify"):
+        vf = lambda params, cache, tokens, lens, offsets: \
+            mod.verify(cfg, params, cache, tokens, lens, offsets)
+    else:
+        vf = replay_verify(decode)
+    paged = hasattr(mod, "init_block_pool")
 
     return Model(
         cfg=cfg,
@@ -150,6 +165,11 @@ def _lm_bundle(mod, cfg: ArchConfig) -> Model:
         init_cache=lambda b, s, device: mod.init_cache(cfg, b, s, device),
         decode_step=decode,
         prefill=pf,
+        verify=vf,
+        init_block_pool=(lambda n, bs, device:
+                         mod.init_block_pool(cfg, n, bs, device))
+        if paged else None,
+        page_axes=(lambda: mod.page_axes(cfg)) if paged else None,
         greedy_decode=(lambda params, cache, tokens, lens, **kw:
                        mod.greedy_decode(cfg, params, cache, tokens, lens,
                                          **kw))
@@ -176,6 +196,7 @@ def _whisper_bundle(cfg: ArchConfig) -> Model:
         # decoder-side replay only; a caller threads enc_out through
         # decode_step's keywords itself (the serve engine is LM-only)
         prefill=replay_prefill(decode),
+        verify=replay_verify(decode),
         greedy_decode=lambda params, cache, tokens, lens, **kw:
             whisper.greedy_decode(cfg, params, cache, tokens, lens, **kw),
     )

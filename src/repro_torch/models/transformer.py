@@ -11,13 +11,16 @@ layer's clusters fuse (a body of the bridge's ``d.scan`` runs op by op).
 The token embedding is a gather, which the DHLO pipeline does not lower:
 on that pipeline :func:`embed_tokens` runs outside ``disc_torch.compile``,
 and the compiled function starts from hidden states
-(:func:`decoder_logits`).  The serve path (:func:`prefill`,
+(:func:`decoder_logits`).  The serve path (:func:`prefill`, :func:`verify`,
 :func:`decode_step`) runs whole, on the jit pipeline.
 
 The KV cache keeps the reference's layouts (:func:`init_cache`): a dict
 of layer-stacked leaves ``{"k", "v"}`` of shape (L, B, Hkv, S, hd), or,
 where the config has MLA (``cfg.mla_kv_lora``: DeepSeek-V2), the latent
-cache ``{"kv_c": (L, B, S, kv_lora), "k_pe": (L, B, S, rope)}``.
+cache ``{"kv_c": (L, B, S, kv_lora), "k_pe": (L, B, S, rope)}``.  A paged
+serve engine keeps the same leaves as a pool of blocks
+(:func:`init_block_pool`, the sequence axis of each leaf by
+:func:`page_axes`).
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ Params = Dict[str, Any]
 
 __all__ = ["block_init", "block_apply", "init", "embed_tokens",
            "logits_from_hidden", "decoder_logits", "forward", "prefill",
-           "init_cache", "decode_step"]
+           "verify", "init_cache", "init_block_pool", "page_axes",
+           "decode_step"]
 
 
 # ----------------------------------------------------------------- block --
@@ -147,9 +151,9 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
 def _prefill_hidden(cfg: ArchConfig, params: Params, cache: Params,
                     tokens: torch.Tensor, lens: torch.Tensor,
                     offsets: torch.Tensor):
-    """The chunk pass of :func:`prefill`: embed, run the blocks at
-    absolute positions ``offset + arange(S)``, norm — returns the
-    (B, S, D) hidden states plus the updated cache."""
+    """The chunk pass of :func:`prefill` and :func:`verify`: embed, run
+    the blocks at absolute positions ``offset + arange(S)``, norm —
+    returns the (B, S, D) hidden states plus the updated cache."""
     x = embed_tokens(cfg, params, tokens)
     s = x.shape[1]
     positions = offsets[:, None] + torch.arange(s, device=x.device)[None, :]
@@ -176,6 +180,17 @@ def prefill(cfg: ArchConfig, params: Params, cache: Params,
     return logits_from_hidden(cfg, params, last), new_cache
 
 
+def verify(cfg: ArchConfig, params: Params, cache: Params,
+           tokens: torch.Tensor, lens: torch.Tensor, offsets: torch.Tensor):
+    """Speculative-verify pass: :func:`prefill` semantics, but the head
+    runs at EVERY chunk position — ``logits[r, j]`` (B, S, V) is the
+    model's next-token distribution after consuming ``tokens[r, j]``, so
+    one widened launch scores a whole drafted chunk per row.  Rows with
+    ``lens[r] == 0`` write nothing (the same masks as prefill)."""
+    x, new_cache = _prefill_hidden(cfg, params, cache, tokens, lens, offsets)
+    return logits_from_hidden(cfg, params, x), new_cache
+
+
 # --------------------------------------------------------------- decode --
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device) -> Params:
@@ -185,6 +200,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     one = cache_init(cfg, batch, max_len, device)
     return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
             for k, v in one.items()}
+
+
+def init_block_pool(cfg: ArchConfig, n_blocks: int, block_size: int,
+                    device) -> Params:
+    """Physical KV block pool for paged serving: the fixed-row cache with
+    the batch axis reinterpreted as the block-id axis and the sequence
+    axis cut to one block — leaves are ``(L, n_blocks, ..., block_size,
+    ...)``.  Callers reserve id 0 as the null block (see
+    :func:`repro_torch.models.layers.paged_gather`)."""
+    return init_cache(cfg, n_blocks, block_size, device)
+
+
+def page_axes(cfg: ArchConfig) -> Dict[str, int]:
+    """Per-leaf sequence-axis index of the layer-stacked cache / pool
+    leaves (the block axis is always axis 1, per
+    :func:`repro_torch.models.registry.cache_batch_axis`)."""
+    if cfg.mla_kv_lora:
+        return {"kv_c": 2, "k_pe": 2}   # (L, B, S, lora / rope)
+    return {"k": 3, "v": 3}             # (L, B, hkv, S, hd)
 
 
 def decode_step(cfg: ArchConfig, params: Params, cache: Params,

@@ -33,21 +33,44 @@ on the public ``disc_torch.compile`` API (``pipeline="jit"``):
   the slot range ``[r*max_batch, (r+1)*max_batch)``, admission routes
   each request to the least-loaded replica with a free slot, and decode
   is one launch over all rows.
+* **paged KV** (``ServeConfig(kv_block_size=..., kv_pool_blocks=...)``):
+  slots draw ``block_size``-token blocks from a budget-sized physical
+  pool (:mod:`repro_torch.serve.paging`) instead of owning a fixed
+  ``max_seq`` row, so concurrency is bounded by actual token footprint.
+  Per-slot block tables ride the compiled entries as device tensors
+  (the prefill's through a ``TreeSpec``, so they bucket-pad with the
+  batch: padded rows get all-null tables), and the gather into dense
+  rows and the scatter of the fresh positions happen inside the launch,
+  the pool read and written in place.  On pool pressure the scheduler
+  preempts a victim (lowest priority, newest admission), releases its
+  blocks and requeues the request with prompt + generated tokens: greedy
+  recompute reproduces the output.  With an unconstrained pool the paged
+  path gives the fixed rows' tokens (``kv_block_size=None``).
+* **speculative decoding** (``ServeConfig(speculative=...,
+  speculative_k=...)``): a pluggable proposer
+  (:mod:`repro_torch.serve.speculative`; ``"ngram"`` prompt lookup, or
+  any object with ``.propose(history, k)``) drafts up to k tokens per
+  slot, and ONE widened ``(n_slots, k+1)`` launch of ``model.verify``
+  (prefill semantics, head at every position) scores them all; each slot
+  keeps the longest draft prefix matching the model's own greedy argmax
+  plus the correction token.  Greedy accept-or-fix emits the
+  plain-decode tokens; only the launch count shrinks.
 
 On the card every attention runs the flash-attention kernel, every
 norm its RMSNorm or LayerNorm kernel, every RWKV time mix the WKV kernel,
 every Mamba-2 block the SSD kernel and every MoE router the masked
 softmax kernel (the model's layers call their wrappers).  On the card
-each prefill bucket and the decode step is one CUDA graph, captured at
-its first call and replayed after (:mod:`repro_torch.core.graphs`); the
-graphs of one engine share a memory pool.  The compiled entries hold
-the engine weakly, so a dropped engine frees its cache, parameters and
-graphs at once.  The cache lives on the card; the engine updates its
-rows in place (prefill's rows by ``index_copy_``, a decode step inside
-its graph) where the JAX package rebuilds the array.  A cache is any
-tree of layer-stacked leaves with the batch on axis 1 (the dense KV
-cache, RWKV's nested recurrent state): row gathers, scatters, zeroing
-and gating map over its leaves.
+each prefill bucket, the decode step and the verify launch is one CUDA
+graph, captured at its first call and replayed after
+(:mod:`repro_torch.core.graphs`); the graphs of one engine share a
+memory pool.  The compiled entries hold the engine weakly, so a dropped
+engine frees its cache, parameters and graphs at once.  The cache (or
+the block pool) lives on the card; the engine updates it in place
+(prefill's rows by ``index_copy_``; a decode step, a verify launch and
+every paged launch inside its graph) where the JAX package rebuilds the
+array.  A cache is any tree of layer-stacked leaves with the batch on
+axis 1 (the dense KV cache, RWKV's nested recurrent state): row
+gathers, scatters, zeroing and gating map over its leaves.
 
 The fault plane is the JAX package's: a launch runs under the
 taxonomy's retry ladder (the ``serve.launch`` fault site fires first in
@@ -59,16 +82,18 @@ drained, its requests requeued with prompt + generated tokens (greedy
 decoding resumes them exactly, through a prefill of those tokens), and
 admission routes around it until it beats again.  Each request is one
 ``request`` async span and each launch one ``serve.prefill`` /
-``serve.decode`` span when a tracer is installed (host time: a span
-closes when the launch is queued, or when its CUDA graph replay is);
-:meth:`ServeEngine.report` and ``disc_torch.observe()["serve"]`` /
-``["health"]`` give the counters.  The port has no per-op fallback, so
+``serve.decode`` / ``serve.verify`` span when a tracer is installed
+(host time: a span closes when the launch is queued, or when its CUDA
+graph replay is); :meth:`ServeEngine.report` and
+``disc_torch.observe()["serve"]`` / ``["health"]`` give the counters.
+Under paged KV the ``pool.alloc`` site denies block allocations, and a
+request preempted more than ``max_recomputes`` times is retired FAILED
+(``PoolExhausted``).  The port has no per-op fallback, so
 ``kernel_demotions`` stays 0.
 
-Not ported yet, each raising ``NotImplementedError`` naming its slice:
-paged KV (``kv_block_size``), speculative decoding (``speculative``)
-and SPMD placement (``mesh``).  Every ``stats`` key is documented in
-:data:`STATS_KEYS`.
+Not ported yet: SPMD placement (``mesh``, ``sharding_profile``), which
+raises ``NotImplementedError`` naming its slice.  Every ``stats`` key is
+documented in :data:`STATS_KEYS`.
 """
 from __future__ import annotations
 
@@ -95,7 +120,9 @@ from ..models.registry import (Model, gate_rows, replay_prefill,
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..obs.clock import CLOCK
+from .paging import BlockAllocator, PagedKVPool, blocks_for, pick_victim
 from .policies import get_admission_policy
+from .speculative import get_proposer
 
 __all__ = ["ServeConfig", "ServeEngine", "STATS_KEYS", "BATCH_POW2"]
 
@@ -124,9 +151,23 @@ STATS_KEYS: Dict[str, str] = {
                         "while decode work was pending (decode stall)",
     "requests_completed": "requests retired into done",
     "rejected_requests": "requests refused at submit(): prompt longer than "
-                         "max_seq (the rest of the batch is still "
-                         "admitted)",
-    "peak_active_slots": "max concurrently occupied slots observed",
+                         "max_seq, or a worst-case footprint larger than "
+                         "the paged pool can ever hold (the rest of the "
+                         "batch is still admitted)",
+    "peak_active_slots": "max concurrently occupied slots observed (the "
+                         "equal-memory concurrency headline for paged KV)",
+    "kv_pool_blocks": "paged-KV pool capacity in blocks (0 = fixed rows; "
+                      "not reset)",
+    "kv_blocks_in_use": "paged-KV blocks currently allocated (not reset)",
+    "kv_pool_occupancy": "kv_blocks_in_use / kv_pool_blocks (0.0 under "
+                         "fixed rows; not reset)",
+    "kv_peak_occupancy": "max pool occupancy fraction observed",
+    "kv_preemptions": "slots preempted on pool pressure (request requeued "
+                      "with prompt+generated for greedy recompute)",
+    "kv_evictions": "blocks reclaimed by preemptions",
+    "spec_drafted_tokens": "draft tokens sent to the speculative verify "
+                           "launch",
+    "spec_accepted_tokens": "draft tokens accepted by verification",
     "mem_launch_bytes": "staging bytes of the last prefill launch (dynamic "
                         "args padded to their (B, S) bucket; not reset)",
     "mem_peak_launch_bytes": "largest single prefill launch observed "
@@ -140,7 +181,8 @@ STATS_KEYS: Dict[str, str] = {
                    "[r*max_batch, (r+1)*max_batch) counters under "
                    "least-loaded routing)",
     "failed_requests": "requests retired FAILED (permanent launch "
-                       "failure, deadline expiry) — reasons in "
+                       "failure, recompute budget exhausted under pool "
+                       "pressure, deadline expiry) — reasons in "
                        "``engine.failed[rid]``",
     "retries": "transient launch retries (capped exponential backoff); "
                "transient *compile* retries live in the compile cache's "
@@ -158,10 +200,6 @@ STATS_KEYS: Dict[str, str] = {
 
 # options of the reference engine whose slices are not ported yet
 _LATER = {
-    "kv_block_size": "paged KV arrives with the port's paged-KV and "
-                     "speculative-decoding slice",
-    "speculative": "speculative decoding arrives with the port's paged-KV "
-                   "and speculative-decoding slice",
     "mesh": "SPMD placement arrives with the port's multi-GPU slice",
     "sharding_profile": "SPMD placement arrives with the port's multi-GPU "
                         "slice",
@@ -194,17 +232,33 @@ class ServeConfig:
     # slots, one decode launch over all of them; admission routes each
     # request to the least-loaded replica's slot range
     replicas: int = 1
-    # where the model, the KV cache and both artifacts live: the card
+    # paged KV pool (repro_torch.serve.paging): block size in tokens, must
+    # divide max_seq; None keeps the fixed max_seq-row cache (the parity
+    # baseline)
+    kv_block_size: Optional[int] = None
+    # pool capacity in blocks — the memory budget that replaces
+    # n_slots * max_seq.  None = unconstrained (n_slots * max_seq /
+    # kv_block_size blocks: the fixed rows' tokens, no preemption)
+    kv_pool_blocks: Optional[int] = None
+    # speculative decoding (repro_torch.serve.speculative): proposer name
+    # ("ngram") or object with .propose(history, k); None disables
+    speculative: Optional[Any] = None
+    # max draft tokens per slot per verify launch
+    speculative_k: int = 4
+    # where the model, the KV cache and the artifacts live: the card
     # unless "cpu" is asked for (the kernels' plain versions)
     device: str = "cuda"
+    # bounded recompute: a request preempted (and requeued for greedy
+    # recompute) on pool pressure more than this many times is retired
+    # FAILED with a PoolExhausted reason instead of spinning in the
+    # preemption loop forever (None = unbounded)
+    max_recomputes: Optional[int] = 50
     # replica health: a replica whose last heartbeat (engine.heartbeat(r))
     # is older than this is drained — its slots preempt back to the queue
     # and admission routes around it until a beat restores it.  None
     # disables monitoring (no drain, no heartbeats required)
     heartbeat_deadline_s: Optional[float] = None
     # not ported yet: each raises NotImplementedError when set
-    kv_block_size: Optional[int] = None
-    speculative: Optional[Any] = None
     mesh: Optional[Any] = None
     sharding_profile: Optional[Any] = None
 
@@ -212,7 +266,10 @@ class ServeConfig:
 @dataclass
 class _Slot:
     """One KV-cache row's scheduler state: admitted requests move
-    prefill -> decode -> retired (slot freed)."""
+    prefill -> decode -> retired (slot freed); a slot in either live
+    state may also be PREEMPTED (pool pressure under paged KV, or a
+    replica drain) — its blocks are released and the request requeued
+    (prompt+generated) for greedy recompute."""
 
     rid: int
     tokens: np.ndarray
@@ -221,7 +278,9 @@ class _Slot:
     pos: int = 0                  # prompt tokens prefilled so far
     state: str = "prefill"        # "prefill" | "decode"
     generated: List[int] = field(default_factory=list)
-    # re-admitted after a replica drain: the prompt replays previously
+    priority: int = 0             # victim ordering on pool pressure
+    aseq: int = 0                 # admission sequence (newest preempts first)
+    # re-admitted after preemption: the prompt replays previously
     # generated tokens, so the prefill-completion token is NOT the free
     # first token — it consumes max_new budget
     resumed: bool = False
@@ -245,6 +304,21 @@ class ServeEngine:
         if scfg.replicas < 1:
             raise ValueError(f"ServeConfig(replicas={scfg.replicas}): "
                              f"need at least 1 replica")
+        if scfg.kv_block_size is not None:
+            if scfg.kv_block_size < 1:
+                raise ValueError(
+                    f"ServeConfig(kv_block_size={scfg.kv_block_size}): "
+                    f"need a positive block size")
+            if scfg.max_seq % scfg.kv_block_size != 0:
+                raise ValueError(
+                    f"ServeConfig(kv_block_size={scfg.kv_block_size}) must "
+                    f"divide max_seq={scfg.max_seq}: full block tables "
+                    f"cover exactly max_seq positions so the paged "
+                    f"artifacts stay shape-identical to fixed rows")
+        if scfg.speculative is not None and scfg.speculative_k < 1:
+            raise ValueError(
+                f"ServeConfig(speculative_k={scfg.speculative_k}): need "
+                f"at least 1 draft token")
         self.device = resolve_device(scfg.device)
         where = {t.device.type for t in _leaves(params)}
         if where != {self.device.type}:
@@ -254,8 +328,24 @@ class ServeEngine:
         self.params = params
         self.scfg = scfg
         self.n_slots = scfg.replicas * scfg.max_batch
-        self.cache = model.init_cache(self.n_slots, scfg.max_seq,
-                                      self.device)
+        self.paged = scfg.kv_block_size is not None
+        if self.paged:
+            self._mbs = scfg.max_seq // scfg.kv_block_size
+            n_blocks = (scfg.kv_pool_blocks
+                        if scfg.kv_pool_blocks is not None
+                        else self.n_slots * self._mbs)
+            self.pool = PagedKVPool(model, n_blocks=n_blocks,
+                                    block_size=scfg.kv_block_size,
+                                    device=self.device)
+            self.alloc = BlockAllocator(n_blocks, scfg.kv_block_size,
+                                        self.n_slots, self._mbs)
+            self.cache = None       # paged state lives in self.pool.tree
+        else:
+            self._mbs = 0
+            self.pool = None
+            self.alloc = None
+            self.cache = model.init_cache(self.n_slots, scfg.max_seq,
+                                          self.device)
         self.lens = np.zeros((self.n_slots,), np.int32)
         self.slots: List[Optional[_Slot]] = [None] * self.n_slots
         self.queue: List[Request] = []
@@ -264,6 +354,7 @@ class ServeEngine:
         # rid -> failure reason for requests retired FAILED (permanent
         # launch error, DeadlineExceeded)
         self.failed: Dict[int, str] = {}
+        self._recomputes: Dict[int, int] = {}   # rid -> preempt count
         self._deadlines: Dict[int, float] = {}  # rid -> absolute deadline
         self._carry: Dict[int, List[int]] = {}  # rid -> generated-so-far
         self._clock = CLOCK     # deadlines and heartbeats; injectable
@@ -281,16 +372,18 @@ class ServeEngine:
         self._admit_order = get_admission_policy(scfg.admission)
         self._prefill_impl = (model.prefill if scfg.prefill_mode == "batched"
                               else replay_prefill(model.decode_step))
+        self._proposer = get_proposer(scfg.speculative)
         self._decode_credit = 0
         self._bucket_pairs: Set[Tuple[int, int]] = set()
         self._busy_s = 0.0
         self._last_decode_t: Optional[float] = None
+        self._aseq = 0                  # admission sequence counter
         self._rep_counters = [
             {"admitted": 0, "tokens_generated": 0, "requests_completed": 0}
             for _ in range(scfg.replicas)]
 
-        # one compile cache shared by both artifacts; entries are keyed by
-        # per-artifact fingerprint so prefill/decode never collide
+        # one compile cache shared by the artifacts; entries are keyed by
+        # per-artifact fingerprint so prefill/decode/verify never collide
         self.compile_cache = CompileCache("serve", max_entries=64)
         pol = dataclasses.replace(
             scfg.prefill_policy,
@@ -300,11 +393,21 @@ class ServeEngine:
         i32 = torch.int32
         # the compiled entries call back into the engine through weak
         # references: a dropped engine frees its cache and parameters at
-        # once, without waiting for a gc pass over a cycle
+        # once, without waiting for a gc pass over a cycle.  The paged
+        # entries read and write the block pool in place (None spec) and
+        # take the block tables as a device input beside the step's own:
+        # the prefill's ride a TreeSpec, so they bucket-pad on B with
+        # tokens / lens (padded rows carry all-null tables)
+        n = self.n_slots
+        tables = ([ArgSpec((n, self._mbs), i32, name="tables")]
+                  if self.paged else [])
         self._prefill_fn = disc_compile(
-            weak_method(self._prefill_call),
+            weak_method(self._prefill_paged if self.paged
+                        else self._prefill_call),
             specs=[None,                 # params tree
-                   TreeSpec({1: "B"}),   # gathered cache rows (L, B, ...)
+                   # the block pool, or the gathered cache rows (L, B, ...)
+                   *([None, TreeSpec({0: "B"})] if self.paged
+                     else [TreeSpec({1: "B"})]),
                    ArgSpec((dim_b, Dim("S", max=scfg.max_seq)), i32,
                            name="tokens"),
                    ArgSpec((dim_b,), i32, name="lens"),
@@ -314,17 +417,30 @@ class ServeEngine:
                                    escalation_threshold=
                                    scfg.escalation_threshold,
                                    cache=self.compile_cache))
-        n = self.n_slots
         self._decode_fn = disc_compile(
-            weak_method(self._decode_step),
+            weak_method(self._decode_paged if self.paged
+                        else self._decode_step),
             # the parameter and cache trees are read in place (the cache
             # written in place); a step's own inputs are static
-            specs=[None, None, ArgSpec((n, 1), i32, name="tokens"),
+            specs=[None, None, *tables, ArgSpec((n, 1), i32, name="tokens"),
                    ArgSpec((n,), i32, name="lens"),
                    ArgSpec((n,), torch.bool, name="active")],
             options=CompileOptions(pipeline="jit", name="decode",
                                    device=scfg.device,
                                    cache=self.compile_cache))
+        self._verify_fn = None
+        if self._proposer is not None:
+            w = scfg.speculative_k + 1
+            self._verify_fn = disc_compile(
+                weak_method(self._verify_paged if self.paged
+                            else self._verify_call),
+                specs=[None, None, *tables,
+                       ArgSpec((n, w), i32, name="tokens"),
+                       ArgSpec((n,), i32, name="dlens"),
+                       ArgSpec((n,), i32, name="fills")],
+                options=CompileOptions(pipeline="jit", name="verify",
+                                       device=scfg.device,
+                                       cache=self.compile_cache))
         self.stats: Dict[str, Any] = self._zero_stats()
         self._refresh_stats()
         # weakly held: the registry never keeps the engine (its cache and
@@ -356,6 +472,54 @@ class ServeEngine:
         return logits, tree_map(lambda c, g: c.copy_(g), cache,
                                 gate_rows(active, new_cache, cache))
 
+    def _verify_call(self, params, cache, tokens, dlens, fills):
+        """Speculative verify (fixed rows): one widened chunk pass, written
+        into ``cache`` in place as a decode step is, whose per-position
+        argmax comes back — ``ids[r, j]`` is the model's greedy token
+        after consuming ``tokens[r, j]``.  Rows with ``dlens[r] == 0``
+        write nothing (the prefill masks)."""
+        logits, new_cache = self.model.verify(params, cache, tokens, dlens,
+                                              fills)
+        tree_map(lambda c, n: c.copy_(n), cache, new_cache)
+        return logits.argmax(-1).to(torch.int32), cache
+
+    def _prefill_paged(self, params, pool, tview, tokens, lens, offsets):
+        """Paged prefill: gather each group row's blocks into the dense
+        fixed-row layout the attention kernels consume, zero fresh rows,
+        run the single-pass prefill, then scatter exactly the freshly
+        written positions [offset, offset+len) back into the pool, in
+        place.  Bucket-padded rows carry all-null tables: their gathers
+        see only the null block (masked out of every real row by the
+        length masks) and their writes land back in it."""
+        tables = tview["tables"]
+        logits, rows = self._prefill_call(params,
+                                          self.pool.gather(pool, tables),
+                                          tokens, lens, offsets)
+        j = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        self.pool.scatter(pool, rows, tables, j < lens[:, None],
+                          offsets[:, None] + j)
+        return logits, pool
+
+    def _decode_paged(self, params, pool, tables, tokens, lens, active):
+        """Paged decode step: gather, step, and scatter only each active
+        row's one fresh position ``lens[r]`` (inactive rows write into the
+        null block, as the fixed path's ``active`` gate writes nothing)."""
+        rows = self.pool.gather(pool, tables)
+        logits, rows = self.model.decode_step(params, rows, tokens, lens)
+        self.pool.scatter(pool, rows, tables, active[:, None],
+                          lens[:, None])
+        return logits, pool
+
+    def _verify_paged(self, params, pool, tables, tokens, dlens, fills):
+        """Speculative verify over gathered paged rows; the drafted
+        positions [fill, fill+dlen) scatter back to the pool."""
+        rows = self.pool.gather(pool, tables)
+        logits, rows = self.model.verify(params, rows, tokens, dlens, fills)
+        j = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        self.pool.scatter(pool, rows, tables, j < dlens[:, None],
+                          fills[:, None] + j)
+        return logits.argmax(-1).to(torch.int32), pool
+
     def _next_tokens(self, slots: List[int],
                      logits: torch.Tensor) -> List[int]:
         """The greedy next token of each row of ``logits`` (n, V); row r
@@ -369,12 +533,14 @@ class ServeEngine:
     def submit(self, reqs: List[Request]) -> None:
         """Queue requests for admission.
 
-        A prompt longer than ``max_seq`` is rejected gracefully — counted
-        in ``stats["rejected_requests"]``, rid recorded in
-        ``self.rejected`` — and the REST of the batch is still admitted.
-        A rid already pending (queued or in a slot) raises, atomically,
-        before anything in the batch is queued: rids are the engine's
-        stable identity.
+        Requests the engine can never serve are rejected gracefully —
+        counted in ``stats["rejected_requests"]``, rids recorded in
+        ``self.rejected`` — and the REST of the batch is still admitted:
+        a prompt longer than ``max_seq``, and under paged KV a worst-case
+        footprint (prompt + max_new tokens) needing more blocks than the
+        whole pool holds.  A rid already pending (queued or in a slot)
+        raises, atomically, before anything in the batch is queued: rids
+        are the engine's stable identity.
         """
         pending = {r.rid for r in self.queue}
         pending.update(s.rid for s in self.slots if s is not None)
@@ -391,6 +557,13 @@ class ServeEngine:
             if len(r.tokens) > self.scfg.max_seq:
                 dropped.append(r.rid)
                 continue
+            if self.paged:
+                worst = min(len(r.tokens) + r.max_new_tokens + 1,
+                            self.scfg.max_seq)
+                if blocks_for(worst, self.scfg.kv_block_size) \
+                        > self.alloc.n_blocks:
+                    dropped.append(r.rid)
+                    continue
             accepted.append(r)
             if r.deadline_s is not None and r.rid not in self._deadlines:
                 self._deadlines[r.rid] = self._clock() + r.deadline_s
@@ -405,7 +578,14 @@ class ServeEngine:
         """Claim free slots for waiting requests in policy order; each
         request goes to the least-loaded live replica with a free slot
         (ties to the lowest index).  Admitted requests enter the prefill
-        state."""
+        state.
+
+        Under paged KV, admission also gates on pool headroom: a request
+        is only admitted while the free list covers its first prefill
+        chunk (in policy order, no skipping ahead — admitting a slot that
+        cannot allocate would just thrash the preemption path).  Blocks
+        free up as slots retire, so blocked admission is pressure, not
+        deadlock."""
         mb = self.scfg.max_batch
         # a drained replica offers no slots until a heartbeat restores it
         free_by_rep = [[i for i in range(r * mb, (r + 1) * mb)
@@ -415,10 +595,18 @@ class ServeEngine:
         n_free = sum(len(f) for f in free_by_rep)
         if not n_free or not self.queue:
             return
+        chunk_cap = self.scfg.prefill_chunk or self.scfg.max_seq
+        budget = self.alloc.free_blocks if self.paged else 0
         taken: Set[int] = set()
         for req in self._admit_order(self.queue):
             if len(taken) >= n_free:
                 break
+            if self.paged:
+                need = blocks_for(min(len(req.tokens), chunk_cap),
+                                  self.scfg.kv_block_size)
+                if need > budget:
+                    break
+                budget -= need
             taken.add(req.rid)
             rep = min((r for r in range(self.scfg.replicas)
                        if free_by_rep[r]),
@@ -429,8 +617,11 @@ class ServeEngine:
             self.slots[i] = _Slot(rid=req.rid, tokens=toks,
                                   plen=int(toks.shape[0]),
                                   remaining=req.max_new_tokens,
+                                  priority=req.priority,
+                                  aseq=self._aseq,
                                   generated=list(carried or ()),
                                   resumed=bool(carried))
+            self._aseq += 1
             self.lens[i] = 0
             self._rep_counters[rep]["admitted"] += 1
             if obs_trace.ACTIVE is not None:
@@ -444,6 +635,7 @@ class ServeEngine:
     def _forget(self, rid: int) -> None:
         """Drop a retired rid's scheduler bookkeeping."""
         self._carry.pop(rid, None)
+        self._recomputes.pop(rid, None)
         self._deadlines.pop(rid, None)
 
     def _fail_request(self, rid: int, reason: str) -> None:
@@ -460,6 +652,8 @@ class ServeEngine:
     def _fail_slot(self, i: int, reason: str) -> None:
         """Fail the request occupying slot ``i`` and free the slot."""
         rid = self.slots[i].rid
+        if self.paged:
+            self.alloc.release(i)
         self.slots[i] = None
         self.lens[i] = 0
         self._fail_request(rid, reason)
@@ -473,9 +667,11 @@ class ServeEngine:
 
         The ``serve.launch`` fault site fires before the artifact is
         called, so a retried injected fault re-runs a launch that never
-        started.  The decode step writes the KV cache where it lies (in
-        its CUDA graph too), so an error the decode step raised while it
-        ran is permanent: a retry would apply a partial write twice.  A
+        started.  The decode step and the verify launch write the KV
+        cache where it lies (in their CUDA graphs too), and so does every
+        paged launch write the block pool, so an error such a launch
+        raised while it ran is permanent: a retry would apply a partial
+        write twice.  A
         :class:`~repro_torch.errors.CompileError` out of its dispatch
         keeps its own class: a failed compile ran nothing, and
         :mod:`repro_torch.core.graphs` makes a failed first call or
@@ -500,7 +696,7 @@ class ServeEngine:
                     err = e              # CompileError out of dispatch)
                 except Exception as e:  # noqa: BLE001 — classified below
                     err = wrap_launch_error(e, kind)
-                if started and kind == "decode" \
+                if started and (kind != "prefill" or self.paged) \
                         and not isinstance(err, CompileError):
                     err.transient = False
                 if not err.transient or attempt >= self._retry.max_retries:
@@ -551,15 +747,38 @@ class ServeEngine:
                 self._replica_alive[r] = True   # restored on recovery
                 obs_metrics.record_event("replica.restore", replica=r)
 
-    def _preempt(self, i: int, *, drain: bool = True) -> None:
-        """Evict slot ``i`` (a replica drain) and requeue its request with
-        prompt + generated tokens as the new prompt.  Greedy decoding
-        makes the recompute exact: the resumed request continues with
-        the tokens it would have produced, through a prefill of those
-        tokens where the undisturbed run decoded them one by one.  The
-        slot's cache rows need no clearing: a prefill at offset 0 zeroes
-        its rows first."""
+    def _preempt(self, i: int, *, drain: bool = False) -> None:
+        """Evict slot ``i`` on pool pressure (or a replica drain): release
+        its blocks and requeue the request, at its priority, with prompt
+        + generated tokens as the new prompt.  Greedy decoding makes the
+        recompute exact: the resumed request continues with the tokens it
+        would have produced, through a prefill of those tokens where the
+        undisturbed run decoded them one by one.  Its cache rows (or
+        blocks) need no clearing: a prefill at offset 0 zeroes its rows
+        first.
+
+        Pool-pressure preemptions are bounded by
+        ``ServeConfig(max_recomputes=...)``: a request past its budget is
+        retired FAILED (PoolExhausted) instead of spinning forever.
+        Drain preemptions (a replica fault, not memory pressure) don't
+        consume the budget."""
         slot = self.slots[i]
+        if not drain and self.scfg.max_recomputes is not None:
+            n = self._recomputes.get(slot.rid, 0) + 1
+            if n > self.scfg.max_recomputes:
+                if self.paged:
+                    self.stats["kv_evictions"] += len(self.alloc.owned(i))
+                self._fail_slot(
+                    i, f"PoolExhausted: preempted {n - 1} times under "
+                       f"pool pressure (max_recomputes="
+                       f"{self.scfg.max_recomputes})")
+                return
+            self._recomputes[slot.rid] = n
+        if self.paged:
+            freed = self.alloc.release(i)
+            if not drain:
+                self.stats["kv_preemptions"] += 1
+                self.stats["kv_evictions"] += freed
         obs_metrics.record_event("preempt", rid=slot.rid, slot=i,
                                  drain=drain)
         toks = slot.tokens
@@ -568,9 +787,28 @@ class ServeEngine:
                 [toks, np.asarray(slot.generated, np.int32)])
         self._carry[slot.rid] = list(slot.generated)
         self.queue.append(Request(rid=slot.rid, tokens=toks,
-                                  max_new_tokens=slot.remaining))
+                                  max_new_tokens=slot.remaining,
+                                  priority=slot.priority))
         self.slots[i] = None
         self.lens[i] = 0
+
+    def _ensure_blocks(self, i: int, n_tokens: int,
+                       protect: Set[int]) -> bool:
+        """Grow slot ``i``'s allocation to cover ``n_tokens`` positions,
+        preempting victims (lowest priority, then newest admission) on
+        pool pressure.  ``protect`` shields slots already committed to
+        the launch being assembled; returns False only when every
+        remaining block owner is protected."""
+        while not self.alloc.ensure(i, n_tokens):
+            cands = [(j, s.priority, s.aseq)
+                     for j, s in enumerate(self.slots)
+                     if s is not None and j != i and j not in protect
+                     and self.alloc.owned(j)]
+            v = pick_victim(cands)
+            if v is None:
+                return False
+            self._preempt(v)
+        return True
 
     def _check_deadlines(self) -> None:
         """Fail queued and in-slot requests whose deadline passed."""
@@ -611,6 +849,26 @@ class ServeEngine:
         _, members = max(groups.items(), key=lambda kv: (len(kv[1]), -kv[0]))
         if self.scfg.prefill_mode == "replay":
             members = members[:1]
+        if self.paged:
+            # claim blocks for every member's chunk before building the
+            # launch; a member that cannot allocate even after preempting
+            # every unprotected victim sheds itself back to the queue
+            # (admission re-gates it on pool headroom; the bounded
+            # recompute budget turns a permanently starved slot into a
+            # PoolExhausted failure instead of a livelock)
+            kept = []
+            for i, cl in members:
+                s = self.slots[i]
+                if s is None or s.state != "prefill":
+                    continue    # preempted while assembling this launch
+                protect = {j for j, _ in kept} | {i}
+                if self._ensure_blocks(i, s.pos + cl, protect):
+                    kept.append((i, cl))
+                else:
+                    self._preempt(i)
+            members = kept
+            if not members:
+                return
         nb = len(members)
         smax = max(cl for _, cl in members)
         tokens = np.zeros((nb, smax), np.int32)
@@ -621,11 +879,16 @@ class ServeEngine:
             tokens[r, :cl] = s.tokens[s.pos:s.pos + cl]
             lens[r] = cl
             offsets[r] = s.pos
-        idx = self._tensor(np.asarray([i for i, _ in members]))
-        rows = tree_map(lambda c: c.index_select(1, idx), self.cache)
+        members_idx = np.asarray([i for i, _ in members])
+        if self.paged:
+            state = (self.pool.tree,
+                     {"tables": self._tensor(self.alloc.table()[members_idx])})
+        else:
+            idx = self._tensor(members_idx)
+            state = (tree_map(lambda c: c.index_select(1, idx), self.cache),)
         try:
             logits, new_rows = self._launch(
-                "prefill", self._prefill_fn, self.params, rows,
+                "prefill", self._prefill_fn, self.params, *state,
                 self._tensor(tokens), self._tensor(lens),
                 self._tensor(offsets))
         except DiscError as e:
@@ -634,8 +897,10 @@ class ServeEngine:
             for i, _ in members:
                 self._fail_slot(i, f"LaunchError(prefill): {e}")
             return
-        tree_map(lambda c, n: c.index_copy_(1, idx, n[:, :nb].to(c.dtype)),
-                 self.cache, new_rows)
+        if not self.paged:   # the paged launch wrote its pool in place
+            tree_map(lambda c, n: c.index_copy_(1, idx,
+                                                n[:, :nb].to(c.dtype)),
+                     self.cache, new_rows)
         # the rows whose prompt this launch completes emit their first
         # token
         ending = [r for r, (i, cl) in enumerate(members)
@@ -685,17 +950,50 @@ class ServeEngine:
         self.stats["decode_steps"] += 1
 
     def _decode(self) -> None:
-        """One decode launch over ALL replicas' rows."""
+        """One decode launch over ALL replicas' rows; with a proposer
+        configured, the launch is the widened speculative verify
+        instead."""
         active_idx = [i for i, s in enumerate(self.slots)
                       if s is not None and s.state == "decode"]
+        if self._proposer is not None:
+            self._decode_speculative(active_idx)
+        else:
+            self._decode_plain(active_idx)
+
+    def _state(self) -> tuple:
+        """The leading arguments of a decode or verify launch after the
+        parameters: the cache, or the block pool and the block tables."""
+        if self.paged:
+            return self.pool.tree, self._tensor(self.alloc.table())
+        return (self.cache,)
+
+    def _decode_plain(self, active_idx: List[int]) -> None:
+        if self.paged:
+            # every active row writes position lens[r]: claim the block
+            # first, preempting on pressure; a row that cannot allocate
+            # even then (all owners protected) sheds itself
+            protect: Set[int] = set()
+            for i in list(active_idx):
+                s = self.slots[i]
+                if s is None or s.state != "decode":
+                    continue
+                if self._ensure_blocks(i, int(self.lens[i]) + 1, protect):
+                    protect.add(i)
+                else:
+                    self._preempt(i)
+            active_idx = [i for i in active_idx
+                          if self.slots[i] is not None
+                          and self.slots[i].state == "decode"]
+            if not active_idx:
+                return
         tokens = np.zeros((self.n_slots, 1), np.int32)
         active = np.zeros((self.n_slots,), bool)
         for i in active_idx:
             tokens[i, 0] = self.slots[i].generated[-1]
             active[i] = True
         try:
-            logits, self.cache = self._launch(
-                "decode", self._decode_fn, self.params, self.cache,
+            logits, _ = self._launch(
+                "decode", self._decode_fn, self.params, *self._state(),
                 self._tensor(tokens), self._tensor(self.lens),
                 self._tensor(active))
         except DiscError as e:
@@ -715,6 +1013,87 @@ class ServeEngine:
             self._rep_counters[self._replica_of(i)]["tokens_generated"] += 1
             self._maybe_retire(i)
 
+    def _decode_speculative(self, active_idx: List[int]) -> None:
+        """One widened (n_slots, k+1) verify launch: slot r's pending
+        token plus up to k drafted tokens; the longest draft prefix
+        matching the model's greedy argmax is accepted and the model's
+        own token at the first divergence is the correction.  Accept
+        counts advance the ``lens`` vector — cache fill moves by
+        1 + accepted per launch instead of 1."""
+        k = self.scfg.speculative_k
+        tokens = np.zeros((self.n_slots, k + 1), np.int32)
+        dlens = np.zeros((self.n_slots,), np.int32)
+        drafts: Dict[int, np.ndarray] = {}
+        protect: Set[int] = set()
+        live: List[int] = []
+        for i in list(active_idx):
+            s = self.slots[i]
+            if s is None or s.state != "decode":
+                continue    # preempted while assembling this launch
+            fill = int(self.lens[i])
+            # drafted chunk must fit the row (fill + 1 + drafts <=
+            # max_seq - 1) and never draft past the remaining budget
+            cap = min(k, self.scfg.max_seq - fill - 2, s.remaining - 1)
+            dr = np.zeros((0,), np.int32)
+            if cap > 0:
+                hist = np.concatenate(
+                    [s.tokens, np.asarray(s.generated, np.int32)])
+                dr = np.asarray(self._proposer.propose(hist, cap),
+                                np.int32).reshape(-1)[:cap]
+            dl = 1 + int(dr.shape[0])
+            if self.paged:
+                if not self._ensure_blocks(i, fill + dl, protect):
+                    dr = dr[:0]     # shrink the ask to the bare step
+                    dl = 1
+                    if not self._ensure_blocks(i, fill + 1, protect):
+                        self._preempt(i)
+                        continue
+                protect.add(i)
+            tokens[i, 0] = s.generated[-1]
+            tokens[i, 1:dl] = dr
+            dlens[i] = dl
+            drafts[i] = dr
+            live.append(i)
+        if not live:
+            return
+        fills = self.lens.copy()
+        try:
+            ids, _ = self._launch(
+                "verify", self._verify_fn, self.params, *self._state(),
+                self._tensor(tokens), self._tensor(dlens),
+                self._tensor(fills))
+        except DiscError as e:
+            for i in live:
+                self._fail_slot(i, f"LaunchError(verify): {e}")
+            return
+        ids = ids.tolist()
+        self._mark_decode_launch()
+        for i in live:
+            s = self.slots[i]
+            dr = drafts[i]
+            dl = int(dlens[i])
+            a = 0
+            while a < dl - 1 and ids[i][a] == int(dr[a]):
+                a += 1
+            # emitted = accepted drafts + the model's correction token;
+            # rejected positions beyond fill+a+1 stay stale in the cache
+            # but are masked (>= fill) until overwritten
+            emitted = [int(x) for x in dr[:a]] + [ids[i][a]]
+            self.stats["spec_drafted_tokens"] += dl - 1
+            self.stats["spec_accepted_tokens"] += a
+            kept = 0
+            for tok in emitted:
+                s.generated.append(tok)
+                s.remaining -= 1
+                kept += 1
+                self.stats["tokens_generated"] += 1
+                self._rep_counters[self._replica_of(i)][
+                    "tokens_generated"] += 1
+                if tok == self.scfg.eos_id or s.remaining <= 0:
+                    break
+            self.lens[i] = int(fills[i]) + kept
+            self._maybe_retire(i)
+
     def _maybe_retire(self, i: int) -> None:
         slot = self.slots[i]
         if (slot.remaining <= 0 or slot.generated[-1] == self.scfg.eos_id
@@ -727,6 +1106,9 @@ class ServeEngine:
                                            tokens=len(slot.generated))
             self._rep_counters[self._replica_of(i)][
                 "requests_completed"] += 1
+            if self.paged:
+                # normal retirement, not an eviction: blocks just return
+                self.alloc.release(i)
             self.slots[i] = None
             self.lens[i] = 0
 
@@ -822,14 +1204,18 @@ class ServeEngine:
             except AttributeError:  # not compiled yet (no calls)
                 return dict(zero)
 
-        return {"prefill": counts(self._prefill_fn),
-                "decode": counts(self._decode_fn)}
+        out = {"prefill": counts(self._prefill_fn),
+               "decode": counts(self._decode_fn)}
+        if self._verify_fn is not None:
+            out["verify"] = counts(self._verify_fn)
+        return out
 
     def _zero_stats(self) -> Dict[str, Any]:
         """A typed zero value for every :data:`STATS_KEYS` entry."""
         z: Dict[str, Any] = {k: 0 for k in STATS_KEYS}
-        z["tokens_per_sec"] = 0.0
-        z["max_decode_gap_s"] = 0.0
+        for k in ("tokens_per_sec", "max_decode_gap_s",
+                  "kv_pool_occupancy", "kv_peak_occupancy"):
+            z[k] = 0.0
         z["per_replica"] = [
             {"admitted": 0, "tokens_generated": 0,
              "requests_completed": 0, "occupied_slots": 0}
@@ -856,6 +1242,13 @@ class ServeEngine:
         occ = sum(s is not None for s in self.slots)
         self.stats["peak_active_slots"] = max(
             self.stats["peak_active_slots"], occ)
+        if self.paged:
+            self.stats["kv_pool_blocks"] = self.alloc.n_blocks
+            self.stats["kv_blocks_in_use"] = self.alloc.used_blocks
+            frac = self.alloc.used_blocks / self.alloc.n_blocks
+            self.stats["kv_pool_occupancy"] = frac
+            self.stats["kv_peak_occupancy"] = max(
+                self.stats["kv_peak_occupancy"], frac)
         try:
             ms = self._prefill_fn._mstats
             self.stats["mem_launch_bytes"] = ms.last_bytes

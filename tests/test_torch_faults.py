@@ -17,9 +17,9 @@ in f32 with the JAX parameters carried across (``models/convert.py``):
   JAX engine's fault-free stream over the same weights, token for token
   (the tolerance of ``tests/test_torch_serve.py``).
 
-The paged-KV cases (``pool.alloc``) and the mesh cases wait for their
-slices and skip, naming them; the port's side of ``pool.alloc`` is that a
-spec naming it raises ``NotImplementedError``.
+The paged-KV cases (``pool.alloc``) run on a paged pool, as the
+reference's do; the mesh cases wait for their slice and skip, naming
+it.
 """
 from __future__ import annotations
 
@@ -41,7 +41,6 @@ from repro_torch.serve.engine import STATS_KEYS, ServeConfig, ServeEngine
 
 from _torch_parity import reduced_tinyllama
 
-PAGED = "paged KV (pool.alloc) arrives with the port's paged-KV slice"
 MESH = "SPMD serving arrives with the port's multi-GPU slice"
 
 
@@ -202,15 +201,15 @@ class TestInjector:
         with pytest.raises(ValueError, match="unknown fault site"):
             FaultSpec("compile.bukcet")
 
-    def test_pool_alloc_raises_naming_its_slice(self):
-        """``pool.alloc`` has no hook until paged KV is ported: a spec
-        naming it raises rather than inject nothing in silence."""
-        with pytest.raises(NotImplementedError, match="paged-KV slice"):
-            FaultSpec("pool.alloc")
-        with pytest.raises(NotImplementedError, match="paged-KV slice"):
-            FaultInjector.chaos(seed=0, sites=("pool.alloc",))
-        assert "pool.alloc" in faults.SITES
-        assert "pool.alloc" not in faults.LIVE_SITES
+    def test_pool_alloc_is_live(self):
+        """``pool.alloc`` has its hook (the block allocator's ``ensure``):
+        every site is live, a spec naming it builds, and the chaos
+        injector's default sites include it."""
+        assert "pool.alloc" in faults.LIVE_SITES
+        assert set(faults.LIVE_SITES) == set(faults.SITES)
+        assert FaultSpec("pool.alloc", times=1).site == "pool.alloc"
+        inj = FaultInjector.chaos(seed=0)
+        assert "pool.alloc" in {s.site for s in inj.specs}
 
     def test_disabled_by_default(self):
         assert faults.ACTIVE is None
@@ -260,7 +259,7 @@ class TestInjector:
     @pytest.mark.parametrize("seed", [0, 3, 12])
     def test_schedules_match_jax(self, seed):
         """The same specs, keys and seed fire on the same calls in both
-        packages (sites the port has, ``pool.alloc`` aside)."""
+        packages."""
         from repro.ft import faults as jax_faults
 
         def fires(mod):
@@ -268,12 +267,15 @@ class TestInjector:
                 [mod.FaultSpec("serve.launch", match="decode", p=0.4,
                                times=5),
                  mod.FaultSpec("compile.bucket", at=[1, 4], transient=True),
-                 mod.FaultSpec("ft.heartbeat", match="replica1", p=0.5)],
+                 mod.FaultSpec("ft.heartbeat", match="replica1", p=0.5),
+                 mod.FaultSpec("pool.alloc", match="slot2", p=0.3,
+                               times=4)],
                 seed=seed)
             keys = [("serve.launch", "prefill"), ("serve.launch", "decode"),
                     ("compile.bucket", "jit:prefill (16,)"),
                     ("ft.heartbeat", "replica0"),
-                    ("ft.heartbeat", "replica1")]
+                    ("ft.heartbeat", "replica1"),
+                    ("pool.alloc", "slot1"), ("pool.alloc", "slot2")]
             out = [inj.suppress(site, key=key)
                    for _ in range(12) for site, key in keys]
             return out, inj.calls, inj.fired
@@ -542,13 +544,30 @@ class TestServeDifferential:
             "LaunchError(prefill)" in v or "injected permanent" in v
             for v in eng.failed.values())
 
-    @pytest.mark.skip(reason=PAGED)
-    def test_pool_alloc_fault_preempts_and_recovers(self):
-        pass
+    def test_pool_alloc_fault_preempts_and_recovers(self, tiny, base):
+        vocab = tiny["cfg"].vocab
+        paged = dict(kv_block_size=16, kv_pool_blocks=12)
+        _, want = _run(tiny, _requests(vocab, LENS), **paged)
+        assert want == base["lens"]    # the JAX fault-free streams
+        with faults.inject(FaultSpec("pool.alloc", times=2)) as inj:
+            eng, done = _run(tiny, _requests(vocab, LENS), **paged)
+        assert inj.fired["pool.alloc"] == 2
+        assert done == want            # greedy recompute is exact
+        assert not eng.failed
+        eng.alloc.assert_consistent()
 
-    @pytest.mark.skip(reason=PAGED)
-    def test_pool_exhaustion_bounds_recompute(self):
-        pass
+    def test_pool_exhaustion_bounds_recompute(self, tiny):
+        vocab = tiny["cfg"].vocab
+        with faults.inject(FaultSpec("pool.alloc")):   # every alloc denied
+            eng, done = _run(tiny, _requests(vocab, LENS),
+                             kv_block_size=16, kv_pool_blocks=12,
+                             max_recomputes=2)
+        # bounded recompute turns the livelock into PoolExhausted
+        assert not done
+        assert set(eng.failed) == {r.rid for r in _requests(vocab, LENS)}
+        assert all("PoolExhausted" in v for v in eng.failed.values())
+        assert not eng.queue and all(s is None for s in eng.slots)
+        eng.alloc.assert_consistent()
 
     def test_deadline_expires_only_late_request(self, tiny):
         vocab = tiny["cfg"].vocab
@@ -682,7 +701,7 @@ class TestServeDifferential:
             tiny["jmodel"], tiny["jparams"], JaxConfig(**kw)))
         assert done == jdone
         assert rep["health"] == jrep["health"]
-        assert set(STATS_KEYS) <= set(JAX_KEYS)
+        assert set(STATS_KEYS) == set(JAX_KEYS)
         for k in ("failed_requests", "retries", "replica_drains",
                   "deadline_expirations", "prefill_calls", "decode_steps",
                   "tokens_generated"):
@@ -724,16 +743,58 @@ class TestServeDifferential:
             gc.enable()
 
     def test_chaos_run_completes_every_request(self, tiny):
-        """The twin of the chaos run on the sites the port has (the
-        reference's adds ``pool.alloc`` on a paged pool)."""
+        """The twin of the chaos run: ``serve.launch`` and ``pool.alloc``
+        on a paged pool (4-token blocks, so a request allocates at every
+        few steps); every request retired done or failed, never dropped,
+        and the allocator consistent."""
         reqs = _requests(tiny["cfg"].vocab, [5, 9, 12, 7], max_new=4)
         inj = FaultInjector.chaos(seed=12, rate=0.2,
-                                  sites=("serve.launch",))
+                                  sites=("serve.launch", "pool.alloc"))
         with faults.inject(injector=inj):
-            eng, done = _run(tiny, reqs)
+            eng, done = _run(tiny, reqs, kv_block_size=4,
+                             kv_pool_blocks=24)
         assert inj.fired["serve.launch"] >= 1
+        assert inj.fired["pool.alloc"] >= 1
         assert set(done) | set(eng.failed) == {r.rid for r in reqs}
         assert not eng.queue and all(s is None for s in eng.slots)
+        eng.alloc.assert_consistent()
+        assert eng.alloc.used_blocks == 0
+
+    def test_drained_requests_keep_their_priority(self, tiny):
+        """A drained replica's request is requeued at its own priority, as
+        the reference requeues it: under ``admission="priority"`` the
+        survivors re-admit it before a lower-priority request that waited
+        all along — the same completion order and streams as the JAX
+        engine's."""
+        from repro.data.pipeline import Request as JaxRequest
+        from repro.serve.engine import ServeConfig as JaxConfig
+        from repro.serve.engine import ServeEngine as JaxEngine
+
+        vocab = tiny["cfg"].vocab
+        kw = dict(max_batch=1, replicas=2, max_seq=64, admission="priority",
+                  heartbeat_deadline_s=5.0)
+        prios = {0: 5, 1: 1, 2: 3}
+
+        def run(eng, cls):
+            t = [1.0]
+            eng._clock = lambda: t[0]
+            for r in range(2):
+                eng.heartbeat(r)
+            eng.submit([cls(rid=r.rid, tokens=r.tokens, max_new_tokens=3,
+                            priority=prios[r.rid])
+                        for r in _requests(vocab, [6, 9, 7])])
+            for _ in range(3):
+                eng.step()         # rids 0 and 2 admitted, rid 1 waits
+            t[0] = 10.0
+            eng.heartbeat(0)       # replica 1 (rid 2's) is drained
+            return eng.run_until_done(max_steps=400)
+
+        done = run(ServeEngine(tiny["model"], tiny["params"],
+                               ServeConfig(device="cpu", **kw)), Request)
+        jdone = run(JaxEngine(tiny["jmodel"], tiny["jparams"],
+                              JaxConfig(**kw)), JaxRequest)
+        assert list(done) == list(jdone) == [0, 2, 1]
+        assert done == jdone
 
 
 # ----------------------------------------------------------- mesh (SPMD) --

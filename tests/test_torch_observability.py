@@ -790,10 +790,12 @@ class TestResetStats:
         for rep in eng.stats["per_replica"]:
             assert rep == {"admitted": 0, "tokens_generated": 0,
                            "requests_completed": 0, "occupied_slots": 0}
-        for k in ("tokens_per_sec", "max_decode_gap_s"):
+        for k in ("tokens_per_sec", "max_decode_gap_s",
+                  "kv_pool_occupancy", "kv_peak_occupancy"):
             assert isinstance(eng.stats[k], float)
         ints = set(STATS_KEYS) - {"per_replica", "tokens_per_sec",
-                                  "max_decode_gap_s"}
+                                  "max_decode_gap_s", "kv_pool_occupancy",
+                                  "kv_peak_occupancy"}
         assert all(eng.stats[k] == 0 and isinstance(eng.stats[k], int)
                    for k in ints)
 

@@ -2,12 +2,13 @@
 
 Two kinds of cases:
 
-* **Twins** of ``tests/test_serve_batching.py`` (all but the paged case,
-  whose slice is not ported): single-pass prefill vs the decode-step
-  replay, chunked vs unchunked prefill, admission order, O(#(B, S)
-  buckets) compiles, §4.4 escalation, ``TreeSpec`` padding and the
-  documented stats keys — on the port's ``ServeEngine``, with the
-  reference's tolerances (2e-4 on logits and cache rows).
+* **Twins** of ``tests/test_serve_batching.py``: single-pass prefill vs
+  the decode-step replay, chunked vs unchunked prefill, admission order,
+  O(#(B, S) buckets) compiles, §4.4 escalation, ``TreeSpec`` padding, the
+  paged pool's parity with fixed rows and the documented stats keys — on
+  the port's ``ServeEngine``, with the reference's tolerances (2e-4 on
+  logits and cache rows).  The paged and speculative paths' own twins
+  are ``tests/test_torch_paging.py``.
 * **Cross-package**: the same requests through the JAX ``ServeEngine``
   and the port's, on ``get_config("tinyllama_11b").reduced()`` in f32
   with the JAX parameters carried across by ``params_from_numpy``, give
@@ -214,6 +215,23 @@ class TestAdmission:
         eng.run_until_done(max_steps=100)
         assert eng.stats["requests_completed"] == 2
 
+    def test_paged_decode_parity_across_buckets(self, tiny):
+        """Unconstrained-pool paged decode is bit-parity with the
+        fixed-row baseline, across ≥2 (B, S) prefill buckets (short and
+        long prompts, full and partial batches)."""
+        lens = [5, 12, 40, 60, 9, 33]
+        fixed = _engine(tiny, max_batch=3, max_seq=96)
+        fixed.submit(_requests(tiny["cfg"].vocab, lens, max_new=4))
+        fixed.run_until_done(max_steps=400)
+        paged = _engine(tiny, max_batch=3, max_seq=96, kv_block_size=16)
+        paged.submit(_requests(tiny["cfg"].vocab, lens, max_new=4))
+        paged.run_until_done(max_steps=400)
+        assert fixed.stats["prefill_bucket_pairs"] >= 2
+        assert paged.done == fixed.done
+        assert paged.stats["kv_preemptions"] == 0
+        assert paged.stats["kv_blocks_in_use"] == 0
+        paged.alloc.assert_consistent()
+
     @pytest.mark.parametrize("policy,expected", [
         ("fifo", [0, 1, 2]),
         ("shortest-prompt-first", [1, 2, 0]),
@@ -325,14 +343,32 @@ class TestTreeSpec:
 # ------------------------------------------------------- the port's rules --
 
 def test_later_slices_raise_not_implemented(tiny):
-    for kw in (dict(kv_block_size=16), dict(speculative="ngram"),
-               dict(mesh=object()), dict(sharding_profile="dp")):
+    for kw in (dict(mesh=object()), dict(sharding_profile="dp")):
         with pytest.raises(NotImplementedError, match="slice"):
             _engine(tiny, **kw)
     # replica heartbeats are ported: the option serves
     assert _engine(tiny, heartbeat_deadline_s=1.0).monitor is not None
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         disc_torch.CompileOptions(mesh=object())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kv_block_size=16), dict(kv_block_size=16, kv_pool_blocks=10),
+    dict(speculative="ngram"), dict(speculative="ngram", speculative_k=2,
+                                    kv_block_size=8, max_recomputes=3)])
+def test_paged_and_speculative_options_serve(tiny, kw):
+    """``kv_block_size`` / ``kv_pool_blocks`` / ``speculative`` /
+    ``speculative_k`` / ``max_recomputes`` are ported: each serves the
+    fixed-row engine's streams."""
+    lens = [5, 12, 9]
+    want = _engine(tiny)
+    want.submit(_requests(tiny["cfg"].vocab, lens))
+    eng = _engine(tiny, **kw)
+    eng.submit(_requests(tiny["cfg"].vocab, lens))
+    assert eng.run_until_done(max_steps=300) == \
+        want.run_until_done(max_steps=300)
+    assert eng.paged == ("kv_block_size" in kw)
+    assert ("verify" in eng.compile_counts()) == ("speculative" in kw)
 
 
 def test_deadline_expiry_fails_only_the_late_request(tiny):
