@@ -458,7 +458,39 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     back within 1 GB after each engine's ``del``.  Prints decode ms a
     step paged and fixed, ms a verify launch, accept rates and tokens a
     launch, the gathered bytes a paged step and the graph pools' bytes.
-23. Prints the run's seconds in all, the kernels line (each kernel, and
+23. **Path 15 (training on one card).**  (a) TinyLlama-1.1B at full
+    width and all 22 layers, its config's bf16 params with f32 AdamW
+    state, trained 5 steps of B = 4 (halved while the card runs out of
+    memory) x 2048 tokens of ``SyntheticLMStream`` by
+    ``launch/train.py``'s ``run`` (``TrainConfig(peak_lr 1e-3, warmup
+    2)``): every loss and grad norm finite, every parameter leaf changed
+    and finite, exactly 22 flash-attention and 45 RMSNorm launches a step
+    (the backward is the plain versions' gradient, ``kernels/grad.py``,
+    and launches none); ms a step (median of steps 2-5), tokens/s and
+    ``torch.cuda.max_memory_allocated`` printed.  (b) One step's loss and
+    gradients at 2 layers, full width, f32, B = 2, with the kernels and
+    inside ``plain_versions()``: loss within 1e-5 relative, each grad
+    leaf max|d|/max|ref| <= 1e-3.  (c) The same at 22 layers in bf16, B
+    = 1, against the step in f32 over the upcast weights, at 4 seeds:
+    the kernels' gradient (all leaves, relative L2) and token losses at
+    most 1.25 x as far from it as the plain versions' (the accuracy
+    rule), their mean loss within 3 standard errors of the tokens' mean
+    of the f32 one (both paths' signed distances printed).  (d) 20 f32
+    steps at 2 layers: the mean of the last 5 losses below the first.
+    (e) A bf16 state saved at step 3 by the writer thread under
+    ``build/`` and restored into a fresh state: every leaf equal bit for
+    bit, the next step's loss within 1e-6 of the saved state's; the save
+    and restore seconds.  (f) One step with ``microbatches=2`` and one
+    with ``grad_compression="bf16"``: losses finite, the microbatched one
+    beside the unbatched.  (g) Each of the six model-layer wrappers on
+    card inputs that require grad (TinyLlama's widths; the router 2048 x
+    16; WKV and SSD at T = 512): the helper's ``grad_fn``, values equal
+    to the kernel's without grad, gradients equal to the plain
+    version's, bit for bit, one launch forward and none backward.  (h)
+    One more step of (a) under ``torch.profiler``: wall ms and the card's
+    busy ms split into the forward kernels, the plain backward
+    recompute, cuBLAS, the AdamW passes and the rest.
+24. Prints the run's seconds in all, the kernels line (each kernel, and
     flash attention's MLA forms as ``flash_attention_mla`` and
     ``flash_attention_mla_decode``), the card line, and the result line
     last.
@@ -471,7 +503,8 @@ bf16 and 15 in both dtypes, path 6 8 in bf16 and 4 in both dtypes, path
 8 all 4 + 4, path 9 all 52 in bf16 and 4 in both, path 10 all 32 in
 bf16 and 2 in f32, path 11 16 in bf16 and 4 in both, path 12 6 of 60 in
 bf16 (~8.1 GB of weights a layer; the 60 would need ~483 GB) and 2 in
-both, and paths 13 and 14 all 22 in f32 (path 14 in bf16 too).
+both, paths 13 and 14 all 22 in f32 (path 14 in bf16 too), and path 15
+all 22 in bf16 and 2 in its f32 comparisons.
 """
 from __future__ import annotations
 
@@ -825,6 +858,26 @@ TOL_PAGED = 1e-6
 # the plain run's top-2 margin (over its max|logit|) is below this: path
 # 3's stream rule
 TOL_SPEC_MARGIN = 2e-2
+
+# path 15 (training): TinyLlama at full width and depth, B (halved while
+# the card runs out of memory) x S tokens a step, the launcher's steps;
+# the cut depth of its comparisons, the learning run's steps; the
+# kernels' f32 step vs the plain versions' (loss relative, each grad
+# leaf max|d|/max|ref|: two f32 evaluations of the same math in other
+# orders); a restored state's next loss vs the saved state's
+PATH15_BATCH = 4
+PATH15_SEQ = 2048
+PATH15_STEPS = 5
+PATH15_CUT_LAYERS = 2
+PATH15_LEARN = 20
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_GRAD = 1e-3
+TOL_CKPT_LOSS = 1e-6
+# (c)'s seeds (weights and batch: seed, seed + 1, ...), and how many
+# standard errors of the 2048 tokens' mean the kernels' bf16 mean loss
+# may lie from the f32 one
+PATH15_ACC_SEEDS = 4
+ACC_MEAN_SE = 3.0
 
 # §4.5 library phase: a shape from TinyLlama's widths per entry, and the
 # entry the reference's selection rules give it
@@ -4638,6 +4691,7 @@ def main(argv=None) -> int:
         obs_phase(args.seed, report)
         print(f"[phase path13] {time.perf_counter() - t0:.1f} s", flush=True)
         paged_phase(args.seed, report)
+        train_phase(args.seed, report)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5605,6 +5659,540 @@ def verify_kernel_rows(cfg, dname: str, fills, launches: int) -> None:
     # printed, not a candidate for the kernels line, where flash
     # attention's row stays the prefill at S = 2048 of the earlier paths
     flash_rows([case], dname, hkv, launches, [])
+
+
+def train_launches() -> dict:
+    """The launch counters of the two kernels a TinyLlama train step runs."""
+    return {k: c for k, c in serve_counters().items()
+            if k in ("flash_attention", "rmsnorm")}
+
+
+def state_leaves(tree) -> list:
+    """The tensor leaves of a port tree (params, grads, a train state) in
+    the reference's order."""
+    from repro_torch.optim.adamw import tree_leaves as leaves
+
+    return leaves(tree)
+
+
+def train_inputs(cfg, b: int, s: int, seed: int, step: int = 0) -> dict:
+    """``SyntheticLMStream``'s batch ``step`` on the card."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMStream
+
+    stream = SyntheticLMStream(vocab=cfg.vocab, batch=b, seq_len=s,
+                               seed=seed)
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in stream.batch_at(step).items()}
+
+
+def through_helper(t) -> bool:
+    """True when ``t``'s graph reaches ``kernels/grad.py``'s node within
+    a view or two (the softmax wrapper reshapes its rows back)."""
+    fns = [t.grad_fn]
+    for _ in range(3):
+        if any(type(f).__name__ == "PlainGradBackward" for f in fns):
+            return True
+        fns = [n for f in fns if f is not None for n, _ in f.next_functions]
+    return False
+
+
+def train_phase(seed: int, report: dict) -> None:
+    """Path 15: training on one card (the module docstring's phase 23),
+    (a) to (h), and the phase's seconds."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    base = get_config("tinyllama_11b")
+    cut = {d: dataclasses.replace(base, n_layers=PATH15_CUT_LAYERS, dtype=d)
+           for d in ("f32", "bf16")}
+    state, model, tcfg, b = train_full_width(base, seed, report)
+    train_profile(model, tcfg, state, base, b, seed)
+    del state
+    torch.cuda.empty_cache()
+    train_kernels_vs_plain(cut["f32"], seed)
+    train_accuracy(dataclasses.replace(base, dtype="bf16"), seed)
+    train_learning(cut["f32"], seed)
+    train_checkpoint(cut["bf16"], seed)
+    train_options(cut["f32"], seed)
+    train_grad_phase(base, seed)
+    torch.cuda.empty_cache()
+    used = torch.cuda.memory_allocated()
+    print(f"[path15] card memory allocated after the path: {used} B",
+          flush=True)
+    print(f"[phase path15] {time.perf_counter() - t_phase:.1f} s (target "
+          f"about 120 s)", flush=True)
+
+
+def train_full_width(base, seed: int, report: dict):
+    """(a) TinyLlama-1.1B at all 22 layers in bf16 through
+    ``launch/train.py``'s ``run``: 5 steps of B x 2048 tokens (B = 4,
+    halved while the card runs out of memory), f32 AdamW state.  Returns
+    the trained state, the model, its train config and B, for (h)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.step import TrainConfig
+
+    b = PATH15_BATCH
+    while True:
+        args = launcher.parser().parse_args(
+            ["--arch", "tinyllama_11b", "--steps", str(PATH15_STEPS),
+             "--batch", str(b), "--seq", str(PATH15_SEQ), "--warmup", "2",
+             "--seed", str(seed)])
+        counters = train_launches()
+        for c in counters.values():
+            c.reset()
+        try:
+            out = launcher.run(args)
+        except torch.cuda.OutOfMemoryError:
+            out = None
+        if out is not None:
+            break
+        torch.cuda.empty_cache()
+        check(b > 1, "path15 (a): B = 1 does not fit the card")
+        b //= 2
+        print(f"[path15 bf16 22L] B = {2 * b} did not fit the card: "
+              f"halved to B = {b}", flush=True)
+    launches = {k: c.launches for k, c in counters.items()}
+    tag = f"[path15 bf16 {base.n_layers}L]"
+    steps = PATH15_STEPS
+    check(launches == {"flash_attention": base.n_layers * steps,
+                       "rmsnorm": (2 * base.n_layers + 1) * steps},
+          f"{tag} launches {launches}, want {base.n_layers} flash "
+          f"attention and {2 * base.n_layers + 1} RMSNorm a step")
+    report[("path15", "bf16")] = dict(launches=launches)
+    check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
+          f"{tag} losses {out['losses']}, grad norms {out['grad_norms']}")
+    state, model = out["state"], out["model"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    init = model.init(gen, "cuda")
+    changed = finite = 0
+    leaves = state_leaves(state.params)
+    for p, p0 in zip(leaves, state_leaves(init)):
+        changed += int(not torch.equal(p, p0))
+        finite += int(bool(torch.isfinite(p).all()))
+    del init
+    check(changed == finite == len(leaves),
+          f"{tag} of {len(leaves)} parameter leaves {changed} changed, "
+          f"{finite} finite")
+    ms = 1e3 * statistics.median(out["step_seconds"][1:])
+    tokens = b * PATH15_SEQ
+    print(f"{tag} B={b} S={PATH15_SEQ}: ms/step median of steps 2-"
+          f"{steps} {ms:.1f} (steps {[round(1e3 * t, 1) for t in out['step_seconds']]}), "
+          f"tokens/s {tokens / ms * 1e3:.0f}, peak memory "
+          f"{out['peak_bytes']} B ({out['peak_bytes'] / 2**30:.2f} GiB); "
+          f"losses {[round(x, 4) for x in out['losses']]}; grad norms "
+          f"{[round(x, 4) for x in out['grad_norms']]}; launches "
+          f"{launches} ({base.n_layers} / {2 * base.n_layers + 1} a step); "
+          f"{changed} of {len(leaves)} leaves changed, all finite",
+          flush=True)
+    tcfg = TrainConfig(peak_lr=1e-3, warmup=2, total_steps=steps)
+    return state, model, tcfg, b
+
+
+def train_profile(model, tcfg, state, cfg, b: int, seed: int) -> None:
+    """(h) One more bf16 step of (a) under ``torch.profiler``: its wall ms
+    and the card's busy ms split into the forward kernels (flash
+    attention, RMSNorm), the plain versions' backward recompute (the
+    ``plain_grad_recompute`` range of ``kernels/grad.py``, its GEMMs
+    included), cuBLAS (every other GEMM: the projections and the head,
+    forward and backward), the AdamW passes (the ``train_step.update``
+    range) and the rest (elementwise, the loss, the embedding's
+    backward)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.step import make_train_step
+
+    step = make_train_step(model, tcfg)
+    batch = train_inputs(cfg, b, PATH15_SEQ, seed, PATH15_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    ours = "|".join(TRACE_KERNELS[k] for k in ("flash_attention", "rmsnorm"))
+    gemm = re.compile(r"gemm|nvjet|cutlass|xmma|cublas", re.I)
+    split = dict.fromkeys(("forward kernels", "plain backward recompute",
+                           "cuBLAS", "AdamW", "other"), 0.0)
+    linked = 0
+
+    def ranges(e):
+        names = set()
+        while e is not None:
+            names.add(e.name)
+            e = e.cpu_parent
+        return names
+
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        linked += len(e.kernels)
+        up = ranges(e)
+        for k in e.kernels:
+            ms = k.duration / 1e3
+            if re.search(ours, k.name):
+                split["forward kernels"] += ms
+            elif "plain_grad_recompute" in up:
+                split["plain backward recompute"] += ms
+            elif "train_step.update" in up:
+                split["AdamW"] += ms
+            elif gemm.search(k.name):
+                split["cuBLAS"] += ms
+            else:
+                split["other"] += ms
+    # the card's own events: kernels and copies, not the spans the
+    # profiler draws on the card for a host range (record_function)
+    spans = {"plain_grad_recompute", "train_step.update"}
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.name not in spans
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("ProfilerStep")) / 1e3
+    tag = f"[path15 bf16 {cfg.n_layers}L traced step]"
+    check(linked, f"{tag} wall {wall:.1f} ms, device busy {busy:.1f} ms: "
+          f"the trace links no kernel to its operator, so no split")
+    parts = ", ".join(f"{k} {v:.1f} ms ({100 * v / busy:.1f}%)"
+                      for k, v in split.items())
+    print(f"{tag} wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}% of wall), of it {parts}; "
+          f"{sum(split.values()):.1f} ms linked to an operator", flush=True)
+    check(math.isfinite(float(metrics["loss"])), f"{tag} loss not finite")
+
+
+def train_params(cfg, seed: int):
+    import torch
+
+    from repro_torch.models.registry import get_model
+
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return model, model.init(gen, "cuda")
+
+
+def train_kernels_vs_plain(cfg, seed: int) -> None:
+    """(b) One step's loss and gradients at 2 layers, full width, f32,
+    B = 2, S = 2048, with the kernels and inside ``plain_versions()``."""
+    from repro_torch.kernels.select import plain_versions
+    from repro_torch.train.step import value_and_grad
+
+    model, params = train_params(cfg, seed)
+    batch = train_inputs(cfg, 2, PATH15_SEQ, seed)
+    counters = train_launches()
+    before = {k: c.launches for k, c in counters.items()}
+    loss, grads = value_and_grad(model.loss, params, batch)
+    ran = {k: c.launches - before[k] for k, c in counters.items()}
+    with plain_versions():
+        ploss, pgrads = value_and_grad(model.loss, params, batch)
+    tag = f"[path15 f32 {cfg.n_layers}L]"
+    check(ran == {"flash_attention": cfg.n_layers,
+                  "rmsnorm": 2 * cfg.n_layers + 1},
+          f"{tag} kernel launches {ran}")
+    e_loss = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    errs = [rel_err(g.float(), p.float())
+            for g, p in zip(state_leaves(grads), state_leaves(pgrads))]
+    worst = max(errs)
+    print(f"{tag} kernels vs plain versions, B=2 S={PATH15_SEQ}: loss "
+          f"{float(loss):.6f} vs {float(ploss):.6f} (rel {e_loss:.2e}, "
+          f"limit {TOL_TRAIN_LOSS}); grad leaves max|d|/max|ref| worst "
+          f"{worst:.2e} of {len(errs)} (limit {TOL_TRAIN_GRAD}); launches "
+          f"{ran}", flush=True)
+    check(e_loss <= TOL_TRAIN_LOSS, f"{tag} loss rel {e_loss:.2e}")
+    check(worst <= TOL_TRAIN_GRAD, f"{tag} grad leaf rel {worst:.2e}")
+
+
+def token_losses(model, params, batch):
+    """Each token's f32 cross entropy (the terms the loss averages), no
+    grad."""
+    import torch
+
+    with torch.no_grad():
+        logits = model.forward(params, batch).float()
+        gold = torch.gather(logits, -1, batch["labels"][..., None].long())
+        return torch.logsumexp(logits, -1) - gold[..., 0]
+
+
+def train_accuracy(cfg, seed: int) -> None:
+    """(c) One bf16 step at all 22 layers, B = 1, S = 2048, with the
+    kernels and with the plain versions, each against the same step in
+    f32 over the upcast weights (plain versions), at ``PATH15_ACC_SEEDS``
+    seeds (weights and batch), each held: the kernels' gradient (all
+    leaves as one vector, relative L2 distance) and 2048 tokens' losses
+    (relative L2 distance) at most ``ACCURACY_RATIO`` times as far from
+    it as the plain versions'; the kernels' mean loss (the tokens'
+    mean) within ``ACC_MEAN_SE`` standard errors of that mean of the
+    f32 one, so no bias beyond the tokens' rounding noise (a mean of
+    2048 terms of either sign, its distance alone is that noise's luck:
+    each seed prints both paths' signed distances)."""
+    import torch
+
+    from repro_torch.kernels.select import plain_versions
+    from repro_torch.train.step import value_and_grad
+
+    tag = f"[path15 bf16 {cfg.n_layers}L accuracy]"
+    for s in range(seed, seed + PATH15_ACC_SEEDS):
+        model, params = train_params(cfg, s)
+        batch = train_inputs(cfg, 1, PATH15_SEQ, s)
+        with plain_versions():
+            p32 = to_f32(params)
+            ref_loss, ref = value_and_grad(model.loss, p32, batch)
+            ref_tokens = token_losses(model, p32, batch)
+            del p32
+        ref = [g.float() for g in state_leaves(ref)]
+        norm = math.sqrt(sum(float(g.square().sum()) for g in ref))
+        out = {}
+        for label in ("kernels", "plain"):
+            ctx = (plain_versions() if label == "plain"
+                   else contextlib.nullcontext())
+            with ctx:
+                loss, grads = value_and_grad(model.loss, params, batch)
+                tokens = token_losses(model, params, batch)
+            dist = math.sqrt(sum(float((g.float() - r).square().sum())
+                                 for g, r in zip(state_leaves(grads), ref)))
+            d = (tokens - ref_tokens).flatten().double()
+            out[label] = dict(
+                grad=dist / norm,
+                tokens=float((tokens - ref_tokens).norm()
+                             / ref_tokens.norm()),
+                loss=float(loss) - float(ref_loss), mean=float(d.mean()),
+                se=float(d.std() / math.sqrt(d.numel())))
+            del grads
+        k, p = out["kernels"], out["plain"]
+        z = abs(k["mean"]) / k["se"]
+        print(f"{tag} seed {s} B=1 S={PATH15_SEQ}, against the f32 step "
+              f"(loss {float(ref_loss):.6f}): gradient rel L2 kernels "
+              f"{k['grad']:.3e} plain {p['grad']:.3e} (ratio "
+              f"{k['grad'] / p['grad']:.3f}); token losses rel L2 kernels "
+              f"{k['tokens']:.3e} plain {p['tokens']:.3e} (ratio "
+              f"{k['tokens'] / p['tokens']:.3f}); limit {ACCURACY_RATIO}; "
+              f"mean loss - f32: kernels {k['loss']:+.3e} (tokens' mean "
+              f"{k['mean']:+.3e}, standard error {k['se']:.3e}, {z:.2f} SE, "
+              f"limit {ACC_MEAN_SE}) plain {p['loss']:+.3e} (tokens' mean "
+              f"{p['mean']:+.3e}, standard error {p['se']:.3e}, "
+              f"{abs(p['mean']) / p['se']:.2f} SE)", flush=True)
+        check(k["grad"] <= ACCURACY_RATIO * p["grad"]
+              and k["tokens"] <= ACCURACY_RATIO * p["tokens"],
+              f"{tag} seed {s}: kernels further from f32 than "
+              f"{ACCURACY_RATIO} x the plain versions")
+        check(z <= ACC_MEAN_SE, f"{tag} seed {s}: the kernels' mean loss "
+              f"{z:.2f} standard errors from the f32 one")
+        del model, params, ref, ref_tokens
+        torch.cuda.empty_cache()
+
+
+def train_learning(cfg, seed: int) -> None:
+    """(d) 20 steps at 2 layers, f32, B = 2, S = 2048 on the stream's
+    batches 0-19: the mean of the last 5 losses must lie below the
+    first."""
+    from repro_torch.train.step import (TrainConfig, make_train_step,
+                                        train_state_for)
+
+    model, params = train_params(cfg, seed)
+    tcfg = TrainConfig(peak_lr=1e-3, warmup=2, total_steps=PATH15_LEARN)
+    state = train_state_for(params, tcfg)
+    step = make_train_step(model, tcfg)
+    losses = []
+    for i in range(PATH15_LEARN):
+        state, metrics = step(state, train_inputs(cfg, 2, PATH15_SEQ, seed,
+                                                  i))
+        losses.append(float(metrics["loss"]))
+    tail = sum(losses[-5:]) / 5
+    print(f"[path15 f32 {cfg.n_layers}L learning] losses "
+          f"{[round(x, 4) for x in losses]}: mean of the last 5 {tail:.4f} "
+          f"vs the first {losses[0]:.4f}", flush=True)
+    check(all(map(math.isfinite, losses)) and tail < losses[0],
+          f"[path15 learning] the last 5 losses' mean {tail} not below the "
+          f"first {losses[0]}")
+
+
+def train_checkpoint(cfg, seed: int) -> None:
+    """(e) 3 steps at 2 layers in bf16 (f32 AdamW state), saved at step 3
+    by a writer thread under ``build/``, restored into a fresh state:
+    every leaf equal bit for bit; then one step from each, losses within
+    ``TOL_CKPT_LOSS`` (the embedding's backward adds with atomics, so the
+    bits of the update may differ, not the forward's loss)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import (restore_checkpoint, save_checkpoint,
+                                        wait_for_writers)
+    from repro_torch.train.step import (TrainConfig, make_train_step,
+                                        train_state_for)
+
+    model, params = train_params(cfg, seed)
+    tcfg = TrainConfig(peak_lr=1e-3, warmup=2, total_steps=10)
+    state = train_state_for(params, tcfg)
+    step = make_train_step(model, tcfg)
+    for i in range(3):
+        state, _ = step(state, train_inputs(cfg, 2, PATH15_SEQ, seed, i))
+    ckpt = ROOT / "build" / "path15_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    save_checkpoint(ckpt, 3, state, journal={"data_step": 3},
+                    blocking=False)
+    staged = time.perf_counter() - t
+    wait_for_writers()
+    written = time.perf_counter() - t
+    _, fresh = train_params(cfg, seed + 1)
+    like = train_state_for(fresh, tcfg)
+    t = time.perf_counter()
+    restored, journal = restore_checkpoint(ckpt, like)
+    torch.cuda.synchronize()
+    read = time.perf_counter() - t
+    a, b = state_leaves(list(state)), state_leaves(list(restored))
+    same = sum(int(x.dtype == y.dtype and x.device == y.device
+                   and torch.equal(x, y)) for x, y in zip(a, b))
+    batch = train_inputs(cfg, 2, PATH15_SEQ, seed, 3)
+    _, m1 = step(state, batch)
+    _, m2 = step(restored, batch)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    e = abs(l1 - l2) / abs(l1)
+    size = sum(p.stat().st_size for p in ckpt.rglob("*") if p.is_file())
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tag = f"[path15 bf16 {cfg.n_layers}L checkpoint]"
+    print(f"{tag} {size} B: save {staged:.2f} s staged + written by "
+          f"{written:.2f} s, restore {read:.2f} s; {same} of {len(a)} leaves "
+          f"equal bit for bit; journal {journal}; next step's loss "
+          f"{l1:.6f} vs restored {l2:.6f} (rel {e:.2e}, limit "
+          f"{TOL_CKPT_LOSS})", flush=True)
+    check(same == len(a) == len(b) and journal == {"data_step": 3},
+          f"{tag} {same} of {len(a)} leaves restored equal")
+    check(e <= TOL_CKPT_LOSS, f"{tag} loss rel {e:.2e}")
+
+
+def train_options(cfg, seed: int) -> None:
+    """(f) One step with ``microbatches=2`` and one with
+    ``grad_compression="bf16"`` at 2 layers, f32, B = 2, S = 2048, from
+    the same weights, beside the plain step."""
+    from repro_torch.train.step import (TrainConfig, make_train_step,
+                                        train_state_for)
+
+    batch = train_inputs(cfg, 2, PATH15_SEQ, seed)
+    losses = {}
+    for label, kw in (("unbatched", {}), ("microbatches=2",
+                                          dict(microbatches=2)),
+                      ("grad_compression=bf16",
+                       dict(grad_compression="bf16"))):
+        model, params = train_params(cfg, seed)
+        tcfg = TrainConfig(peak_lr=1e-3, warmup=2, total_steps=10, **kw)
+        state, metrics = make_train_step(model, tcfg)(
+            train_state_for(params, tcfg), batch)
+        losses[label] = float(metrics["loss"])
+        del state, params
+    mb = losses["microbatches=2"]
+    print(f"[path15 f32 {cfg.n_layers}L options] losses {losses}; "
+          f"microbatched vs unbatched rel "
+          f"{abs(mb - losses['unbatched']) / abs(losses['unbatched']):.2e}",
+          flush=True)
+    check(all(map(math.isfinite, losses.values())),
+          f"[path15 options] losses {losses}")
+
+
+def train_grad_cases(cfg) -> list:
+    """(name, wrapper call, inputs) at one card shape of each of the six
+    model-layer wrappers: TinyLlama's widths, the MoE router (2048 x 16),
+    WKV (RWKV-6 3B's 40 heads) and SSD (Zamba2-7B's 112 heads) at T =
+    512."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.layernorm import ops as ln
+    from repro_torch.kernels.mamba2 import ops as ssd
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.kernels.rwkv6 import ops as wkv
+    from repro_torch.kernels.softmax import ops as sm
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    bf = torch.bfloat16
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        x = torch.randn(shape, generator=gen, device="cuda") * scale
+        return x.to(dtype).requires_grad_()
+
+    def decay(*shape):
+        x = torch.rand(shape, generator=gen, device="cuda") * 0.5 + 0.45
+        return x.requires_grad_()
+
+    d, s, t = cfg.d_model, PATH15_SEQ, 512
+    return [
+        ("rmsnorm", rms, lambda a: rms.rmsnorm(a[0], a[1], eps=1e-6),
+         [rnd(1, s, d, dtype=bf), rnd(d)]),
+        ("layernorm", ln, lambda a: ln.layernorm(a[0], a[1], a[2], eps=1e-5),
+         [rnd(1, s, d, dtype=bf), rnd(d), rnd(d)]),
+        ("flash_attention", fa,
+         lambda a: fa.flash_attention(a[0], a[1], a[2], None, causal=True),
+         [rnd(1, cfg.n_heads, s, cfg.hd, dtype=bf),
+          rnd(1, cfg.n_kv_heads, s, cfg.hd, dtype=bf),
+          rnd(1, cfg.n_kv_heads, s, cfg.hd, dtype=bf)]),
+        ("masked_softmax", sm, lambda a: sm.masked_softmax(a[0], 16),
+         [rnd(s, 16)]),
+        ("rwkv6", wkv, lambda a: wkv.rwkv6(*a)[0],
+         [rnd(1, 40, t, 64, scale=0.5), rnd(1, 40, t, 64, scale=0.5),
+          rnd(1, 40, t, 64), decay(1, 40, t, 64), rnd(40, 64, scale=0.1)]),
+        ("mamba2", ssd, lambda a: ssd.mamba2_scan(*a)[0],
+         [rnd(1, 112, t, 64, dtype=bf), decay(1, 112, t),
+          rnd(1, t, 64, dtype=bf, scale=0.3),
+          rnd(1, t, 64, dtype=bf, scale=0.3)]),
+    ]
+
+
+def train_grad_phase(cfg, seed: int) -> None:
+    """(g) Each of the six model-layer wrappers called on card inputs that
+    require grad: the output carries ``kernels/grad.py``'s ``grad_fn``,
+    its values equal the kernel's without grad bit for bit, one launch is
+    counted (none by the backward), and ``torch.autograd.grad`` equals
+    the plain version's own gradient at the same inputs bit for bit."""
+    import torch
+
+    from repro_torch.kernels.select import plain_versions
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    for name, ops, call, inputs in train_grad_cases(cfg):
+        n = [ops.LAUNCHES.launches]
+        out = call(inputs)
+        n.append(ops.LAUNCHES.launches)
+        with torch.no_grad():
+            nograd = call([x.detach() for x in inputs])
+        n.append(ops.LAUNCHES.launches)
+        g = torch.randn(out.shape, generator=gen, device="cuda").to(
+            out.dtype)
+        got = torch.autograd.grad(out, inputs, g)
+        n.append(ops.LAUNCHES.launches)
+        leaves = [x.detach().requires_grad_() for x in inputs]
+        with plain_versions():
+            want = torch.autograd.grad(call(leaves), leaves, g)
+        n.append(ops.LAUNCHES.launches)
+        # forward, without grad, backward, the plain version's own
+        ran = tuple(b - a for a, b in zip(n, n[1:]))
+        helper = through_helper(out)
+        same_values = torch.equal(out.detach(), nograd)
+        same_grads = [torch.equal(a, b) for a, b in zip(got, want)]
+        print(f"[path15 grad {name}] inputs "
+              f"{[tuple(x.shape) for x in inputs]}: grad_fn "
+              f"{type(out.grad_fn).__name__} (reaches the helper's: "
+              f"{helper}); values == the kernel's without grad: "
+              f"{same_values}; grads == the plain version's: {same_grads}; "
+              f"launches forward, without grad, backward, plain {ran}",
+              flush=True)
+        check(helper and same_values and all(same_grads)
+              and ran == (1, 1, 0, 0),
+              f"[path15 grad {name}] helper {helper}, values "
+              f"{same_values}, grads {same_grads}, launches {ran}")
 
 
 def print_resources() -> None:

@@ -10,7 +10,8 @@ which would scatter one contraction over several DHLO ops; registering
 ``lax.dot_general`` is one jaxpr equation in the JAX package.
 
 Eagerly it runs as ``torch.einsum`` (cuBLAS on the card, as the JAX
-package leaves the contraction to XLA).
+package leaves the contraction to XLA), and its gradient is the two
+einsums ``lax.dot_general``'s transpose rule gives.
 """
 from __future__ import annotations
 
@@ -77,6 +78,29 @@ def _(lhs, rhs, lhs_contract, rhs_contract, lhs_batch, rhs_batch):
                               rhs_contract, lhs_batch, rhs_batch)
     return lhs.new_empty(shape, dtype=torch.promote_types(lhs.dtype,
                                                           rhs.dtype))
+
+
+def _setup_context(ctx, inputs, output):
+    lhs, rhs, lc, rc, lb, rb = inputs
+    ctx.save_for_backward(lhs, rhs)
+    ctx.subs = _subscripts(lhs.dim(), rhs.dim(), lc, rc, lb, rb)
+
+
+def _backward(ctx, grad):
+    lhs, rhs = ctx.saved_tensors
+    ins, out = ctx.subs.split("->")
+    ls, rs = ins.split(",")
+    g_lhs = g_rhs = None
+    if ctx.needs_input_grad[0]:
+        g_lhs = torch.einsum(f"{out},{rs}->{ls}", grad,
+                             rhs.to(grad.dtype)).to(lhs.dtype)
+    if ctx.needs_input_grad[1]:
+        g_rhs = torch.einsum(f"{out},{ls}->{rs}", grad,
+                             lhs.to(grad.dtype)).to(rhs.dtype)
+    return g_lhs, g_rhs, None, None, None, None
+
+
+_dot_general_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 #: the traced op the frontend lowers to DHLO ``dot_general``

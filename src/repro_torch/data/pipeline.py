@@ -1,16 +1,67 @@
-"""Serving requests: the :class:`Request` record and the variable-length
-request sampler (the paper's dynamic-shape workload generator).  numpy
-only, so both packages draw the same requests from the same seed.
+"""Data pipeline: the deterministic synthetic token stream of training,
+the :class:`Request` record and the variable-length request sampler (the
+paper's dynamic-shape workload generator), and sequence packing.  numpy
+only, so both packages draw the same batches and requests from the same
+seed, bit for bit.
+
+Determinism contract (fault tolerance): every training batch is a pure
+function of (seed, step), so resuming from a checkpoint at step k
+reproduces the exact stream without replaying it.
 """
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["VarLenRequestStream", "Request"]
+__all__ = ["SyntheticLMStream", "VarLenRequestStream", "Request",
+           "pack_sequences"]
+
+
+class SyntheticLMStream:
+    """Markov-ish synthetic LM tokens: learnable structure, not pure noise.
+
+    Tokens follow t_{i+1} = (a·t_i + b + noise) mod vocab with per-sequence
+    (a, b) — a model with capacity reduces loss well below uniform entropy,
+    so training curves are meaningful.
+    """
+
+    def __init__(self, vocab: int, batch: int, seq_len: int, seed: int = 0):
+        self.vocab = vocab
+        self.batch = batch
+        self.seq_len = seq_len
+        self.seed = seed
+        self.step = 0
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        rng = np.random.RandomState((self.seed * 1_000_003 + step) % 2**31)
+        b, s, v = self.batch, self.seq_len + 1, self.vocab
+        a = rng.randint(1, 17, size=(b, 1))
+        c = rng.randint(0, v, size=(b, 1))
+        t0 = rng.randint(0, v, size=(b, 1))
+        idx = np.arange(s)[None, :]
+        noise = rng.randint(0, 3, size=(b, s))
+        toks = (t0 + a * idx + c // 7 + noise) % v
+        toks = toks.astype(np.int32)
+        return {
+            "tokens": toks[:, :-1],
+            "labels": toks[:, 1:],
+            "mask": np.ones((b, s - 1), np.float32),
+        }
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.batch_at(self.step)
+            self.step += 1
+
+    def state_dict(self) -> Dict:
+        return {"step": self.step, "seed": self.seed}
+
+    def load_state_dict(self, st: Dict) -> None:
+        self.step = st["step"]
+        self.seed = st["seed"]
 
 
 # process-wide monotonic request-id source: a Request's rid is its STABLE
@@ -86,3 +137,36 @@ class VarLenRequestStream:
                 t += float(rng.exponential(mean_gap))
             r.arrival = t
         return reqs
+
+
+def pack_sequences(seqs: List[np.ndarray], seq_len: int,
+                   pad_id: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Greedy first-fit packing of variable-length sequences into fixed
+    rows; returns (tokens, segment_ids, mask).  segment_ids let attention
+    layers prevent cross-sequence leakage (standard packed-training)."""
+    rows: List[List[np.ndarray]] = []
+    space: List[int] = []
+    for s in seqs:
+        s = s[:seq_len]
+        placed = False
+        for i, sp in enumerate(space):
+            if len(s) <= sp:
+                rows[i].append(s)
+                space[i] -= len(s)
+                placed = True
+                break
+        if not placed:
+            rows.append([s])
+            space.append(seq_len - len(s))
+    n = len(rows)
+    tokens = np.full((n, seq_len), pad_id, np.int32)
+    segs = np.zeros((n, seq_len), np.int32)
+    mask = np.zeros((n, seq_len), np.float32)
+    for i, row in enumerate(rows):
+        off = 0
+        for j, s in enumerate(row):
+            tokens[i, off:off + len(s)] = s
+            segs[i, off:off + len(s)] = j + 1
+            mask[i, off:off + len(s)] = 1.0
+            off += len(s)
+    return tokens, segs, mask

@@ -14,6 +14,9 @@ explicit ``scale`` (MLA's prefill: q/k 192, v 128, ``1 / sqrt(192)``);
 :func:`mla_decode` is MLA's absorbed decode against the latent cache
 (plain version ``ref.mla_decode_ref``).  Every launch of either counts
 in :data:`LAUNCHES`; :data:`FORM_LAUNCHES` counts the MLA forms apart.
+Under grad, :func:`flash_attention`'s output carries the plain version's
+gradient (:func:`~repro_torch.kernels.grad.kernel_call`); MLA's absorbed
+decode is a serve-path form, never differentiated.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ..grad import kernel_call
 from ..select import use_kernel
 from ..triton_build import LaunchCounter
 from .flash_attention import BLOCK_K, BLOCK_Q
@@ -74,6 +78,19 @@ def decode_splits(sk: int, b: int, hkv: int, n_sm: int) -> Tuple[int, int]:
     return -(-tiles // per), per * BLOCK_K
 
 
+def _kernel(q, k, v, lens, q_offset, causal: bool, scale):
+    from .flash_attention import flash_attention_kernel
+
+    block_q, _ = _pick_blocks(q.shape[2], k.shape[2], causal)
+    return flash_attention_kernel(q, k, v, lens, q_offset, causal=causal,
+                                  decode=block_q == 1, scale=scale)
+
+
+def _plain(q, k, v, lens, q_offset, causal: bool, scale):
+    return sdpa_ref(q, k, v, causal=causal, lens=lens, q_offset=q_offset,
+                    scale=scale)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lens: Optional[torch.Tensor] = None, *,
                     causal: bool = True,
@@ -84,13 +101,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     visible to query ``i`` of row ``b`` when ``k <= q_offset[b] + i``.
     ``scale`` defaults to ``1 / sqrt(D)``."""
     if not use_kernel(q, "flash_attention"):
-        return sdpa_ref(q, k, v, causal=causal, lens=lens, q_offset=q_offset,
-                        scale=scale)
-    from .flash_attention import flash_attention_kernel
-
-    block_q, _ = _pick_blocks(q.shape[2], k.shape[2], causal)
-    out = flash_attention_kernel(q, k, v, lens, q_offset, causal=causal,
-                                 decode=block_q == 1, scale=scale)
+        return _plain(q, k, v, lens, q_offset, causal, scale)
+    out = kernel_call(_kernel, _plain, q, k, v, lens, q_offset, causal,
+                      scale)
     LAUNCHES.launches += 1
     if q.shape[-1] != v.shape[-1]:
         FORM_LAUNCHES["mla"].launches += 1

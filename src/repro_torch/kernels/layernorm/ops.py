@@ -4,12 +4,14 @@ A CUDA tensor launches the CUDA C++ kernel (and counts the launch); a CPU
 tensor, or any tensor inside
 :func:`~repro_torch.kernels.select.plain_versions`, runs the plain
 version in ``ref.py``.  There is no fallback: a kernel that fails to
-build or launch raises.
+build or launch raises.  Under grad the kernel's output carries the plain
+version's gradient (:func:`~repro_torch.kernels.grad.kernel_call`).
 """
 from __future__ import annotations
 
 import torch
 
+from ..grad import kernel_call
 from ..select import use_kernel
 from ..triton_build import LaunchCounter
 from .layernorm import layernorm_kernel
@@ -21,12 +23,17 @@ __all__ = ["layernorm", "LAUNCHES"]
 LAUNCHES = LaunchCounter()
 
 
+def _kernel(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    return layernorm_kernel(x, scale, bias, eps=eps)
+
+
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
               eps: float = 1e-5) -> torch.Tensor:
     """``(x - mean) * rsqrt(var + eps) * scale + bias`` over the last
     axis, in f32, cast to x's dtype."""
     if not use_kernel(x, "layernorm"):
         return layernorm_ref(x, scale, bias, eps)
-    out = layernorm_kernel(x, scale, bias, eps=eps)
+    out = kernel_call(_kernel, layernorm_ref, x, scale, bias, eps)
     LAUNCHES.launches += 1
     return out

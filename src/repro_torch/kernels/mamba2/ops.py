@@ -5,7 +5,9 @@ A CUDA tensor launches the CUDA C++ kernel (and counts the launch); a
 CPU tensor, or any tensor inside
 :func:`~repro_torch.kernels.select.plain_versions`, runs the plain
 chunked version in ``ref.py``.  There is no fallback: a kernel that
-fails to build or launch raises.
+fails to build or launch raises.  Under grad the kernel's outputs carry
+the plain version's gradient
+(:func:`~repro_torch.kernels.grad.kernel_call`).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..grad import kernel_call
 from ..select import use_kernel
 from ..triton_build import LaunchCounter
 from .ref import mamba2_chunked
@@ -36,6 +39,6 @@ def mamba2_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return mamba2_chunked(x, a, b, c, s0, lens)
     from .mamba2 import mamba2_kernel
 
-    out = mamba2_kernel(x, a, b, c, s0, lens)
+    out = kernel_call(mamba2_kernel, mamba2_chunked, x, a, b, c, s0, lens)
     LAUNCHES.launches += 1
     return out

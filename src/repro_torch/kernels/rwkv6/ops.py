@@ -5,7 +5,8 @@ A CUDA tensor launches the CUDA C++ kernel (and counts the launch); a
 CPU tensor, or any tensor inside
 :func:`~repro_torch.kernels.select.plain_versions`, runs the plain
 version in ``ref.py``.  There is no fallback: a kernel that fails to
-build or launch raises.
+build or launch raises.  Under grad the kernel's outputs carry the plain
+version's gradient (:func:`~repro_torch.kernels.grad.kernel_call`).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..grad import kernel_call
 from ..select import use_kernel
 from ..triton_build import LaunchCounter
 from .ref import rwkv6_ref
@@ -37,6 +39,6 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return rwkv6_ref(r, k, v, w, u, s0, lens)
     from .rwkv6 import rwkv6_kernel
 
-    out = rwkv6_kernel(r, k, v, w, u, s0, lens)
+    out = kernel_call(rwkv6_kernel, rwkv6_ref, r, k, v, w, u, s0, lens)
     LAUNCHES.launches += 1
     return out

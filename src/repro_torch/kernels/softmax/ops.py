@@ -5,12 +5,14 @@ A CUDA tensor launches the CUDA C++ kernel (and counts the launch); a CPU
 tensor, or any tensor inside
 :func:`~repro_torch.kernels.select.plain_versions`, runs the plain
 version in ``ref.py``.  There is no fallback: a kernel that fails to
-build or launch raises.
+build or launch raises.  Under grad the kernel's output carries the plain
+version's gradient (:func:`~repro_torch.kernels.grad.kernel_call`).
 """
 from __future__ import annotations
 
 import torch
 
+from ..grad import kernel_call
 from ..select import use_kernel
 from ..triton_build import LaunchCounter
 from .ref import masked_softmax_ref
@@ -32,6 +34,7 @@ def masked_softmax(x: torch.Tensor, n_valid: int) -> torch.Tensor:
         return masked_softmax_ref(rows, n_valid).reshape(x.shape)
     from .softmax import masked_softmax_kernel
 
-    out = masked_softmax_kernel(rows, int(n_valid))
+    out = kernel_call(masked_softmax_kernel, masked_softmax_ref, rows,
+                      int(n_valid))
     LAUNCHES.launches += 1
     return out.reshape(x.shape)

@@ -17,7 +17,7 @@ import torch
 from torch.utils import _pytree
 
 __all__ = ["ArchConfig", "param_init", "DTYPES", "dtype_of",
-           "greedy_decode"]
+           "cross_entropy_loss", "greedy_decode"]
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -171,6 +171,21 @@ def param_init(generator: torch.Generator, shape: Tuple[int, ...], dtype,
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
     return (w * scale).to(dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy in f32 with an optional validity mask
+    (the denominator ``max(mask.sum(), 1)``), as the reference computes
+    it, outside any kernel."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()
 
 
 def greedy_decode(step_fn: Callable, cache, first_tokens: torch.Tensor,

@@ -19,7 +19,9 @@ families only, as in the reference: a recurrent state has no sequence
 axis to page.  The encoder-decoder bundle's decode step takes
 ``enc_out`` as a keyword, which the serve engine (LM-only, as the
 reference's) never passes: its path is ``encode`` and ``greedy_decode``.
-The training loss waits for the training slice.
+``loss`` is every family's training loss, ``(params, batch) -> scalar``
+(each model module's ``loss_fn``), which ``train/step.py``
+differentiates.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ class Model:
     cfg: ArchConfig
     init: Callable          # (generator, device) -> params
     forward: Callable       # (params, batch) -> logits
+    loss: Callable          # (params, batch) -> scalar
     init_cache: Callable    # (batch, max_len, device) -> cache
     decode_step: Callable   # (params, cache, tokens, lens) -> (logits, cache)
     prefill: Callable       # (params, cache, tokens, lens, offsets) -> (last_logits, cache)
@@ -162,6 +165,7 @@ def _lm_bundle(mod, cfg: ArchConfig) -> Model:
         cfg=cfg,
         init=lambda generator, device: mod.init(cfg, generator, device),
         forward=fwd,
+        loss=lambda params, batch: mod.loss_fn(cfg, params, batch),
         init_cache=lambda b, s, device: mod.init_cache(cfg, b, s, device),
         decode_step=decode,
         prefill=pf,
@@ -190,6 +194,7 @@ def _whisper_bundle(cfg: ArchConfig) -> Model:
         cfg=cfg,
         init=lambda generator, device: whisper.init(cfg, generator, device),
         forward=fwd,
+        loss=lambda params, batch: whisper.loss_fn(cfg, params, batch),
         init_cache=lambda b, s, device: whisper.init_cache(cfg, b, s,
                                                            device),
         decode_step=decode,

@@ -25,13 +25,13 @@ from typing import Any, Dict, Optional
 import torch
 
 from . import layers as L
-from .common import ArchConfig, dtype_of, greedy_decode as _greedy_decode, \
-    param_init
+from .common import ArchConfig, cross_entropy_loss, dtype_of, \
+    greedy_decode as _greedy_decode, param_init
 
 Params = Dict[str, Any]
 
-__all__ = ["block_init", "init", "forward", "init_cache", "decode_step",
-           "prefill", "greedy_decode"]
+__all__ = ["block_init", "init", "forward", "loss_fn", "init_cache",
+           "decode_step", "prefill", "greedy_decode"]
 
 
 def _chanmix_init(generator: torch.Generator, cfg: ArchConfig,
@@ -94,6 +94,13 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
                                L.norm_apply(cfg, bp["ln2"], x))
     x = L.norm_apply(cfg, params["ln_f"], x)
     return x @ params["head"]
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch) -> torch.Tensor:
+    """The training loss: :func:`forward` over ``batch["tokens"]``, then
+    the token-mean cross entropy under ``batch["mask"]``."""
+    logits = forward(cfg, params, batch["tokens"])
+    return cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,

@@ -29,12 +29,13 @@ from typing import Any, Dict, Optional
 import torch
 
 from . import layers as L
-from .common import ArchConfig, dtype_of, param_init
+from .common import ArchConfig, cross_entropy_loss, dtype_of, param_init
 
 Params = Dict[str, Any]
 
 __all__ = ["block_init", "block_apply", "init", "embed_tokens",
-           "logits_from_hidden", "decoder_logits", "forward", "prefill",
+           "logits_from_hidden", "decoder_logits", "forward", "loss_fn",
+           "prefill",
            "verify", "init_cache", "init_block_pool", "page_axes",
            "decode_step"]
 
@@ -145,6 +146,21 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
                        lens=lens)
     x = L.norm_apply(cfg, params["ln_f"], x)
     return logits_from_hidden(cfg, params, x)
+
+
+def loss_fn(cfg: ArchConfig, params: Params,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The training loss: :func:`forward` over ``batch["tokens"]`` (with
+    llava's ``image_embeds`` prefix, whose positions the labels skip: the
+    logits are cut to the last ``labels.shape[1]`` positions), then the
+    token-mean cross entropy under ``batch["mask"]``."""
+    extra = batch.get("image_embeds")
+    logits = forward(cfg, params, batch["tokens"], lens=batch.get("lens"),
+                     extra_embeds=extra)
+    labels = batch["labels"]
+    if extra is not None:
+        logits = logits[:, -labels.shape[1]:]
+    return cross_entropy_loss(logits, labels, batch.get("mask"))
 
 
 # -------------------------------------------------------------- prefill --

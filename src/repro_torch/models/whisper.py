@@ -16,8 +16,7 @@ decoder's KV cache keeps the reference's layer-stacked ``{"k", "v"}``
 leaves (L, B, Hkv, S, hd).  Each decode step projects the
 cross-attention K and V from ``enc_out`` again, as the reference does.
 
-Training (``loss_fn``) and sharding (``specs``) arrive with the port's
-training and multi-GPU slices.
+Sharding (``specs``) arrives with the port's multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -26,8 +25,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from . import layers as L
-from .common import ArchConfig, dtype_of, greedy_decode as \
-    _greedy_decode, param_init
+from .common import ArchConfig, cross_entropy_loss, dtype_of, \
+    greedy_decode as _greedy_decode, param_init
 
 Params = Dict[str, Any]
 
@@ -76,12 +75,6 @@ def specs(cfg: ArchConfig):
     raise NotImplementedError("whisper's sharding specs arrive with the "
                               "port's multi-GPU slice (ROADMAP Queue 1 "
                               "item 10)")
-
-
-def loss_fn(cfg: ArchConfig, params: Params, batch):
-    raise NotImplementedError("whisper's training loss arrives with the "
-                              "port's training slice (ROADMAP Queue 1 "
-                              "item 9)")
 
 
 def encode(cfg: ArchConfig, params: Params,
@@ -135,6 +128,14 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
                            lens=lens)
     x = L.norm_apply(cfg, params["ln_f"], x)
     return x @ params["head"]
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch) -> torch.Tensor:
+    """The training loss: :func:`forward` over ``batch["tokens"]`` and
+    ``batch["frames"]``, then the token-mean cross entropy under
+    ``batch["mask"]``."""
+    logits = forward(cfg, params, batch["tokens"], frames=batch["frames"])
+    return cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,

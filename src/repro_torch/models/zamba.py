@@ -17,8 +17,7 @@ through decode steps (``replay_prefill``).  :func:`prefill` computes the
 same function in one pass: every Mamba layer one SSD kernel launch over
 the chunk from the cache's state, with per-row ``lens``, and every
 shared block the batched-prefill form of ``attn_apply`` at ``offsets``.
-There is no ``greedy_decode`` (the reference has none) and no
-``loss_fn`` yet (it belongs to the training slice).
+There is no ``greedy_decode`` (the reference has none).
 """
 from __future__ import annotations
 
@@ -27,11 +26,12 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from . import layers as L
-from .common import ArchConfig, dtype_of, param_init
+from .common import ArchConfig, cross_entropy_loss, dtype_of, param_init
 
 Params = Dict[str, Any]
 
-__all__ = ["init", "forward", "init_cache", "decode_step", "prefill"]
+__all__ = ["init", "forward", "loss_fn", "init_cache", "decode_step",
+           "prefill"]
 
 _LORA_RANK = 8
 
@@ -136,6 +136,13 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
         off += size
     x = L.norm_apply(cfg, params["ln_f"], x)
     return x @ params["head"]
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch) -> torch.Tensor:
+    """The training loss: :func:`forward` over ``batch["tokens"]``, then
+    the token-mean cross entropy under ``batch["mask"]``."""
+    logits = forward(cfg, params, batch["tokens"])
+    return cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,

@@ -19,9 +19,9 @@ architecture at its reduced config on the CPU.
   DeepSeek-V2's names resolve to its MLA config, and the registry serves
   every family.
 
-``test_train_step_no_nans`` and ``test_specs_tree_congruent`` have no
-twin yet: training and sharding arrive with the port's training and
-multi-GPU slices.
+``test_train_step_no_nans``'s twin is ``tests/test_torch_train_arch.py``;
+``test_specs_tree_congruent`` has none yet: sharding arrives with the
+port's multi-GPU slice.
 """
 from __future__ import annotations
 

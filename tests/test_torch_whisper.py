@@ -17,7 +17,8 @@ the CPU, at ``get_config("whisper_tiny").reduced()`` (2 + 2 layers, d 64,
 * The twin of ``tests/test_system.py::test_whisper_single_artifact_decode``:
   the greedy decode compiled once per batch bucket on the jit pipeline.
 * ``ServeEngine`` refuses the encoder-decoder, as the reference's engine
-  is LM-only.
+  is LM-only.  ``specs`` waits for the multi-GPU slice; the training
+  loss equals the reference's.
 * Card cases (``-k on_card``; no JAX there): the reduced whisper's and
   RWKV-6's single-artifact greedy decodes captured as one CUDA graph a
   batch bucket, replayed, and equal bit for bit to the same calls under
@@ -304,12 +305,29 @@ def test_serve_engine_refuses_encdec():
                                            device="cpu"))
 
 
-def test_encdec_training_and_sharding_wait_for_their_slices():
-    cfg = get_config("whisper_tiny").reduced()
+def test_encdec_training_and_sharding_wait_for_their_slices(wsp):
+    """Sharding still waits for the multi-GPU slice (item 10); the
+    training loss has arrived: whisper's ``loss_fn`` (and the registry's
+    ``model.loss``) equals the reference's on the same weights, frames,
+    labels and partly masked batch, within 1e-5."""
+    import jax.numpy as jnp
+
+    cfg = wsp["cfg"]
     with pytest.raises(NotImplementedError, match="item 10"):
         whisper.specs(cfg)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        whisper.loss_fn(cfg, {}, {})
+    rng = np.random.RandomState(11)
+    batch = {"tokens": rng.randint(0, cfg.vocab, (2, 12)).astype(np.int32),
+             "labels": rng.randint(0, cfg.vocab, (2, 12)).astype(np.int32),
+             "mask": np.ones((2, 12), np.float32),
+             "frames": _frames(cfg, 2, 12)}
+    batch["mask"][1, 7:] = 0.0
+    port = {k: torch.from_numpy(v) for k, v in batch.items()}
+    want = float(wsp["jmodel"].loss(
+        wsp["jparams"], {k: jnp.asarray(v) for k, v in batch.items()}))
+    got = whisper.loss_fn(cfg, wsp["params"], port)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(float(got), want, **TOL)
+    assert float(wsp["model"].loss(wsp["params"], port)) == float(got)
 
 
 # --------------------------------------------------------- card cases --
