@@ -490,7 +490,37 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     One more step of (a) under ``torch.profiler``: wall ms and the card's
     busy ms split into the forward kernels, the plain backward
     recompute, cuBLAS, the AdamW passes and the rest.
-24. Prints the run's seconds in all, the kernels line (each kernel, and
+24. **Path 16 (multi-GPU code on a one-rank mesh).**  Starts a one-rank
+    NCCL process group (``make_mesh``), runs (a)–(d) and destroys the
+    group, so no later phase sees one.  (a) ``disc_torch.compile`` of
+    path 2's token-major stack on the ``"dhlo"`` pipeline, its weights
+    taken as arguments with static specs (all 201 of them), on a
+    ``("data", "model")`` mesh of shape (1, 1): at 22 layers under
+    ``dp``, and at 2 layers under ``fsdp``, ``tp`` and a profile that
+    shards ``"T"`` on ``"data"``, in f32 and bf16, at T = 37 and 1999;
+    each held against the same stack compiled without a mesh (``dp`` bit
+    for bit, the others within 1e-6 / 8e-3 of max|ref|), its captures
+    equal to its compiles and its kDot / kLoop / kInput launches equal
+    to the run without a mesh; ``report()["sharding"]`` printed, the
+    collectives counted by kind and bytes.  (b) Path 3's engine (4 of its
+    prompts, ``max_batch=4``) without a mesh, on ``("data",)`` (1,) under
+    ``dp`` and on ``("data", "model")`` (1, 1) under ``tp``, in f32 and
+    bf16: the streams identical, flash attention 22 and RMSNorm 45
+    launches a launch, captures equal to compiles, the card's memory back
+    within 1 GB after each engine is deleted; decode ms a step printed
+    with and without the mesh.  (c) DBRX at full width, 2 layers, bf16,
+    served under ``tp`` on (1, 1), so ``moe_apply`` takes its
+    expert-parallel branch: the kernels' streams held against the same
+    engine's plain versions under the same mesh (path 6's stream rule),
+    the dropped (token, expert) pairs of the first prefill launch
+    printed beside the run without a mesh.  (d) Flash attention and kDot
+    at the local shapes each rank of a 2- and 4-way ``tp`` layout
+    launches (TinyLlama prefill S = 2048 and decode B = 4 at 16 / 8
+    query heads and 2 / 1 KV heads; silu·h at N = 2816 / 1408, K = 2048,
+    and +res at N = 1024 / 512, K = 5632, T = 1999), each against its
+    plain version (1e-5 / 8e-3; kDot by path 2's rule), timed beside the
+    plain version and a PyTorch call.
+25. Prints the run's seconds in all, the kernels line (each kernel, and
     flash attention's MLA forms as ``flash_attention_mla`` and
     ``flash_attention_mla_decode``), the card line, and the result line
     last.
@@ -503,8 +533,11 @@ bf16 and 15 in both dtypes, path 6 8 in bf16 and 4 in both dtypes, path
 8 all 4 + 4, path 9 all 52 in bf16 and 4 in both, path 10 all 32 in
 bf16 and 2 in f32, path 11 16 in bf16 and 4 in both, path 12 6 of 60 in
 bf16 (~8.1 GB of weights a layer; the 60 would need ~483 GB) and 2 in
-both, paths 13 and 14 all 22 in f32 (path 14 in bf16 too), and path 15
-all 22 in bf16 and 2 in its f32 comparisons.
+both, paths 13 and 14 all 22 in f32 (path 14 in bf16 too), path 15
+all 22 in bf16 and 2 in its f32 comparisons, and path 16 all 22 under
+``dp`` and 2 under its other profiles, 22 in its engines and 2 of
+DBRX's 40.  A card run covers a one-rank mesh only: parity over 2 and 4
+ranks is held on the CPU (``tests/test_torch_dist.py``).
 """
 from __future__ import annotations
 
@@ -2578,10 +2611,14 @@ def record_router(layers: list):
 
     apply, experts = L.moe_apply, L._moe_experts_local
 
+    def whole(t):   # a DTensor (path 16's mesh) gathered
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
     def recording_apply(cfg, p, x, **kw):
         b, s, _ = x.shape
         k = cfg.top_k
-        probs = torch.softmax(x.reshape(b * s, -1).float() @ p["router"], -1)
+        probs = torch.softmax(whole(x).reshape(b * s, -1).float()
+                              @ whole(p["router"]), -1)
         top = probs.topk(k + 1, dim=-1).values
         layers.append(dict(shape=(b, s, k), gap=top[:, k - 1] - top[:, k]))
         return apply(cfg, p, x, **kw)
@@ -4692,6 +4729,7 @@ def main(argv=None) -> int:
         print(f"[phase path13] {time.perf_counter() - t0:.1f} s", flush=True)
         paged_phase(args.seed, report)
         train_phase(args.seed, report)
+        mesh_phase(args.seed, report)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6207,6 +6245,563 @@ def print_resources() -> None:
         except (OSError, subprocess.SubprocessError) as e:
             res = f"not available ({e})"
         print(f"[build] {name} instances: {res}", flush=True)
+
+
+# ------------------------------------- path 16: a one-rank mesh ---------
+
+#: path 16 (a): requests of the token-major stack, the cut depth of its
+#: fsdp / tp / "T"-on-"data" runs, the profiles held at full depth
+PATH16_REQUESTS = (37, 1999)
+PATH16_CUT_LAYERS = 2
+PATH16_FULL_PROFILES = ("dp",)
+PATH16_CUT_PROFILES = ("fsdp", "tp", "tokens")
+#: (a) the meshed runs against the run without a mesh, max|d|/max|ref|
+TOL_MESH = {"f32": 1e-6, "bf16": 8e-3}
+#: (b) the prompts of path 3 its engines serve; (c) DBRX's depth, its
+#: prompts and new tokens (its rule reads the first token)
+PATH16_PROMPTS = 4
+PATH16_DBRX_LAYERS = 2
+PATH16_DBRX_PROMPTS = (37, 200, 731, 45)
+PATH16_DBRX_NEW = 4
+#: (d) the tp ways whose local shapes the kernel rows take
+PATH16_WAYS = (2, 4)
+
+
+def cluster_counters() -> dict:
+    """The launch counters of the cluster kernels, by kernel name."""
+    from repro_torch.kernels.fused_elementwise import ops as fe
+    from repro_torch.kernels.fused_reduce import ops as fr
+    from repro_torch.kernels.matmul import ops as mm
+
+    return {"fused_elementwise": fe.LAUNCHES, "fused_reduce": fr.LAUNCHES,
+            "matmul_epilogue": mm.EPILOGUE_LAUNCHES}
+
+
+def token_major_args_fn(cfg, params):
+    """Path 2's token-major stack with its weights taken as arguments
+    (``params`` flattened, then x): closed-over weights would be graph
+    constants, which no profile lays out."""
+    import torch
+    from torch.utils import _pytree
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    _, spec = _pytree.tree_flatten(params)
+
+    def fn(*args):
+        p = _pytree.tree_unflatten(list(args[:-1]), spec)
+        x = args[-1]
+        pos = torch.arange(x.shape[0], dtype=torch.int32,
+                           device=x.device)[None, :]
+        for bp in p["blocks"]:
+            h = L.norm_apply(cfg, bp["ln1"], x)
+            a, _ = L.attn_apply(cfg, bp["attn"], h[None], positions=pos)
+            x = x + a[0]
+            x = x + L.mlp_apply(cfg, bp["ffn"],
+                                L.norm_apply(cfg, bp["ln2"], x))
+        return T.logits_from_hidden(cfg, p, L.norm_apply(cfg, p["ln_f"], x))
+
+    return fn
+
+
+def mesh_phase(seed: int, report: dict) -> None:
+    """Path 16 (the module docstring's phase 24), (a) to (d), in a
+    one-rank NCCL group destroyed at its end, and the phase's seconds."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(),
+          "path16: a process group is already initialized")
+    mesh2 = make_mesh((1, 1), ("data", "model"))
+    mesh1 = make_mesh((1,), ("data",))
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"path16: a {dist.get_backend()} group of "
+          f"{dist.get_world_size()} ranks, not one-rank NCCL")
+    print(f"[path16] one-rank {dist.get_backend()} group; meshes "
+          f"{mesh2} and {mesh1}", flush=True)
+    try:
+        mesh_compile_phase(mesh2, seed, report)
+        mesh_serve_phase(mesh1, mesh2, seed, report)
+        mesh_dbrx_phase(mesh2, seed, report)
+        mesh_kernel_rows(mesh_kdot_calls(seed), report)
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "path16: the group outlived the path")
+    print(f"[phase path16] {time.perf_counter() - t_phase:.1f} s (target "
+          f"about 90 s)", flush=True)
+
+
+def mesh_compile_phase(mesh, seed: int, report: dict) -> None:
+    """(a) the token-major stack under each profile against the same
+    stack compiled without a mesh."""
+    import dataclasses
+
+    import torch
+    from torch.utils import _pytree
+
+    import disc_torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    base = get_config("tinyllama_11b")
+    tokens = disc_torch.get_profile("dp").replace(
+        name="tokens", dim_axes=(("T", ("data",)),))
+    counters = cluster_counters()
+    for dname in ("f32", "bf16"):
+        dt = torch.float32 if dname == "f32" else torch.bfloat16
+        for layers, profiles in ((base.n_layers, PATH16_FULL_PROFILES),
+                                 (PATH16_CUT_LAYERS, PATH16_CUT_PROFILES)):
+            cfg = dataclasses.replace(base, n_layers=layers, dtype=dname)
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            params = T.init(cfg, gen, "cuda")
+            ws, _ = _pytree.tree_flatten(params)
+            fn = token_major_args_fn(cfg, params)
+            specs = [(tuple(w.shape), w.dtype) for w in ws] + [
+                ((disc_torch.Dim("T", max=2048), cfg.d_model), dt)]
+            xs = {t: torch.randn((t, cfg.d_model), generator=gen,
+                                 device="cuda").to(dt)
+                  for t in PATH16_REQUESTS}
+
+            def run(tag, **opts):
+                t0 = time.perf_counter()
+                f = disc_torch.compile(fn, specs=specs,
+                                       options=disc_torch.CompileOptions(
+                                           backend="hopper", **opts))
+                lower_s = time.perf_counter() - t0
+                for c in counters.values():
+                    c.reset()
+                outs = {t: f(*ws, x) for t, x in xs.items()}
+                torch.cuda.synchronize()
+                launched = {k: c.launches for k, c in counters.items()}
+                rep = f.report()
+                print(f"[path16 (a) {dname} {layers}L {tag}] lowered in "
+                      f"{lower_s:.2f} s, {len(ws)} weight arguments; "
+                      f"{time.perf_counter() - t0:.2f} s with the "
+                      f"requests; compiles={rep['compiles']} "
+                      f"captures={rep['graphs']['captures']} "
+                      f"launches={launched}", flush=True)
+                check(rep["graphs"]["captures"] == rep["compiles"]["total"]
+                      == len(PATH16_REQUESTS),
+                      f"path16 (a) {dname} {tag}: {rep['graphs']['captures']}"
+                      f" captures for {rep['compiles']} compiles")
+                return f, outs, launched, rep
+
+            _, ref, ref_launched, _ = run("no mesh")
+            for prof in profiles:
+                f, outs, launched, rep = run(
+                    prof, mesh=mesh,
+                    sharding_profile=tokens if prof == "tokens" else prof)
+                tag = f"path16 (a) {dname} {layers}L {prof}"
+                for t in PATH16_REQUESTS:
+                    got, want = outs[t], ref[t]
+                    check(got.shape == want.shape
+                          and bool(torch.isfinite(got).all()),
+                          f"{tag} T={t}: shape {tuple(got.shape)} or "
+                          f"non-finite")
+                    err = rel_err(got.float(), want.float())
+                    print(f"[{tag}] T={t} max|d|/max|ref| {err:.3e} "
+                          f"(bit-equal: {bool(torch.equal(got, want))})",
+                          flush=True)
+                    if prof == "dp":
+                        check(bool(torch.equal(got, want)),
+                              f"{tag} T={t}: not bit-equal to the run "
+                              f"without a mesh")
+                    check(err <= TOL_MESH[dname],
+                          f"{tag} T={t}: {err:.3e} > {TOL_MESH[dname]}")
+                check(launched == ref_launched,
+                      f"{tag}: launches {launched} where the run without a "
+                      f"mesh made {ref_launched}")
+                print(f"[{tag}] report sharding: "
+                      f"{json.dumps(rep['sharding'])}; placement "
+                      f"{rep['placement']['device_target']}", flush=True)
+                report[("path16", dname, f"a {layers}L {prof}")] = {
+                    "launches": launched}
+            del params, ws, fn, xs, ref
+            torch.cuda.empty_cache()
+
+
+def mesh_serve_phase(mesh1, mesh2, seed: int, report: dict) -> None:
+    """(b) path 3's engine without a mesh, under dp and under tp."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Request
+    from repro_torch.models.registry import get_model
+
+    runs_kw = (("no mesh", {}),
+               ("dp (1,)", {"mesh": mesh1, "sharding_profile": "dp"}),
+               ("tp (1, 1)", {"mesh": mesh2, "sharding_profile": "tp"}))
+    for dname in ("f32", "bf16"):
+        cfg = dataclasses.replace(get_config("tinyllama_11b"), dtype=dname)
+        model = get_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = get_model(dataclasses.replace(cfg, dtype="bf16")).init(
+            gen, "cuda")
+        if dname == "f32":
+            upcast_in_place(params)
+        rs = np.random.RandomState(seed)
+        prompts = [rs.randint(0, cfg.vocab, size=n).astype(np.int32)
+                   for n in SERVE_PROMPTS[:PATH16_PROMPTS]]
+        done, step_ms = {}, {}
+        for label, kw in runs_kw:
+            mem0 = torch.cuda.memory_allocated()
+            tag = f"[path16 (b) {dname} {label}]"
+            eng, counted = serve_run(
+                model, params, kw,
+                [Request(rid=i, tokens=p, max_new_tokens=SERVE_NEW_TOKENS)
+                 for i, p in enumerate(prompts)], plain=False)
+            st = eng.stats
+            n = st["prefill_calls"] + st["decode_steps"]
+            cc = eng.compile_counts()
+            captures = sum(fn.report()["graphs"]["captures"]
+                           for fn in (eng._prefill_fn, eng._decode_fn))
+            compiles = cc["prefill"]["total"] + cc["decode"]["total"]
+            step_ms[label] = statistics.median(eng.step_s["decode"]) * 1e3
+            print(f"{tag} prefill_calls={st['prefill_calls']} "
+                  f"decode_steps={st['decode_steps']} compiles={compiles} "
+                  f"captures={captures} launches={counted} decode "
+                  f"{step_ms[label]:.3f} ms/step (median)", flush=True)
+            if "mesh" in kw:
+                print(f"{tag} prefill report sharding: "
+                      f"{json.dumps(eng._prefill_fn.report()['sharding'])}",
+                      flush=True)
+            check(len(eng.done) == len(prompts) and not eng.failed,
+                  f"{tag} {len(eng.done)} done, failed {eng.failed}")
+            check(counted["flash_attention"] == cfg.n_layers * n
+                  and counted["rmsnorm"] == (2 * cfg.n_layers + 1) * n,
+                  f"{tag} launches {counted} for {n} launches")
+            check(captures == compiles,
+                  f"{tag} {captures} captures for {compiles} compiles")
+            done[label] = {r: list(v) for r, v in eng.done.items()}
+            report[("path16", dname, f"b {label}")] = {"launches": counted}
+            del eng
+            torch.cuda.empty_cache()
+            left = torch.cuda.memory_allocated() - mem0
+            check(left <= MEM_SLACK_BYTES,
+                  f"{tag} {left} B still allocated after del")
+        for label, _ in runs_kw[1:]:
+            check(done[label] == done["no mesh"],
+                  f"[path16 (b) {dname} {label}] streams differ from the "
+                  f"run without a mesh")
+        print(f"[path16 (b) {dname}] streams identical; decode ms/step "
+              + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items()),
+              flush=True)
+        del params
+        torch.cuda.empty_cache()
+
+
+def mesh_kdot_calls(seed: int) -> dict:
+    """(d)'s inputs: path 2's stack (2 layers, full width) run once at T
+    = 1999 per dtype with its kernels launched one by one under the
+    recorder: its kDot calls by dtype (silu·h and +res)."""
+    import dataclasses
+
+    import torch
+    from torch.utils import _pytree
+
+    import disc_torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.graphs import eager_entries
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for dname in ("f32", "bf16"):
+        cfg = dataclasses.replace(get_config("tinyllama_11b"),
+                                  n_layers=PATH16_CUT_LAYERS, dtype=dname)
+        dt = torch.float32 if dname == "f32" else torch.bfloat16
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = T.init(cfg, gen, "cuda")
+        fn = token_major_args_fn(cfg, params)
+        ws, _ = _pytree.tree_flatten(params)
+        f = disc_torch.compile(
+            fn, [(tuple(w.shape), w.dtype) for w in ws]
+            + [((disc_torch.Dim("T", max=2048), cfg.d_model), dt)],
+            backend="hopper")
+        x = torch.randn((max(PATH16_REQUESTS), cfg.d_model), generator=gen,
+                        device="cuda").to(dt)
+        with eager_entries(), Recorder() as rec:
+            f(*ws, x)
+        out[dname] = [c for k, c in rec.calls.items()
+                      if k[0] == "matmul_epilogue"]
+    return out
+
+
+def mesh_dbrx_phase(mesh, seed: int, report: dict) -> None:
+    """(c) DBRX at full width and 2 layers under tp on (1, 1), so
+    ``moe_apply`` takes its expert-parallel branch: in bf16 the kernels
+    (graphed, and one by one under ``eager_entries()``) and the plain
+    versions, held as path 6 holds its bf16 runs: each request's
+    first-token logits by the accuracy rule against the plain versions'
+    run in f32 over the upcast weights under the same mesh, a request
+    whose routing parts at a near-tie printed, not held; the dropped
+    pairs of the first prefill launch printed beside a run without a
+    mesh."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Request
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_model
+
+    cfg = dataclasses.replace(get_config("dbrx_132b"),
+                              n_layers=PATH16_DBRX_LAYERS, dtype="bf16")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = get_model(cfg).init(gen, "cuda")
+    rs = np.random.RandomState(seed)
+    prompts = [rs.randint(0, cfg.vocab, size=n).astype(np.int32)
+               for n in PATH16_DBRX_PROMPTS]
+    experts = L._moe_experts_local
+    dropped: list = []
+
+    def recording(cfg_, w_in, w_gate, w_out, x, gates, ids, capacity,
+                  valid=None, limit=None):
+        # the eager calls (an entry's first call, not its capture pass):
+        # the (token, expert) pairs over capacity, counted on the card
+        if not torch.cuda.is_current_stream_capturing():
+            e = w_in.shape[0]
+            ok = torch.ones(ids.shape[0], dtype=torch.bool,
+                            device=ids.device) if valid is None else valid
+            flat = torch.where(ok[:, None] & (ids >= 0) & (ids < e), ids,
+                               e).reshape(-1)
+            counts = torch.zeros(e + 1, dtype=flat.dtype,
+                                 device=flat.device).scatter_add_(
+                0, flat, torch.ones_like(flat))[:e]
+            cap = capacity if limit is None else limit
+            dropped.append((counts - cap).clamp(min=0).sum())
+        return experts(cfg_, w_in, w_gate, w_out, x, gates, ids, capacity,
+                       valid, limit)
+
+    tp = {"mesh": mesh, "sharding_profile": "tp"}
+    runs = {}
+    first_drops = {}
+    for label, kw, plain, eager, dname in (
+            ("kernels", tp, False, False, "bf16"),
+            ("eager", tp, False, True, "bf16"),
+            ("plain", tp, True, False, "bf16"),
+            ("no mesh", {}, False, False, "bf16"),
+            ("f32 plain", tp, True, False, "f32")):
+        if dname == "f32":
+            upcast_in_place(params)
+        model = get_model(dataclasses.replace(cfg, dtype=dname))
+        dropped.clear()
+        L._moe_experts_local = recording
+        try:
+            eng, counted = serve_run(
+                model, params, kw,
+                [Request(rid=i, tokens=p, max_new_tokens=PATH16_DBRX_NEW)
+                 for i, p in enumerate(prompts)], plain=plain,
+                eager=eager, router=(plain or eager) and dname == "bf16")
+        finally:
+            L._moe_experts_local = experts
+        first_drops[label] = [int(d.item())
+                              for d in dropped[:PATH16_DBRX_LAYERS]]
+        tag = f"[path16 (c) {dname} {PATH16_DBRX_LAYERS}L {label}]"
+        st = eng.stats
+        n = st["prefill_calls"] + st["decode_steps"]
+        print(f"{tag} prefill_calls={st['prefill_calls']} "
+              f"decode_steps={st['decode_steps']} launches={counted}; "
+              f"first prefill launch dropped (token, expert) pairs by "
+              f"layer {first_drops[label]}", flush=True)
+        check(len(eng.done) == len(prompts) and not eng.failed,
+              f"{tag} {len(eng.done)} done, failed {eng.failed}")
+        if plain:
+            check(not any(counted.values()),
+                  f"{tag} plain run launched kernels: {counted}")
+        else:
+            check(counted["masked_softmax"] == cfg.n_layers * n
+                  and counted["flash_attention"] == cfg.n_layers * n,
+                  f"{tag} launches {counted} for {n} launches")
+            report[("path16", "bf16", f"c {label}")] = {"launches": counted}
+        # the logits, streams and routing stay on record; the engine's
+        # cache, graphs and laid-out weights leave the card
+        for fn in (eng._prefill_fn, eng._decode_fn):
+            eng.compile_cache.drop_fingerprint(fn._fingerprint)
+        eng.cache = eng.params = eng.first = None
+        runs[label] = eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    ref = {rid: runs["f32 plain"].logits[(rid, 0)] for rid in
+           range(len(prompts))}
+    accuracy_check(f"[path16 (c) bf16 {PATH16_DBRX_LAYERS}L tp kernels vs "
+                   f"plain]", runs, ref)
+    graphs_vs_eager(f"[path16 (c) bf16 {PATH16_DBRX_LAYERS}L]",
+                    runs["kernels"], runs["eager"], "bf16")
+    print(f"[path16 (c)] dropped pairs of the first prefill launch by "
+          f"layer: under the mesh (capacity per data shard, rounded up to "
+          f"8) {first_drops['kernels']}, without {first_drops['no mesh']}",
+          flush=True)
+    del runs
+    torch.cuda.empty_cache()
+
+
+def mesh_kernel_rows(calls: dict, report: dict) -> None:
+    """(d) flash attention and kDot at the local shapes each rank of a
+    2- and 4-way tp layout launches, against their plain versions."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("tinyllama_11b")
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    fills = [n + SERVE_NEW_TOKENS // 2
+             for n in SERVE_PROMPTS[:SERVE_BATCH]]
+    rows16: list = []
+    for dname in ("f32", "bf16"):
+        dt = torch.float32 if dname == "f32" else torch.bfloat16
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        launches = sum(rep["launches"].get("flash_attention", 0)
+                       for key, rep in report.items()
+                       if key[:2] == ("path16", dname))
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+        for ways in PATH16_WAYS:
+            h_loc = h // ways
+            kv_loc = max(1, hkv // ways)
+            s_max = SERVE_SEQ
+            q = rnd(2, s_max, h_loc, hd).transpose(1, 2)
+            k, v = rnd(2, kv_loc, s_max, hd), rnd(2, kv_loc, s_max, hd)
+            q[1].zero_()
+            k[1].zero_()
+            v[1].zero_()
+            lens = torch.tensor([f + 1 for f in fills], dtype=torch.int32,
+                                device="cuda")
+            qd = rnd(SERVE_BATCH, 1, h_loc, hd).transpose(1, 2)
+            kd, vd = (rnd(SERVE_BATCH, kv_loc, s_max, hd) for _ in range(2))
+            keys = torch.arange(s_max, device="cuda")[None, :]
+            dec_mask = (keys < lens[:, None])[:, None, None, :]
+            cases = [
+                dict(form="prefill",
+                     label=f"{ways}-way tp prefill S={s_max} heads "
+                           f"{h_loc}/{kv_loc}",
+                     q=q[:1], k=k[:1], v=v[:1],
+                     args=dict(lens=None, causal=True, q_offset=0),
+                     kv_rows=s_max, pairs=s_max * (s_max + 1) // 2,
+                     lib=lambda q=q[:1], k=k[:1], v=v[:1]:
+                     F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                    enable_gqa=True),
+                     zero_check=(q, k, v, dict(lens=None, causal=True,
+                                               q_offset=0), [1])),
+                dict(form="decode",
+                     label=f"{ways}-way tp decode B={SERVE_BATCH} "
+                           f"lens={lens.tolist()} heads {h_loc}/{kv_loc}",
+                     q=qd, k=kd, v=vd, args=dict(lens=lens), decode=True,
+                     kv_rows=int(lens.sum()), pairs=int(lens.sum()),
+                     lib=lambda q=qd, k=kd, v=vd:
+                     F.scaled_dot_product_attention(q, k, v,
+                                                    attn_mask=dec_mask,
+                                                    enable_gqa=True),
+                     zero_check=(qd, kd, vd, dict(lens=torch.tensor(
+                         [5, 0, 9, 0], dtype=torch.int32, device="cuda")),
+                         [1, 3]))]
+            flash_rows(cases, dname, kv_loc, launches, rows16)
+        kdot_local_rows(calls[dname], dname, report, rows16)
+    print(f"[path16 (d)] {len(rows16)} kernel rows at the local shapes of "
+          f"{PATH16_WAYS}-way tp layouts", flush=True)
+
+
+def kdot_local_rows(calls: list, dname: str, report: dict,
+                    rows16: list) -> None:
+    """Each recorded kDot program (silu·h, +res) at the local N of each
+    tp way (the weight's and the epilogue operands' columns split, each
+    rank's shard contiguous), against ``matmul_fused_ref``."""
+    import torch
+
+    from repro_torch.kernels.lengths import device_ints
+    from repro_torch.kernels.matmul import ops as mm
+    from repro_torch.kernels.matmul.ref import matmul_fused_ref
+
+    name = "matmul_epilogue"
+    tol = TOL_GEMM[dname]
+    launches = sum(rep["launches"].get(name, 0)
+                   for key, rep in report.items()
+                   if key[:2] == ("path16", dname))
+    for c in calls:
+        prog = c["program"]
+        m, k = c["a"].shape
+        n = c["b"].shape[1]
+        vm, vn, vk = c["valid"]
+        for ways in PATH16_WAYS:
+            nl = n // ways
+            a = c["a"]
+            b = c["b"][:, :nl].contiguous()
+            xs = [torch.broadcast_to(x, (m, n))[:, :nl].contiguous()
+                  if x.dim() == 2 and x.shape[-1] == n else x
+                  for x in c["extras"]]
+            valid = (vm, min(vn, nl), vk)
+            on_card = device_ints(valid, "cuda")
+
+            def run_k(a=a, b=b, xs=xs, on_card=on_card):
+                return mm.matmul_fused(a, b, xs, prog, valid_mnk=on_card,
+                                       out_dtypes=c["out_dtypes"])
+
+            def run_p(a=a, b=b, xs=xs, valid=valid):
+                return matmul_fused_ref(a, b, xs, prog, valid,
+                                        c["out_dtypes"])
+
+            before = mm.EPILOGUE_LAUNCHES.launches
+            got = run_k()
+            check(mm.EPILOGUE_LAUNCHES.launches == before + 1,
+                  "matmul_fused launched no kernel")
+            want = run_p()
+            torch.cuda.synchronize()
+            err, scale, worst = 0.0, 0.0, 0.0
+            for g, w in zip(got, want):
+                e = (g.float() - w.float()).abs().max().item()
+                sc = w.float().abs().max().item()
+                err, scale = max(err, e), max(scale, sc)
+                worst = max(worst, e / sc if sc else e)
+                check(bool(torch.isfinite(g).all()) and not g[vm:].any(),
+                      f"{name} {dname} {prog.key} {ways}-way: non-finite "
+                      f"or padded rows not zero")
+            ms = cuda_ms(run_k)
+            plain_ms = cuda_ms(run_p)
+            lib_ms = cuda_ms(lambda a=a, b=b, nl=valid[1]:
+                             torch.matmul(a[:vm, :vk], b[:vk, :nl]))
+            elt = a.element_size()
+            x_bytes = sum((vm if torch.broadcast_to(x, (m, nl)).stride(0)
+                           else 1) * valid[1] * x.element_size()
+                          for x in xs)
+            out_bytes = sum(m * nl * torch.empty((), dtype=dt).element_size()
+                            for dt in c["out_dtypes"])
+            flops = 2 * vm * valid[1] * vk
+            bound_ms, bound_by = gemm_bound(vm * vk * elt,
+                                            vk * valid[1] * elt,
+                                            x_bytes + out_bytes, flops,
+                                            dname)
+            row = dict(name=name, **KERNELS[name], launches=launches,
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib_ms)
+            detail = dict(dtype=dname, program=prog.key,
+                          case=f"{ways}-way tp local N",
+                          shape=[m, k, nl], valid=list(valid),
+                          steps=[st.opcode for st in prog.steps],
+                          max_ref=scale, max_rel=worst,
+                          library_call="torch.matmul, GEMM only, without "
+                                       "the epilogue",
+                          library_ratio=ms / lib_ms,
+                          tflops=flops / ms / 1e9,
+                          bound_share=bound_ms / ms,
+                          path_launches_of_program=0)
+            print(f"[kernels] {json.dumps(dict(row, **detail))}",
+                  flush=True)
+            check(worst <= tol, f"{name} {dname} {prog.key} {ways}-way: "
+                                f"max|d|/max|ref| {worst:.3e} > {tol}")
+            rows16.append((row, detail))
 
 
 def finish(rows: list, report: dict, card: str, kind: str) -> int:

@@ -34,6 +34,7 @@ from repro_torch.api import (  # noqa: F401
     RetryPolicy,
     ServeConfig,
     ServeEngine,
+    ShardingProfile,
     Tracer,
     TreeSpec,
     UnknownBackendError,
@@ -42,11 +43,16 @@ from repro_torch.api import (  # noqa: F401
     dot_general,
     faults,
     get_backend,
+    get_mesh,
+    get_profile,
     infer_specs,
     list_backends,
+    list_profiles,
+    make_mesh,
     observe,
     pow2_bucket,
     register_backend,
+    use_mesh,
 )
 
 __all__ = list(_api.__all__)

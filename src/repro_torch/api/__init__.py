@@ -35,6 +35,10 @@ from ..errors import (  # noqa: F401
     PoolExhausted,
     RetryPolicy,
 )
+from ..dist import (  # noqa: F401
+    ShardingProfile, get_mesh, get_profile, list_profiles, make_mesh,
+    use_mesh,
+)
 from ..frontends.fx_frontend import ArgSpec, bridge  # noqa: F401
 from ..ft import faults  # noqa: F401
 from ..ft.faults import FaultInjector, FaultSpec  # noqa: F401
@@ -66,6 +70,9 @@ __all__ = [
     "DiscError", "CompileError", "LaunchError", "NoDeviceError",
     "PoolExhausted", "DeadlineExceeded", "RetryPolicy", "faults",
     "FaultSpec", "FaultInjector",
+    # SPMD / distribution
+    "ShardingProfile", "get_profile", "list_profiles", "make_mesh",
+    "use_mesh", "get_mesh",
     # observability plane
     "observe", "Observe", "Tracer",
     # frontend + lax-level primitives, the interpreted baseline

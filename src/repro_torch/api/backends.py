@@ -60,8 +60,11 @@ class UnknownBackendError(ValueError):
 class Backend:
     """A named strategy for turning a lowered graph into executables.
 
-    ``build_bucket(graph, plan, syms, padded, device)`` returns the entry
-    for one bucket signature; ``build_exact(graph, plan, device)`` returns
+    ``build_bucket(graph, plan, syms, padded, device, arg_shardings=None)``
+    returns the entry for one bucket signature (under
+    ``CompileOptions(mesh=...)`` it is given the ``(lens, *args)``
+    layouts, and a backend whose ``build_bucket`` takes no
+    ``arg_shardings`` cannot compile under a mesh); ``build_exact(graph, plan, device)`` returns
     the exact-shape executor for the static-escalation path;
     ``cluster_kernels`` maps fusion-plan templates to the
     :class:`~repro_torch.core.codegen.ClusterKernel` objects that execute
@@ -87,7 +90,13 @@ def _make_executor_backend(name: str, description: str,
     kernels = dict(cluster_kernels or {})
 
     def build_bucket(graph: DGraph, plan, syms: Sequence[SymDim],
-                     padded: Dict[int, int], device):
+                     padded: Dict[int, int], device,
+                     arg_shardings: Optional[Sequence[Any]] = None):
+        # ``arg_shardings`` (SPMD dispatch): the (lens, *args) layouts
+        # the generated host flow gives the entry.  The executor runs on
+        # the DTensors it is given: per-op torch through DTensor's
+        # operators, each cluster kernel on local shards under the
+        # placements its wrapper declares (``kernels/sharded.py``)
         return build_padded_executor(graph, padded, syms, plan=plan,
                                      kernels=kernels, device=device)
 

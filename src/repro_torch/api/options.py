@@ -112,8 +112,19 @@ class CompileOptions:
       tensor leaf copied into the entry's own buffer;
       eager on the CPU and inside ``plain_versions()`` /
       ``eager_entries()``): the serving engine's prefill and decode
-    * ``mesh`` / ``sharding_profile`` — SPMD placement; both arrive with
-      the multi-GPU slice and raise ``NotImplementedError`` until then
+    * ``mesh``                 — a ``DeviceMesh`` with named dims
+      (:func:`repro_torch.launch.mesh.make_mesh`): the artifact is
+      lowered for SPMD execution over it.  The planner
+      (:mod:`repro_torch.dist.spmd`) emits per-argument layouts from the
+      ``sharding_profile`` and *tightens the bucket policy* so every
+      sharded dynamic dim's bucket is a multiple of the owning mesh axes'
+      size (a plan-time constraint, raised at ``lower()`` when the
+      ``Dim`` contract cannot satisfy it); the generated dispatch then
+      lays padded buckets out as DTensors and keeps lens vectors
+      replicated
+    * ``sharding_profile``     — a profile name (``"dp"`` / ``"fsdp"`` /
+      ``"tp"``) or a :class:`~repro_torch.dist.profiles.ShardingProfile`;
+      only meaningful with ``mesh`` (defaults to ``"dp"``)
     * ``cache``                — share a :class:`CompileCache` between
       several compiled artifacts (entries are keyed by per-artifact
       fingerprint and never collide)
@@ -138,11 +149,15 @@ class CompileOptions:
         if self.pipeline not in ("dhlo", "jit"):
             raise ValueError(f"unknown pipeline {self.pipeline!r} "
                              f"(expected 'dhlo' or 'jit')")
-        if self.mesh is not None or self.sharding_profile is not None:
-            raise NotImplementedError(
-                "CompileOptions(mesh=..., sharding_profile=...): SPMD "
-                "placement arrives with the port's multi-GPU slice; the "
-                "port runs on one card until then")
+        if self.sharding_profile is not None and self.mesh is None:
+            raise ValueError(
+                "CompileOptions(sharding_profile=...) needs a mesh: pass "
+                "CompileOptions(mesh=..., sharding_profile=...)")
+        if self.mesh is not None:
+            from ..dist.context import check_mesh
+            from ..dist.profiles import get_profile
+            check_mesh(self.mesh, "CompileOptions")
+            get_profile(self.sharding_profile or "dp")  # validate early
 
     def replace(self, **kw) -> "CompileOptions":
         return dataclasses.replace(self, **kw)

@@ -47,6 +47,7 @@ identically under either.
 from __future__ import annotations
 
 import hashlib
+import inspect
 import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -191,6 +192,19 @@ class Lowered:
     buffer_plan: Any = None
     syms: Tuple[SymDim, ...] = ()
     sym_names: Tuple[str, ...] = ()
+    # SPMD ShardingPlan when lowered under CompileOptions(mesh=...);
+    # ``policy`` is then the planner-tightened policy (sharded dynamic
+    # dims' buckets are mesh-axis multiples)
+    sharding_plan: Any = None
+
+    def _spmd_token(self) -> str:
+        """Same-pattern artifacts lowered for different meshes or
+        profiles lay their entries out differently and must never share
+        cache entries; the mesh's ranks and devices are part of the
+        token."""
+        if self.sharding_plan is None:
+            return ""
+        return self.sharding_plan.token()
 
     def fingerprint(self) -> str:
         if self.graph is not None:
@@ -198,9 +212,10 @@ class Lowered:
             # constant-free (the per-engine cache-key property).  As a
             # *shared*-cache key that is too weak: two graphs with the
             # same wiring but different literal payloads must not
-            # collide, so the artifact fingerprint folds the constants in.
+            # collide, so the artifact fingerprint folds the constants in
+            # (and the SPMD plan, when lowered under a mesh).
             return (self.graph.fingerprint() + "+"
-                    + _graph_const_token(self.graph))
+                    + _graph_const_token(self.graph) + self._spmd_token())
 
         # the jit pipeline has no graph fingerprint; identify the artifact
         # by the *function* (code + closure + bound self) plus the spec
@@ -215,7 +230,8 @@ class Lowered:
 
         sig = repr([_sig(s) for s in self.specs])
         h = hashlib.sha1((sig + "\x00" + _fn_token(self.fn)).encode())
-        return f"jit:{self.options.name}:{h.hexdigest()[:16]}"
+        return (f"jit:{self.options.name}:{h.hexdigest()[:16]}"
+                + self._spmd_token())
 
     def compile(self, options: Optional[CompileOptions] = None, *,
                 on_tie_break: Optional[Callable] = None) -> "Compiled":
@@ -272,6 +288,21 @@ def _lower_impl(fn: Callable, specs: Sequence[ArgSpec], dims: Sequence[Dim],
 
     policy = options.policy_with_dims(dims)
     device = resolve_device(options.device)
+    sharding_plan = None
+    if options.mesh is not None:
+        # SPMD planning happens at lower() time: per-arg layouts come
+        # from the profile and the policy is tightened so every sharded
+        # dynamic dim's bucket divides the mesh axes evenly
+        # (ConstraintViolation here when the Dim contract cannot comply)
+        from ..dist.profiles import get_profile
+        from ..dist.spmd import plan_spmd
+        if options.mesh.device_type != device.type:
+            raise ValueError(
+                f"CompileOptions(mesh=...) is a {options.mesh.device_type} "
+                f"mesh, the artifact compiles for {device}")
+        sharding_plan, policy = plan_spmd(
+            specs, policy, options.mesh,
+            get_profile(options.sharding_profile or "dp"))
     if options.pipeline == "jit":
         sym_names: List[str] = []
         for s in specs:
@@ -284,7 +315,8 @@ def _lower_impl(fn: Callable, specs: Sequence[ArgSpec], dims: Sequence[Dim],
                     sym_names.append(d)
         return Lowered(fn=fn, specs=tuple(specs), options=options,
                        policy=policy, pipeline="jit",
-                       sym_names=tuple(sym_names))
+                       sym_names=tuple(sym_names),
+                       sharding_plan=sharding_plan)
     if any(not isinstance(s, ArgSpec) for s in specs):
         raise ValueError(
             "the 'dhlo' pipeline needs an ArgSpec for every argument "
@@ -295,7 +327,7 @@ def _lower_impl(fn: Callable, specs: Sequence[ArgSpec], dims: Sequence[Dim],
                               if d.max is not None},
                       device=device)
     plan = plan_fusion(graph)
-    placement = place(graph)
+    placement = place(graph, mesh=options.mesh)
     # bucket-generic symbolic memory plan, decided ONCE here — every
     # bucket entry realizes the same plan
     buffer_plan = plan_buffers(graph, policy,
@@ -304,10 +336,16 @@ def _lower_impl(fn: Callable, specs: Sequence[ArgSpec], dims: Sequence[Dim],
     buffer_plan.lines_text = buffer_plan.render_lines(graph)
     graph.memory_plan = buffer_plan
     syms = tuple(dyn_symbols(graph))
+    if sharding_plan is not None:
+        # surface the plan-time divisibility facts in the constraint
+        # store (report()["constraints"]["mesh_constraints"])
+        for c in sharding_plan.constraints:
+            graph.store.note_mesh_divisible(c.dim, c.axes, c.multiple_of)
     return Lowered(fn=fn, specs=tuple(specs), options=options,
                    policy=policy, graph=graph, plan=plan,
                    placement=placement, buffer_plan=buffer_plan, syms=syms,
-                   sym_names=tuple(s.name for s in syms))
+                   sym_names=tuple(s.name for s in syms),
+                   sharding_plan=sharding_plan)
 
 
 # -------------------------------------------------------------- compiled --
@@ -357,13 +395,22 @@ class Compiled:
         # the generated dispatch reaches this artifact weakly: a cycle
         # through it would keep the cache's entries (a graph holds its
         # inputs: parameters, a KV cache) alive until a gc pass
+        # collectives of each entry's first call, and of the latest
+        # output gather (report()["sharding"]["collectives"])
+        self._collectives: Dict[str, Any] = {"entries": {},
+                                             "output_gather": {}}
+        plan = lowered.sharding_plan
         self._dispatch, self.dispatch_source = generate_dispatch(
             lens, lowered.policy, self.cache, weak_method(compile_bucket),
             weak_method(compile_exact), fingerprint=self._fingerprint,
             escalation_threshold=options.escalation_threshold,
             on_tie_break=on_tie_break, memory_plan=lowered.buffer_plan,
             lens_device=self.device,
-            first_call_compiles=lowered.pipeline == "dhlo")
+            first_call_compiles=lowered.pipeline == "dhlo",
+            sharding=plan,
+            gather=(weak_method(self._gather)
+                    if plan is not None and lowered.pipeline == "dhlo"
+                    else None))
         self._mstats = self._dispatch._mstats
         obs_metrics.register_collector("dispatch", self._obs_dispatch,
                                        name=options.name)
@@ -450,16 +497,19 @@ class Compiled:
     def report(self) -> Dict[str, Any]:
         low = self.lowered
         if low.graph is None:
-            return {"fingerprint": self._fingerprint, "pipeline": "jit",
-                    "device": str(self.device), "cache": self.cache_stats(),
-                    "compiles": self.compile_counts(),
-                    "dynamic_symbols": list(low.sym_names),
-                    "dispatch_cost": self.cost_report(),
-                    "graphs": self.graph_report()}
+            rep = {"fingerprint": self._fingerprint, "pipeline": "jit",
+                   "device": str(self.device), "cache": self.cache_stats(),
+                   "compiles": self.compile_counts(),
+                   "dynamic_symbols": list(low.sym_names),
+                   "dispatch_cost": self.cost_report(),
+                   "graphs": self.graph_report()}
+            if low.sharding_plan is not None:
+                rep["sharding"] = self.sharding_report()
+            return rep
         templates = low.plan.template_counts()
         covered = sum(n for t, n in templates.items()
                       if t in self.backend.cluster_kernels)
-        return {
+        rep = {
             "fingerprint": self._fingerprint,
             "backend": self.backend.name,
             "device": str(self.device),
@@ -477,36 +527,100 @@ class Compiled:
             "dispatch_cost": self.cost_report(),
             "graphs": self.graph_report(),
         }
+        if low.sharding_plan is not None:
+            rep["sharding"] = self.sharding_report()
+        return rep
+
+    def sharding_report(self) -> Dict[str, Any]:
+        """The plan's per-arg layouts and mesh constraints, and the
+        collectives counted by kind and bytes: each entry's (its first
+        call, which its CUDA graph replays) and the latest output
+        gather's (dhlo)."""
+        rep = self.lowered.sharding_plan.report()
+        rep["collectives"] = {
+            "entries": {k: dict(v) for k, v in
+                        self._collectives["entries"].items()},
+            "output_gather": dict(self._collectives["output_gather"])}
+        return rep
+
+    # ------------------------------------------------------------ SPMD --
+    def _spmd(self, entry: Callable, label: str) -> Callable:
+        """``entry`` run under the artifact's mesh (DTensor's implicit
+        replication of the plain tensors made inside), its first call's
+        collectives counted under ``label``."""
+        plan = self.lowered.sharding_plan
+        if plan is None:
+            return entry
+        return _SpmdEntry(entry, plan.mesh, self._collectives["entries"],
+                          label)
+
+    def _gather(self, outs: Sequence[Any]) -> List[Any]:
+        """The dhlo entry's DTensor outputs as whole tensors, the
+        collectives counted as the output gather."""
+        from ..dist.collectives import CollectiveCounter
+        from torch.distributed.tensor import DTensor
+
+        with CollectiveCounter() as c:
+            whole = [o.full_tensor() if isinstance(o, DTensor) else o
+                     for o in outs]
+        self._collectives["output_gather"] = c.counts
+        return whole
 
     # ------------------------------------------------- device compilation --
     def _compile_bucket(self, key: Tuple[int, ...], args: tuple):
         low = self.lowered
         padded = {s.uid: int(k) for s, k in zip(low.syms, key)}
-        run = self.backend.build_bucket(low.graph, low.plan, low.syms,
-                                        padded, self.device)
+        if low.sharding_plan is not None:
+            # the entry takes (lens, *args) laid out as the generated
+            # dispatch lays them out
+            params = inspect.signature(self.backend.build_bucket).parameters
+            if "arg_shardings" not in params and not any(
+                    p.kind is inspect.Parameter.VAR_KEYWORD
+                    for p in params.values()):
+                # failing loudly here beats a far-away layout mismatch
+                # inside the entry
+                raise ValueError(
+                    f"backend {self.backend.name!r} cannot compile under "
+                    f"CompileOptions(mesh=...): its build_bucket accepts "
+                    f"no 'arg_shardings' keyword — add the parameter "
+                    f"(see repro_torch.api.backends) or compile without a "
+                    f"mesh")
+            plan = low.sharding_plan
+            shardings = (plan.lens_sharding(),
+                         *(plan.arg_sharding(i)
+                           for i in range(len(low.specs))))
+            run = self.backend.build_bucket(low.graph, low.plan, low.syms,
+                                            padded, self.device,
+                                            arg_shardings=shardings)
+        else:
+            run = self.backend.build_bucket(low.graph, low.plan, low.syms,
+                                            padded, self.device)
         # the entry takes (lens, *args): lens and the padded staging
         # buffers are copied into the graph's buffers, the arguments the
         # dispatch passes unpadded (static shapes) are read in place
         return self._first_call(self._dhlo_entry(run, "bucket", 1),
-                                "bucket", args)
+                                "bucket", args, f"bucket{tuple(key)}")
 
     def _compile_exact(self, args: tuple):
         # a fresh executor per escalated signature (each cache entry is
         # hit by exactly one exact shape)
         run = self.backend.build_exact(self.lowered.graph,
                                        self.lowered.plan, self.device)
+        sig = tuple(tuple(getattr(a, "shape", ())) for a in args)
         return self._first_call(self._dhlo_entry(run, "exact", 0),
-                                "exact", args)
+                                "exact", args, f"exact{sig}")
 
-    def _first_call(self, entry: Callable, kind: str, args: tuple):
+    def _first_call(self, entry: Callable, kind: str, args: tuple,
+                    label: str):
         """A dhlo entry and the outputs of its first call on ``args``,
         which the dispatch makes part of its compile (the port's trace:
         the cluster kernels' first launches and the graph's capture).
         The entry counts once that call has succeeded: one that failed
         never reached the cache."""
+        graphed = isinstance(entry, GraphEntry)
+        entry = self._spmd(entry, label)
         outs = entry(*args)
-        self._count(kind, "graphed" if isinstance(entry, GraphEntry)
-                    else "host")
+        self._count(kind, "graphed" if graphed else "host")
         return entry, outs
 
     def _dhlo_entry(self, run: Callable, kind: str, first_arg: int):
@@ -557,14 +671,42 @@ class Compiled:
         """One entry per bucket signature: the dispatch pads dynamic args
         to the bucket, and the entry's graph is captured on them."""
         self._count("bucket", "graphed")
-        return self._jit_entry("bucket")
+        return self._spmd(self._jit_entry("bucket"), f"bucket{tuple(key)}")
 
     def _compile_jit_exact(self):
         """§4.4 for the jit pipeline: the escalated path calls the
         function at *unpadded* shapes.  One fresh entry per escalated
         signature, so the cache's LRU budget bounds them one by one."""
         self._count("exact", "graphed")
-        return self._jit_entry("exact")
+        return self._spmd(self._jit_entry("exact"),
+                          f"exact{self._exact_compiles}")
+
+
+class _SpmdEntry:
+    """An entry run under its artifact's mesh (:func:`~repro_torch.dist.
+    context.spmd_scope`); its first call's collectives are counted into
+    ``counts[label]``."""
+
+    def __init__(self, entry: Callable, mesh, counts: Dict[str, Any],
+                 label: str) -> None:
+        self.entry = entry
+        self.mesh = mesh
+        self._counts = counts
+        self._label = label
+        self._counted = False
+
+    def __call__(self, *args):
+        from ..dist.collectives import CollectiveCounter
+        from ..dist.context import spmd_scope
+
+        with spmd_scope(self.mesh):
+            if self._counted:
+                return self.entry(*args)
+            with CollectiveCounter() as c:
+                out = self.entry(*args)
+            self._counts[self._label] = c.counts
+            self._counted = True
+            return out
 
 
 def weak_method(method: Callable) -> Callable:

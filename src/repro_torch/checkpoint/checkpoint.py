@@ -17,6 +17,12 @@
 A bfloat16 leaf is stored as numpy stores the reference's: a 2-byte void
 (``V2``).  Restore reads such a leaf into a bfloat16 target by viewing its
 bits, never by a cast (numpy has no cast from ``V2``).
+
+**Under a mesh** a DTensor leaf is saved whole (every rank gathers it,
+rank 0 writes), and ``restore_checkpoint(..., shardings=)`` re-lays each
+restored leaf onto the current mesh as a DTensor — the elastic restore:
+a state saved from one world size restores on another with identical
+values.  A DTensor in ``state_like`` keeps its layout.
 """
 from __future__ import annotations
 
@@ -65,7 +71,11 @@ def save_checkpoint(ckpt_dir, step: int, state, *,
     ``blocking=False`` a thread writes them (:func:`wait_for_writers`)."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    flat = _flatten_with_paths(tree_to_numpy(state))  # staged to host NOW
+    # staged to host NOW; a DTensor leaf whole (a collective every rank
+    # joins), written by rank 0 only
+    flat = _flatten_with_paths(tree_to_numpy(_whole(state)))
+    if not _writes():
+        return ckpt_dir / f"step_{step}"
 
     def _write():
         tmp = ckpt_dir / f"step_{step}.tmp"
@@ -93,6 +103,22 @@ def save_checkpoint(ckpt_dir, step: int, state, *,
         th.start()
         _WRITERS.append(th)
     return ckpt_dir / f"step_{step}"
+
+
+def _whole(tree):
+    """``tree`` with every DTensor leaf gathered whole."""
+    from torch.utils._pytree import tree_map
+
+    from ..kernels.sharded import is_dtensor
+    return tree_map(lambda x: x.full_tensor() if is_dtensor(x) else x, tree)
+
+
+def _writes() -> bool:
+    """This process writes checkpoints: rank 0 of a process group, or a
+    process without one."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
 
 
 def _gc(ckpt_dir: pathlib.Path, keep: int) -> None:
@@ -157,13 +183,23 @@ def _restore(like: Any, flat: Dict[str, np.ndarray],
     if key not in flat:
         raise KeyError(f"checkpoint missing leaf {key}")
     arr = flat[key]
-    return _leaf(arr[index] if index else arr, like)
+    t = _leaf(arr[index] if index else arr, like)
+    from ..kernels.sharded import is_dtensor
+    if is_dtensor(like):
+        from ..dist.spmd import shard_tensor
+        t = shard_tensor(t, like.device_mesh, tuple(like.placements))
+    return t
 
 
-def restore_checkpoint(ckpt_dir, state_like, *, step: Optional[int] = None
-                       ) -> Tuple[Any, Dict]:
+def restore_checkpoint(ckpt_dir, state_like, *, step: Optional[int] = None,
+                       shardings=None) -> Tuple[Any, Dict]:
     """Restore step ``step`` (None: the latest) into the structure, dtypes
-    and devices of ``state_like``; returns ``(state, journal)``."""
+    and devices of ``state_like``; returns ``(state, journal)``.
+
+    ``shardings`` (a tree congruent with ``state_like`` of
+    :class:`~repro_torch.dist.spmd.NamedSharding`, or None leaves)
+    re-lays each restored leaf onto its mesh as a DTensor, the spec
+    fitted to the leaf's shape: the elastic restore."""
     wait_for_writers()
     ckpt_dir = pathlib.Path(ckpt_dir)
     if step is None:
@@ -174,4 +210,25 @@ def restore_checkpoint(ckpt_dir, state_like, *, step: Optional[int] = None
     manifest = json.loads((d / "manifest.json").read_text())
     with np.load(d / "leaves.npz") as z:
         flat = {k: z[k] for k in z.files}
-    return _restore(state_like, flat, (), ()), manifest["journal"]
+    state = _restore(state_like, flat, (), ())
+    if shardings is not None:
+        state = _relay(state, shardings)
+    return state, manifest["journal"]
+
+
+def _relay(x, s):
+    """``x``'s tensor leaves laid out per the congruent ``s`` tree."""
+    from ..dist.spmd import fit_spec, placements_for, shard_tensor
+
+    if s is None:
+        return x
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_relay(a, b) for a, b in zip(x, s)))
+    if isinstance(x, dict):
+        return {k: _relay(v, s[k]) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_relay(a, b) for a, b in zip(x, s))
+    if not isinstance(x, torch.Tensor):
+        return x
+    spec = fit_spec(tuple(x.shape), s.spec, s.mesh)
+    return shard_tensor(x, s.mesh, placements_for(spec, s.mesh))

@@ -241,7 +241,10 @@ class CompileCache:
         """Take ``entry`` out of the cache (an entry whose CUDA graph
         capture failed): the next call of its signature compiles anew.
         Returns whether the cache held it."""
-        keys = [k for k, v in self._entries.items() if v is entry]
+        # an entry may be held inside a wrapper (an SPMD entry's
+        # ``entry``)
+        keys = [k for k, v in self._entries.items()
+                if v is entry or getattr(v, "entry", None) is entry]
         for key in keys:
             del self._entries[key]
         return bool(keys)

@@ -443,6 +443,8 @@ def generate_dispatch(
     memory_plan: Optional[Any] = None,
     lens_device: Any = "cpu",
     first_call_compiles: bool = False,
+    sharding: Optional[Any] = None,
+    gather: Optional[Callable[[Sequence[Any]], List[Any]]] = None,
 ) -> Tuple[Callable, str]:
     """Generate the per-call host flow for one artifact, seen through
     ``lens``.
@@ -483,6 +485,17 @@ def generate_dispatch(
     pipeline's functions may write their pass-through arguments in
     place (a KV cache), so their first call stays outside the ladder,
     in the entry window, where the JAX package's lazy ``jax.jit`` traces.
+
+    ``sharding`` is an SPMD :class:`~repro_torch.dist.spmd.ShardingPlan`:
+    the generated flow then lays every padded bucket buffer out as a
+    DTensor with its planned placements (``_put{i}``: each rank keeps its
+    slice of the buffer all ranks hold, buckets dividing the mesh axes
+    evenly by the plan's tightened policy), static arguments per the
+    profile's weight layout, pytree arguments through the plan's per-leaf
+    sharder; the lens vector stays replicated, and the escalation branch
+    re-fits the layouts to the exact shapes.  ``gather`` (the dhlo
+    pipeline's) turns the entry's DTensor outputs into whole tensors
+    before they are sliced back to their true shapes.
     """
     fingerprint = fingerprint or cache.fingerprint
     if escalation_threshold is None:
@@ -611,6 +624,11 @@ def generate_dispatch(
         # exact sig (should_escalate answers False thereafter), transient
         # ones may escalate again on a later call
         w("    if _cache.should_escalate(exact, _fp, _esc):")
+        if sharding is not None:
+            # under a mesh, exact shapes need not divide the axes:
+            # re-fit the planned layouts to the concrete shapes per arg
+            w("        arrays = _put_exact(arrays)")
+            ns["_put_exact"] = sharding.put_exact
         w("        try:")
         w("            fn, outs = _exact(exact, arrays)")
         w("        except _CompileError as _ce:")
@@ -622,6 +640,8 @@ def generate_dispatch(
         w("                outs = fn(*arrays)")
         if lens.outputs is None:
             w("            return outs")
+        elif gather is not None:
+            w("            return _gather(outs)")
         else:
             w("            return list(outs)")
         ns["_CompileError"] = CompileError
@@ -650,10 +670,24 @@ def generate_dispatch(
             # pytree argument (TreeSpec): leaf-pad to the bucket key
             w(f"    x{ai} = _padtree{ai}(arrays[{ai}], key)")
             ns[f"_padtree{ai}"] = _tree_padder(ap.tree_axes)
+            sharder = (sharding.tree_sharder(ai) if sharding is not None
+                       else None)
+            if sharder is not None:
+                w(f"    x{ai} = _shardtree{ai}(x{ai})")
+                ns[f"_shardtree{ai}"] = sharder
             call_args.append(f"x{ai}")
             continue
+        put = (sharding.arg_put(ai, static=not ap.dynamic)
+               if sharding is not None else None)
         if not ap.dynamic:
-            call_args.append(f"arrays[{ai}]")
+            if put is not None:
+                # static argument: the profile's weight layout, fitted
+                # at plan time
+                w(f"    x{ai} = _put{ai}(arrays[{ai}])")
+                ns[f"_put{ai}"] = put
+                call_args.append(f"x{ai}")
+            else:
+                call_args.append(f"arrays[{ai}]")
             continue
         shape_expr = [f"key[{d.sym}]" if isinstance(d, DynAxis) else str(d)
                       for d in ap.shape]
@@ -670,6 +704,11 @@ def generate_dispatch(
         w(f"        _buf[{idx}] = {var}")
         w(f"        {var} = _buf")
         ns[f"_dt{ai}"] = as_torch(ap.dtype)
+        if put is not None:
+            # padded bucket → its planned layout (buckets are mesh-axis
+            # multiples by the tightened policy: the split is even)
+            w(f"    {var} = _put{ai}({var})")
+            ns[f"_put{ai}"] = put
         call_args.append(var)
 
     entry_args = ", ".join((["lens"] if lens.pass_lens else []) + call_args)
@@ -705,6 +744,10 @@ def generate_dispatch(
     # --- output recovery: slice back to true shapes (dhlo only) --------
     if lens.outputs is None:
         w("    return outs")
+    elif gather is not None:
+        # DTensor outputs → whole tensors (the output gather)
+        w("    outs = _gather(outs)")
+        ns["_gather"] = gather
     out_exprs = []
     for oi, axes in enumerate(lens.outputs or ()):
         idx_parts = []

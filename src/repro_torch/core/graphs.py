@@ -60,7 +60,8 @@ import contextlib
 import contextvars
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterator, List, Sequence, Set
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Set)
 
 import torch
 
@@ -226,6 +227,38 @@ def _is(x: Any, y: Any) -> bool:
             and x.device == y.device and _same(x, y))
 
 
+def _dt_metas(leaves: List[Any]) -> Optional[tuple]:
+    """Per leaf, a DTensor's (mesh, placements, shape, stride), or None
+    for any other leaf; None where no leaf is a DTensor.  A graph over
+    DTensors captures their local shards: its buffers are local tensors,
+    and the function is called with DTensors rebuilt over them."""
+    from torch.distributed.tensor import DTensor
+
+    metas = [(x.device_mesh, tuple(x.placements), tuple(x.shape),
+              x.stride()) if isinstance(x, DTensor) else None
+             for x in leaves]
+    return tuple(metas) if any(m is not None for m in metas) else None
+
+
+def _local(x: Any) -> Any:
+    from torch.distributed.tensor import DTensor
+
+    # the shard itself (to_local() may return a new view object)
+    return x._local_tensor if isinstance(x, DTensor) else x
+
+
+def _rewrap(leaves: List[Any], metas: Optional[tuple]) -> List[Any]:
+    """``leaves`` with each local shard whose meta :func:`_dt_metas`
+    recorded wrapped back into its DTensor (sharing its storage)."""
+    if metas is None:
+        return leaves
+    from torch.distributed.tensor import DTensor
+
+    return [x if m is None else DTensor.from_local(
+                x, m[0], m[1], run_check=False, shape=m[2], stride=m[3])
+            for x, m in zip(leaves, metas)]
+
+
 def _set_counts(counts: Dict[Any, int]) -> None:
     for counter, n in counts.items():
         counter.launches = n
@@ -258,10 +291,14 @@ class GraphEntry:
             return self.fn(*args)
         leaves: List[Any] = []
         spec = _flatten(args, leaves)
+        metas = _dt_metas(leaves)
+        if metas is not None:
+            # DTensor leaves: the graph's inputs are their local shards
+            leaves = [_local(x) for x in leaves]
         if not CUDA_GRAPHS.on_card(leaves):
             return self.fn(*args)
         if self.graph is not None:
-            if spec != self._spec:
+            if spec != self._spec or metas != self._metas:
                 raise ValueError(f"{self.name}: called with arguments of "
                                  f"another structure than the captured "
                                  f"call's")
@@ -280,10 +317,10 @@ class GraphEntry:
             # takes no capture into a pool whose graphs are all freed while
             # its memory (the old outputs) is still held
             old, self.graph = self.graph, None
-            out = self._first_call(args, leaves, spec)
+            out = self._first_call(args, leaves, spec, metas)
             del old
             return out
-        return self._first_call(args, leaves, spec)
+        return self._first_call(args, leaves, spec, metas)
 
     def _copied(self, args: tuple) -> List[bool]:
         """Per leaf: True where the graph reads a buffer of its own."""
@@ -306,7 +343,7 @@ class GraphEntry:
         err.transient = err.transient and transient
         return err
 
-    def _first_call(self, args: tuple, leaves: List[Any], spec):
+    def _first_call(self, args: tuple, leaves: List[Any], spec, metas):
         """The function run eagerly (this call's result), then captured."""
         t0 = time.perf_counter()
         copy = self._copied(args)
@@ -314,7 +351,7 @@ class GraphEntry:
                for x, c in zip(leaves, copy)]
         copied = sum(x.nbytes for x, c in zip(ins, copy)
                      if c and isinstance(x, torch.Tensor))
-        run_args = _unflatten(spec, iter(ins))
+        run_args = _unflatten(spec, iter(_rewrap(ins, metas)))
         versions = [x._version if isinstance(x, torch.Tensor) else None
                     for x in ins]
         before = launch_counts()
@@ -352,22 +389,27 @@ class GraphEntry:
         self._launches = {c: n - ran.get(c, 0) for c, n in after.items()
                           if n != ran.get(c, 0)}
         self._spec, self._in, self._copy = spec, ins, copy
+        self._metas = metas
         self._written = [i for i in wrote if copy[i]]
         outs: List[Any] = []
         self._out_spec = _flatten(out, outs)
+        self._out_metas = _dt_metas(outs)
+        if self._out_metas is not None:
+            outs = [_local(o) for o in outs]
         self._alias = [next((i for i, x in enumerate(ins) if _is(o, x)),
                             None) for o in outs]
         self._out = []
         _flatten(captured, self._out)
+        self._out = [_local(o) for o in self._out]
         self.graph = graph
         self.stats.captures += 1
         self.stats.buffer_bytes += copied
         copied += self._copy_back(leaves)
         self.stats.bytes_in += copied
         self.stats.capture_seconds.append(time.perf_counter() - t0)
-        return _unflatten(self._out_spec, iter(
+        return _unflatten(self._out_spec, iter(_rewrap(
             [o if a is None else leaves[a]
-             for o, a in zip(outs, self._alias)]))
+             for o, a in zip(outs, self._alias)], self._out_metas)))
 
     def _copy_back(self, leaves: List[Any]) -> int:
         """Copied leaves the function writes, written into the caller's
@@ -406,4 +448,5 @@ class GraphEntry:
         self.stats.replays += 1
         self.stats.bytes_in += copied
         self.stats.bytes_out += out_bytes
-        return _unflatten(self._out_spec, iter(outs))
+        return _unflatten(self._out_spec, iter(_rewrap(outs,
+                                                       self._out_metas)))

@@ -44,8 +44,8 @@ class Placement:
         """Where tensor compute lands: ``"device"`` or ``"mesh(...)"``."""
         if self.mesh is None:
             return "device"
-        shape = "x".join(f"{a}={int(s)}"
-                         for a, s in self.mesh.shape.items())
+        shape = "x".join(f"{a}={s}"
+                         for a, s in _axes(self.mesh).items())
         return f"mesh({shape})"
 
     def report(self) -> Dict[str, Any]:
@@ -53,9 +53,13 @@ class Placement:
                                "device_ops": len(self.device_ops),
                                "device_target": self.device_target}
         if self.mesh is not None:
-            rep["mesh_axes"] = {a: int(s)
-                                for a, s in self.mesh.shape.items()}
+            rep["mesh_axes"] = _axes(self.mesh)
         return rep
+
+
+def _axes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh``."""
+    return {a: int(s) for a, s in zip(mesh.mesh_dim_names, mesh.shape)}
 
 
 def _is_small_int(v) -> bool:

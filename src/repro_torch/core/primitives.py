@@ -52,8 +52,33 @@ def einsum_dot(lhs: torch.Tensor, rhs: torch.Tensor,
                dimension_numbers: DimensionNumbers) -> torch.Tensor:
     """``lax.dot_general`` semantics through ``torch.einsum``."""
     (lc, rc), (lb, rb) = dimension_numbers
+    if type(lhs) is not torch.Tensor or type(rhs) is not torch.Tensor:
+        lhs, rhs = _dot_layouts(lhs, rhs, lc, rc, lb, rb)
     return torch.einsum(_subscripts(lhs.dim(), rhs.dim(), lc, rc, lb, rb),
                         lhs, rhs)
+
+
+def _dot_layouts(lhs, rhs, lc, rc, lb, rb):
+    """DTensor operands laid out for ``torch.einsum``, which flattens
+    each operand's batch, free and contracting dims into one apiece: a
+    dim keeps its sharding where it leads its group (the first batch dim,
+    the first free dim, the first contracting dim), the rest are
+    gathered (a counted collective) first."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def lay(x, contract, batch):
+        if not isinstance(x, DTensor):
+            return x
+        free = [d for d in range(x.dim())
+                if d not in contract and d not in batch]
+        lead = {g[0] for g in (list(batch), free, list(contract)) if g}
+        place = tuple(p if not isinstance(p, Shard) or p.dim in lead
+                      else Replicate() for p in x.placements)
+        if place == tuple(x.placements):
+            return x
+        return x.redistribute(x.device_mesh, place)
+
+    return lay(lhs, lc, lb), lay(rhs, rc, rb)
 
 
 @torch.library.custom_op("repro_torch::dot_general", mutates_args=())

@@ -26,6 +26,7 @@ import torch
 
 from ..grad import kernel_call
 from ..select import use_kernel
+from .. import sharded
 from ..triton_build import LaunchCounter
 from .flash_attention import BLOCK_K, BLOCK_Q
 from .ref import mla_decode_ref, sdpa_ref
@@ -100,6 +101,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lens`` and, when ``causal``, per-row query offsets: key ``k`` is
     visible to query ``i`` of row ``b`` when ``k <= q_offset[b] + i``.
     ``scale`` defaults to ``1 / sqrt(D)``."""
+    if any(sharded.is_dtensor(t) for t in (q, k, v)):
+        return sharded.flash_attention(flash_attention, q, k, v, lens,
+                                       causal=causal, q_offset=q_offset,
+                                       scale=scale)
     if not use_kernel(q, "flash_attention"):
         return _plain(q, k, v, lens, q_offset, causal, scale)
     out = kernel_call(_kernel, _plain, q, k, v, lens, q_offset, causal,
@@ -117,6 +122,9 @@ def mla_decode(q_abs: torch.Tensor, q_pe: torch.Tensor, kv_c: torch.Tensor,
     against the latent cache kv_c (B,S,L) and k_pe (B,S,R), keys ``<
     lens[b]`` valid -> (B,1,H,L).  On the card one launch of the kernel's
     MLA decode form, which reads both cache leaves in place."""
+    if any(sharded.is_dtensor(t) for t in (q_abs, q_pe, kv_c, k_pe)):
+        return sharded.mla_decode(mla_decode, q_abs, q_pe, kv_c, k_pe,
+                                  lens, scale)
     if not use_kernel(q_abs, "mla_decode"):
         return mla_decode_ref(q_abs, q_pe, kv_c, k_pe, lens, scale)
     from .flash_attention import mla_decode_kernel

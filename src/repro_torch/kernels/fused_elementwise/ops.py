@@ -11,6 +11,7 @@ from typing import List, Sequence
 import torch
 
 from ..program import Program
+from .. import sharded
 from ..triton_build import LaunchCounter
 from .ref import fused_elementwise_ref
 
@@ -28,6 +29,9 @@ def fused_elementwise(program: Program, inputs: Sequence[torch.Tensor],
                       ) -> List[torch.Tensor]:
     """Run ``program`` over ``inputs`` broadcast to ``shape``; outputs are
     dense ``shape`` tensors, zero at flat positions ``>= n_valid``."""
+    if any(sharded.is_dtensor(x) for x in inputs):
+        return sharded.elementwise(fused_elementwise, program, inputs,
+                                   n_valid, shape)
     dev = inputs[0].device
     if dev.type == "cpu":
         return fused_elementwise_ref(program, inputs, n_valid, shape)

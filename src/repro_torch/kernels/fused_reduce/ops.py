@@ -11,6 +11,7 @@ from typing import Sequence
 import torch
 
 from ..program import Program
+from .. import sharded
 from ..triton_build import LaunchCounter
 from .ref import fused_reduce_ref
 
@@ -32,6 +33,9 @@ def fused_reduce(program: Program, inputs: Sequence[torch.Tensor],
     the kernel reads there (so a captured launch replays at the count it
     holds then).  Returns the kept axes in their original order."""
     out_dtype = out_dtype or program.out_dtypes[0]
+    if any(sharded.is_dtensor(x) for x in inputs):
+        return sharded.reduce(fused_reduce, program, inputs, n_valid_cols,
+                              kind, axis, shape, out_dtype)
     dev = inputs[0].device
     if dev.type == "cpu":
         return fused_reduce_ref(program, inputs, n_valid_cols, kind, axis,

@@ -13,6 +13,7 @@ import torch
 
 from ..grad import kernel_call
 from ..select import use_kernel
+from .. import sharded
 from ..triton_build import LaunchCounter
 from .layernorm import layernorm_kernel
 from .ref import layernorm_ref
@@ -32,6 +33,8 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
               eps: float = 1e-5) -> torch.Tensor:
     """``(x - mean) * rsqrt(var + eps) * scale + bias`` over the last
     axis, in f32, cast to x's dtype."""
+    if any(sharded.is_dtensor(t) for t in (x, scale, bias)):
+        return sharded.rows(layernorm, x, scale, bias, eps=eps)
     if not use_kernel(x, "layernorm"):
         return layernorm_ref(x, scale, bias, eps)
     out = kernel_call(_kernel, layernorm_ref, x, scale, bias, eps)

@@ -17,6 +17,7 @@ import torch
 
 from ..grad import kernel_call
 from ..select import use_kernel
+from .. import sharded
 from ..triton_build import LaunchCounter
 from .ref import mamba2_chunked
 
@@ -35,6 +36,13 @@ def mamba2_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     zeros), for the first ``lens[b]`` steps of each row (None: all T).
     Returns ``(y, s_final)``: y (B, H, T, P) f32, exactly 0 at steps past
     a row's length; s_final f32, ``s0`` itself for a row of length 0."""
+    if any(sharded.is_dtensor(t) for t in (x, a, b, c, s0)):
+        bh = {"B": 0, "H": 1}
+        return sharded.batch_heads(
+            lambda *xs, lens: mamba2_scan(*xs, lens=lens), x,
+            (x, a, b, c, s0),
+            (bh, bh, {"B": 0}, {"B": 0}, bh if s0 is not None else None),
+            (bh, bh), lens)
     if not use_kernel(x, "mamba2_scan"):
         return mamba2_chunked(x, a, b, c, s0, lens)
     from .mamba2 import mamba2_kernel

@@ -22,6 +22,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..program import Program
+from .. import sharded
 from ..triton_build import LaunchCounter
 from .ref import matmul_fused_ref, matmul_ref
 
@@ -112,6 +113,9 @@ def matmul_fused(a: torch.Tensor, b: torch.Tensor,
     which the kernel reads there (so a captured launch replays at the
     sizes it holds then).  Returns one (M, N) tensor per ``out_dtypes``
     entry."""
+    if any(sharded.is_dtensor(x) for x in (a, b, *extras)):
+        return sharded.matmul_fused(matmul_fused, a, b, extras, program,
+                                    valid_mnk, out_dtypes)
     if _device(a, "matmul_fused") == "cpu":
         return matmul_fused_ref(a, b, extras, program, valid_mnk,
                                 out_dtypes)

@@ -13,6 +13,7 @@ import torch
 
 from ..grad import kernel_call
 from ..select import use_kernel
+from .. import sharded
 from ..triton_build import LaunchCounter
 from .rmsnorm import rmsnorm_kernel
 from .ref import rmsnorm_ref
@@ -30,6 +31,8 @@ def _kernel(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x^2, -1) + eps) * w`` in f32, cast to x's dtype."""
+    if sharded.is_dtensor(x) or sharded.is_dtensor(w):
+        return sharded.rows(rmsnorm, x, w, eps=eps)
     if not use_kernel(x, "rmsnorm"):
         return rmsnorm_ref(x, w, eps)
     out = kernel_call(_kernel, rmsnorm_ref, x, w, eps)

@@ -16,6 +16,7 @@ import torch
 
 from ..grad import kernel_call
 from ..select import use_kernel
+from .. import sharded
 from ..triton_build import LaunchCounter
 from .ref import rwkv6_ref
 
@@ -35,6 +36,13 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     first ``lens[b]`` steps of each row (None: all T).  Returns ``(y,
     s_final)``: y (B, H, T, N) in r's dtype, exactly 0 at steps past a
     row's length; s_final f32, ``s0`` itself for a row of length 0."""
+    if any(sharded.is_dtensor(t) for t in (r, k, v, w, u, s0)):
+        bh = {"B": 0, "H": 1}
+        return sharded.batch_heads(
+            lambda *xs, lens: rwkv6(*xs, lens=lens), r,
+            (r, k, v, w, u, s0),
+            (bh, bh, bh, bh, {"H": 0}, bh if s0 is not None else None),
+            (bh, bh), lens)
     if not use_kernel(r, "rwkv6"):
         return rwkv6_ref(r, k, v, w, u, s0, lens)
     from .rwkv6 import rwkv6_kernel

@@ -14,6 +14,7 @@ import torch
 
 from ..grad import kernel_call
 from ..select import use_kernel
+from .. import sharded
 from ..triton_build import LaunchCounter
 from .ref import masked_softmax_ref
 
@@ -28,6 +29,8 @@ def masked_softmax(x: torch.Tensor, n_valid: int) -> torch.Tensor:
     ``n_valid`` (the rest exactly 0), in f32, cast to x's dtype; the
     leading axes are flattened into rows, as the reference wrapper
     (``kernels/softmax/ops.py``) flattens them."""
+    if sharded.is_dtensor(x):
+        return sharded.rows(masked_softmax, x, n_valid)
     c = x.shape[-1]
     rows = x.reshape(-1, c)
     if not use_kernel(x, "masked_softmax"):

@@ -21,7 +21,13 @@ on the card, their plain versions on the CPU.  The DHLO bridge traces these func
 reference traces into (``dot_general`` for the grouped attention
 contractions, ``mean`` + ``rsqrt`` norms, explicit softmax).
 
-``maybe_shard`` is the identity: sharding arrives with the multi-GPU slice.
+Every layer family has a mirrored ``<name>_specs(cfg)`` giving an
+identically-structured tree of logical
+:class:`~repro_torch.dist.profiles.PartitionSpec` for the production
+mesh axes ``("pod", "data", "model")``, the reference's own rules, and
+``maybe_shard`` (``repro_torch.dist.context``) marks the activation
+boundaries the reference marks: under a mesh it redistributes a DTensor,
+elsewhere it is the identity.
 """
 from __future__ import annotations
 
@@ -39,9 +45,48 @@ from ..kernels.mamba2 import ops as ssd_ops
 from ..kernels.rmsnorm import ops as rms_ops
 from ..kernels.rwkv6 import ops as wkv_ops
 from ..kernels.softmax import ops as sm_ops
+from ..dist.context import get_mesh, maybe_shard
+from ..dist.profiles import PartitionSpec as P
 from .common import ArchConfig, dtype_of, param_init
 
 Params = Dict[str, Any]
+
+# activation sharding specs (logical) — "tp" profile
+A_BSD = P(("pod", "data"), None, None)      # (B, S, D)
+A_BSH = P(("pod", "data"), None, "model", None)  # (B, S, H, hd)
+A_BSF = P(("pod", "data"), None, "model")   # (B, S, F)
+
+# "fsdp" profile: both mesh axes are data-parallel; params are fully
+# sharded and gathered per layer; no TP activation collectives
+_DP_ALL = ("pod", "data", "model")
+
+
+def act_bsd(cfg: ArchConfig) -> P:
+    return P(_DP_ALL, None, None) if cfg.sharding_profile == "fsdp" else A_BSD
+
+
+def act_bsh(cfg: ArchConfig) -> P:
+    return (P(_DP_ALL, None, None, None)
+            if cfg.sharding_profile == "fsdp" else A_BSH)
+
+
+def act_bsf(cfg: ArchConfig) -> P:
+    return P(_DP_ALL, None, None) if cfg.sharding_profile == "fsdp" else A_BSF
+
+
+def wspec(cfg: ArchConfig, *entries) -> P:
+    """Weight spec under the arch's profile: in "fsdp", every sharded dim
+    folds onto the joint DP axis group, one dim only (ZeRO-3 layout)."""
+    if cfg.sharding_profile != "fsdp":
+        return P(*entries)
+    out, used = [], False
+    for e in entries:
+        if e is None or used:
+            out.append(None)
+        else:
+            out.append(_DP_ALL)
+            used = True
+    return P(*out)
 
 __all__ = ["norm_init", "norm_apply", "rope_tables", "apply_rope",
            "attn_init", "attn_apply", "attn_cache_init", "MLA_ABSORBED_DECODE",
@@ -49,12 +94,11 @@ __all__ = ["norm_init", "norm_apply", "rope_tables", "apply_rope",
            "mlp_apply", "moe_init", "moe_apply", "rwkv6_init",
            "rwkv6_apply", "rwkv6_cache_init",
            "mamba2_init", "mamba2_apply", "mamba2_cache_init",
-           "paged_gather", "paged_scatter", "maybe_shard"]
-
-
-def maybe_shard(x: torch.Tensor, spec: Any = None) -> torch.Tensor:
-    """Single device: sharding constraints are the identity."""
-    return x
+           "paged_gather", "paged_scatter", "maybe_shard", "A_BSD",
+           "A_BSH", "A_BSF", "act_bsd", "act_bsh", "act_bsf", "wspec",
+           "norm_specs", "attn_specs", "attn_cache_specs", "mla_specs",
+           "mla_cache_specs", "mlp_specs", "moe_specs", "rwkv6_specs",
+           "rwkv6_cache_specs", "mamba2_specs", "mamba2_cache_specs"]
 
 
 # ---------------------------------------------------------------- norms --
@@ -63,6 +107,13 @@ def norm_init(cfg: ArchConfig, device, d: Optional[int] = None) -> Params:
     p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
     if cfg.norm == "layernorm":
         p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
+def norm_specs(cfg: ArchConfig) -> Params:
+    p = {"scale": P(None)}
+    if cfg.norm == "layernorm":
+        p["bias"] = P(None)
     return p
 
 
@@ -107,6 +158,22 @@ def attn_init(generator: torch.Generator, cfg: ArchConfig, device) -> Params:
     }
 
 
+def attn_specs(cfg: ArchConfig) -> Params:
+    return {"wq": wspec(cfg, "data", "model"),
+            "wk": wspec(cfg, "data", "model"),
+            "wv": wspec(cfg, "data", "model"),
+            "wo": wspec(cfg, "model", "data")}
+
+
+def attn_cache_specs(cfg: ArchConfig) -> Params:
+    # few KV heads (< model-axis size 16, e.g. MQA/GQA): shard the sequence
+    # axis of the cache instead of heads so the 16-way split divides evenly
+    kv_spec = (P(("pod", "data"), "model", None, None)
+               if cfg.n_kv_heads >= 16 else
+               P(("pod", "data"), None, "model", None))
+    return {"k": kv_spec, "v": kv_spec}
+
+
 def _sdpa(q, k, v, *, causal: bool, lens: Optional[torch.Tensor],
           q_offset=0) -> torch.Tensor:
     """q (B,H,Sq,hd) x k,v (B,Hkv,Sk,hd) -> (B,H,Sq,hd); f32 softmax.
@@ -139,7 +206,7 @@ def attn_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     src = x if kv_source is None else kv_source
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    q = maybe_shard((x @ p["wq"]).reshape(b, s, h, hd), act_bsh(cfg))
     k = (src @ p["wk"]).reshape(b, src.shape[1], hkv, hd)
     v = (src @ p["wv"]).reshape(b, src.shape[1], hkv, hd)
     if kv_source is None:   # self-attention: RoPE
@@ -179,7 +246,7 @@ def attn_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
         o = _sdpa(q, k, v, causal=causal and kv_source is None, lens=lens,
                   q_offset=0)
     o = o.transpose(1, 2).reshape(b, s, h * hd)
-    return o @ p["wo"], new_cache
+    return maybe_shard(o @ p["wo"], act_bsd(cfg)), new_cache
 
 
 def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int,
@@ -210,6 +277,12 @@ def mla_init(generator: torch.Generator, cfg: ArchConfig, device) -> Params:
         "w_uv": param_init(generator, (lora, h * hd), dt, device),
         "wo": param_init(generator, (h * hd, d), dt, device),
     }
+
+
+def mla_specs(cfg: ArchConfig) -> Params:
+    return {"wq": P("data", "model"), "w_dkv": P("data", None),
+            "w_kpe": P("data", None), "w_uk": P(None, "model"),
+            "w_uv": P(None, "model"), "wo": P("model", "data")}
 
 
 def mla_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
@@ -310,6 +383,11 @@ def mla_cache_init(cfg: ArchConfig, batch: int, max_len: int,
 
 
 # ----------------------------------------------------- paged KV blocks --
+def mla_cache_specs(cfg: ArchConfig) -> Params:
+    return {"kv_c": P(("pod", "data"), "model", None),
+            "k_pe": P(("pod", "data"), "model", None)}
+
+
 def paged_gather(pool: torch.Tensor, tables: torch.Tensor, *,
                  block_axis: int, seq_axis: int) -> torch.Tensor:
     """Gather per-row cache rows out of a physical block pool.
@@ -375,6 +453,14 @@ def mlp_init(generator: torch.Generator, cfg: ArchConfig, device,
     return p
 
 
+def mlp_specs(cfg: ArchConfig) -> Params:
+    p = {"w_in": wspec(cfg, "data", "model"),
+         "w_out": wspec(cfg, "model", "data")}
+    if cfg.act == "silu":
+        p["w_gate"] = wspec(cfg, "data", "model")
+    return p
+
+
 def mlp_apply(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["w_in"]
     if cfg.act == "silu":
@@ -382,7 +468,8 @@ def mlp_apply(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         h = g * torch.sigmoid(g) * h
     else:
         h = torch.nn.functional.gelu(h, approximate="tanh")
-    return h @ p["w_out"]
+    h = maybe_shard(h, act_bsf(cfg))
+    return maybe_shard(h @ p["w_out"], act_bsd(cfg))
 
 
 # ------------------------------------------------------------------ moe --
@@ -399,6 +486,18 @@ def moe_init(generator: torch.Generator, cfg: ArchConfig,
         p["shared"] = {"w_in": param_init(generator, (d, fs), dt, device),
                        "w_gate": param_init(generator, (d, fs), dt, device),
                        "w_out": param_init(generator, (fs, d), dt, device)}
+    return p
+
+
+def moe_specs(cfg: ArchConfig) -> Params:
+    p = {"router": P(None, None),
+         "w_in": P("model", "data", None),
+         "w_gate": P("model", "data", None),
+         "w_out": P("model", None, "data")}
+    if cfg.n_shared_experts:
+        p["shared"] = {"w_in": P("data", "model"),
+                       "w_gate": P("data", "model"),
+                       "w_out": P("model", "data")}
     return p
 
 
@@ -458,11 +557,68 @@ def _moe_experts_local(cfg: ArchConfig, w_in, w_gate, w_out, x_tokens,
     return contrib.reshape(t, k, dmod).sum(1)
 
 
+def _moe_expert_parallel(cfg: ArchConfig, p: Params, tokens, gates, ids,
+                         valid: Optional[torch.Tensor], mesh):
+    """The reference's expert-parallel branch: the experts split over
+    ``"model"`` (``E / ep`` a rank), the tokens of each data shard
+    replicated across ``"model"``, each rank running its expert slice
+    (local ids ``id − r·e_loc``, the rest invalid) at the data shard's
+    capacity ``max(8, ⌈int(cf · t_loc · k / E)⌉₈)``, then one all-reduce
+    of the partial outputs over ``"model"``.
+
+    With ``valid`` (the bucket's real tokens) the capacity applied is the
+    same rule over the data shard's *valid* tokens, a device scalar, so
+    the output does not depend on the bucket; where no token is padded
+    it is the reference's.  A plain ``tokens`` (no DTensor) is every
+    data rank's: the result is then a plain tensor too."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..kernels.sharded import _local, _wrap, is_dtensor
+
+    names = list(mesh.mesh_dim_names)
+    mi = names.index("model")
+    ep = mesh.size(mi)
+    e = cfg.n_experts
+    e_loc = e // ep
+    t, d = tokens.shape
+    dp_dims = [names.index(a) for a in ("pod", "data") if a in names]
+    dp = math.prod(mesh.size(j) for j in dp_dims)
+    sharded_rows = is_dtensor(tokens) and t % dp == 0
+    tok_place = tuple(Shard(0) if j in dp_dims and sharded_rows
+                      else Replicate() for j in range(mesh.ndim))
+    w_place = tuple(Shard(0) if j == mi else Replicate()
+                    for j in range(mesh.ndim))
+    toks, gat, idd = (_local(v, mesh, tok_place) for v in (tokens, gates, ids))
+    w_in, w_gate, w_out = (_local(p[k], mesh, w_place)
+                           for k in ("w_in", "w_gate", "w_out"))
+    r = mesh.get_coordinate()[mi]
+    local_ids = idd - r * e_loc      # out-of-slice ids become invalid
+    local_ids = torch.where((local_ids >= 0) & (local_ids < e_loc),
+                            local_ids, e_loc)
+    t_loc = toks.shape[0]
+    cap = int(cfg.capacity_factor * t_loc * cfg.top_k / e)
+    cap = max(8, -(-cap // 8) * 8)
+    limit = vloc = None
+    if valid is not None:
+        vloc = _local(valid, mesh, tok_place)
+        n = vloc.sum(dtype=torch.float64)
+        lim = (cfg.capacity_factor * n * cfg.top_k / e).floor()
+        limit = (torch.ceil(lim / 8) * 8).clamp(min=8).long()
+    y = _moe_experts_local(cfg, w_in, w_gate, w_out, toks, gat, local_ids,
+                           cap, vloc, limit)
+    # each token's k experts may live on different EP ranks
+    y = funcol.all_reduce(y, "sum", (mesh, mi))
+    y = funcol.wait_tensor(y) if hasattr(funcol, "wait_tensor") else y
+    if not is_dtensor(tokens):
+        return y
+    return _wrap(y, mesh, tok_place, (t, d))
+
+
 def moe_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
               lens: Optional[torch.Tensor] = None,
               mesh: Any = None) -> torch.Tensor:
-    """Top-k routed MoE with optional shared experts (dbrx / deepseek-v2),
-    the reference's branch without a mesh.
+    """Top-k routed MoE with optional shared experts (dbrx / deepseek-v2).
 
     The router's f32 logits go through the masked softmax kernel
     (``n_valid = E``), then ``topk``; gates are renormalised.  The
@@ -472,11 +628,16 @@ def moe_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     no slot, and the capacity applied is ``max(4, floor(cf * n * k /
     E))`` over the ``n = lens.sum()`` valid tokens, a device scalar, so
     the output does not depend on the bucket.  Without ``lens`` every
-    token counts, as in the reference."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_apply under a mesh (the reference's expert-parallel "
-            "shard_map branch) arrives with the port's multi-GPU slice")
+    token counts, as in the reference.
+
+    Under a mesh with a ``"model"`` axis (``mesh``, or the ambient one of
+    ``use_mesh``) the experts run expert-parallel, as the reference's
+    ``shard_map`` branch: see :func:`_moe_expert_parallel`."""
+    if mesh is None:
+        mesh = get_mesh()
+    elif not hasattr(mesh, "mesh_dim_names"):
+        from ..dist.context import check_mesh
+        check_mesh(mesh, "moe_apply")
     b, s, d = x.shape
     tokens = x.reshape(-1, d)
     t = tokens.shape[0]
@@ -486,21 +647,26 @@ def moe_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                             dim=-1)
     gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
     gates = gates.to(x.dtype)
-    cap = max(4, int(cfg.capacity_factor * t * cfg.top_k / e))
-    valid = limit = None
+    valid = None
     if lens is not None:
         valid = (torch.arange(s, device=x.device)[None, :]
                  < lens[:, None]).reshape(-1)
-        n_valid = lens.sum(dtype=torch.float64)
-        limit = (cfg.capacity_factor * n_valid * cfg.top_k / e).floor() \
-            .clamp(min=4).long()
-    y = _moe_experts_local(cfg, p["w_in"], p["w_gate"], p["w_out"], tokens,
-                           gates, ids, cap, valid, limit)
+    if mesh is not None and "model" in (mesh.mesh_dim_names or ()):
+        y = _moe_expert_parallel(cfg, p, tokens, gates, ids, valid, mesh)
+    else:
+        cap = max(4, int(cfg.capacity_factor * t * cfg.top_k / e))
+        limit = None
+        if lens is not None:
+            n_valid = lens.sum(dtype=torch.float64)
+            limit = (cfg.capacity_factor * n_valid * cfg.top_k / e) \
+                .floor().clamp(min=4).long()
+        y = _moe_experts_local(cfg, p["w_in"], p["w_gate"], p["w_out"],
+                               tokens, gates, ids, cap, valid, limit)
     if cfg.n_shared_experts:
         sh = p["shared"]
         g = tokens @ sh["w_gate"]
         y = y + (g * torch.sigmoid(g) * (tokens @ sh["w_in"])) @ sh["w_out"]
-    return y.reshape(b, s, d)
+    return maybe_shard(y.reshape(b, s, d), A_BSD)
 
 
 # ---------------------------------------------------------------- rwkv6 --
@@ -544,6 +710,13 @@ def _wkv_scan(r, k, v, w, u):
     T, V); u (H, K) -> (y, s_final), from a zero state.  The WKV kernel
     on the card, its plain version on the CPU."""
     return wkv_ops.rwkv6(r, k, v, w, u)
+
+
+def rwkv6_specs(cfg: ArchConfig) -> Params:
+    return {"w_r": P("data", "model"), "w_k": P("data", "model"),
+            "w_v": P("data", "model"), "w_g": P("data", "model"),
+            "w_w": P("data", "model"), "u": P("model", None),
+            "w_out": P("model", "data"), "mix": P(None, None)}
 
 
 def rwkv6_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
@@ -600,6 +773,11 @@ def rwkv6_cache_init(cfg: ArchConfig, batch: int, device) -> Params:
 
 
 # --------------------------------------------------------------- mamba2 --
+def rwkv6_cache_specs(cfg: ArchConfig) -> Params:
+    return {"s": P(("pod", "data"), "model", None, None),
+            "x_prev": P(("pod", "data"), None)}
+
+
 def mamba2_init(generator: torch.Generator, cfg: ArchConfig,
                 device) -> Params:
     d = cfg.d_model
@@ -617,6 +795,13 @@ def mamba2_init(generator: torch.Generator, cfg: ArchConfig,
         "skip": param_init(generator, (n_heads,), torch.float32, device,
                            scale=1.0),
     }
+
+
+def mamba2_specs(cfg: ArchConfig) -> Params:
+    return {"w_x": P("data", "model"), "w_z": P("data", "model"),
+            "w_bc": P("data", None), "w_dt": P("data", "model"),
+            "a_log": P("model"), "w_out": P("model", "data"),
+            "skip": P("model")}
 
 
 def mamba2_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
@@ -660,3 +845,7 @@ def mamba2_cache_init(cfg: ArchConfig, batch: int, device) -> Params:
     return {"h": torch.zeros((batch, n_heads, cfg.ssm_state,
                               cfg.ssm_head_dim), dtype=torch.float32,
                              device=device)}
+
+
+def mamba2_cache_specs(cfg: ArchConfig) -> Params:
+    return {"h": P(("pod", "data"), "model", None, None)}

@@ -61,6 +61,8 @@ class Model:
     page_axes: Optional[Callable] = None        # () -> per-leaf seq-axis tree
     # (params, cache, tokens, lens, *, max_new, eos_id) -> (tokens, n, cache)
     greedy_decode: Optional[Callable] = None
+    specs: Optional[Callable] = None        # () -> PartitionSpec tree
+    cache_specs: Optional[Callable] = None  # () -> PartitionSpec tree
 
 
 def cache_batch_axis(shape, batch: int) -> Optional[int]:
@@ -178,6 +180,8 @@ def _lm_bundle(mod, cfg: ArchConfig) -> Model:
                        mod.greedy_decode(cfg, params, cache, tokens, lens,
                                          **kw))
         if hasattr(mod, "greedy_decode") else None,
+        specs=lambda: mod.specs(cfg),
+        cache_specs=lambda: mod.cache_specs(cfg),
     )
 
 
@@ -204,6 +208,8 @@ def _whisper_bundle(cfg: ArchConfig) -> Model:
         verify=replay_verify(decode),
         greedy_decode=lambda params, cache, tokens, lens, **kw:
             whisper.greedy_decode(cfg, params, cache, tokens, lens, **kw),
+        specs=lambda: whisper.specs(cfg),
+        cache_specs=lambda: whisper.cache_specs(cfg),
     )
 
 

@@ -24,13 +24,16 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from torch.utils import _pytree
+
+from ..dist.profiles import PartitionSpec as P
 from . import layers as L
 from .common import ArchConfig, cross_entropy_loss, dtype_of, \
     greedy_decode as _greedy_decode, param_init
 
 Params = Dict[str, Any]
 
-__all__ = ["block_init", "init", "forward", "loss_fn", "init_cache",
+__all__ = ["specs", "cache_specs", "block_init", "init", "forward", "loss_fn", "init_cache",
            "decode_step", "prefill", "greedy_decode"]
 
 
@@ -47,6 +50,29 @@ def _chanmix_init(generator: torch.Generator, cfg: ArchConfig,
                               device, scale=0.1)}
 
 
+def _chanmix_specs(cfg: ArchConfig) -> Params:
+    return {"w_k": P("data", "model"), "w_v": P("model", "data"),
+            "w_r": P("data", "model"), "mix": P(None, None)}
+
+
+def block_specs(cfg: ArchConfig) -> Params:
+    return {"ln1": L.norm_specs(cfg), "tmix": L.rwkv6_specs(cfg),
+            "ln2": L.norm_specs(cfg), "cmix": _chanmix_specs(cfg)}
+
+
+def specs(cfg: ArchConfig) -> Params:
+    """Logical specs congruent with :func:`init`'s tree."""
+    return {"embed": P("model", "data"),
+            "blocks": [block_specs(cfg) for _ in range(cfg.n_layers)],
+            "ln_f": L.norm_specs(cfg), "head": P("data", "model")}
+
+
+def cache_specs(cfg: ArchConfig) -> Params:
+    one = {"tmix": L.rwkv6_cache_specs(cfg),
+           "cmix_x": P(("pod", "data"), None)}
+    return _pytree.tree_map(lambda s: P(*((None,) + tuple(s))), one)
+
+
 def _chanmix_apply(cfg: ArchConfig, p: Params, x: torch.Tensor,
                    x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Channel mix of x (B, S, D); ``x_prev`` (B, D) is the token before
@@ -55,9 +81,9 @@ def _chanmix_apply(cfg: ArchConfig, p: Params, x: torch.Tensor,
     mix = torch.sigmoid(p["mix"]).to(x.dtype)
     xk = x * mix[0] + xp * (1 - mix[0])
     xr = x * mix[1] + xp * (1 - mix[1])
-    k = torch.square(torch.relu(xk @ p["w_k"]))
+    k = L.maybe_shard(torch.square(torch.relu(xk @ p["w_k"])), L.A_BSF)
     r = torch.sigmoid(xr @ p["w_r"])
-    return r * (k @ p["w_v"])
+    return L.maybe_shard(r * (k @ p["w_v"]), L.A_BSD)
 
 
 def block_init(generator: torch.Generator, cfg: ArchConfig,

@@ -28,12 +28,15 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from torch.utils import _pytree
+
+from ..dist.profiles import PartitionSpec as P
 from . import layers as L
 from .common import ArchConfig, cross_entropy_loss, dtype_of, param_init
 
 Params = Dict[str, Any]
 
-__all__ = ["block_init", "block_apply", "init", "embed_tokens",
+__all__ = ["specs", "cache_specs", "block_init", "block_apply", "init", "embed_tokens",
            "logits_from_hidden", "decoder_logits", "forward", "loss_fn",
            "prefill",
            "verify", "init_cache", "init_block_pool", "page_axes",
@@ -87,15 +90,37 @@ def init(cfg: ArchConfig, generator: torch.Generator, device) -> Params:
     return p
 
 
+def block_specs(cfg: ArchConfig) -> Params:
+    p = {"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg)}
+    p["attn"] = L.mla_specs(cfg) if cfg.mla_kv_lora else L.attn_specs(cfg)
+    p["ffn"] = L.moe_specs(cfg) if cfg.is_moe else L.mlp_specs(cfg)
+    return p
+
+
+def specs(cfg: ArchConfig) -> Params:
+    """Logical specs congruent with :func:`init`'s tree (``blocks`` one
+    dict a layer, where the reference stacks them)."""
+    p = {
+        "embed": L.wspec(cfg, "model", "data"),
+        "blocks": [block_specs(cfg) for _ in range(cfg.n_layers)],
+        "ln_f": L.norm_specs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = L.wspec(cfg, "data", "model")
+    return p
+
+
 def embed_tokens(cfg: ArchConfig, params: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+    return L.maybe_shard(params["embed"][tokens], L.act_bsd(cfg))
 
 
 def logits_from_hidden(cfg: ArchConfig, params: Params,
                        x: torch.Tensor) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return x @ head
+    spec = (P(L._DP_ALL, None, None) if cfg.sharding_profile == "fsdp"
+            else P(("pod", "data"), None, "model"))
+    return L.maybe_shard(x @ head, spec)
 
 
 def decoder_logits(cfg: ArchConfig, params: Params,
@@ -216,6 +241,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     one = cache_init(cfg, batch, max_len, device)
     return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
             for k, v in one.items()}
+
+
+def cache_specs(cfg: ArchConfig) -> Params:
+    one = L.mla_cache_specs(cfg) if cfg.mla_kv_lora else L.attn_cache_specs(cfg)
+    return _stacked(one)
+
+
+def _stacked(tree):
+    """A per-layer spec tree for layer-stacked leaves: a leading None."""
+    return _pytree.tree_map(lambda s: P(*((None,) + tuple(s))), tree)
 
 
 def init_block_pool(cfg: ArchConfig, n_blocks: int, block_size: int,

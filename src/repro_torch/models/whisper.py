@@ -24,13 +24,16 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from torch.utils import _pytree
+
+from ..dist.profiles import PartitionSpec as P
 from . import layers as L
 from .common import ArchConfig, cross_entropy_loss, dtype_of, \
     greedy_decode as _greedy_decode, param_init
 
 Params = Dict[str, Any]
 
-__all__ = ["init", "encode", "forward", "init_cache", "decode_step",
+__all__ = ["specs", "cache_specs", "init", "encode", "forward", "init_cache", "decode_step",
            "greedy_decode", "specs", "loss_fn"]
 
 
@@ -71,10 +74,34 @@ def init(cfg: ArchConfig, generator: torch.Generator, device) -> Params:
     }
 
 
-def specs(cfg: ArchConfig):
-    raise NotImplementedError("whisper's sharding specs arrive with the "
-                              "port's multi-GPU slice (ROADMAP Queue 1 "
-                              "item 10)")
+def _enc_block_specs(cfg: ArchConfig) -> Params:
+    return {"ln1": L.norm_specs(cfg), "attn": L.attn_specs(cfg),
+            "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+
+
+def _dec_block_specs(cfg: ArchConfig) -> Params:
+    return {"ln1": L.norm_specs(cfg), "self": L.attn_specs(cfg),
+            "ln2": L.norm_specs(cfg), "cross": L.attn_specs(cfg),
+            "ln3": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+
+
+def specs(cfg: ArchConfig) -> Params:
+    """Logical specs congruent with :func:`init`'s tree."""
+    return {
+        "embed": P("model", "data"),
+        "enc_pos": P(None, "data"),
+        "encoder": [_enc_block_specs(cfg)
+                    for _ in range(cfg.n_encoder_layers)],
+        "decoder": [_dec_block_specs(cfg) for _ in range(cfg.n_layers)],
+        "ln_enc": L.norm_specs(cfg),
+        "ln_f": L.norm_specs(cfg),
+        "head": P("data", "model"),
+    }
+
+
+def cache_specs(cfg: ArchConfig) -> Params:
+    return _pytree.tree_map(lambda s: P(*((None,) + tuple(s))),
+                            L.attn_cache_specs(cfg))
 
 
 def encode(cfg: ArchConfig, params: Params,

@@ -25,12 +25,15 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from torch.utils import _pytree
+
+from ..dist.profiles import PartitionSpec as P
 from . import layers as L
 from .common import ArchConfig, cross_entropy_loss, dtype_of, param_init
 
 Params = Dict[str, Any]
 
-__all__ = ["init", "forward", "loss_fn", "init_cache", "decode_step",
+__all__ = ["specs", "cache_specs", "init", "forward", "loss_fn", "init_cache", "decode_step",
            "prefill"]
 
 _LORA_RANK = 8
@@ -86,6 +89,31 @@ def init(cfg: ArchConfig, generator: torch.Generator, device) -> Params:
         "ln_f": L.norm_init(cfg, device),
         "head": param_init(generator, (cfg.d_model, cfg.vocab), dt, device),
     }
+
+
+def _mamba_block_specs(cfg: ArchConfig) -> Params:
+    return {"ln1": L.norm_specs(cfg), "mix": L.mamba2_specs(cfg),
+            "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+
+
+def specs(cfg: ArchConfig) -> Params:
+    """Logical specs congruent with :func:`init`'s tree."""
+    return {
+        "embed": P("model", "data"),
+        "blocks": [_mamba_block_specs(cfg) for _ in range(cfg.n_layers)],
+        "shared_attn": L.attn_specs(cfg),
+        "shared_ln": L.norm_specs(cfg),
+        "lora": {"a_q": P(None, "data", None), "b_q": P(None, None, "model")},
+        "ln_f": L.norm_specs(cfg),
+        "head": P("data", "model"),
+    }
+
+
+def cache_specs(cfg: ArchConfig) -> Params:
+    stack = lambda t: _pytree.tree_map(  # noqa: E731
+        lambda s: P(*((None,) + tuple(s))), t)
+    return {"mamba": stack(L.mamba2_cache_specs(cfg)),
+            "attn": stack(L.attn_cache_specs(cfg))}
 
 
 def _mamba_group(cfg: ArchConfig, blocks, x: torch.Tensor, caches=None,

@@ -110,12 +110,14 @@ from ..api.staged import compile as disc_compile, weak_method
 from ..core.bucketing import BucketPolicy, POW2
 from ..core.cache import CompileCache
 from ..data.pipeline import Request
+from ..dist.context import spmd_scope
 from ..errors import (CONTROL_EXCEPTIONS, DEFAULT_RETRY, CompileError,
                       DiscError, wrap_launch_error)
 from ..frontends.fx_frontend import ArgSpec
 from ..ft import faults
 from ..ft.supervisor import HeartbeatMonitor
-from ..models.registry import (Model, gate_rows, replay_prefill,
+from ..models.registry import (Model, cache_batch_axis, gate_rows,
+                               replay_prefill,
                                row_keep_mask, tree_map)
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
@@ -198,14 +200,6 @@ STATS_KEYS: Dict[str, str] = {
                       "traffic continues on survivors)",
 }
 
-# options of the reference engine whose slices are not ported yet
-_LATER = {
-    "mesh": "SPMD placement arrives with the port's multi-GPU slice",
-    "sharding_profile": "SPMD placement arrives with the port's multi-GPU "
-                        "slice",
-}
-
-
 @dataclass(frozen=True)
 class ServeConfig:
     max_batch: int = 8
@@ -258,7 +252,13 @@ class ServeConfig:
     # and admission routes around it until a beat restores it.  None
     # disables monitoring (no drain, no heartbeats required)
     heartbeat_deadline_s: Optional[float] = None
-    # not ported yet: each raises NotImplementedError when set
+    # SPMD placement (repro_torch.dist): a DeviceMesh with named dims
+    # (launch/mesh.py make_mesh) and a profile name or ShardingProfile
+    # ("dp" by default under a mesh).  The params follow the profile's
+    # weight layout (the model's specs() under "tp"), the KV cache rows
+    # the profile's batch axes (cache_specs() under "tp"), and the
+    # prefill artifact compiles under CompileOptions(mesh=...).  Every
+    # rank runs the same engine loop on the same submissions.
     mesh: Optional[Any] = None
     sharding_profile: Optional[Any] = None
 
@@ -288,9 +288,15 @@ class _Slot:
 
 class ServeEngine:
     def __init__(self, model: Model, params, scfg: ServeConfig):
-        for name, why in _LATER.items():
-            if getattr(scfg, name) is not None:
-                raise NotImplementedError(f"ServeConfig({name}=...): {why}")
+        if scfg.sharding_profile is not None and scfg.mesh is None:
+            # mirror CompileOptions: a profile without a mesh is a
+            # misconfiguration, not a silent single-device fallback
+            raise ValueError(
+                "ServeConfig(sharding_profile=...) needs a mesh: pass "
+                "ServeConfig(mesh=..., sharding_profile=...)")
+        if scfg.mesh is not None:
+            from ..dist.context import check_mesh
+            check_mesh(scfg.mesh, "ServeConfig")
         if model.cfg.family == "encdec":
             raise ValueError(
                 f"ServeEngine serves language models; {model.cfg.name} is "
@@ -315,6 +321,12 @@ class ServeEngine:
                     f"divide max_seq={scfg.max_seq}: full block tables "
                     f"cover exactly max_seq positions so the paged "
                     f"artifacts stay shape-identical to fixed rows")
+            if scfg.mesh is not None:
+                raise ValueError(
+                    "paged KV (kv_block_size=...) does not compose with "
+                    "mesh sharding yet: the block-id axis has no "
+                    "data-parallel layout — drop the mesh or use fixed "
+                    "rows")
         if scfg.speculative is not None and scfg.speculative_k < 1:
             raise ValueError(
                 f"ServeConfig(speculative_k={scfg.speculative_k}): need "
@@ -382,6 +394,14 @@ class ServeEngine:
             {"admitted": 0, "tokens_generated": 0, "requests_completed": 0}
             for _ in range(scfg.replicas)]
 
+        # SPMD placement: lay the persistent trees out once at init (the
+        # per-call argument layouts are the prefill artifact's job)
+        self.mesh = scfg.mesh
+        self._dp_axes: Tuple[str, ...] = ()
+        self._put_args = lambda *xs: xs  # decode-input placement
+        if self.mesh is not None:
+            self._init_mesh(model)
+
         # one compile cache shared by the artifacts; entries are keyed by
         # per-artifact fingerprint so prefill/decode/verify never collide
         self.compile_cache = CompileCache("serve", max_entries=64)
@@ -416,6 +436,9 @@ class ServeEngine:
                                    policy=pol, device=scfg.device,
                                    escalation_threshold=
                                    scfg.escalation_threshold,
+                                   mesh=scfg.mesh,
+                                   sharding_profile=scfg.sharding_profile
+                                   if scfg.mesh is not None else None,
                                    cache=self.compile_cache))
         self._decode_fn = disc_compile(
             weak_method(self._decode_paged if self.paged
@@ -449,6 +472,119 @@ class ServeEngine:
                                        name="engine")
         obs_metrics.register_collector("health", self._obs_health,
                                        name="engine")
+
+    def _init_mesh(self, model: Model) -> None:
+        """Lay params + KV cache out on the mesh per the profile: params
+        follow the profile's weight layout, cache rows are partitioned
+        along the profile's batch axes on their batch axis (axis 1 of the
+        layer-stacked ``(L, B, ...)`` leaves), or follow the model's
+        ``cache_specs()`` under ``tp``.  Each rank keeps its own slice of
+        the trees every rank built the same way: no collective."""
+        from ..dist.profiles import PartitionSpec as P, get_profile
+        from ..dist.spmd import fit_spec, mesh_shape, placements_for, \
+            shard_tensor
+
+        mesh = self.mesh
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"ServeConfig(mesh=...) is a "
+                             f"{mesh.device_type} mesh, the engine runs on "
+                             f"{self.device}")
+        profile = get_profile(self.scfg.sharding_profile or "dp")
+        self.profile = profile
+        sizes = mesh_shape(mesh)
+        # the axes the PROFILE shards the batch dim on: the cache layout,
+        # the slot-divisibility guard and the decode-input placement all
+        # agree with what the prefill artifact's planner emits for "B"
+        self._dp_axes = tuple(a for a in profile.batch_axes() if a in sizes)
+        dp = 1
+        for a in self._dp_axes:
+            dp *= sizes[a]
+        if dp > 1 and self.n_slots % dp != 0:
+            raise ValueError(
+                f"replicas*max_batch={self.n_slots} slots must divide the "
+                f"batch-sharding mesh axes {self._dp_axes} (size {dp}) "
+                f"evenly — adjust replicas/max_batch or the mesh shape")
+
+        def put(x, spec):
+            spec = fit_spec(tuple(x.shape), spec, mesh)
+            return shard_tensor(x, mesh, placements_for(spec, mesh))
+
+        logical = model.specs() if profile.param_mode == "tp" else None
+        pspecs = profile.param_specs(self.params, logical)
+        self.params = tree_map(put, self.params, pspecs)
+        if profile.param_mode == "tp":
+            cspecs = model.cache_specs()
+            self.cache = tree_map(put, self.cache, cspecs)
+        else:
+            def batch_spec(leaf):
+                ax = cache_batch_axis(leaf.shape, self.n_slots)
+                if ax is None:
+                    return P(*([None] * leaf.ndim))
+                return profile.batch_leaf_spec(leaf.ndim, ax)
+
+            self.cache = tree_map(lambda c: put(c, batch_spec(c)),
+                                  self.cache)
+        # decode inputs have fixed shapes: their layouts are decided once
+        dp_spec = self._dp_axes if self._dp_axes else None
+        places = [placements_for(fit_spec(
+            shape, P(*((dp_spec,) + (None,) * (len(shape) - 1))), mesh),
+            mesh) for shape in ((self.n_slots, 1), (self.n_slots,),
+                                (self.n_slots,))]
+        self._put_args = lambda *xs: tuple(
+            shard_tensor(x, mesh, pl) for x, pl in zip(xs, places))
+
+    def _whole(self, x):
+        """A launch's DTensor output whole on every rank (the host reads
+        it), a plain tensor as it is."""
+        from ..kernels.sharded import is_dtensor
+        return x.full_tensor() if is_dtensor(x) else x
+
+    def _take_rows(self, idx: torch.Tensor):
+        """The cache rows ``idx`` of every leaf (batch axis 1)."""
+        if self.mesh is None:
+            return tree_map(lambda c: c.index_select(1, idx), self.cache)
+        from torch.distributed.tensor import DTensor, Replicate
+
+        from ..dist.context import spmd_scope
+        idx = DTensor.from_local(idx, self.mesh,
+                                 (Replicate(),) * self.mesh.ndim,
+                                 run_check=False)
+        with spmd_scope(self.mesh):
+            return tree_map(lambda c: c.index_select(1, idx), self.cache)
+
+    def _put_rows(self, idx: torch.Tensor, nb: int, new_rows) -> None:
+        """Write a prefill's first ``nb`` rows back into cache rows
+        ``idx``, in place.  Under a mesh each rank writes the rows its
+        shard of the batch axis holds (the rows first laid out as the
+        cache leaf, their batch axis whole)."""
+        if self.mesh is None:
+            tree_map(lambda c, n: c.index_copy_(1, idx,
+                                                n[:, :nb].to(c.dtype)),
+                     self.cache, new_rows)
+            return
+        from torch.distributed.tensor import Replicate
+
+        from ..kernels.sharded import _coord, _local, _sharding
+
+        host_idx = idx.tolist()
+
+        def put(c, n):
+            place = tuple(c.placements)
+            bdims = _sharding(place, 1)
+            whole_b = tuple(Replicate() if j in bdims else p
+                            for j, p in enumerate(place))
+            rows = _local(n, self.mesh, whole_b)[:, :nb].to(c.dtype)
+            local = c._local_tensor
+            r, m = _coord(self.mesh, bdims) if bdims else (0, 1)
+            per = c.shape[1] // m
+            mine = [(k, i - r * per) for k, i in enumerate(host_idx)
+                    if r * per <= i < (r + 1) * per]
+            if mine:
+                src = torch.tensor([k for k, _ in mine], device=local.device)
+                dst = torch.tensor([i for _, i in mine], device=local.device)
+                local.index_copy_(1, dst, rows.index_select(1, src))
+
+        tree_map(put, self.cache, new_rows)
 
     # ------------------------------------------------------------ device --
     def _prefill_call(self, params, rows, tokens, lens, offsets):
@@ -687,7 +823,8 @@ class ServeEngine:
                     if faults.ACTIVE is not None:
                         faults.ACTIVE.check("serve.launch", key=kind)
                     started = True
-                    out = fn(*args)
+                    with spmd_scope(self.mesh):
+                        out = fn(*args)
                     ok = True
                     return out
                 except CONTROL_EXCEPTIONS:
@@ -885,7 +1022,7 @@ class ServeEngine:
                      {"tables": self._tensor(self.alloc.table()[members_idx])})
         else:
             idx = self._tensor(members_idx)
-            state = (tree_map(lambda c: c.index_select(1, idx), self.cache),)
+            state = (self._take_rows(idx),)
         try:
             logits, new_rows = self._launch(
                 "prefill", self._prefill_fn, self.params, *state,
@@ -898,9 +1035,8 @@ class ServeEngine:
                 self._fail_slot(i, f"LaunchError(prefill): {e}")
             return
         if not self.paged:   # the paged launch wrote its pool in place
-            tree_map(lambda c, n: c.index_copy_(1, idx,
-                                                n[:, :nb].to(c.dtype)),
-                     self.cache, new_rows)
+            self._put_rows(idx, nb, new_rows)
+        logits = self._whole(logits)
         # the rows whose prompt this launch completes emit their first
         # token
         ending = [r for r, (i, cl) in enumerate(members)
@@ -994,8 +1130,10 @@ class ServeEngine:
         try:
             logits, _ = self._launch(
                 "decode", self._decode_fn, self.params, *self._state(),
-                self._tensor(tokens), self._tensor(self.lens),
-                self._tensor(active))
+                *self._put_args(self._tensor(tokens),
+                                self._tensor(self.lens),
+                                self._tensor(active)))
+            logits = self._whole(logits)
         except DiscError as e:
             for i in active_idx:
                 self._fail_slot(i, f"LaunchError(decode): {e}")
@@ -1066,7 +1204,7 @@ class ServeEngine:
             for i in live:
                 self._fail_slot(i, f"LaunchError(verify): {e}")
             return
-        ids = ids.tolist()
+        ids = self._whole(ids).tolist()
         self._mark_decode_launch()
         for i in live:
             s = self.slots[i]

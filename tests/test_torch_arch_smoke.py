@@ -19,9 +19,14 @@ architecture at its reduced config on the CPU.
   DeepSeek-V2's names resolve to its MLA config, and the registry serves
   every family.
 
-``test_train_step_no_nans``'s twin is ``tests/test_torch_train_arch.py``;
-``test_specs_tree_congruent`` has none yet: sharding arrives with the
-port's multi-GPU slice.
+* **Specs** of all ten architectures: ``model.specs()`` is congruent
+  with the parameter tree and no spec is longer than its leaf's rank
+  (``test_specs_tree_congruent``), and every leaf's spec equals the
+  reference's as a tuple of axis names (a per-layer list's element the
+  reference's layer-stacked spec without its leading None), as does
+  ``model.cache_specs()`` against the cache tree and the reference's.
+
+``test_train_step_no_nans``'s twin is ``tests/test_torch_train_arch.py``.
 """
 from __future__ import annotations
 
@@ -160,3 +165,79 @@ def test_decode_step(arch_id, monkeypatch):
     want, _ = jm.decode_step(jp, jm.init_cache(B, max_len),
                              jnp.asarray(tokens), jnp.asarray(lens), **jkw)
     np.testing.assert_allclose(logits.numpy(), np.asarray(want), **TOL)
+
+
+def _spec_table(tree, stacked: bool = False):
+    """``{key path: spec tuple}`` of a spec tree (dicts by key, per-layer
+    lists collapsed onto one stacked entry each, whose specs lose their
+    leading None where ``stacked`` marks the reference's layout)."""
+    from jax.sharding import PartitionSpec as JP
+
+    from repro_torch.dist.profiles import PartitionSpec
+
+    out = {}
+
+    def walk(x, path, in_list):
+        if isinstance(x, (JP, PartitionSpec)):
+            spec = tuple(x)
+            if stacked and in_list:
+                assert spec[0] is None, (path, spec)
+                spec = spec[1:]
+            out.setdefault(path, set()).add(spec)
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, path + (str(k),), in_list)
+        elif isinstance(x, list):
+            for v in x:
+                walk(v, path, True)
+        else:
+            raise TypeError(f"{path}: {type(x)}")
+
+    walk(tree, (), False)
+    return out
+
+
+def _ref_spec_table(tree, stacked_keys):
+    from jax.sharding import PartitionSpec as JP
+    out = {}
+    for path, s in jax.tree_util.tree_flatten_with_path(
+            tree, is_leaf=lambda x: isinstance(x, JP))[0]:
+        key = tuple(str(getattr(k, "key", k)) for k in path)
+        spec = tuple(s)
+        if key[0] in stacked_keys:
+            assert spec[0] is None, (key, spec)
+            spec = spec[1:]
+        out[key] = {spec}
+    return out
+
+
+@pytest.mark.parametrize("arch_id", ARCH_IDS)
+def test_specs_tree_congruent(arch_id):
+    cfg = get_config(arch_id).reduced()
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "meta")
+    specs = model.specs()
+    assert torch.utils._pytree.tree_structure(params) == \
+        torch.utils._pytree.tree_structure(specs), \
+        f"{arch_id}: params/specs trees diverge"
+    for p, s in zip(torch.utils._pytree.tree_leaves(params),
+                    torch.utils._pytree.tree_leaves(specs)):
+        assert len(s) <= p.dim(), f"{arch_id}: spec {s} vs {p.shape}"
+    cache = model.init_cache(2, 16, "meta")
+    assert torch.utils._pytree.tree_structure(cache) == \
+        torch.utils._pytree.tree_structure(model.cache_specs())
+
+
+@pytest.mark.parametrize("arch_id", ARCH_IDS)
+def test_specs_equal_the_reference(arch_id):
+    """Every parameter and cache leaf's logical spec is the reference's,
+    as a tuple of axis names."""
+    cfg = get_config(arch_id).reduced()
+    jm = jax_model(jax_config(arch_id).reduced())
+    model = get_model(cfg)
+    stacked = {"blocks", "encoder", "decoder"}
+    got = _spec_table(model.specs())
+    want = _ref_spec_table(jm.specs(), stacked)
+    assert got == want, arch_id
+    assert _spec_table(model.cache_specs()) == \
+        _ref_spec_table(jm.cache_specs(), ())

@@ -18,8 +18,8 @@ in f32 with the JAX parameters carried across (``models/convert.py``):
   (the tolerance of ``tests/test_torch_serve.py``).
 
 The paged-KV cases (``pool.alloc``) run on a paged pool, as the
-reference's do; the mesh cases wait for their slice and skip, naming
-it.
+reference's do; the mesh cases run in a gloo world of 2 CPU ranks
+(``tests/_torch_dist.py``), every rank's streams identical.
 """
 from __future__ import annotations
 
@@ -40,9 +40,6 @@ from repro_torch.ft.faults import FaultInjector, FaultSpec
 from repro_torch.serve.engine import STATS_KEYS, ServeConfig, ServeEngine
 
 from _torch_parity import reduced_tinyllama
-
-MESH = "SPMD serving arrives with the port's multi-GPU slice"
-
 
 @pytest.fixture(scope="module")
 def tiny():
@@ -799,11 +796,27 @@ class TestServeDifferential:
 
 # ----------------------------------------------------------- mesh (SPMD) --
 
-class TestServeDifferentialMesh:
-    @pytest.mark.skip(reason=MESH)
-    def test_transient_launch_fault_parity_under_mesh(self):
-        pass
+@pytest.fixture(scope="module")
+def mesh_faults():
+    """The reference's two mesh cases, run in a gloo world of 2 CPU ranks
+    (``tests/_torch_dist.py``), every rank's results."""
+    import _torch_dist as W
+    res = W.run_world(2, ["faults_transient", "faults_drain"])
+    return {k: W.check(res, k) for k in res}
 
-    @pytest.mark.skip(reason=MESH)
-    def test_replica_drain_under_mesh(self):
-        pass
+
+class TestServeDifferentialMesh:
+    def test_transient_launch_fault_parity_under_mesh(self, mesh_faults):
+        per_rank = mesh_faults["faults_transient"]
+        got = per_rank[0]
+        assert got["done"] == got["base"]
+        assert got["retries"] >= 1 and not got["failed"]
+        assert all(r["done"] == got["done"] for r in per_rank)
+
+    def test_replica_drain_under_mesh(self, mesh_faults):
+        per_rank = mesh_faults["faults_drain"]
+        got = per_rank[0]
+        assert got["drains"] == 1
+        assert not got["failed"]
+        assert set(got["done"]) == {0, 1}   # both completed on the survivor
+        assert all(r["done"] == got["done"] for r in per_rank)

@@ -343,13 +343,19 @@ class TestTreeSpec:
 # ------------------------------------------------------- the port's rules --
 
 def test_later_slices_raise_not_implemented(tiny):
-    for kw in (dict(mesh=object()), dict(sharding_profile="dp")):
-        with pytest.raises(NotImplementedError, match="slice"):
-            _engine(tiny, **kw)
-    # replica heartbeats are ported: the option serves
+    """Every slice of the reference engine's options is ported: the SPMD
+    options validate as the reference's do (a profile without a mesh
+    raises "needs a mesh"; a mesh must be a DeviceMesh with named dims),
+    replica heartbeats serve."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        _engine(tiny, mesh=object())
+    with pytest.raises(ValueError, match="needs a mesh"):
+        _engine(tiny, sharding_profile="dp")
     assert _engine(tiny, heartbeat_deadline_s=1.0).monitor is not None
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         disc_torch.CompileOptions(mesh=object())
+    with pytest.raises(ValueError, match="needs a mesh"):
+        disc_torch.CompileOptions(sharding_profile="tp")
 
 
 @pytest.mark.parametrize("kw", [

@@ -306,15 +306,45 @@ def test_serve_engine_refuses_encdec():
 
 
 def test_encdec_training_and_sharding_wait_for_their_slices(wsp):
-    """Sharding still waits for the multi-GPU slice (item 10); the
-    training loss has arrived: whisper's ``loss_fn`` (and the registry's
-    ``model.loss``) equals the reference's on the same weights, frames,
-    labels and partly masked batch, within 1e-5."""
+    """Both have arrived.  Sharding: whisper's ``specs`` is congruent
+    with its parameter tree and equals the reference's leaf by leaf (each
+    per-layer spec the reference's stacked one without its leading
+    None), its ``cache_specs`` the reference's.  The training loss:
+    whisper's ``loss_fn`` (and the registry's ``model.loss``) equals the
+    reference's on the same weights, frames, labels and partly masked
+    batch, within 1e-5."""
+    import jax
     import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as JP
+    from repro.models import whisper as jwhisper
+    from torch.utils import _pytree
 
     cfg = wsp["cfg"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        whisper.specs(cfg)
+    specs = whisper.specs(cfg)
+    params = whisper.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert _pytree.tree_structure(specs) == _pytree.tree_structure(params)
+    jspecs = jwhisper.specs(cfg)
+    for stack in ("encoder", "decoder"):
+        for layer in specs[stack]:
+            got = _pytree.tree_leaves(layer)
+            want = jax.tree.leaves(
+                jspecs[stack], is_leaf=lambda s: isinstance(s, JP))
+            keys = sorted(_pytree.tree_flatten_with_path(layer)[0],
+                          key=lambda kv: str(kv[0]))
+            assert len(got) == len(want) == len(keys)
+            jflat = {tuple(str(getattr(k, "key", k)) for k in path): s
+                     for path, s in jax.tree_util.tree_flatten_with_path(
+                         jspecs[stack],
+                         is_leaf=lambda s: isinstance(s, JP))[0]}
+            for path, s in _pytree.tree_flatten_with_path(layer)[0]:
+                key = tuple(str(getattr(k, "key", k)) for k in path)
+                assert tuple(s) == tuple(jflat[key])[1:], key
+    for key in ("embed", "enc_pos", "ln_enc", "ln_f", "head"):
+        assert jax.tree.map(tuple, jspecs[key],
+                            is_leaf=lambda s: isinstance(s, JP)) == \
+            _pytree.tree_map(tuple, specs[key])
+    assert {k: tuple(v) for k, v in whisper.cache_specs(cfg).items()} == \
+        {k: tuple(v) for k, v in jwhisper.cache_specs(cfg).items()}
     rng = np.random.RandomState(11)
     batch = {"tokens": rng.randint(0, cfg.vocab, (2, 12)).astype(np.int32),
              "labels": rng.randint(0, cfg.vocab, (2, 12)).astype(np.int32),
