@@ -520,7 +520,24 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     and +res at N = 1024 / 512, K = 5632, T = 1999), each against its
     plain version (1e-5 / 8e-3; kDot by path 2's rule), timed beside the
     plain version and a PyTorch call.
-25. Prints the run's seconds in all, the kernels line (each kernel, and
+25. **Path 17 (roofline and dry run).**  (a) Every kernel row of path 2
+    (kDot, kLoop, kInput, in the path's dtype) and of the §4.5 library
+    beside the bound of the same work walked by
+    ``repro_torch.roofline.cost`` (path 2's cluster of the row's
+    program, ``analyze_lowered`` at the extents the row counts: a kDot
+    its valid T, a kLoop or kInput the bucket's padded T; each library
+    GEMM lowered alone): equal to 1 %, bound by the same term.  The
+    H100 constants of every bound in the run are
+    ``repro_torch.roofline.analysis.H100``'s.  (b) Path 15's step
+    (TinyLlama-1.1B, bf16, B x 2048) traced at one rank by the dry
+    run's tracer (``launch/dryrun.py`` ``lower``, no mesh): its flops,
+    bytes, terms and estimated peak printed beside path 15's measured ms
+    a step and peak memory; the measured step must take at least 0.95 x
+    max(t_compute, t_memory).  (c) ``python -m repro_torch.launch.dryrun
+    --arch tinyllama_11b --cell train_4k`` (the 16x16 mesh on a fake
+    process group) in a subprocess: its JSON (``status`` ok) and
+    seconds.
+26. Prints the run's seconds in all, the kernels line (each kernel, and
     flash attention's MLA forms as ``flash_attention_mla`` and
     ``flash_attention_mla_decode``), the card line, and the result line
     last.
@@ -553,12 +570,25 @@ from typing import Callable, NamedTuple
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (700 W): HBM bytes/s, f32 non-tensor flop/s,
-# dense bf16 and TF32 tensor-core flop/s
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
-TF32_FLOPS = 495e12
+
+def _h100():
+    """The port's H100 constants (``repro_torch.roofline.analysis``), or
+    None outside a checkout (``main`` then refuses to run)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.roofline.analysis import H100
+    except ImportError:
+        return None
+    return H100
+
+
+# H100 SXM data-sheet peaks (700 W), the roofline module's: HBM bytes/s,
+# f32 non-tensor flop/s, dense bf16 and TF32 tensor-core flop/s
+_HW = _h100()
+HBM_BYTES_PER_S = _HW and _HW.HBM_BW
+F32_FLOPS = _HW and _HW.PEAK_FLOPS_F32
+BF16_FLOPS = _HW and _HW.PEAK_FLOPS_BF16
+TF32_FLOPS = _HW and _HW.PEAK_FLOPS_TF32
 
 REQUESTS = (37, 200, 731, 1500, 1999, 45)
 # paths 1-2, f32 vs eager (summation order); bf16 takes the accuracy
@@ -4635,14 +4665,19 @@ def main(argv=None) -> int:
             res = f"not available ({e})"
         print(f"[build] GEMM instances: {res}", flush=True)
         print_resources()
+        walks = []   # path 17 (a): kernel rows beside the walk's bounds
         for dname, cfg in cfgs.items():
             t0 = time.perf_counter()
             calls = path_phase("path2", path2[dname], dname, args.seed, cfg,
                                report)
+            n0 = len(rows)
             gemm_phase(calls, dname, report[("path2", dname)]["launches"],
                        rows)
             kernel_phase(calls, dname, report[("path2", dname)]["launches"],
                          rows, path="path2")
+            walks += path2_walks(path2[dname], dname,
+                                 [(r, d) for r, d in rows[n0:]
+                                  if d["dtype"] == dname])
             del calls
             path2[dname] = None
             print(f"[phase path2 {dname}] {time.perf_counter() - t0:.1f} s",
@@ -4650,7 +4685,9 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         cluster_builds()
         t0 = time.perf_counter()
+        n0 = len(rows)
         library_phase(rows, report)
+        walks += library_walks(rows[n0:])
         print(f"[phase library] {time.perf_counter() - t0:.1f} s",
               flush=True)
         first_f32 = None  # path 3's bf16 accuracy reference
@@ -4730,6 +4767,7 @@ def main(argv=None) -> int:
         paged_phase(args.seed, report)
         train_phase(args.seed, report)
         mesh_phase(args.seed, report)
+        roofline_phase(walks, report)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5833,6 +5871,8 @@ def train_full_width(base, seed: int, report: dict):
           f"{launches} ({base.n_layers} / {2 * base.n_layers + 1} a step); "
           f"{changed} of {len(leaves)} leaves changed, all finite",
           flush=True)
+    # path 17 (b) reads the step beside the dry run's walk of it
+    report[("path15", "bf16")].update(ms=ms, peak=out["peak_bytes"], b=b)
     tcfg = TrainConfig(peak_lr=1e-3, warmup=2, total_steps=steps)
     return state, model, tcfg, b
 
@@ -6802,6 +6842,204 @@ def kdot_local_rows(calls: list, dname: str, report: dict,
             check(worst <= tol, f"{name} {dname} {prog.key} {ways}-way: "
                                 f"max|d|/max|ref| {worst:.3e} > {tol}")
             rows16.append((row, detail))
+
+
+# --------------------------------- path 17: roofline and dry run -------
+
+#: path 17 (a): the walk's bound against a kernel row's, relative
+TOL_PATH17_BOUND = 0.01
+#: path 17 (b): a measured step may undercut the walk's bound by this
+#: share (timing noise); a step faster than that means the walk
+#: overcounts
+PATH17_STEP_SLACK = 0.95
+#: path 17 (c): the dry-run cell, run in a subprocess, and its limit
+PATH17_CELL = ("tinyllama_11b", "train_4k")
+PATH17_CELL_TIMEOUT_S = 600
+
+
+def _signature(opcodes) -> tuple:
+    return tuple(o for o in opcodes if o != "broadcast_in_dim")
+
+
+def path2_walks(art: dict, dname: str, new_rows: list) -> list:
+    """Path 17 (a), taken while path 2's artifact lives: each of path
+    2's kDot, kLoop and kInput rows (``new_rows``) beside the bound of
+    its program's cluster in path 2's plan, walked by ``analyze_lowered``
+    at the extents the row's bound counts (a kDot row its valid T, a
+    kLoop or kInput row the bucket's padded T).  Returns ``[(label, row
+    bound_ms, walk bound_ms, row bound_by, walk bound_by)]``; the check
+    is path 17's."""
+    from repro_torch.core.codegen import _DotParts
+    from repro_torch.roofline.analysis import bound
+    from repro_torch.roofline.cost import cluster_costs
+
+    low = art["low"]
+    graph, plan = low.graph, low.plan
+    by_cid = {cl.cid: cl for cl in plan.clusters}
+    out = []
+    walked = {}
+    # the bucket the recorded calls ran at: the kDot rows' padded T
+    bucket = max(d["shape"][0] for r, d in new_rows
+                 if r["name"] == "matmul_epilogue")
+
+    def clusters_at(t):
+        if t not in walked:
+            walked[t] = cluster_costs(low, {art["dim"]: t})
+        return walked[t]
+
+    for row, d in new_rows:
+        name = row["name"]
+        if name == "matmul_epilogue":
+            t, k, n = d["valid"][0], d["shape"][1], d["shape"][2]
+            hits = []
+            for r in clusters_at(t):
+                if r["template"] != "kDot":
+                    continue
+                parts = _DotParts(graph, by_cid[r["cid"]])
+                if parts.program.key != d["program"]:
+                    continue
+                kk = parts.dot.inputs[0].shape[-1]
+                nn = parts.dot.inputs[1].shape[-1]
+                if (kk, nn) == (k, n):
+                    hits.append(r["cost"])
+            peak = dname
+        else:
+            template = "kLoop" if name == "fused_elementwise" else "kInput"
+            steps = _signature(d["steps"])
+            hits = [r["cost"] for r in clusters_at(bucket)
+                    if r["template"] == template
+                    and _signature(r["opcodes"][:-1] if template == "kInput"
+                                   else r["opcodes"]) == steps]
+            peak = "f32"   # the rows' elementwise work: the FFMA rate
+        label = f"{name} {dname} {d['program']} shape={d['shape']}"
+        if not hits:
+            out.append((label, row["bound_ms"], None, row["bound_by"], None))
+            continue
+        ms, by = bound(hits[0], peak)
+        out.append((label, row["bound_ms"], ms * 1e3, row["bound_by"], by))
+    return out
+
+
+def library_walks(new_rows: list) -> list:
+    """Path 17 (a) for the §4.5 library rows: each GEMM shape lowered on
+    the ``"dhlo"`` pipeline (the CPU; nothing runs) and walked, beside
+    the row's bound."""
+    import torch
+
+    import disc_torch
+    from repro_torch.roofline.analysis import bound
+    from repro_torch.roofline.cost import analyze_lowered
+
+    out = []
+    for row, d in new_rows:
+        if row["name"] != "matmul" or "version" not in d:
+            continue
+        m, k, n = d["shape"]
+        dt = {"f32": torch.float32, "bf16": torch.bfloat16}[d["dtype"]]
+        low = disc_torch.compile(lambda a, b: a @ b, [((m, k), dt),
+                                                      ((k, n), dt)],
+                                 pipeline="dhlo", device="cpu").lower()
+        ms, by = bound(analyze_lowered(low, {}), d["dtype"])
+        out.append((f"matmul {d['dtype']} {d['version']} shape={d['shape']}",
+                    row["bound_ms"], ms * 1e3, row["bound_by"], by))
+    return out
+
+
+def roofline_phase(walks: list, report: dict) -> None:
+    """Path 17 (the module docstring's phase 25), (a) to (c), and the
+    phase's seconds."""
+    t_phase = time.perf_counter()
+    walk_bound_phase(walks)
+    traced_step_phase(report)
+    dryrun_cell_phase()
+    print(f"[phase path17] {time.perf_counter() - t_phase:.1f} s (target "
+          f"about 60 s)", flush=True)
+
+
+def walk_bound_phase(walks: list) -> None:
+    """(a) Every kernel row's bound against the walk's."""
+    worst = 0.0
+    for label, row_ms, walk_ms, row_by, walk_by in walks:
+        check(walk_ms is not None,
+              f"path17 (a) {label}: no cluster of its program in the plan")
+        rel = abs(walk_ms - row_ms) / row_ms
+        worst = max(worst, rel)
+        print(f"[path17 (a)] {label}: row bound {row_ms:.6g} ms "
+              f"({row_by}), walk {walk_ms:.6g} ms ({walk_by}), rel "
+              f"{rel:.2e}", flush=True)
+        check(rel <= TOL_PATH17_BOUND and walk_by == row_by,
+              f"path17 (a) {label}: walk {walk_ms} ms ({walk_by}) against "
+              f"the row's {row_ms} ms ({row_by})")
+    check(len(walks) > 0, "path17 (a): no kernel rows walked")
+    print(f"[path17 (a)] {len(walks)} rows, worst rel {worst:.2e} (<= "
+          f"{TOL_PATH17_BOUND})", flush=True)
+
+
+def traced_step_phase(report: dict) -> None:
+    """(b) Path 15's step (TinyLlama-1.1B, bf16, B x 2048) traced at one
+    rank by the dry run's tracer, beside path 15's measured step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCell
+
+    meas = report.get(("path15", "bf16"), {})
+    check("ms" in meas, "path17 (b): path 15 measured no step")
+    cfg = get_config("tinyllama_11b")
+    cell = ShapeCell("path15", PATH15_SEQ, meas["b"], "train")
+    t0 = time.perf_counter()
+    res = dryrun.lower(cfg, cell, None, arch="tinyllama_11b",
+                       mesh_name="1")
+    bound_s = max(res["t_compute_s"], res["t_memory_s"])
+    step_s = meas["ms"] / 1e3
+    mem = res["memory_analysis"]
+    tag = f"[path17 (b) bf16 {cfg.n_layers}L B={meas['b']}]"
+    print(f"{tag} traced {res['traced']} in {res['lower_seconds']} s, "
+          f"walked in {res['compile_seconds']} s "
+          f"({time.perf_counter() - t0:.1f} s): flops {res['hlo_flops']:.6e}"
+          f", bytes {res['hlo_bytes']:.6e}, model flops "
+          f"{res['model_flops']:.6e}; t_compute {res['t_compute_s'] * 1e3:.3f}"
+          f" ms, t_memory {res['t_memory_s'] * 1e3:.3f} ms ({res['dominant']})"
+          f"; estimated peak {res['peak_memory_per_device']:.6e} B "
+          f"(arguments {mem['argument_size_bytes']}, temp "
+          f"{mem['temp_size_bytes']}); path 15 measured {meas['ms']:.1f} ms "
+          f"a step ({step_s / bound_s:.3f} x the bound), peak "
+          f"{meas['peak']} B", flush=True)
+    check(step_s >= PATH17_STEP_SLACK * bound_s,
+          f"{tag} the measured step {meas['ms']:.1f} ms undercuts the "
+          f"walk's bound {bound_s * 1e3:.1f} ms: the walk overcounts")
+
+
+def dryrun_cell_phase() -> None:
+    """(c) One dry-run cell through the module's command line in a
+    subprocess (its fake process group of 256 ranks ends with it)."""
+    import os
+
+    from repro_torch.launch.dryrun import REPORT_DIR
+
+    arch, cell = PATH17_CELL
+    out = REPORT_DIR / "16x16" / f"{arch}__{cell}.json"
+    if out.exists():
+        out.unlink()
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--cell", cell], cwd=ROOT, capture_output=True, text=True,
+            timeout=PATH17_CELL_TIMEOUT_S,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    except subprocess.TimeoutExpired:
+        raise PhaseError(f"path17 (c): {arch} x {cell} did not finish in "
+                         f"{PATH17_CELL_TIMEOUT_S} s") from None
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"path17 (c): rc {proc.returncode}: {proc.stderr[-2000:]}")
+    res = json.loads(out.read_text())
+    check(res.get("status") == "ok" and res.get("chips") == 256
+          and res["hlo_flops"] >= res["model_flops"] > 0
+          and res["hlo_bytes"] > 0 and res["coll_bytes"] > 0,
+          f"path17 (c): {res}")
+    print(f"[path17 (c)] {arch} x {cell} on 16x16 in {seconds:.1f} s "
+          f"(subprocess): {json.dumps(res)}", flush=True)
 
 
 def finish(rows: list, report: dict, card: str, kind: str) -> int:

@@ -24,7 +24,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from ..grad import kernel_call
+from ..grad import kernel_call, plain_call
 from ..select import use_kernel
 from .. import sharded
 from ..triton_build import LaunchCounter
@@ -106,7 +106,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        causal=causal, q_offset=q_offset,
                                        scale=scale)
     if not use_kernel(q, "flash_attention"):
-        return _plain(q, k, v, lens, q_offset, causal, scale)
+        return plain_call(_plain, q, k, v, lens, q_offset, causal,
+                          scale)
     out = kernel_call(_kernel, _plain, q, k, v, lens, q_offset, causal,
                       scale)
     LAUNCHES.launches += 1

@@ -27,9 +27,9 @@ from typing import Any, Callable
 
 import torch
 
-from .select import plain_versions
+from .select import in_plain_as_kernels, plain_versions
 
-__all__ = ["kernel_call", "PlainGrad"]
+__all__ = ["kernel_call", "plain_call", "PlainGrad"]
 
 
 def _needs_grad(*args: Any) -> bool:
@@ -95,3 +95,13 @@ def kernel_call(kernel: Callable, plain: Callable, *args: Any):
     if not _needs_grad(*args):
         return kernel(*args)
     return PlainGrad.apply(kernel, plain, *args)
+
+
+def plain_call(plain: Callable, *args: Any):
+    """``plain(*args)``, a wrapper's plain version.  Inside
+    :func:`~repro_torch.kernels.select.plain_as_kernels`, with grad and
+    an input that requires it, it takes :func:`kernel_call`'s route with
+    the plain version in the kernel's place."""
+    if in_plain_as_kernels() and _needs_grad(*args):
+        return PlainGrad.apply(plain, plain, *args)
+    return plain(*args)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..grad import kernel_call
+from ..grad import kernel_call, plain_call
 from ..select import use_kernel
 from .. import sharded
 from ..triton_build import LaunchCounter
@@ -36,7 +36,7 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     if any(sharded.is_dtensor(t) for t in (x, scale, bias)):
         return sharded.rows(layernorm, x, scale, bias, eps=eps)
     if not use_kernel(x, "layernorm"):
-        return layernorm_ref(x, scale, bias, eps)
+        return plain_call(layernorm_ref, x, scale, bias, eps)
     out = kernel_call(_kernel, layernorm_ref, x, scale, bias, eps)
     LAUNCHES.launches += 1
     return out

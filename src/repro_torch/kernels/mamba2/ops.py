@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..grad import kernel_call
+from ..grad import kernel_call, plain_call
 from ..select import use_kernel
 from .. import sharded
 from ..triton_build import LaunchCounter
@@ -44,7 +44,7 @@ def mamba2_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             (bh, bh, {"B": 0}, {"B": 0}, bh if s0 is not None else None),
             (bh, bh), lens)
     if not use_kernel(x, "mamba2_scan"):
-        return mamba2_chunked(x, a, b, c, s0, lens)
+        return plain_call(mamba2_chunked, x, a, b, c, s0, lens)
     from .mamba2 import mamba2_kernel
 
     out = kernel_call(mamba2_kernel, mamba2_chunked, x, a, b, c, s0, lens)

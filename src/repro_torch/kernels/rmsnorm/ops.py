@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..grad import kernel_call
+from ..grad import kernel_call, plain_call
 from ..select import use_kernel
 from .. import sharded
 from ..triton_build import LaunchCounter
@@ -34,7 +34,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
     if sharded.is_dtensor(x) or sharded.is_dtensor(w):
         return sharded.rows(rmsnorm, x, w, eps=eps)
     if not use_kernel(x, "rmsnorm"):
-        return rmsnorm_ref(x, w, eps)
+        return plain_call(rmsnorm_ref, x, w, eps)
     out = kernel_call(_kernel, rmsnorm_ref, x, w, eps)
     LAUNCHES.launches += 1
     return out

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..grad import kernel_call
+from ..grad import kernel_call, plain_call
 from ..select import use_kernel
 from .. import sharded
 from ..triton_build import LaunchCounter
@@ -44,7 +44,7 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             (bh, bh, bh, bh, {"H": 0}, bh if s0 is not None else None),
             (bh, bh), lens)
     if not use_kernel(r, "rwkv6"):
-        return rwkv6_ref(r, k, v, w, u, s0, lens)
+        return plain_call(rwkv6_ref, r, k, v, w, u, s0, lens)
     from .rwkv6 import rwkv6_kernel
 
     out = kernel_call(rwkv6_kernel, rwkv6_ref, r, k, v, w, u, s0, lens)

@@ -18,12 +18,15 @@ from typing import Iterator
 
 import torch
 
-__all__ = ["plain_versions", "in_plain_versions", "use_kernel"]
+__all__ = ["plain_versions", "in_plain_versions", "use_kernel",
+           "plain_as_kernels", "in_plain_as_kernels"]
 
 _PLAIN = contextvars.ContextVar("repro_torch_plain_versions", default=False)
 # open plain_versions() contexts, as a module global: dynamo reads (and
 # guards on) a global, while it cannot trace ContextVar.get
 _PLAIN_DEPTH = 0
+# open plain_as_kernels() contexts (a module global for the same reason)
+_AS_KERNELS_DEPTH = 0
 
 
 @contextlib.contextmanager
@@ -38,6 +41,28 @@ def plain_versions() -> Iterator[None]:
     finally:
         _PLAIN_DEPTH -= 1
         _PLAIN.reset(token)
+
+
+@contextlib.contextmanager
+def plain_as_kernels() -> Iterator[None]:
+    """Inside this context a wrapper that runs its plain version under
+    grad runs it the way it runs its kernel on the card: through
+    :class:`~repro_torch.kernels.grad.PlainGrad`, so the forward keeps
+    none of the plain version's intermediates and the backward recomputes
+    it (:func:`~repro_torch.kernels.grad.plain_call`).  The dry run traces
+    a train step so: its graph then holds the card's backward and its
+    memory, with the plain version's ops standing in for each kernel."""
+    global _AS_KERNELS_DEPTH
+    _AS_KERNELS_DEPTH += 1
+    try:
+        yield
+    finally:
+        _AS_KERNELS_DEPTH -= 1
+
+
+def in_plain_as_kernels() -> bool:
+    """True inside :func:`plain_as_kernels`."""
+    return _AS_KERNELS_DEPTH > 0
 
 
 def in_plain_versions() -> bool:

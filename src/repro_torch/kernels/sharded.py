@@ -65,7 +65,12 @@ def _contig(shape: Sequence[int]) -> Tuple[int, ...]:
 
 
 def _wrap(local: torch.Tensor, mesh, placements, shape) -> Any:
+    """A kernel's local output as a DTensor of the global ``shape``,
+    contiguous as its strides declare (a kernel writes a contiguous
+    output; a plain version may return a view)."""
     from torch.distributed.tensor import DTensor
+    if not local.is_contiguous():
+        local = local.contiguous()
     return DTensor.from_local(local, mesh, tuple(placements),
                               run_check=False, shape=torch.Size(shape),
                               stride=_contig(shape))
@@ -89,14 +94,56 @@ def _sharding(placements, d: int) -> List[int]:
             if isinstance(p, Shard) and p.dim == d]
 
 
-def _local(x: Any, mesh, placements):
+class _LaidOutGrad(torch.autograd.Function):
+    """The identity on a DTensor's local shard whose gradient is laid out
+    as the shard is.  DTensor rebuilds the shard's gradient with the
+    DTensor's own strides, whatever the local gradient's layout; a plain
+    version's backward may hand back a transposed one (attention's
+    ``(B, H, S, hd)``), and a later ``view`` of the gradient then fails."""
+
+    @staticmethod
+    def forward(ctx, local):
+        ctx.stride = local.stride()
+        return local.view_as(local)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if grad.stride() == ctx.stride:
+            return grad
+        return torch.empty_strided(grad.shape, ctx.stride, dtype=grad.dtype,
+                                   device=grad.device).copy_(grad)
+
+
+def _local(x: Any, mesh, placements, split: Optional[tuple] = None):
     """``x``'s local shard under ``placements``: a DTensor is
-    redistributed (a collective where its layout differs); a plain
+    redistributed (a collective where its layout differs), and its shard
+    is differentiable where it requires grad; a plain
     tensor — the same on every rank, or a broadcast view of such — is
-    sliced locally."""
+    sliced locally.
+
+    ``split`` is the placements of the kernel's output: over a mesh dim
+    it shards while ``x`` is whole there (a norm's weight beside sharded
+    rows), each rank's gradient for ``x`` is its share of a sum
+    (``Partial``)."""
     if is_dtensor(x):
         if tuple(x.placements) != tuple(placements):
             x = x.redistribute(mesh, tuple(placements))
+        # to_local() carries the gradient back to the DTensor (training
+        # under a mesh); the bare shard is the same tensor without it
+        if x.requires_grad and torch.is_grad_enabled():
+            # a shard laid out as the DTensor's strides say (DTensor's
+            # redistribute keeps a transposed view's strides while it
+            # gathers into a fresh, contiguous shard), so that the
+            # gradient DTensor rebuilds from it is laid out as it says
+            if not x.is_contiguous():
+                x = x.contiguous()
+            grad = None
+            if split is not None:
+                Partial, _, Shard = _placement_types()
+                grad = tuple(Partial() if isinstance(s, Shard)
+                             and not isinstance(p, Shard) else p
+                             for p, s in zip(placements, split))
+            return _LaidOutGrad.apply(x.to_local(grad_placements=grad))
         return x._local_tensor
     if not isinstance(x, torch.Tensor):
         return x
@@ -287,7 +334,8 @@ def rows(fn: Callable, x: Any, *params: Any, **kw) -> Any:
                   else Replicate() for p in x.placements) \
         if is_dtensor(x) else (Replicate(),) * mesh.ndim
     lx = _local(x, mesh, place)
-    lp = [_replicated(p, mesh) for p in params]
+    whole = (Replicate(),) * mesh.ndim
+    lp = [_local(p, mesh, whole, split=place) for p in params]
     return _wrap(fn(lx, *lp, **kw), mesh, place, x.shape)
 
 
@@ -345,7 +393,8 @@ def flash_attention(fn: Callable, q: Any, k: Any, v: Any, lens: Any, *,
                      (p.dim == 0 or kv_heads_split) else Replicate()
                      for p in bh)
     lq = _local(q, mesh, bh)
-    lk, lv = _local(k, mesh, kv_place), _local(v, mesh, kv_place)
+    lk = _local(k, mesh, kv_place, split=bh)
+    lv = _local(v, mesh, kv_place, split=bh)
     if hdims and not kv_heads_split:
         # every rank's query heads read a contiguous range of KV heads
         g = hq // hkv
@@ -371,7 +420,8 @@ def mla_decode(fn: Callable, q_abs: Any, q_pe: Any, kv_c: Any, k_pe: Any,
     cache_place = tuple(p if isinstance(p, Shard) and p.dim == 0
                         else Replicate() for p in place)
     out = fn(_local(q_abs, mesh, place), _local(q_pe, mesh, place),
-             _local(kv_c, mesh, cache_place), _local(k_pe, mesh, cache_place),
+             _local(kv_c, mesh, cache_place, split=place),
+             _local(k_pe, mesh, cache_place, split=place),
              _rows_of(lens, mesh, place, 0), scale)
     return _wrap(out, mesh, place, q_abs.shape)
 
@@ -386,8 +436,8 @@ def batch_heads(fn: Callable, lead: Any, operands: Sequence[Any],
     Returns the outputs wrapped by ``out_roles``."""
     mesh = _mesh_of(lead, *operands)
     place = _bh_placements(lead, 0, 1, mesh)
-    locs = [_local(x, mesh, _like(place, role)) if role is not None else x
-            for x, role in zip(operands, roles)]
+    locs = [_local(x, mesh, _like(place, role), split=place)
+            if role is not None else x for x, role in zip(operands, roles)]
     outs = fn(*locs, lens=_rows_of(lens, mesh, place, 0))
     wrapped = []
     for o, role in zip(outs, out_roles):

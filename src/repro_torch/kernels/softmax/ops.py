@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..grad import kernel_call
+from ..grad import kernel_call, plain_call
 from ..select import use_kernel
 from .. import sharded
 from ..triton_build import LaunchCounter
@@ -34,7 +34,8 @@ def masked_softmax(x: torch.Tensor, n_valid: int) -> torch.Tensor:
     c = x.shape[-1]
     rows = x.reshape(-1, c)
     if not use_kernel(x, "masked_softmax"):
-        return masked_softmax_ref(rows, n_valid).reshape(x.shape)
+        return plain_call(masked_softmax_ref, rows,
+                          n_valid).reshape(x.shape)
     from .softmax import masked_softmax_kernel
 
     out = kernel_call(masked_softmax_kernel, masked_softmax_ref, rows,

@@ -20,10 +20,18 @@ model, its cache (KV rows, recurrent state, MLA's latent, or both for the
 hybrid) and every kernel run on the card unless ``--device cpu`` is
 given.  A model whose weights do not fit the card (DBRX at its 40
 layers: 263 GB in bf16; DeepSeek-V2 at its 60: 483 GB) is refused before
-anything is allocated; it waits for the multi-GPU slice.
+anything is allocated: this launcher runs one card (a mesh of cards
+takes ``ServeConfig(mesh=...)``).  ``--dry-run`` runs nothing: it traces
+the full config's ``decode_32k`` cell on the 16x16 mesh on the CPU
+(:func:`repro_torch.launch.dryrun.lower_cell`) and prints its result as
+JSON.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_11b \\
+        --dry-run
 """
 import argparse
 import dataclasses
+import json
 
 import torch
 
@@ -46,13 +54,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower and compile only (not ported yet)")
+                    help="trace the full config's decode_32k cell on the "
+                         "16x16 mesh and walk it; no execution")
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run (lower and compile a full configuration without "
-            "running it) arrives with the port's launch slice")
+        from .dryrun import lower_cell
+        out = lower_cell(args.arch, "decode_32k", multi_pod=False)
+        print(json.dumps(out))
+        return out
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -9,7 +9,9 @@ Weights are random, drawn from a seeded ``torch.Generator``; batches come
 from :class:`~repro_torch.data.pipeline.SyntheticLMStream` (a pure
 function of its seed and the step, so a resumed run sees the batches it
 would have seen).  The model, the optimizer state and every kernel run
-on the card unless ``--device cpu`` is given.  Features: microbatching,
+on the card unless ``--device cpu`` is given (``--dry-run`` traces the
+full config's ``train_4k`` cell on the CPU instead and prints its
+result as JSON).  Features: microbatching,
 gradient compression, checkpoints every ``--ckpt-every`` steps (written
 by a thread) and resume from the newest one in ``--ckpt``, the
 supervisor's heartbeats.  :func:`run` is the loop, callable with the
@@ -19,6 +21,7 @@ card's peak memory.
 import argparse
 import contextlib
 import dataclasses
+import json
 import tempfile
 
 import numpy as np
@@ -46,7 +49,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true",
                     help="width-reduced config (CPU-runnable)")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower and compile only (not ported yet)")
+                    help="trace the full config's train_4k cell on the "
+                         "16x16 mesh and walk it; no execution")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--grad-compression", choices=["bf16", "topk"],
                     default=None)
@@ -62,12 +66,14 @@ def run(args) -> dict:
     """The training loop of :func:`main` over parsed flags; returns
     ``{"losses", "grad_norms", "step_seconds", "peak_bytes", "start",
     "state", "model"}`` (``peak_bytes``: the card's
-    ``max_memory_allocated`` over the run, None on the CPU)."""
+    ``max_memory_allocated`` over the run, None on the CPU).  With
+    ``--dry-run`` it runs nothing and returns the full config's
+    ``train_4k`` cell traced on the single-pod mesh
+    (:func:`repro_torch.launch.dryrun.lower_cell`), on the CPU."""
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run (lower and compile a full configuration without "
-            "running it) arrives with the port's dry-run launchers "
-            "(ROADMAP Queue 1 item 12)")
+        from .dryrun import lower_cell
+        return lower_cell(args.arch, "train_4k", multi_pod=False,
+                          microbatches=args.microbatches)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), max_seq=args.seq)
@@ -129,7 +135,10 @@ def run(args) -> dict:
 
 
 def main(argv=None):
-    run(parser().parse_args(argv))
+    args = parser().parse_args(argv)
+    out = run(args)
+    if args.dry_run:
+        print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -180,12 +180,45 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     it, outside any kernel."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if _is_dtensor(logits):
+        gold = _selected_gold(logits, labels)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / mask.sum().clamp(min=1.0)
     return nll.mean()
+
+
+def _is_dtensor(x: torch.Tensor) -> bool:
+    if type(x) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _selected_gold(logits: torch.Tensor,
+                   labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]`` of a DTensor: each rank selects its own
+    slice's hit against the vocabulary's indices, and the sum over the
+    axis combines the ranks where the vocabulary is split (one all-reduce
+    of the (B, S) result).  ``torch.gather`` is not used on a DTensor:
+    over a split vocabulary DTensor masks its partial result with one
+    axis too many (the trace or the run raises), and its gradient starts
+    from ``new_zeros``, which DTensor makes at the logits' global shape
+    on every rank (TinyLlama's ``train_4k``: 134 GB a rank)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if _is_dtensor(labels):
+        # the labels laid out as the logits' leading axes (a local slice:
+        # the batch may be split over more mesh axes in the logits)
+        place = tuple(p if isinstance(p, Shard) and p.dim < labels.dim()
+                      else Replicate() for p in logits.placements)
+        labels = labels.redistribute(logits.device_mesh, place)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    hit = vocab == labels[..., None].long()
+    return torch.where(hit, logits, 0.0).sum(-1)
 
 
 def greedy_decode(step_fn: Callable, cache, first_tokens: torch.Tensor,

@@ -44,12 +44,102 @@ from ..kernels.layernorm import ops as ln_ops
 from ..kernels.mamba2 import ops as ssd_ops
 from ..kernels.rmsnorm import ops as rms_ops
 from ..kernels.rwkv6 import ops as wkv_ops
+from ..kernels.sharded import is_dtensor
 from ..kernels.softmax import ops as sm_ops
 from ..dist.context import get_mesh, maybe_shard
 from ..dist.profiles import PartitionSpec as P
 from .common import ArchConfig, dtype_of, param_init
 
 Params = Dict[str, Any]
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` at ``tokens``: ``table[tokens]``.  Under a
+    mesh the lookup runs on local shards: the table whole on every rank
+    (gathered where it is split, as DTensor's own rule for the index
+    gathers it), the tokens and the result split as the tokens are, and
+    the table's gradient summed over the ranks the tokens split.
+    DTensor's rule for the gradient of ``table[tokens]`` (an
+    ``index_put``) fails in some torch releases (2.11, under ``fsdp``),
+    and its embedding rule over a split vocabulary fails in others."""
+    if not (is_dtensor(table) or is_dtensor(tokens)):
+        return table[tokens]
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..kernels.sharded import _local, _mesh_of, _wrap
+
+    mesh = _mesh_of(table, tokens)
+    place = tuple(p if isinstance(p, Shard) else Replicate()
+                  for p in tokens.placements) if is_dtensor(tokens) \
+        else (Replicate(),) * mesh.ndim
+    rows = _local(tokens, mesh, place)
+    whole = _local(table, mesh, (Replicate(),) * mesh.ndim, split=place)
+    return _wrap(whole[rows], mesh, place,
+                 tuple(tokens.shape) + tuple(table.shape[1:]))
+
+
+class _TransposedCopy(torch.autograd.Function):
+    """``x.transpose(1, 2)`` as a contiguous copy, and its gradient as
+    one.  Under a mesh a transposed view's gradient is a transposed
+    shard, which DTensor's pointwise ops (``exp``'s and ``softplus``'s
+    gradients) pass on declared contiguous; a ``view`` of it then fails
+    (Mamba-2's decay, ``(B, S, H)`` -> ``(B, H, S)``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.transpose(1, 2).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.transpose(1, 2).contiguous()
+
+
+class _MergeHeads(torch.autograd.Function):
+    """(..., n, hd) -> (..., n * hd), whose gradient is split back by
+    :func:`split_heads` (gathered first where the ranks do not divide
+    ``n``)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.n, ctx.hd = t.shape[-2], t.shape[-1]
+        return t.reshape(*t.shape[:-2], ctx.n * ctx.hd)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return split_heads(grad, ctx.n, ctx.hd)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (..., n, hd) as (..., n * hd).  Under a mesh the gradient,
+    split over the ranks along the merged axis, is split into heads by
+    :func:`split_heads`, as the forward's heads were."""
+    if not is_dtensor(t):
+        return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+    return _MergeHeads.apply(t)
+
+
+def _transposed_copy(x: torch.Tensor) -> torch.Tensor:
+    if not is_dtensor(x):
+        return x.transpose(1, 2)
+    return _TransposedCopy.apply(x)
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """``t`` (..., n * hd) as (..., n, hd).  Under a mesh, a last axis
+    split over more ranks than ``n`` divides (TinyLlama's 4 KV heads over
+    16 ``"model"`` ranks) is gathered over those ranks first: DTensor
+    cannot split one sharded axis into two, where the reference's
+    compiler re-tiles it."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        last = t.dim() - 1
+        dims = [j for j, pl in enumerate(t.placements)
+                if isinstance(pl, Shard) and pl.dim == last]
+        if dims and n % math.prod(t.device_mesh.size(j) for j in dims):
+            place = tuple(Replicate() if j in dims else pl
+                          for j, pl in enumerate(t.placements))
+            t = t.redistribute(t.device_mesh, place)
+    return t.reshape(*t.shape[:-1], n, hd)
+
 
 # activation sharding specs (logical) — "tp" profile
 A_BSD = P(("pod", "data"), None, None)      # (B, S, D)
@@ -98,7 +188,8 @@ __all__ = ["norm_init", "norm_apply", "rope_tables", "apply_rope",
            "A_BSH", "A_BSF", "act_bsd", "act_bsh", "act_bsf", "wspec",
            "norm_specs", "attn_specs", "attn_cache_specs", "mla_specs",
            "mla_cache_specs", "mlp_specs", "moe_specs", "rwkv6_specs",
-           "rwkv6_cache_specs", "mamba2_specs", "mamba2_cache_specs"]
+           "rwkv6_cache_specs", "mamba2_specs", "mamba2_cache_specs",
+           "embed", "split_heads", "merge_heads"]
 
 
 # ---------------------------------------------------------------- norms --
@@ -206,9 +297,9 @@ def attn_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     src = x if kv_source is None else kv_source
-    q = maybe_shard((x @ p["wq"]).reshape(b, s, h, hd), act_bsh(cfg))
-    k = (src @ p["wk"]).reshape(b, src.shape[1], hkv, hd)
-    v = (src @ p["wv"]).reshape(b, src.shape[1], hkv, hd)
+    q = maybe_shard(split_heads(x @ p["wq"], h, hd), act_bsh(cfg))
+    k = split_heads(src @ p["wk"], hkv, hd)
+    v = split_heads(src @ p["wv"], hkv, hd)
     if kv_source is None:   # self-attention: RoPE
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
@@ -245,7 +336,7 @@ def attn_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     else:
         o = _sdpa(q, k, v, causal=causal and kv_source is None, lens=lens,
                   q_offset=0)
-    o = o.transpose(1, 2).reshape(b, s, h * hd)
+    o = merge_heads(o.transpose(1, 2))
     return maybe_shard(o @ p["wo"], act_bsd(cfg)), new_cache
 
 
@@ -306,10 +397,10 @@ def mla_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     3); without the flag it takes the expansion path."""
     b, s, d = x.shape
     h, hd, rdim = cfg.n_heads, cfg.hd, cfg.mla_rope_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd + rdim)
+    q = split_heads(x @ p["wq"], h, hd + rdim)
     q_nope, q_pe = q[..., :hd], q[..., hd:]
     kv_c = x @ p["w_dkv"]                         # (B, S, lora)
-    k_pe = (x @ p["w_kpe"]).reshape(b, s, 1, rdim)
+    k_pe = split_heads(x @ p["w_kpe"], 1, rdim)
     cos, sin = rope_tables(positions, rdim, cfg.rope_theta)
     q_pe = apply_rope(q_pe, cos, sin)
     k_pe = apply_rope(k_pe, cos, sin)[..., 0, :]  # (B, S, rope)
@@ -354,14 +445,14 @@ def mla_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
         o_lat = fa_ops.mla_decode(q_abs.to(dt), q_pe.to(dt), kv_all,
                                   kpe_all, eff_lens, scale)
         o = torch.einsum("bqhl,lhd->bqhd", o_lat.float(), w_uv.float())
-        return o.reshape(b, s, h * hd).to(x.dtype) @ p["wo"], new_cache
+        return merge_heads(o).to(x.dtype) @ p["wo"], new_cache
 
     # prefill / train / expanded decode: per-head keys and values from the
     # latent, the rope part folded into the head dim: scores =
     # [q_nope | q_pe] . [k_nope | k_pe]
     sk = kv_all.shape[1]
-    k_nope = (kv_all @ p["w_uk"]).reshape(b, sk, h, hd)
-    v = (kv_all @ p["w_uv"]).reshape(b, sk, h, hd)
+    k_nope = split_heads(kv_all @ p["w_uk"], h, hd)
+    v = split_heads(kv_all @ p["w_uv"], h, hd)
     q_eff = torch.cat([q_nope, q_pe], dim=-1)      # (B, S, H, hd + rope)
     k_eff = torch.cat([k_nope, kpe_all[:, :, None, :].expand(
         b, sk, h, rdim).to(k_nope.dtype)], dim=-1)
@@ -369,7 +460,7 @@ def mla_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
         q_eff.transpose(1, 2), k_eff.transpose(1, 2), v.transpose(1, 2),
         eff_lens, causal=causal, q_offset=0 if offsets is None else offsets,
         scale=scale)
-    o = o.transpose(1, 2).reshape(b, s, h * hd).to(x.dtype)
+    o = merge_heads(o.transpose(1, 2)).to(x.dtype)
     return o @ p["wo"], new_cache
 
 
@@ -571,8 +662,7 @@ def _moe_expert_parallel(cfg: ArchConfig, p: Params, tokens, gates, ids,
     the output does not depend on the bucket; where no token is padded
     it is the reference's.  A plain ``tokens`` (no DTensor) is every
     data rank's: the result is then a plain tensor too."""
-    import torch.distributed._functional_collectives as funcol
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
     from ..kernels.sharded import _local, _wrap, is_dtensor
 
@@ -589,8 +679,13 @@ def _moe_expert_parallel(cfg: ArchConfig, p: Params, tokens, gates, ids,
                       else Replicate() for j in range(mesh.ndim))
     w_place = tuple(Shard(0) if j == mi else Replicate()
                     for j in range(mesh.ndim))
-    toks, gat, idd = (_local(v, mesh, tok_place) for v in (tokens, gates, ids))
-    w_in, w_gate, w_out = (_local(p[k], mesh, w_place)
+    # the work splits over the experts ("model") and the token rows: an
+    # operand whole over either gets its gradient there as a partial sum
+    work = tuple(Shard(0) if j == mi or (j in dp_dims and sharded_rows)
+                 else Replicate() for j in range(mesh.ndim))
+    toks, gat, idd = (_local(v, mesh, tok_place, split=work)
+                      for v in (tokens, gates, ids))
+    w_in, w_gate, w_out = (_local(p[k], mesh, w_place, split=work)
                            for k in ("w_in", "w_gate", "w_out"))
     r = mesh.get_coordinate()[mi]
     local_ids = idd - r * e_loc      # out-of-slice ids become invalid
@@ -607,12 +702,15 @@ def _moe_expert_parallel(cfg: ArchConfig, p: Params, tokens, gates, ids,
         limit = (torch.ceil(lim / 8) * 8).clamp(min=8).long()
     y = _moe_experts_local(cfg, w_in, w_gate, w_out, toks, gat, local_ids,
                            cap, vloc, limit)
-    # each token's k experts may live on different EP ranks
-    y = funcol.all_reduce(y, "sum", (mesh, mi))
-    y = funcol.wait_tensor(y) if hasattr(funcol, "wait_tensor") else y
+    # each token's k experts may live on different EP ranks: the partial
+    # outputs summed over "model" (one all-reduce, whose gradient DTensor
+    # carries back as the same layout)
+    part = tuple(Partial() if j == mi else pl
+                 for j, pl in enumerate(tok_place))
+    y = _wrap(y, mesh, part, (t, d)).redistribute(mesh, tok_place)
     if not is_dtensor(tokens):
-        return y
-    return _wrap(y, mesh, tok_place, (t, d))
+        return y.to_local()
+    return y
 
 
 def moe_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
@@ -744,7 +842,7 @@ def rwkv6_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
         return x * mix[i] + xp * (1 - mix[i])
 
     def heads(t):   # (B, S, D) -> a (B, H, S, hp) view
-        return t.reshape(b, s, n_heads, hp).transpose(1, 2)
+        return split_heads(t, n_heads, hp).transpose(1, 2)
 
     r = heads(mixed(0) @ p["w_r"])
     k = heads(mixed(1) @ p["w_k"])
@@ -759,7 +857,7 @@ def rwkv6_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
         y, s_new = wkv_ops.rwkv6(r, k, v, w, p["u"], cache["s"], lens)
         new_cache = {"s": s_new,
                      "x_prev": _last_rows(x, lens, cache["x_prev"])}
-    y = y.transpose(1, 2).reshape(b, s, d).to(x.dtype)
+    y = merge_heads(y.transpose(1, 2)).to(x.dtype)
     return (y * g) @ p["w_out"], new_cache
 
 
@@ -827,8 +925,8 @@ def mamba2_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     bmat, cmat = bc[..., :n], bc[..., n:]
     dt_ = torch.nn.functional.softplus((x @ p["w_dt"]).float())  # (B,S,H)
     a = torch.exp(-dt_ * torch.exp(p["a_log"]))
-    xh = xz.reshape(b, s, n_heads, hp).transpose(1, 2)           # (B,H,S,P)
-    ah = a.transpose(1, 2)                                       # (B,H,S)
+    xh = split_heads(xz, n_heads, hp).transpose(1, 2)            # (B,H,S,P)
+    ah = _transposed_copy(a)                                     # (B,H,S)
     new_cache = None
     if cache is None:
         y, _ = ssd_ops.mamba2_scan(xh, ah, bmat, cmat)
@@ -836,7 +934,7 @@ def mamba2_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
         y, h_new = ssd_ops.mamba2_scan(xh, ah, bmat, cmat, cache["h"], lens)
         new_cache = {"h": h_new}
     y = y + p["skip"][None, :, None, None] * xh.float()
-    y = y.transpose(1, 2).reshape(b, s, d_in).to(x.dtype)
+    y = merge_heads(y.transpose(1, 2)).to(x.dtype)
     return (y * z) @ p["w_out"], new_cache
 
 

@@ -111,7 +111,7 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
             lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence forward from a zero state: tokens (B, S) -> logits
     (B, S, V).  ``lens`` is ignored, as in the reference."""
-    x = params["embed"][tokens]
+    x = L.embed(params["embed"], tokens)
     for bp in params["blocks"]:
         a, _ = L.rwkv6_apply(cfg, bp["tmix"],
                              L.norm_apply(cfg, bp["ln1"], x))
@@ -168,7 +168,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Params,
                 tokens: torch.Tensor, lens: torch.Tensor):
     """One decode step: tokens (B, 1) -> (logits (B, 1, V), new cache).
     ``lens`` (the cache fill) is unused: the state carries the prefix."""
-    x = params["embed"][tokens]
+    x = L.embed(params["embed"], tokens)
     x, new_cache = _run_blocks(cfg, params, cache, x, None)
     x = L.norm_apply(cfg, params["ln_f"], x)
     return x @ params["head"], new_cache
@@ -187,7 +187,7 @@ def prefill(cfg: ArchConfig, params: Params, cache: Params,
     ``(last_logits (B, V), new_cache)``: the logits at each row's last
     valid position, and the cache after ``lens[b]`` tokens; a row with
     ``lens = 0`` keeps its cache (its logits are unspecified)."""
-    x = params["embed"][tokens]
+    x = L.embed(params["embed"], tokens)
     x, new_cache = _run_blocks(cfg, params, cache, x, lens)
     b = x.shape[0]
     last = x[torch.arange(b, device=x.device), (lens - 1).clamp(min=0)]

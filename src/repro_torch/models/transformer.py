@@ -112,7 +112,7 @@ def specs(cfg: ArchConfig) -> Params:
 
 def embed_tokens(cfg: ArchConfig, params: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return L.maybe_shard(params["embed"][tokens], L.act_bsd(cfg))
+    return L.maybe_shard(L.embed(params["embed"], tokens), L.act_bsd(cfg))
 
 
 def logits_from_hidden(cfg: ArchConfig, params: Params,

@@ -16,7 +16,7 @@ decoder's KV cache keeps the reference's layer-stacked ``{"k", "v"}``
 leaves (L, B, Hkv, S, hd).  Each decode step projects the
 cross-attention K and V from ``enc_out`` again, as the reference does.
 
-Sharding (``specs``) arrives with the port's multi-GPU slice.
+Its sharding specs are the reference's (``specs``, ``cache_specs``).
 """
 from __future__ import annotations
 
@@ -149,7 +149,7 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
     """Encoder over ``frames``, then the decoder over ``tokens`` (B, S)
     -> logits (B, S, V)."""
     enc_out = encode(cfg, params, frames)
-    x = params["embed"][tokens]
+    x = L.embed(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _ = _decoder_blocks(cfg, params, x, enc_out, positions=positions,
                            lens=lens)
@@ -179,7 +179,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Params,
                 enc_out: torch.Tensor):
     """One decoder step: tokens (B, 1), lens (B,) the cache fill, enc_out
     (B, encoder_len, D) -> (logits (B, 1, V), new cache)."""
-    x = params["embed"][tokens]
+    x = L.embed(params["embed"], tokens)
     x, new_cache = _decoder_blocks(cfg, params, x, enc_out,
                                    positions=lens[:, None], lens=lens,
                                    caches=cache)

@@ -152,7 +152,7 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
     """Full-sequence forward from a zero state: tokens (B, S) -> logits
     (B, S, V).  ``lens`` masks the shared blocks' keys only; the Mamba
     blocks ignore it, as in the reference."""
-    x = params["embed"][tokens]
+    x = L.embed(params["embed"], tokens)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     off = 0
@@ -214,7 +214,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Params,
                 tokens: torch.Tensor, lens: torch.Tensor):
     """One decode step: tokens (B, 1), lens (B,) current cache fill ->
     (logits (B, 1, V), new cache)."""
-    x = params["embed"][tokens]
+    x = L.embed(params["embed"], tokens)
     x, new_cache = _run(cfg, params, cache, x, positions=lens[:, None],
                         lens=lens)
     x = L.norm_apply(cfg, params["ln_f"], x)
@@ -235,7 +235,7 @@ def prefill(cfg: ArchConfig, params: Params, cache: Params,
     at each row's last valid position, and the cache after ``lens[b]``
     tokens; a row with ``lens = 0`` keeps its cache (its logits are
     unspecified)."""
-    x = params["embed"][tokens]
+    x = L.embed(params["embed"], tokens)
     s = x.shape[1]
     positions = offsets[:, None] + torch.arange(s, device=x.device)[None, :]
     x, new_cache = _run(cfg, params, cache, x, positions=positions,

@@ -91,8 +91,7 @@ request preempted more than ``max_recomputes`` times is retired FAILED
 (``PoolExhausted``).  The port has no per-op fallback, so
 ``kernel_demotions`` stays 0.
 
-Not ported yet: SPMD placement (``mesh``, ``sharding_profile``), which
-raises ``NotImplementedError`` naming its slice.  Every ``stats`` key is
+Every ``stats`` key is
 documented in :data:`STATS_KEYS`.
 """
 from __future__ import annotations

@@ -12,10 +12,13 @@ the two packages, and ``python -m repro_torch.launch.train``.
   on the same file (it casts the stored 2-byte void with ``astype``:
   ROADMAP Queue 3, ``src/repro/checkpoint/checkpoint.py:137``).
 * The launcher trains the reduced TinyLlama for 3 steps, checkpointing,
-  and a second run resumes from the newest step.
+  and a second run resumes from the newest step; ``--dry-run`` (this
+  launcher's and the serve launcher's) returns the full config's cell
+  traced on the 16x16 mesh, in a subprocess.
 """
 from __future__ import annotations
 
+import json
 import os
 import pathlib
 import subprocess
@@ -223,11 +226,36 @@ def test_launcher_run_returns_the_loop():
     assert int(out["state"].opt.step) == 2
 
 
+def _dry_run(module: str, cell: str) -> dict:
+    """``python -m <module> --arch tinyllama_11b --dry-run`` in a
+    subprocess (its fake process group of 256 ranks ends with it): the
+    JSON it prints last, the full config's ``cell`` on the 16x16 mesh."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", module, "--arch", "tinyllama_11b",
+         "--dry-run"], cwd=root, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["status"] == "ok" and out["cell"] == cell
+    assert out["arch"] == "tinyllama_11b" and out["mesh"] == "16x16"
+    assert out["chips"] == 256 and out["hlo_flops"] >= out["model_flops"] > 0
+    return out
+
+
 def test_launcher_dry_run_waits_for_item_12():
-    args = launcher.parser().parse_args(["--arch", "tinyllama_11b",
-                                         "--dry-run"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        launcher.run(args)
+    """Item 12 (the dry-run launchers) is ported: ``launch/train.py
+    --dry-run`` returns the ``train_4k`` cell's result, as the
+    reference's launcher does, and runs no step."""
+    out = _dry_run("repro_torch.launch.train", "train_4k")
+    assert out["coll_breakdown"]["all-gather"] > 0     # fsdp: ZeRO-3
+
+
+def test_serve_launcher_dry_run():
+    """``launch/serve.py --dry-run`` returns the ``decode_32k`` cell's
+    result (inference runs the fsdp config as tp, as in the reference)."""
+    out = _dry_run("repro_torch.launch.serve", "decode_32k")
+    assert out["coll_breakdown"]["all-reduce"] > 0
 
 
 def test_elastic_restore_from_a_world_of_4_on_a_world_of_2(tmp_path):
