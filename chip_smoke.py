@@ -463,15 +463,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     state, trained 5 steps of B = 4 (halved while the card runs out of
     memory) x 2048 tokens of ``SyntheticLMStream`` by
     ``launch/train.py``'s ``run`` (``TrainConfig(peak_lr 1e-3, warmup
-    2)``): every loss and grad norm finite, every parameter leaf changed
-    and finite, exactly 22 flash-attention and 45 RMSNorm launches a step
-    (the backward is the plain versions' gradient, ``kernels/grad.py``,
+    2)``), each block rematerialised as the config's ``remat="full"``
+    says: every loss and grad norm finite, every parameter leaf changed
+    and finite, exactly 44 flash-attention and 89 RMSNorm launches a step
+    (22 and 45 forward, and each block's 1 and 2 again in its recompute;
+    the backward is the plain versions' gradient, ``kernels/grad.py``,
     and launches none); ms a step (median of steps 2-5), tokens/s and
-    ``torch.cuda.max_memory_allocated`` printed.  (b) One step's loss and
-    gradients at 2 layers, full width, f32, B = 2, with the kernels and
-    inside ``plain_versions()``: loss within 1e-5 relative, each grad
-    leaf max|d|/max|ref| <= 1e-3.  (c) The same at 22 layers in bf16, B
-    = 1, against the step in f32 over the upcast weights, at 4 seeds:
+    ``torch.cuda.max_memory_allocated`` printed.  Then 2 steps of the
+    same under ``remat="none"`` (22 / 45 launches a step): both peaks
+    and ms a step printed, and the rematerialised peak must be the
+    lower.  (b) One step's loss and gradients at 2 layers, full width,
+    f32, B = 2, with the kernels and inside ``plain_versions()``
+    (rematerialised, 4 / 9 launches): loss within 1e-5 relative, each
+    grad leaf max|d|/max|ref| <= 1e-3.  (c) The same at 22 layers in
+    bf16, B = 1, against the step in f32 over the upcast weights, at 4 seeds:
     the kernels' gradient (all leaves, relative L2) and token losses at
     most 1.25 x as far from it as the plain versions' (the accuracy
     rule), their mean loss within 3 standard errors of the tokens' mean
@@ -488,8 +493,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     to the kernel's without grad, gradients equal to the plain
     version's, bit for bit, one launch forward and none backward.  (h)
     One more step of (a) under ``torch.profiler``: wall ms and the card's
-    busy ms split into the forward kernels, the plain backward
-    recompute, cuBLAS, the AdamW passes and the rest.
+    busy ms split into the kernels (forward and the blocks' recompute),
+    the plain backward recompute, cuBLAS, the AdamW passes and the rest.
+    (i) RWKV-6 3B at full width, 2 layers, f32, B = 1 x 512, one step's
+    loss and gradients with the kernels (WKV 4 and LayerNorm 9 launches:
+    each block's again in its recompute) against ``plain_versions()``:
+    loss within 1e-5 relative, each leaf max|d|/max|ref| <= 1e-3; the
+    WKV's plain backward (``repro_torch::wkv_plain_backward``) seen on
+    the card by ``torch.profiler``, once a layer.
 24. **Path 16 (multi-GPU code on a one-rank mesh).**  Starts a one-rank
     NCCL process group (``make_mesh``), runs (a)–(d) and destroys the
     group, so no later phase sees one.  (a) ``disc_torch.compile`` of
@@ -528,9 +539,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     its valid T, a kLoop or kInput the bucket's padded T; each library
     GEMM lowered alone): equal to 1 %, bound by the same term.  The
     H100 constants of every bound in the run are
-    ``repro_torch.roofline.analysis.H100``'s.  (b) Path 15's step
-    (TinyLlama-1.1B, bf16, B x 2048) traced at one rank by the dry
-    run's tracer (``launch/dryrun.py`` ``lower``, no mesh): its flops,
+    ``repro_torch.roofline.analysis.H100``'s.  (b) Path 15's
+    rematerialised step (TinyLlama-1.1B, bf16, B x 2048) traced at one
+    rank by the dry run's tracer (``launch/dryrun.py`` ``lower``, no
+    mesh; the trace holds each block's recompute): its flops,
     bytes, terms and estimated peak printed beside path 15's measured ms
     a step and peak memory; the measured step must take at least 0.95 x
     max(t_compute, t_memory).  (c) ``python -m repro_torch.launch.dryrun
@@ -941,6 +953,11 @@ TOL_CKPT_LOSS = 1e-6
 # may lie from the f32 one
 PATH15_ACC_SEEDS = 4
 ACC_MEAN_SE = 3.0
+# (a)'s step again under remat="none": its steps (the first warms up);
+# (i) RWKV-6 3B's depth and tokens (B = 1) at full width in f32
+PATH15_NONE_STEPS = 2
+PATH15_RWKV_LAYERS = 2
+PATH15_RWKV_SEQ = 512
 
 # §4.5 library phase: a shape from TinyLlama's widths per entry, and the
 # entry the reference's selection rules give it
@@ -5743,6 +5760,16 @@ def train_launches() -> dict:
             if k in ("flash_attention", "rmsnorm")}
 
 
+def step_launches(cfg) -> dict:
+    """Flash-attention and RMSNorm launches of one TinyLlama train step:
+    each block's attention and two norms and ``ln_f``; under ``remat``
+    each block's forward runs again in the backward (its recompute), the
+    kernels with it, while ``ln_f`` sits outside the blocks.  The plain
+    backward launches none."""
+    n = cfg.n_layers * (2 if cfg.remat != "none" else 1)
+    return {"flash_attention": n, "rmsnorm": 2 * n + 1}
+
+
 def state_leaves(tree) -> list:
     """The tensor leaves of a port tree (params, grads, a train state) in
     the reference's order."""
@@ -5776,7 +5803,7 @@ def through_helper(t) -> bool:
 
 def train_phase(seed: int, report: dict) -> None:
     """Path 15: training on one card (the module docstring's phase 23),
-    (a) to (h), and the phase's seconds."""
+    (a) to (i), and the phase's seconds."""
     import dataclasses
 
     import torch
@@ -5792,12 +5819,14 @@ def train_phase(seed: int, report: dict) -> None:
     train_profile(model, tcfg, state, base, b, seed)
     del state
     torch.cuda.empty_cache()
+    train_without_remat(base, seed, report, b)
     train_kernels_vs_plain(cut["f32"], seed)
     train_accuracy(dataclasses.replace(base, dtype="bf16"), seed)
     train_learning(cut["f32"], seed)
     train_checkpoint(cut["bf16"], seed)
     train_options(cut["f32"], seed)
     train_grad_phase(base, seed)
+    train_rwkv(seed, report)
     torch.cuda.empty_cache()
     used = torch.cuda.memory_allocated()
     print(f"[path15] card memory allocated after the path: {used} B",
@@ -5839,12 +5868,11 @@ def train_full_width(base, seed: int, report: dict):
         print(f"[path15 bf16 22L] B = {2 * b} did not fit the card: "
               f"halved to B = {b}", flush=True)
     launches = {k: c.launches for k, c in counters.items()}
-    tag = f"[path15 bf16 {base.n_layers}L]"
+    tag = f"[path15 bf16 {base.n_layers}L remat={base.remat}]"
     steps = PATH15_STEPS
-    check(launches == {"flash_attention": base.n_layers * steps,
-                       "rmsnorm": (2 * base.n_layers + 1) * steps},
-          f"{tag} launches {launches}, want {base.n_layers} flash "
-          f"attention and {2 * base.n_layers + 1} RMSNorm a step")
+    want = step_launches(base)
+    check(launches == {k: v * steps for k, v in want.items()},
+          f"{tag} launches {launches}, want {want} a step")
     report[("path15", "bf16")] = dict(launches=launches)
     check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
           f"{tag} losses {out['losses']}, grad norms {out['grad_norms']}")
@@ -5868,7 +5896,7 @@ def train_full_width(base, seed: int, report: dict):
           f"{out['peak_bytes']} B ({out['peak_bytes'] / 2**30:.2f} GiB); "
           f"losses {[round(x, 4) for x in out['losses']]}; grad norms "
           f"{[round(x, 4) for x in out['grad_norms']]}; launches "
-          f"{launches} ({base.n_layers} / {2 * base.n_layers + 1} a step); "
+          f"{launches} ({want} a step); "
           f"{changed} of {len(leaves)} leaves changed, all finite",
           flush=True)
     # path 17 (b) reads the step beside the dry run's walk of it
@@ -5877,11 +5905,66 @@ def train_full_width(base, seed: int, report: dict):
     return state, model, tcfg, b
 
 
+def train_without_remat(base, seed: int, report: dict, b: int) -> None:
+    """(a)'s step under ``remat="none"`` at the same B for
+    ``PATH15_NONE_STEPS`` steps from the same seed, after (a)'s state is
+    freed, timed as the launcher times a step (the batch's copy to the
+    card to the loss read back): its launches, ms a step (the steps
+    after the first) and peak memory beside (a)'s, whose peak must be
+    the lower."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.step import (TrainConfig, make_train_step,
+                                        train_state_init)
+
+    cfg = dataclasses.replace(base, remat="none")
+    model = get_model(cfg)
+    tcfg = TrainConfig(peak_lr=1e-3, warmup=2, total_steps=PATH15_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = train_state_init(model, gen, tcfg, "cuda")
+    step = make_train_step(model, tcfg)
+    counters = train_launches()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for i in range(PATH15_NONE_STEPS):
+        t = time.perf_counter()
+        state, metrics = step(state, train_inputs(cfg, b, PATH15_SEQ, seed,
+                                                  i))
+        float(metrics["loss"])
+        seconds.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: c.launches for k, c in counters.items()}
+    del state, metrics
+    torch.cuda.empty_cache()
+    want = step_launches(cfg)
+    ms = 1e3 * statistics.median(seconds[1:])
+    full = report[("path15", "bf16")]
+    tag = f"[path15 bf16 {base.n_layers}L remat]"
+    print(f"{tag} B={b} S={PATH15_SEQ}: remat={base.remat} ms/step "
+          f"{full['ms']:.1f}, peak {full['peak']} B "
+          f"({full['peak'] / 2**30:.2f} GiB); remat=none ms/step {ms:.1f} "
+          f"(steps {[round(1e3 * t, 1) for t in seconds]}), peak {peak} B "
+          f"({peak / 2**30:.2f} GiB), launches {launches} ({want} a "
+          f"step); peak ratio {full['peak'] / peak:.3f}, ms ratio "
+          f"{full['ms'] / ms:.3f}", flush=True)
+    check(launches == {k: v * PATH15_NONE_STEPS for k, v in want.items()},
+          f"{tag} remat=none launches {launches}, want {want} a step")
+    check(full["peak"] < peak, f"{tag} remat={base.remat}'s peak "
+          f"{full['peak']} B is not below remat=none's {peak} B")
+
+
 def train_profile(model, tcfg, state, cfg, b: int, seed: int) -> None:
     """(h) One more bf16 step of (a) under ``torch.profiler``: its wall ms
-    and the card's busy ms split into the forward kernels (flash
-    attention, RMSNorm), the plain versions' backward recompute (the
-    ``plain_grad_recompute`` range of ``kernels/grad.py``, its GEMMs
+    and the card's busy ms split into the kernels (flash attention,
+    RMSNorm: the forward's and the blocks' recompute's), the plain
+    versions' backward recompute (the ``plain_grad_recompute`` range of
+    ``kernels/grad.py``, its GEMMs
     included), cuBLAS (every other GEMM: the projections and the head,
     forward and backward), the AdamW passes (the ``train_step.update``
     range) and the rest (elementwise, the loss, the embedding's
@@ -5905,7 +5988,7 @@ def train_profile(model, tcfg, state, cfg, b: int, seed: int) -> None:
         wall = 1e3 * (time.perf_counter() - t)
     ours = "|".join(TRACE_KERNELS[k] for k in ("flash_attention", "rmsnorm"))
     gemm = re.compile(r"gemm|nvjet|cutlass|xmma|cublas", re.I)
-    split = dict.fromkeys(("forward kernels", "plain backward recompute",
+    split = dict.fromkeys(("kernels", "plain backward recompute",
                            "cuBLAS", "AdamW", "other"), 0.0)
     linked = 0
 
@@ -5924,7 +6007,7 @@ def train_profile(model, tcfg, state, cfg, b: int, seed: int) -> None:
         for k in e.kernels:
             ms = k.duration / 1e3
             if re.search(ours, k.name):
-                split["forward kernels"] += ms
+                split["kernels"] += ms
             elif "plain_grad_recompute" in up:
                 split["plain backward recompute"] += ms
             elif "train_step.update" in up:
@@ -5976,9 +6059,8 @@ def train_kernels_vs_plain(cfg, seed: int) -> None:
     with plain_versions():
         ploss, pgrads = value_and_grad(model.loss, params, batch)
     tag = f"[path15 f32 {cfg.n_layers}L]"
-    check(ran == {"flash_attention": cfg.n_layers,
-                  "rmsnorm": 2 * cfg.n_layers + 1},
-          f"{tag} kernel launches {ran}")
+    check(ran == step_launches(cfg), f"{tag} kernel launches {ran}, want "
+          f"{step_launches(cfg)}")
     e_loss = abs(float(loss) - float(ploss)) / abs(float(ploss))
     errs = [rel_err(g.float(), p.float())
             for g, p in zip(state_leaves(grads), state_leaves(pgrads))]
@@ -6271,6 +6353,68 @@ def train_grad_phase(cfg, seed: int) -> None:
               and ran == (1, 1, 0, 0),
               f"[path15 grad {name}] helper {helper}, values "
               f"{same_values}, grads {same_grads}, launches {ran}")
+
+
+def train_rwkv(seed: int, report: dict) -> None:
+    """(i) RWKV-6 3B at full width, ``PATH15_RWKV_LAYERS`` layers, f32,
+    B = 1 x ``PATH15_RWKV_SEQ``: one step's loss and gradients with the
+    kernels (the WKV and LayerNorm kernels forward and again in each
+    block's recompute) and inside ``plain_versions()``; in the kernels'
+    step the WKV's gradient is its plain backward
+    (``repro_torch::wkv_plain_backward``, a reverse recurrence in plain
+    torch), which ``torch.profiler`` must see once a layer."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.layernorm import ops as ln
+    from repro_torch.kernels.rwkv6 import ops as wkv
+    from repro_torch.kernels.select import plain_versions
+    from repro_torch.train.step import value_and_grad
+
+    cfg = dataclasses.replace(get_config("rwkv6_3b"),
+                              n_layers=PATH15_RWKV_LAYERS, dtype="f32")
+    model, params = train_params(cfg, seed)
+    batch = train_inputs(cfg, 1, PATH15_RWKV_SEQ, seed)
+    counters = {"rwkv6": wkv.LAUNCHES, "layernorm": ln.LAUNCHES}
+    before = {k: c.launches for k, c in counters.items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        loss, grads = value_and_grad(model.loss, params, batch)
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    ran = {k: c.launches - before[k] for k, c in counters.items()}
+    backward = sum(e.count for e in prof.key_averages()
+                   if e.key == "repro_torch::wkv_plain_backward")
+    t = time.perf_counter()
+    with plain_versions():
+        ploss, pgrads = value_and_grad(model.loss, params, batch)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    n = cfg.n_layers * 2          # forward and the blocks' recompute
+    want = {"rwkv6": n, "layernorm": 2 * n + 1}
+    tag = f"[path15 f32 {cfg.n_layers}L rwkv6_3b remat={cfg.remat}]"
+    e_loss = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    errs = [rel_err(g.float(), p.float())
+            for g, p in zip(state_leaves(grads), state_leaves(pgrads))]
+    worst = max(errs)
+    print(f"{tag} kernels vs plain versions, B=1 S={PATH15_RWKV_SEQ}: loss "
+          f"{float(loss):.6f} vs {float(ploss):.6f} (rel {e_loss:.2e}, "
+          f"limit {TOL_TRAIN_LOSS}); grad leaves max|d|/max|ref| worst "
+          f"{worst:.2e} of {len(errs)} (limit {TOL_TRAIN_GRAD}); launches "
+          f"{ran} (want {want}); the WKV's plain backward ran {backward} "
+          f"times; ms (host clock, first call) kernels {ms:.1f}, plain "
+          f"{plain_ms:.1f}", flush=True)
+    check(ran == want, f"{tag} kernel launches {ran}, want {want}")
+    report[("path15 rwkv6", "f32")] = dict(launches=ran)
+    check(backward == cfg.n_layers,
+          f"{tag} the WKV's plain backward ran {backward} times, want "
+          f"{cfg.n_layers}")
+    check(e_loss <= TOL_TRAIN_LOSS, f"{tag} loss rel {e_loss:.2e}")
+    check(worst <= TOL_TRAIN_GRAD, f"{tag} grad leaf rel {worst:.2e}")
 
 
 def print_resources() -> None:
@@ -6976,8 +7120,9 @@ def walk_bound_phase(walks: list) -> None:
 
 
 def traced_step_phase(report: dict) -> None:
-    """(b) Path 15's step (TinyLlama-1.1B, bf16, B x 2048) traced at one
-    rank by the dry run's tracer, beside path 15's measured step."""
+    """(b) Path 15's rematerialised step (TinyLlama-1.1B, bf16, B x 2048,
+    the config's ``remat``) traced at one rank by the dry run's tracer,
+    beside path 15's measured step."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.shapes import ShapeCell
@@ -6992,7 +7137,8 @@ def traced_step_phase(report: dict) -> None:
     bound_s = max(res["t_compute_s"], res["t_memory_s"])
     step_s = meas["ms"] / 1e3
     mem = res["memory_analysis"]
-    tag = f"[path17 (b) bf16 {cfg.n_layers}L B={meas['b']}]"
+    tag = (f"[path17 (b) bf16 {cfg.n_layers}L B={meas['b']} "
+           f"remat={cfg.remat}]")
     print(f"{tag} traced {res['traced']} in {res['lower_seconds']} s, "
           f"walked in {res['compile_seconds']} s "
           f"({time.perf_counter() - t0:.1f} s): flops {res['hlo_flops']:.6e}"

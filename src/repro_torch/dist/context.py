@@ -24,7 +24,7 @@ from typing import Any, Iterator, Optional
 from .profiles import PartitionSpec
 
 __all__ = ["use_mesh", "get_mesh", "maybe_shard", "spmd_scope",
-           "check_mesh"]
+           "scope_here", "check_mesh"]
 
 _state = threading.local()
 
@@ -67,6 +67,33 @@ def spmd_scope(mesh) -> Iterator[Any]:
     from torch.distributed.tensor.experimental import implicit_replication
     with use_mesh(mesh), implicit_replication():
         yield mesh
+
+
+def scope_here():
+    """The ambient mesh and DTensor's implicit replication as they stand
+    here: a factory of context managers that re-enter them later, on any
+    thread (a rematerialised block's recompute runs on autograd's device
+    thread, which does not see the mesh), each restoring that thread's
+    own on exit."""
+    mesh = get_mesh()
+    if mesh is None:
+        return contextlib.nullcontext
+    from torch.distributed.tensor import DTensor
+
+    dispatcher = DTensor._op_dispatcher
+    implicit = dispatcher._allow_implicit_replication
+
+    @contextlib.contextmanager
+    def again():
+        prev = get_mesh(), dispatcher._allow_implicit_replication
+        _state.mesh = mesh
+        dispatcher._allow_implicit_replication = implicit
+        try:
+            yield
+        finally:
+            _state.mesh, dispatcher._allow_implicit_replication = prev
+
+    return again
 
 
 def prune_spec(spec: PartitionSpec, mesh) -> PartitionSpec:

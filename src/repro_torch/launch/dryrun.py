@@ -35,9 +35,17 @@ trace.
 * A stack of identical layers is traced at two depths and its walk
   extended to the config's depth (:func:`depth_plan`), the port's form
   of the reference's walk multiplying its layer scan by the trip count.
-  RWKV-6's train and prefill cells are not traced: its plain WKV
-  recurrence is a Python loop over the steps, so a trace would unroll
-  every one (:data:`MAX_UNROLLED_STEPS`).
+  RWKV-6's plain WKV is one traced op (and its backward one more) at any
+  length, whose walk is its step loop's extended over the steps
+  (``roofline/cost.py``).
+* A train cell's step rematerialises per the config's ``remat``, as the
+  reference's does (``models/common.py`` ``maybe_remat``): under
+  ``"full"`` the trace holds each checkpointed block's recompute in the
+  backward, and the liveness walk frees the block's activations after
+  its forward.  A ``"dots"`` step traces as ``"none"``: under a trace,
+  torch's selective checkpointing keeps every output (tagged for a
+  compiler's partitioner) and recomputes none.  No config says
+  ``"dots"``.
 """
 from __future__ import annotations
 
@@ -62,8 +70,7 @@ from ..roofline.analysis import analyze_traced, liveness
 from ..roofline.cost import Cost, analyze_graph
 from .shapes import SHAPE_CELLS, ShapeCell, cells_for_arch, input_specs
 
-__all__ = ["REPORT_DIR", "fake_group", "trace_cell", "depth_plan",
-           "MAX_UNROLLED_STEPS", "lower",
+__all__ = ["REPORT_DIR", "fake_group", "trace_cell", "depth_plan", "lower",
            "lower_cell", "main"]
 
 REPORT_DIR = (pathlib.Path(__file__).resolve().parents[3] / "reports"
@@ -327,17 +334,12 @@ def depth_plan(cfg) -> List[Tuple[int, float]]:
     return [(2, float(3 - n)), (3, float(n - 2))]
 
 
-#: the longest recurrence over the steps the dry run unrolls in a trace
-MAX_UNROLLED_STEPS = 1024
-
-
 def lower(cfg, cell: ShapeCell, mesh, *, arch: Optional[str] = None,
           mesh_name: Optional[str] = None, microbatches: int = 1,
           verbose: bool = False) -> Dict[str, Any]:
     """Trace one cell on ``mesh`` (None: one rank, no DTensor) at the
     depths of :func:`depth_plan` and return its result dict (see
-    :func:`lower_cell`).  Raises for an RWKV-6 train or prefill cell
-    longer than :data:`MAX_UNROLLED_STEPS`."""
+    :func:`lower_cell`)."""
     chips = 1 if mesh is None else int(math.prod(mesh.shape))
     mesh_name = mesh_name or ("1" if mesh is None else
                               "x".join(str(s) for s in mesh.shape))
@@ -345,15 +347,6 @@ def lower(cfg, cell: ShapeCell, mesh, *, arch: Optional[str] = None,
     cost, mem = Cost(), {"argument": 0.0, "output": 0.0, "temp": 0.0}
     t_lower = t_walk = 0.0
     loops = 0
-    if cfg.family == "ssm" and cell.kind != "decode" and \
-            cell.seq_len > MAX_UNROLLED_STEPS:
-        # the trace would hold some 300 000 ops a layer at S = 32768
-        # (1 000 000 with the gradient at 4096), and the walk cannot be
-        # extended over the length: DTensor picks its layouts by their
-        # cost, which changes with the length
-        raise RuntimeError(
-            f"not traced: RWKV-6's plain WKV recurrence unrolls one traced "
-            f"step a token, {cell.seq_len} > {MAX_UNROLLED_STEPS}")
     plan = [(depth, cell.seq_len, w) for depth, w in depth_plan(cfg)]
     if mesh is not None:
         # torch 2.11's DTensor lays a program out otherwise the first

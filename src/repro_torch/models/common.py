@@ -3,11 +3,29 @@
 Parameters are plain nested dicts of tensors.  The port keeps the JAX
 package's parameter layout (``x @ w`` with ``w`` of shape ``(in, out)``),
 so a tree initialised in JAX converts leaf for leaf
-(:mod:`repro_torch.models.convert`).  Sharding specs arrive with the
-multi-GPU slice; until then models run on one device.
+(:mod:`repro_torch.models.convert`).
+
+Rematerialisation (:func:`maybe_remat`, the reference's ``jax.checkpoint``
+around each block of a forward without caches) follows ``cfg.remat``:
+
+* ``"none"``: every op's saved tensors stay alive until the backward;
+* ``"full"``: a block keeps only its inputs (non-reentrant
+  ``torch.utils.checkpoint``); the backward runs the block's forward
+  again, kernels included, to get the rest;
+* ``"dots"``: as ``"full"``, but the outputs of ``aten.mm`` (the
+  projections ``x @ w``, a dot with no batch dims) are saved from the
+  forward and every other op is recomputed, ``bmm`` and the kernels'
+  outputs included: the port's form of the reference's
+  ``dots_with_no_batch_dims_saveable``.
+
+A block's recompute runs as its forward ran: with the kernels, or inside
+``plain_versions()`` where the forward was, and under the forward's mesh
+(the backward of CUDA tensors runs on autograd's device thread, which
+sees neither context).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -17,7 +35,7 @@ import torch
 from torch.utils import _pytree
 
 __all__ = ["ArchConfig", "param_init", "DTYPES", "dtype_of",
-           "cross_entropy_loss", "greedy_decode"]
+           "cross_entropy_loss", "greedy_decode", "maybe_remat"]
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -159,6 +177,53 @@ class ArchConfig:
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
     """The working dtype of a config's weights and activations."""
     return DTYPES[cfg.dtype]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``"dots"``: save a 2-D dot's output, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(cfg: ArchConfig, fn: Callable) -> Callable:
+    """``fn`` rematerialised per ``cfg.remat`` (see the module docstring),
+    the counterpart of the reference's ``_maybe_remat``.  Without grad
+    (serving, a decode step, a trace for the DHLO bridge) nothing is
+    saved, so ``fn`` runs as it is.  The models draw no random numbers,
+    so no RNG state is stashed for the recompute."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
+                         f"{cfg.remat!r}")
+    from torch.utils import checkpoint as ckpt
+
+    from ..dist.context import scope_here
+    from ..kernels.select import in_plain_versions, plain_versions
+
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: ckpt.create_selective_checkpoint_contexts(
+            _dots_policy)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        # the forward's contexts, entered again by the recompute
+        scope = scope_here()
+        plain = plain_versions if in_plain_versions() else \
+            contextlib.nullcontext
+
+        def block(*args):
+            with scope(), plain():
+                return fn(*args)
+
+        return ckpt.checkpoint(block, *args, use_reentrant=False,
+                               preserve_rng_state=False, **kw)
+
+    return run
 
 
 def param_init(generator: torch.Generator, shape: Tuple[int, ...], dtype,

@@ -29,7 +29,7 @@ from torch.utils import _pytree
 from ..dist.profiles import PartitionSpec as P
 from . import layers as L
 from .common import ArchConfig, cross_entropy_loss, dtype_of, \
-    greedy_decode as _greedy_decode, param_init
+    greedy_decode as _greedy_decode, maybe_remat, param_init
 
 Params = Dict[str, Any]
 
@@ -110,14 +110,19 @@ def init(cfg: ArchConfig, generator: torch.Generator, device) -> Params:
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
             lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence forward from a zero state: tokens (B, S) -> logits
-    (B, S, V).  ``lens`` is ignored, as in the reference."""
+    (B, S, V).  ``lens`` is ignored, as in the reference.  Each block
+    (time mix and channel mix) is rematerialised per ``cfg.remat``."""
+    def body(h, bp):
+        a, _ = L.rwkv6_apply(cfg, bp["tmix"],
+                             L.norm_apply(cfg, bp["ln1"], h))
+        h = h + a
+        return h + _chanmix_apply(cfg, bp["cmix"],
+                                  L.norm_apply(cfg, bp["ln2"], h))
+
+    body = maybe_remat(cfg, body)
     x = L.embed(params["embed"], tokens)
     for bp in params["blocks"]:
-        a, _ = L.rwkv6_apply(cfg, bp["tmix"],
-                             L.norm_apply(cfg, bp["ln1"], x))
-        x = x + a
-        x = x + _chanmix_apply(cfg, bp["cmix"],
-                               L.norm_apply(cfg, bp["ln2"], x))
+        x = body(x, bp)
     x = L.norm_apply(cfg, params["ln_f"], x)
     return x @ params["head"]
 

@@ -32,7 +32,8 @@ from torch.utils import _pytree
 
 from ..dist.profiles import PartitionSpec as P
 from . import layers as L
-from .common import ArchConfig, cross_entropy_loss, dtype_of, param_init
+from .common import (ArchConfig, cross_entropy_loss, dtype_of,
+                     maybe_remat, param_init)
 
 Params = Dict[str, Any]
 
@@ -140,10 +141,16 @@ def _run_blocks(cfg: ArchConfig, blocks, x: torch.Tensor, *, positions,
                 lens, caches: Optional[Params] = None, offsets=None):
     """Every layer in order; with ``caches`` (layer-stacked leaves), each
     layer reads and writes its slice, and the new caches come back
-    stacked."""
+    stacked.  Without caches each block is rematerialised per
+    ``cfg.remat`` (:func:`~.common.maybe_remat`)."""
     if caches is None:
+        def body(h, bp):
+            return block_apply(cfg, bp, h, positions=positions,
+                               lens=lens)[0]
+
+        body = maybe_remat(cfg, body)
         for bp in blocks:
-            x, _ = block_apply(cfg, bp, x, positions=positions, lens=lens)
+            x = body(x, bp)
         return x, None
     new = []
     for i, bp in enumerate(blocks):

@@ -29,7 +29,7 @@ from torch.utils import _pytree
 from ..dist.profiles import PartitionSpec as P
 from . import layers as L
 from .common import ArchConfig, cross_entropy_loss, dtype_of, \
-    greedy_decode as _greedy_decode, param_init
+    greedy_decode as _greedy_decode, maybe_remat, param_init
 
 Params = Dict[str, Any]
 
@@ -106,15 +106,21 @@ def cache_specs(cfg: ArchConfig) -> Params:
 
 def encode(cfg: ArchConfig, params: Params,
            frames: torch.Tensor) -> torch.Tensor:
-    """frames: precomputed conv-stub embeddings (B, encoder_len, D)."""
+    """frames: precomputed conv-stub embeddings (B, encoder_len, D).
+    Each encoder block is rematerialised per ``cfg.remat``."""
     x = frames + params["enc_pos"][None]
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
-    for bp in params["encoder"]:
-        a, _ = L.attn_apply(cfg, bp["attn"], L.norm_apply(cfg, bp["ln1"], x),
+
+    def body(h, bp):
+        a, _ = L.attn_apply(cfg, bp["attn"], L.norm_apply(cfg, bp["ln1"], h),
                             positions=positions, causal=False)
-        x = x + a
-        x = x + L.mlp_apply(cfg, bp["mlp"], L.norm_apply(cfg, bp["ln2"], x))
+        h = h + a
+        return h + L.mlp_apply(cfg, bp["mlp"], L.norm_apply(cfg, bp["ln2"], h))
+
+    body = maybe_remat(cfg, body)
+    for bp in params["encoder"]:
+        x = body(x, bp)
     return L.norm_apply(cfg, params["ln_enc"], x)
 
 
@@ -124,22 +130,32 @@ def _decoder_blocks(cfg: ArchConfig, params: Params, x: torch.Tensor,
                     caches: Optional[Params] = None):
     """Every decoder layer in order; with ``caches`` (layer-stacked
     leaves) each reads and writes its slice, and the new caches come
-    back stacked."""
-    new = []
-    for i, bp in enumerate(params["decoder"]):
-        c = None if caches is None else {k: v[i] for k, v in caches.items()}
-        a, c2 = L.attn_apply(cfg, bp["self"], L.norm_apply(cfg, bp["ln1"], x),
+    back stacked.  Without caches each block is rematerialised per
+    ``cfg.remat``."""
+    def body(h, bp, enc_out, c=None):
+        a, c2 = L.attn_apply(cfg, bp["self"], L.norm_apply(cfg, bp["ln1"], h),
                              positions=positions, lens=lens, cache=c)
-        x = x + a
+        h = h + a
         ca, _ = L.attn_apply(cfg, bp["cross"],
-                             L.norm_apply(cfg, bp["ln2"], x),
+                             L.norm_apply(cfg, bp["ln2"], h),
                              positions=positions, kv_source=enc_out,
                              causal=False)
-        x = x + ca
-        x = x + L.mlp_apply(cfg, bp["mlp"], L.norm_apply(cfg, bp["ln3"], x))
-        new.append(c2)
+        h = h + ca
+        h = h + L.mlp_apply(cfg, bp["mlp"], L.norm_apply(cfg, bp["ln3"], h))
+        return h, c2
+
     if caches is None:
+        def block(h, bp, enc_out):
+            return body(h, bp, enc_out)[0]
+
+        block = maybe_remat(cfg, block)
+        for bp in params["decoder"]:
+            x = block(x, bp, enc_out)
         return x, None
+    new = []
+    for i, bp in enumerate(params["decoder"]):
+        x, c2 = body(x, bp, enc_out, {k: v[i] for k, v in caches.items()})
+        new.append(c2)
     return x, {k: torch.stack([c[k] for c in new]) for k in caches}
 
 

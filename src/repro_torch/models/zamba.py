@@ -29,7 +29,8 @@ from torch.utils import _pytree
 
 from ..dist.profiles import PartitionSpec as P
 from . import layers as L
-from .common import ArchConfig, cross_entropy_loss, dtype_of, param_init
+from .common import (ArchConfig, cross_entropy_loss, dtype_of,
+                     maybe_remat, param_init)
 
 Params = Dict[str, Any]
 
@@ -121,12 +122,24 @@ def _mamba_group(cfg: ArchConfig, blocks, x: torch.Tensor, caches=None,
     """The Mamba blocks of one group in order; with ``caches`` (a list of
     per-layer ``{"h"}``), each continues from its state for the first
     ``lens[b]`` positions (None: all) and the new states come back as a
-    list."""
+    list.  Without caches each block is rematerialised per
+    ``cfg.remat``, as in the reference (the shared attention is not)."""
+    if caches is None:
+        def body(h, bp):
+            a, _ = L.mamba2_apply(cfg, bp["mix"],
+                                  L.norm_apply(cfg, bp["ln1"], h), lens=lens)
+            h = h + a
+            return h + L.mlp_apply(cfg, bp["mlp"],
+                                   L.norm_apply(cfg, bp["ln2"], h))
+
+        body = maybe_remat(cfg, body)
+        for bp in blocks:
+            x = body(x, bp)
+        return x, [None] * len(blocks)
     new = []
     for i, bp in enumerate(blocks):
         a, c = L.mamba2_apply(cfg, bp["mix"], L.norm_apply(cfg, bp["ln1"], x),
-                              cache=None if caches is None else caches[i],
-                              lens=lens)
+                              cache=caches[i], lens=lens)
         x = x + a
         x = x + L.mlp_apply(cfg, bp["mlp"], L.norm_apply(cfg, bp["ln2"], x))
         new.append(c)

@@ -15,7 +15,12 @@ programs of its own, and one walk for each, sharing one table of ops:
   static; a ``cond`` counts its costlier branch.  ``_c10d_functional``
   collectives count their input bytes by kind (the kinds of
   ``dist/collectives.py``, reported under the reference's five HLO
-  names; ``wait_tensor`` is free).
+  names; ``wait_tensor`` is free).  A recurrence op that runs a Python
+  loop over its steps (the plain WKV and its backward,
+  ``kernels/rwkv6/ref.py`` ``STEPWISE``) counts as that loop's own walk
+  at the node's shapes: the loop traced at T = 2 and T = 3 and the walk
+  extended over T, ``(3 - T)·walk(2) + (T - 2)·walk(3)``, exact since
+  every step runs the same ops.
 * :func:`analyze_lowered` walks a ``"dhlo"`` artifact's DHLO graph at one
   bucket's concrete sizes.  Bytes count at the fusion plan's cluster
   boundaries only (the values a cluster reads from outside it and the
@@ -250,6 +255,10 @@ def analyze_graph(gm) -> Cost:
             continue
         if not isinstance(t, torch._ops.OpOverload):
             continue
+        steps = _stepwise_cost(node)
+        if steps is not None:
+            total += steps
+            continue
         ns = t.namespace
         name = t._opname
         out_b = node_bytes(node)
@@ -290,6 +299,43 @@ def analyze_graph(gm) -> Cost:
         else:
             total.bytes += in_b + out_b
     return total
+
+
+def _stepwise_cost(node) -> Optional[Cost]:
+    """The walk of a recurrence op's loop at ``node``'s shapes, extended
+    over its T (see the module docstring); None for any other op."""
+    from ..kernels.rwkv6.ref import STEPWISE
+
+    entry = STEPWISE.get(node.target)
+    if entry is None:
+        return None
+    fn, t_args = entry
+    vals = [a.meta.get("val") if hasattr(a, "meta") else a
+            for a in node.args]
+    t = int(vals[t_args[0]].shape[2])
+    total = _loop_walk(fn, t_args, vals, 2).scaled(3 - t)
+    total += _loop_walk(fn, t_args, vals, 3).scaled(t - 2)
+    return total
+
+
+def _loop_walk(fn, t_args, vals: List[Any], steps: int) -> Cost:
+    """The walk of ``fn`` traced at ``steps`` steps on fake inputs of
+    ``vals``' shapes (axis 2, T, of the arguments ``t_args`` names set
+    to ``steps``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    args = []
+    with FakeTensorMode():
+        for i, v in enumerate(vals):
+            if isinstance(v, torch.Tensor):
+                shape = list(v.shape)
+                if i in t_args:
+                    shape[2] = steps
+                v = torch.empty(shape, dtype=v.dtype)
+            args.append(v)
+    return analyze_graph(make_fx(lambda *a: fn(*a),
+                                 tracing_mode="fake")(*args))
 
 
 def _fx_nodes(arg) -> List[Any]:

@@ -834,13 +834,14 @@ TRAIN_MESH = [("tinyllama tp", "tinyllama_11b", {"sharding_profile": "tp"}),
               ("whisper", "whisper_tiny", {})]
 
 
-def case_train_mesh(ctx):
+def case_train_mesh(ctx, **config):
     """Reduced models' loss and gradients (``value_and_grad``, the train
     step's) with their params laid out per ``specs()`` on a (2, 2) mesh,
     the batch on "data", against the same step without a mesh: the
     gradients flow through the kernel wrappers' local shards (a norm's
     replicated weight gets its gradient summed over the ranks) and the
-    loss over a split vocabulary."""
+    loss over a split vocabulary.  ``config`` replaces fields of every
+    model's config."""
     import torch
 
     from repro_torch.configs import get_config
@@ -853,7 +854,8 @@ def case_train_mesh(ctx):
     rng = np.random.RandomState(3)
     out = {}
     for label, arch, over in TRAIN_MESH:
-        cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  **{**over, **config})
         model = get_model(cfg)
         params = model.init(torch.Generator().manual_seed(0), "cpu")
         b, s = 4, 16
@@ -878,4 +880,70 @@ def case_train_mesh(ctx):
             continue
         out[label] = {"loss": loss, "mesh_loss": mloss, "grads": grads,
                       "mesh_grads": mgrads}
+    return out
+
+
+def case_train_mesh_remat(ctx):
+    """:func:`case_train_mesh` with every block rematerialised
+    (``remat="full"``): the recompute runs over DTensor blocks."""
+    return case_train_mesh(ctx, remat="full")
+
+
+def case_remat_other_thread(ctx):
+    """Rematerialised reduced models under ``spmd_scope`` on a (2, 2)
+    mesh, their backward run on another thread, as autograd's device
+    thread runs a card's: with the caller's C++ thread-local state
+    (DTensor's implicit replication, which the engine hands on) but not
+    its Python one (the ambient mesh).  The recompute re-enters the
+    forward's mesh, so the gradients equal the same thread's."""
+    import threading
+
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils import _pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.context import spmd_scope
+    from repro_torch.dist.profiles import P
+    from repro_torch.models.registry import get_model
+
+    mesh = ctx.mesh((2, 2), ("data", "model"))
+    rng = np.random.RandomState(5)
+    out = {}
+    for label, arch, over in [TRAIN_MESH[0], TRAIN_MESH[2]]:
+        cfg = dataclasses.replace(get_config(arch).reduced(), **over,
+                                  remat="full")
+        model = get_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        b, s = 4, 16
+        batch = {k: _laid_out(torch.from_numpy(
+                     rng.randint(0, cfg.vocab, (b, s)).astype(np.int32)),
+                     P(("pod", "data")), mesh) for k in ("tokens", "labels")}
+        leaves, spec = _pytree.tree_flatten(
+            _laid_out(params, model.specs(), mesh))
+        grads = {}
+        for where in ("same", "other"):
+            xs = [p.detach().requires_grad_() for p in leaves]
+            with spmd_scope(mesh):
+                loss = model.loss(_pytree.tree_unflatten(xs, spec), batch)
+                if where == "same":
+                    grads[where] = torch.autograd.grad(loss, xs)
+            if where == "other":
+                got = []
+
+                def backward():
+                    try:
+                        with implicit_replication():
+                            got.append(torch.autograd.grad(loss, xs))
+                    except Exception as e:  # noqa: BLE001 — raised below
+                        got.append(e)
+
+                worker = threading.Thread(target=backward)
+                worker.start()
+                worker.join()
+                if isinstance(got[0], Exception):
+                    raise got[0]
+                grads[where] = got[0]
+        out[label] = {w: [g.full_tensor() for g in gs]
+                      for w, gs in grads.items()}
     return out

@@ -6,6 +6,15 @@
   ``s0`` and ``lens`` extensions against the oracle on the whole
   sequence.  f32 at 1e-5 (both sides step in f32; only the order of the
   dot over K differs).
+* **The plain WKV as one op** (``repro_torch::wkv_plain`` and its
+  backward): bit-equal to the stepwise loop (kept here as its oracle) at
+  the ``DECAYS`` inputs with ``s0`` and ``lens``; its gradient for r, k,
+  v, w, u and s0 within 1e-5 of ``torch.autograd.grad`` of that loop and
+  of ``jax.grad`` of the reference's ``rwkv6_ref`` (f32), with a row's
+  ``lens`` inside it and a row of length 0; a ``make_fx`` trace of the
+  gradient at T = 4096 holds one forward and one backward node, whose
+  cost walk equals the loop's walk extended over T (and, at T = 16, the
+  unrolled loops' own walk) to 1 %; no eager call goes through Dynamo.
 * **The chunked WKV kernel's decomposition** (``csrc/rwkv6.cu``),
   emulated here in torch: per chunk a local scan from a zero state with
   the running decay product P, the carry S_{c+1} = P_end S_c + L_end and
@@ -148,6 +157,161 @@ def _wkv_decay_inputs(b, h, t, n, decay, seed=21):
     u = rng.randn(h, n).astype(np.float32) * 0.1
     s0 = rng.randn(b, h, n, n).astype(np.float32)
     return r, k, v, w, u, s0
+
+
+# --------------------------------------------- the plain WKV as an op --
+
+def _loop_oracle(r, k, v, w, u, s0=None, lens=None):
+    """The plain WKV's stepwise loop as it stood before it became an op:
+    the oracle of ``rwkv6_ref`` and of its gradient."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    s = (torch.zeros((b, h, dk, dv), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    uf = u.float()[None, :, :, None]
+    ys = []
+    for i in range(t):
+        kv = (k[:, :, i, :, None] * v[:, :, i, None, :]).float()
+        yt = torch.einsum("bhk,bhkv->bhv", r[:, :, i].float(), s + uf * kv)
+        s_new = w[:, :, i, :, None].float() * s + kv
+        if lens is not None:
+            keep = (i < lens).reshape(b, 1, 1)
+            yt = torch.where(keep, yt, 0.0)
+            s_new = torch.where(keep[..., None], s_new, s)
+        s = s_new
+        ys.append(yt)
+    y = (torch.stack(ys, dim=2) if ys else
+         torch.zeros((b, h, 0, dv), dtype=torch.float32, device=r.device))
+    return y.to(r.dtype), s
+
+
+def _op_inputs(decay, dtype=torch.float32, t=37, lens=(37, 20, 0)):
+    xs = _t(*_wkv_decay_inputs(3, 2, t, 8, decay))
+    r, k, v, w = (x.to(dtype) for x in xs[:4])
+    return [r, k, v, w, xs[4], xs[5], _i32(list(lens))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay", list(DECAYS))
+def test_wkv_op_forward_is_the_loop_bit_for_bit(decay, dtype):
+    args = _op_inputs(decay, dtype)
+    for s0, lens in ((args[5], args[6]), (None, None), (args[5], None)):
+        got = rwkv6_ref(*args[:5], s0, lens)
+        want = _loop_oracle(*args[:5], s0, lens)
+        assert all(torch.equal(a, b) and a.dtype == b.dtype
+                   for a, b in zip(got, want))
+
+
+def _grads(fn, args, gy, gs):
+    leaves = [a.detach().clone().requires_grad_()
+              if a is not None and a.is_floating_point() else a
+              for a in args]
+    y, s = fn(*leaves)
+    diff = [a for a in leaves if a is not None and a.requires_grad]
+    return torch.autograd.grad((y.float() * gy).sum() + (s * gs).sum(),
+                               diff)
+
+
+@pytest.mark.parametrize("lens", [(37, 20, 0), None])
+@pytest.mark.parametrize("decay", list(DECAYS))
+def test_wkv_op_gradient_matches_the_loop_and_jax(decay, lens):
+    """r, k, v, w, u and s0's gradients of ``(y, s)`` against a random
+    cotangent, f32: the op's backward against autograd through the
+    loop; without ``s0`` and ``lens`` (the reference's oracle takes
+    neither), r, k, v, w and u's against ``jax.grad`` of the
+    reference's ``rwkv6_ref`` too."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.rwkv6.ref import rwkv6_ref as jax_ref
+
+    args = _op_inputs(decay, lens=lens or (37, 37, 37))
+    if lens is None:
+        args[6] = None
+    gen = torch.Generator().manual_seed(4)
+    gy = torch.randn(3, 2, 37, 8, generator=gen)
+    gs = torch.randn(3, 2, 8, 8, generator=gen)
+    got = _grads(rwkv6_ref, args, gy, gs)
+    want = _grads(_loop_oracle, args, gy, gs)
+    assert len(got) == len(want) == 6
+    for g, wnt in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), wnt.numpy(), **TOL)
+    if lens is None:
+        xs = [jnp.asarray(a.numpy()) for a in args[:5]]
+        jgy = jnp.asarray(gy.numpy())
+        jgrads = jax.grad(lambda *a: (jax_ref(*a) * jgy).sum(),
+                          argnums=(0, 1, 2, 3, 4))(*xs)
+        nos = _grads(lambda *a: rwkv6_ref(*a[:5]), args[:5], gy,
+                     torch.zeros_like(gs))
+        for g, jg in zip(nos, jgrads):
+            np.testing.assert_allclose(g.numpy(), np.asarray(jg), **TOL)
+    if lens is not None:
+        # the row of length 0: no gradient but its state's, passed through
+        for g in got[:4]:
+            assert not g[2].any()
+        assert torch.equal(got[5][2], gs[2])
+
+
+def _traced_grad(t, n=8):
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    def fn(r, k, v, w, u):
+        xs = [x.requires_grad_() for x in (r, k, v, w, u)]
+        y, s = rwkv6_ref(*xs)
+        return torch.autograd.grad(y.sum() + s.sum(), xs)
+
+    args = [torch.zeros(1, 2, t, n) for _ in range(4)] + [torch.zeros(2, n)]
+    return make_fx(fn, tracing_mode="fake")(*args)
+
+
+def test_wkv_op_traces_to_two_nodes_and_walks_as_its_loop():
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from repro_torch.kernels.rwkv6.ref import wkv_backward_loop, wkv_loop
+    from repro_torch.roofline.cost import analyze_graph
+
+    gm = _traced_grad(4096)
+    ops = [str(n.target) for n in gm.graph.nodes
+           if n.op == "call_function" and "repro_torch" in str(n.target)]
+    assert ops == ["repro_torch.wkv_plain.default",
+                   "repro_torch.wkv_plain_backward.default"]
+
+    def loops(t):
+        """The two loops' own walks, unrolled at t steps."""
+        args = [torch.zeros(1, 2, t, 8) for _ in range(4)] + \
+            [torch.zeros(2, 8)]
+        fwd = analyze_graph(make_fx(lambda *a: wkv_loop(*a),
+                                    tracing_mode="fake")(*args))
+        bwd = analyze_graph(make_fx(
+            lambda *a: wkv_backward_loop(*a, None, None,
+                                         torch.zeros(1, 2, t, 8),
+                                         torch.zeros(1, 2, 8, 8)),
+            tracing_mode="fake")(*args))
+        return fwd.flops + bwd.flops, fwd.bytes + bwd.bytes
+
+    def walk(gm):
+        c = analyze_graph(gm)
+        return c.flops, c.bytes
+
+    # at T = 16 the trace's walk is the unrolled loops' (beside the two
+    # ops, the trace holds the loss's sums and its seed cotangents)
+    t16, l16 = walk(_traced_grad(16)), loops(16)
+    assert all(0 <= a - b <= 0.01 * b for a, b in zip(t16, l16))
+    # at T = 4096: the loops' walk extended from T = 2, 3 to within 1 %
+    l2, l3 = loops(2), loops(3)
+    ext = [(3 - 4096) * a + (4096 - 2) * b for a, b in zip(l2, l3)]
+    t4096 = walk(gm)
+    for got, want in zip(t4096, ext):
+        assert abs(got - want) <= 0.01 * want, (got, want)
+
+
+def test_wkv_op_runs_without_dynamo():
+    from torch._dynamo.utils import counters
+
+    before = {k: dict(v) for k, v in counters.items()}
+    args = _op_inputs("mild")
+    got = _grads(rwkv6_ref, args, torch.ones(3, 2, 37, 8),
+                 torch.ones(3, 2, 8, 8))
+    assert len(got) == 6
+    assert {k: dict(v) for k, v in counters.items()} == before
 
 
 def _tf32(v):

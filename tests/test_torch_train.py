@@ -38,8 +38,11 @@ GRAD_CASES = ["tinyllama_11b", "granite_20b", "dbrx_132b", "deepseek_v2_236b",
               "llava_next_34b", "rwkv6_3b", "zamba2_7b", "whisper_tiny"]
 
 
-def _grads_vs_jax(arch_id: str, dtype: str, tol: dict) -> None:
-    cfg, model, params, jcfg, jm, jp = pair(arch_id, dtype)
+def _grads_vs_jax(arch_id: str, dtype: str, tol: dict, **over) -> None:
+    """The port's loss and gradients against ``jax.value_and_grad`` of
+    the reference's, at the reduced config (``over`` replaces fields in
+    both packages)."""
+    cfg, model, params, jcfg, jm, jp = pair(arch_id, dtype, **over)
     bnp = batch(cfg, np.random.RandomState(3), s=seq_len(cfg), mask_tail=5)
     jl, jg = jax.jit(jax.value_and_grad(jm.loss))(jp, to_jax(bnp))
     loss, grads = value_and_grad(model.loss, params, to_port(bnp))
